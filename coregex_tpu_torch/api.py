@@ -1,0 +1,25 @@
+"""Public API (ref. ``coregex_tpu/api.py``) over the torch Engine.
+
+The device is an explicit argument: ``compile(p, device="cuda")`` runs the
+corpus-scale paths through the CUDA kernels, ``device="cpu"`` through their
+plain torch versions.
+"""
+from __future__ import annotations
+
+from coregex_tpu.api import quote_meta  # noqa: F401  (host-only helper)
+
+from .meta.engine import Engine
+
+Regex = Engine
+
+
+def compile(pattern, device="cuda", **kw):  # noqa: A001 - mirrors Go Compile
+    return Engine.compile(pattern, device=device, **kw)
+
+
+def must_compile(pattern, device="cuda", **kw):
+    return compile(pattern, device=device, **kw)
+
+
+def compile_posix(pattern, device="cuda", **kw):
+    return compile(pattern, device=device, longest=True, **kw)

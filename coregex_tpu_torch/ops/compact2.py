@@ -1,0 +1,169 @@
+"""Ordered stream compaction with payload routing (K4) and the sparse chain.
+
+Ports ``coregex_tpu/ops/compact2.py``: ``compact_pay`` (:316-344) with the
+contract of ``_compact_pay_xla`` (:292-308), ``sparse_chain_payloads`` and
+``_chain_pay_body`` (:517-588), and ``_bucket_up`` (:402).  For CUDA tensors
+``compact_pay`` launches ``csrc/compact.cu`` at every size (the reference
+sends inputs below 4 blocks to XLA); for CPU tensors it runs the plain
+scatter version.
+
+The sparse chain extracts set-bit positions from int32 event words in
+n/32 + ~12*hits work: nonzero WORDS compact with their values and the
+per-word payloads, each word expands to its nonzero BYTES, each byte to its
+set BITS; every level is one ordered compaction.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from .bytescan import _bucket
+from .count_scan import LaunchCounter
+
+COMPACT_KERNEL = LaunchCounter("compact_pay")
+MAX_PAYLOADS = 4
+_CHUNK = 4096   # mask entries per block of csrc/compact.cu
+
+
+def compact_pay_plain(mask8, pays, cap: int):
+    """Plain torch version (the reference's _compact_pay_xla): ordered
+    positions of the set entries, payloads routed alike, slots past the
+    count filled with n and 0, entries past cap dropped.  Returns
+    (pos[cap], *pays[cap], cnt, ok)."""
+    n = int(mask8.shape[0])
+    dev = mask8.device
+    m = mask8 != 0
+    cum = torch.cumsum(m.to(torch.int64), 0)
+    cnt = cum[-1].to(torch.int32)
+    # slot cap is a dump for dropped entries, cut off below
+    idx = torch.where(m & (cum <= cap), cum - 1, cap)
+    out = torch.full((cap + 1,), n, dtype=torch.int32, device=dev)
+    out.scatter_(0, idx, torch.arange(n, dtype=torch.int32, device=dev))
+    live = torch.arange(cap, device=dev) < cnt
+    pos = torch.where(live, out[:cap], n)
+    pouts = []
+    for p in pays:
+        po = torch.zeros(cap + 1, dtype=torch.int32, device=dev)
+        po.scatter_(0, idx, p)
+        pouts.append(torch.where(live, po[:cap], 0))
+    return (pos, *pouts, cnt, cnt <= cap)
+
+
+def compact_pay_cuda(mask8, pays, cap: int):
+    """Launch csrc/compact.cu; same contract as compact_pay_plain."""
+    n = int(mask8.shape[0])
+    dev = mask8.device
+    if mask8.dtype != torch.uint8 or not mask8.is_contiguous():
+        raise ValueError("mask must be contiguous uint8")
+    if not 0 < n < 2 ** 31:
+        raise ValueError(f"compaction length {n} outside [1, 2^31)")
+    if len(pays) > MAX_PAYLOADS:
+        raise ValueError(f"at most {MAX_PAYLOADS} payloads")
+    for p in pays:
+        if (p.device != dev or p.dtype != torch.int32
+                or not p.is_contiguous() or tuple(p.shape) != (n,)):
+            raise ValueError("payloads must be contiguous int32 [n] on the "
+                             "mask's device")
+    nb = -(-n // _CHUNK)
+    pos = torch.empty(cap, dtype=torch.int32, device=dev)
+    outs = [torch.empty(cap, dtype=torch.int32, device=dev) for _ in pays]
+    block_counts = torch.empty(nb, dtype=torch.int32, device=dev)
+    block_offs = torch.empty(nb, dtype=torch.int32, device=dev)
+    scal = torch.empty(2, dtype=torch.int32, device=dev)
+    p = _build.ptr
+    ins = [p(t) for t in pays] + [0] * (MAX_PAYLOADS - len(pays))
+    ops = [p(t) for t in outs] + [0] * (MAX_PAYLOADS - len(outs))
+    lib = _build.lib()
+    with torch.cuda.device(dev):
+        rc = lib.cgx_compact(
+            p(mask8), n, len(pays), *ins, cap, p(pos), *ops,
+            p(block_counts), p(block_offs), p(scal), _build.stream(dev))
+    _build.check(rc, "compact")
+    return (pos, *outs, scal[0], scal[1] != 0)
+
+
+def compact_pay(mask, pays=(), cap: int = 16):
+    """Positions of the set entries of 1-D `mask` (ascending, int32[cap]
+    padded with n) plus each payload compacted by the same permutation.
+    Returns (pos, *pays, cnt, ok), all on the mask's device; ok is False
+    when cnt exceeded cap (results truncated)."""
+    n = int(mask.shape[0])
+    npay = len(pays)
+    dev = mask.device
+    if n == 0:
+        z = torch.zeros(cap, dtype=torch.int32, device=dev)
+        return (z, *[z] * npay, torch.zeros((), dtype=torch.int32,
+                                             device=dev),
+                torch.ones((), dtype=torch.bool, device=dev))
+    mask8 = mask.view(torch.uint8) if mask.dtype == torch.bool \
+        else (mask != 0).to(torch.uint8)
+    pays = [q.to(torch.int32).contiguous() for q in pays]
+    if dev.type == "cuda":
+        out = compact_pay_cuda(mask8.contiguous(), pays, cap)
+        COMPACT_KERNEL.launches += 1
+        return out
+    if dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}")
+    return compact_pay_plain(mask8, pays, cap)
+
+
+def _bucket_up(x: int) -> int:
+    """Power-of-two word bucket (>= 1024) of the sparse chain."""
+    return _bucket(x, 1024)
+
+
+def _chain_pay_body(evw, wordpays, n: int, cap: int):
+    """Event words + P per-WORD int32 payload arrays -> (pos[cap],
+    pay0[cap], ..., cnt, ok): every event inherits its word's payloads."""
+    P = len(wordpays)
+    dev = evw.device
+    nwb = int(evw.shape[0])
+    capw = min(nwb, cap)
+    out1 = compact_pay(evw != 0, [evw] + list(wordpays), capw)
+    wpos, wu = out1[0], out1[1]
+    wp = out1[2:2 + P]
+    cntw, ok1 = out1[2 + P], out1[3 + P]
+    capb = min(4 * capw, cap)
+    live = (torch.arange(capw, device=dev) < cntw)[:, None]
+    j4 = torch.arange(4, dtype=torch.int32, device=dev)[None, :]
+    bu = (wu[:, None] >> (8 * j4)) & 0xFF
+    m2 = live & (bu != 0)
+    base2 = wpos[:, None] * 32 + 8 * j4
+    out2 = compact_pay(
+        m2.reshape(-1),
+        [bu.reshape(-1), base2.reshape(-1)]
+        + [q[:, None].expand(capw, 4).reshape(-1) for q in wp], capb)
+    bu_c, bbase_c = out2[1], out2[2]
+    wp_c = out2[3:3 + P]
+    cntb, ok2 = out2[3 + P], out2[4 + P]
+    live3 = (torch.arange(capb, device=dev) < cntb)[:, None]
+    j8 = torch.arange(8, dtype=torch.int32, device=dev)[None, :]
+    m3 = live3 & (((bu_c[:, None] >> j8) & 1) != 0)
+    pos3 = bbase_c[:, None] + j8
+    out3 = compact_pay(
+        m3.reshape(-1),
+        [pos3.reshape(-1)]
+        + [q[:, None].expand(capb, 8).reshape(-1) for q in wp_c], cap)
+    pos = out3[1]
+    pays = out3[2:2 + P]
+    cnt, ok3 = out3[2 + P], out3[3 + P]
+    live_o = torch.arange(cap, device=dev) < cnt
+    pos = torch.where(live_o, pos, n)
+    return (pos, *pays, cnt, ok1 & ok2 & ok3)
+
+
+def sparse_chain_payloads(event_words, word_payloads, n: int, cap: int):
+    """Event positions from word-packed `event_words` with, per event, the
+    value of each [nw] int32 payload array at the event's WORD.  Inputs
+    are padded to the power-of-two word bucket.  Returns (pos[cap],
+    pay0[cap], ..., cnt, ok); pos holds n past cnt."""
+    nw = int(event_words.shape[0])
+    nwb = _bucket_up(max(nw, 1))
+    pays = [p.to(torch.int32) for p in word_payloads]
+    evw = event_words
+    if nwb != nw:
+        z = torch.zeros(nwb - nw, dtype=torch.int32, device=evw.device)
+        evw = torch.cat([evw, z])
+        pays = [torch.cat([p, z]) for p in pays]
+    return _chain_pay_body(evw, pays, n, cap)
