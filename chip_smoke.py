@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke run of coregex_tpu_torch on one NVIDIA GPU.
+r"""Smoke run of coregex_tpu_torch on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -7,17 +7,23 @@ Phases (any failure exits non-zero before the final line):
   1. device  - requires torch.cuda; prints the card's name and power limit
   2. build   - builds coregex_tpu_torch/csrc/*.cu with nvcc for sm_90a
   3. kernels - each CUDA kernel against its plain torch version on the card,
-               on the same inputs at main-path shapes, bit-equal; times both.
-               The lane walks run on a 4 MiB sample (three patterns) and on
-               the whole 1536 MiB corpus (one pattern); the compaction on
-               2^22- and 2^26-entry masks
+               on the same inputs at main-path shapes, bit-equal per lane;
+               times both.  The lane walks (K1-K3) and the needle kernels
+               (K5-K7) run on a 4 MiB sample (several patterns) and on the
+               whole 1536 MiB corpus (one pattern each); the compaction (K4)
+               on 2^22- and 2^26-entry masks, and the sparse chain with 3
+               and 5 word payloads at the 2^26-word shape of its first level
   4. e2e     - the public API on a 1536 MiB log corpus (the JAX package's
-               bench corpus): count for 13 patterns and device find_all for
-               4, checked against a Python `re` oracle on the 6 MiB base
-               tile scaled by the tile count; find_all_index on a 64 MiB
-               slice compared span by span
-  5. routes  - every kernel was launched during phase 4 and no slice call
-               was declined to the host loop
+               bench corpus): count for the 13 bench patterns and for
+               `0\.0` (whose hits overlap, so K6 hands over to K7), device
+               find_all for the 4 bidirectional patterns and the 3 line
+               shapes, checked against a Python `re` oracle on the 6 MiB
+               base tile scaled by the tile count; find_all_index on a
+               64 MiB slice compared span by span.  The 7 patterns that
+               count through K5 or K6 are also counted through K1, timed
+               side by side
+  5. routes  - every kernel K1-K7 was launched during phase 4 and no slice
+               call was declined to the host loop
 
 The line before the last is a JSON object of per-kernel results; the last
 line is {"ok": true, "device": {...}}.  Imports no jax.
@@ -95,10 +101,18 @@ CONFIGS = [
     ("word_repeat", r"(\w{2,8})+"),
     ("literal_error", r"error"),
 ]
-FIND_ALL = ("ip", "version", "email", "url")
+# counted with the bench patterns, outside bench.py's list
+EXTRA_COUNTS = [("overlap_0.0", r"0\.0")]
+FIND_ALL = ("ip", "version", "email", "url", "inner_keyword", "multiline_php",
+            "suffix_txt")
+# the patterns the needle kernels count (K5: line shapes, K6: literal sets)
+REROUTED = ("inner_keyword", "multiline_php", "suffix_txt", "http_methods",
+            "alt_literal", "multi_literal32", "literal_error")
+PATTERNS = dict(CONFIGS + EXTRA_COUNTS)
 DEVICE = "cuda"
 CORPUS_MIB = 1536
 SLICE_MIB = 64
+BIG_WORDS = 1 << 26     # K4 mask / chain word count of a 1536 MiB find_all
 
 
 def oracle_spans(pattern: str, base: bytes):
@@ -176,12 +190,14 @@ def phase_build():
 
 def phase_kernels(base: bytes, corpus: np.ndarray):
     """Each kernel against its plain version at main-path shapes: the lane
-    walks on a 4 MiB sample for three patterns and on the whole corpus for
-    one, the compaction on masks of the sizes the span chain gives it."""
+    walks and needle kernels on a 4 MiB sample for several patterns and on
+    the whole corpus for one each, the compaction and the sparse chain on
+    masks and words of the sizes the span chains give them."""
     import torch
     import coregex_tpu_torch as ct
     from coregex_tpu_torch.ops import count_scan as cs
-    from coregex_tpu_torch.ops import compact2, flag_scan, span_chain
+    from coregex_tpu_torch.ops import (compact2, flag_scan, line_scan,
+                                       seq_scan, span_chain)
     from coregex_tpu_torch.ops.bytescan import _bucket
     from coregex_tpu_torch.ops.compact2 import _bucket_up
     from coregex_tpu_torch.ops.flag_scan import DEAD
@@ -284,6 +300,85 @@ def phase_kernels(base: bytes, corpus: np.ndarray):
         if kind not in results:
             fail(f"no {kind} comparison ran")
 
+    def needle_kernels(data, label, k5=(), k6=(), k7=(), headline=False):
+        """K5, K6 and K7 on one corpus under the main path's geometry."""
+        n = int(data.shape[0])
+        geom = cs.plan_geometry(n)
+        L, T = geom[:2]
+        tiles = cs.make_word_tiles(data, L, T // 4)
+        print(f"[kernels] {label}: {n} bytes, geometry L={L} T={T}")
+        for name in k5:
+            sc = ct.compile(PATTERNS[name], device=DEVICE) \
+                .batch_engine()._line_scanner()
+            args = sc.lane_args(data, geom, tiles)
+            compare("line_scan", f"{name} {label}",
+                    lambda: line_scan.line_lanes_cuda(*args),
+                    lambda: line_scan.line_lanes_plain(*args),
+                    headline=headline)
+        for name in k6:
+            sc = ct.compile(PATTERNS[name], device=DEVICE) \
+                .batch_engine()._hits_scanner()
+            args = (sc.tbl, sc.lens, tiles)
+            compare("hits_scan", f"{name} {label}",
+                    lambda: line_scan.hits_lanes_cuda(*args),
+                    lambda: line_scan.hits_lanes_plain(*args),
+                    headline=headline)
+        for what, sc in k7:
+            L, T, W, _ = seq_scan.seq_geometry(n, sc.M)
+            e0, o0, lim, _e = sc.first_pass(data, n, L, T, W)
+            args = (sc.mode, sc.tbl, sc.lens, sc.jh, sc.anchored, sc.plen,
+                    tiles, W // 4, e0, o0, lim)
+            compare("seq_scan", f"{what} {label}",
+                    lambda: seq_scan.seq_lanes_cuda(*args),
+                    lambda: seq_scan.seq_lanes_plain(*args),
+                    headline=headline)
+
+    def seq(mode, needles, prefix=b""):
+        return seq_scan.SeqScanner(mode, needles, prefix=prefix,
+                                   anchored=bool(prefix), device=dev)
+
+    sample = torch.from_numpy(np.frombuffer(sample, np.uint8).copy()).to(dev)
+    alt32 = [w.encode() for w in ALT32.split("|")]
+    needle_kernels(
+        sample, "4 MiB", k5=("inner_keyword", "multiline_php", "suffix_txt"),
+        k6=("http_methods", "multi_literal32", "literal_error"),
+        k7=[("multi 0.0", seq(seq_scan.MODE_MULTI, [b"0.0"])),
+            ("multi alt32", seq(seq_scan.MODE_MULTI, alt32)),
+            ("line keyword", seq(seq_scan.MODE_LINE, [b"keyword"])),
+            ("line ^/ .php", seq(seq_scan.MODE_LINE, [b".php"], b"/"))])
+    data = torch.from_numpy(corpus).to(dev)
+    needle_kernels(data, f"{CORPUS_MIB} MiB", k5=("multiline_php",),
+                   k6=("multi_literal32",),
+                   k7=[("multi 0.0", seq(seq_scan.MODE_MULTI, [b"0.0"]))],
+                   headline=True)
+    del data
+    for kind in ("line_scan", "hits_scan", "seq_scan"):
+        if kind not in results:
+            fail(f"no {kind} comparison ran")
+
+    # the sparse chain with 3 and 5 word payloads (line shapes, plain and
+    # anchored) at the 2^26-word shape of a 1536 MiB corpus's first level
+    nw = BIG_WORDS
+    g = torch.Generator(device=dev).manual_seed(9)
+    evw = torch.where(torch.rand(nw, device=dev, generator=g) < 0.02,
+                      torch.randint(-2 ** 31, 2 ** 31 - 1, (nw,),
+                                    device=dev, dtype=torch.int32,
+                                    generator=g), 0).to(torch.int32)
+    wpays = [torch.randint(-2 ** 31, 2 ** 31 - 1, (nw,), device=dev,
+                           dtype=torch.int32, generator=g)
+             for _ in range(5)]
+    u = evw.to(torch.int64) & 0xFFFFFFFF
+    nbits = int(sum(((u >> k) & 1).sum() for k in range(32)))
+    del u
+    for P in (3, 5):
+        cap = nbits + 16
+        compare("chain", f"n=2^{nw.bit_length() - 1} words P={P}",
+                lambda: compact2.sparse_chain_payloads(
+                    evw, wpays[:P], 2 ** 31 - 1, cap),
+                lambda: chain_plain(evw, wpays[:P], 2 ** 31 - 1, cap),
+                reps=2)
+    del evw, wpays
+
     # K4 on masks of several densities with 0-4 payloads (bit-31 words)
     rng = np.random.default_rng(5)
     m = 1 << 22
@@ -303,7 +398,7 @@ def phase_kernels(base: bytes, corpus: np.ndarray):
                         reps=2)
     # the level-1 chain shape of a 1536 MiB find_all: 2^26 entries, so the
     # block-offset carry runs across many chunks
-    big = 1 << 26
+    big = BIG_WORDS
     bpays = [torch.randint(-2 ** 31, 2 ** 31 - 1, (big,), dtype=torch.int32,
                            device=dev) for _ in range(4)]
     for dens in (1.0, 0.01):
@@ -319,6 +414,29 @@ def phase_kernels(base: bytes, corpus: np.ndarray):
     return results
 
 
+def chain_plain(evw, wpays, n: int, cap: int):
+    """Plain sparse chain: the set-bit positions of the event words in
+    order, each with its word's payloads; slots past the count hold n and
+    0 (the contract of compact2.sparse_chain_payloads)."""
+    import torch
+    dev = evw.device
+    widx = torch.nonzero(evw != 0).reshape(-1)
+    w = evw[widx].to(torch.int64) & 0xFFFFFFFF
+    r, c = torch.nonzero((w[:, None] >> torch.arange(32, device=dev)) & 1,
+                         as_tuple=True)
+    cnt = int(r.numel())
+    k = min(cnt, cap)
+    pos = torch.full((cap,), n, dtype=torch.int32, device=dev)
+    pos[:k] = (widx[r[:k]] * 32 + c[:k]).to(torch.int32)
+    pays = []
+    for q in wpays:
+        o = torch.zeros(cap, dtype=torch.int32, device=dev)
+        o[:k] = q[widx[r[:k]]]
+        pays.append(o)
+    return (pos, *pays, torch.tensor(cnt, dtype=torch.int32, device=dev),
+            torch.tensor(cnt <= cap, device=dev))
+
+
 def bench_corpus(base: bytes) -> np.ndarray:
     """The base tiled to CORPUS_MIB (whole tiles, so line-aligned)."""
     reps = (CORPUS_MIB * 1024 * 1024) // len(base)
@@ -329,6 +447,9 @@ def phase_e2e(base: bytes, arr: np.ndarray):
     """Counts and find_all at corpus scale through the public API."""
     import torch
     import coregex_tpu_torch as ct
+    from coregex_tpu_torch.ops import count_scan
+    from coregex_tpu_torch.ops.count_scan import plan_geometry
+    from coregex_tpu_torch.utils.corpus_cache import device_corpus
 
     B = len(base)
     reps = len(arr) // B
@@ -337,7 +458,7 @@ def phase_e2e(base: bytes, arr: np.ndarray):
     engines = []
     routes = {}     # host_routes of each pattern's slice calls
     rng = np.random.default_rng(123)
-    for name, pattern in CONFIGS:
+    for name, pattern in CONFIGS + EXTRA_COUNTS:
         spans0 = oracle_spans(pattern, base)
         m0 = len(spans0)
         eng = ct.compile(pattern, device=DEVICE)
@@ -352,11 +473,30 @@ def phase_e2e(base: bytes, arr: np.ndarray):
             best = min(best, time.perf_counter() - t0)
         if got != reps * m0:
             fail(f"{name}: count {got} != oracle {reps * m0}")
+        be = eng.batch_engine()
+        route = be._count_route(arr)[0]
         line = (f"[e2e] {name:16} {eng.strategy:13} count {got:>10} ok  "
-                f"{n / best / 1e9:7.2f} GB/s ({best * 1e3:.1f} ms, first "
-                f"{first:.2f} s)")
+                f"{n / best / 1e9:7.2f} GB/s ({best * 1e3:.1f} ms via "
+                f"{route}, first {first:.2f} s)")
+        if name in REROUTED:
+            # the same count through K1, the count transducer; these
+            # launches are a comparison, not the main path's
+            k1_launches = count_scan.COUNT_KERNEL.launches
+            sc1 = be._count_scanner_for(True)
+            geom = plan_geometry(n)
+            dev, tiles = device_corpus(arr, DEVICE), be._word_tiles(
+                arr, *geom[:2])
+            k1_best = float("inf")
+            for _ in range(3):
+                t0 = time.perf_counter()
+                got1 = sc1.count(dev, geom, tiles)
+                k1_best = min(k1_best, time.perf_counter() - t0)
+            count_scan.COUNT_KERNEL.launches = k1_launches
+            if got1 != got:
+                fail(f"{name}: K1 count {got1} != {got}")
+            line += (f" | K1 {n / k1_best / 1e9:7.2f} GB/s "
+                     f"({k1_best * 1e3:.1f} ms)")
         if name in FIND_ALL:
-            be = eng.batch_engine()
             M = 1 << 32
             exp_s = (reps * sum(s for s, _ in spans0)
                      + B * m0 * (reps * (reps - 1) // 2)) % M
@@ -405,7 +545,7 @@ def phase_e2e(base: bytes, arr: np.ndarray):
     for name, eng in engines:
         if name not in FIND_ALL:
             continue
-        spans0 = oracle_spans(dict(CONFIGS)[name], base)
+        spans0 = oracle_spans(PATTERNS[name], base)
         exp = [(s + t * B, e + t * B) for t in range(sreps)
                for s, e in spans0]
         got = eng.find_all_index(sl)
@@ -425,13 +565,16 @@ def main():
         import coregex_tpu_torch  # noqa: F401
     except ImportError as ex:
         fail(f"cannot import coregex_tpu_torch: {ex}")
-    from coregex_tpu_torch.ops import compact2, count_scan, flag_scan, \
-        span_scan
+    from coregex_tpu_torch.ops import (compact2, count_scan, flag_scan,
+                                       line_scan, seq_scan, span_scan)
     counters = [
         (count_scan.COUNT_KERNEL, "lane_scan.cu", "count_scan.py:211"),
         (span_scan.SPAN_KERNEL, "lane_scan.cu", "span_scan.py:108"),
         (flag_scan.FLAG_KERNEL, "lane_scan.cu", "flag_scan.py:164"),
         (compact2.COMPACT_KERNEL, "compact.cu", "compact2.py:91"),
+        (line_scan.LINE_KERNEL, "needle_scan.cu", "line_scan.py:78"),
+        (line_scan.HITS_KERNEL, "needle_scan.cu", "line_scan.py:407"),
+        (seq_scan.SEQ_KERNEL, "needle_scan.cu", "seq_scan.py:103"),
     ]
     build_s = phase_build()
     base = build_base()

@@ -2,20 +2,29 @@
 
 Ports the main path of ``coregex_tpu/meta/batch.py:BatchEngine``: plan
 selection (:296-344), ``_dense`` (:351-419) for the kinds the path uses, the
-count scanners (:1456-1528), ``count`` with ``nullable_count``'s route
-and UTF-8 gate (:1668-1696) folded in,
-the bidirectional span path (:999-1184), ``find_all_spans_device``
-(:523-587) and ``find_all_spans``.
+count scanners (:1456-1629), ``count`` (:1698-1790) with ``nullable_count``'s
+route and UTF-8 gate (:1668-1696) folded in, ``_line_shape_parts``
+(:2091-2097), the bidirectional span path (:999-1184), the line-shape span
+path (:798-848), ``find_all_spans_device`` (:523-587) and
+``find_all_spans``.
 
 Routes:
-  * count: the count transducer for every plan that has one (the nullable
-    transducer, behind its UTF-8 gate, for nullable plans).  The
-    reference's specialized count routes (class runs, memmem, line and
-    literal-set kernels) are not ported yet; the transducer gives the same
-    counts.
+  * count, in the reference's order (:1740-1790): K5 (LineScanner) for a
+    LINE_SHAPE or line-set FULL_SCAN plan that ``_line_shape_args``
+    accepts; K6 (HitsScanner) for LITERAL and MULTI_LITERAL plans, and K7
+    (SeqScanner, MODE_MULTI) when K6 finds two hits overlapping; otherwise
+    the count transducer (the nullable transducer, behind its UTF-8 gate,
+    for nullable plans).  The reference's class-run, memmem and
+    multi-literal XLA counts are not ported; the transducer gives the same
+    counts.  Unlike the reference, these routes run on every device (its
+    scanners run only on a TPU backend) and a failing scanner raises
+    instead of being retired.  The reference reaches K7 in MODE_LINE only
+    after retiring a LineScanner, since both take the same needle sets, so
+    the port does not route it.
   * find_all: the bidirectional span path for PREFIX_RUN, PREFIX_SET,
     FULL_SCAN and INNER plans whose count transducer is spans_simple with
-    no EOI_COMPLEX state.
+    no EOI_COMPLEX state; the candidate chain for LINE_SHAPE plans with
+    newline-free, non-empty literals and no ``(?s)`` part.
 A call outside these routes returns None (find_first returns FALLBACK) and
 the Engine's host loop serves it; each such decline adds one to
 ``host_routes``.  The route is decided on the host, from the plan, its
@@ -44,9 +53,10 @@ from coregex_tpu.dfa.determinize import (DFAOverflow, determinize,
                                          determinize_py)
 from coregex_tpu.meta import literal as litmod
 from coregex_tpu.meta.batch import FALLBACK
+from coregex_tpu.meta.literal import UNIV_ANY, UNIV_LINE
 from coregex_tpu.meta.strategy import Plan, Strategy, select
 from coregex_tpu.nfa.thompson import compile_nfa
-from coregex_tpu.syntax.ast import Node
+from coregex_tpu.syntax.ast import Node, Op
 from coregex_tpu.syntax.parser import Parsed
 from coregex_tpu.utils.artifact_cache import load_dense, save_dense
 from coregex_tpu.utils.corpus_cache import _fingerprint
@@ -59,7 +69,10 @@ from ..ops.dfa_scan import DFATables
 from ..ops.flag_scan import (FlagResetScanner, ResetFlagTables,
                              reset_geometry, scatter_reset_tiles,
                              sym_base_tiles)
-from ..ops.span_chain import bidi_assemble, bidi_ends
+from ..ops.line_scan import HitsScanner, LineScanner
+from ..ops.seq_scan import MODE_MULTI, SeqScanner, seq_geometry
+from ..ops.span_chain import (bidi_assemble, bidi_ends, line_event_words,
+                              line_spans_candidates)
 from ..ops.span_scan import SpanScanner
 from ..utils.corpus_cache import (corpus_is_ascii, corpus_tiles,
                                   device_corpus, device_corpus_flipped)
@@ -87,6 +100,9 @@ class BatchEngine:
     # behind the bidi path are not ported)
     _BIDI_FAMILIES = (Strategy.PREFIX_RUN, Strategy.PREFIX_SET,
                       Strategy.FULL_SCAN, Strategy.INNER)
+    # plans whose find_all runs on the device: the bidi families and the
+    # line shapes (all "sparse" families of the reference, :494-496)
+    _SPAN_FAMILIES = _BIDI_FAMILIES + (Strategy.LINE_SHAPE,)
 
     def __init__(self, parsed: Parsed, ast: Node, dfas_ok: bool, device,
                  longest: bool = False):
@@ -106,8 +122,12 @@ class BatchEngine:
         self._count_sc_ascii = None  # lazy ASCII-projected CountScanner
         self._span_sc = None
         self._span_sc_ascii = None
+        self._line_sc = None         # lazy needle scanners; False == none
+        self._hits_sc = None
+        self._seq_sc = None
         self._flag_scanner_cache = {}
-        # per-corpus-fingerprint (total, kind): sizes warm find_all caps
+        # per-corpus-fingerprint (total, kind) of the bidi path, or the
+        # candidate total of the line path: sizes warm find_all caps
         # without a count sync
         self._spans_cnt_cache = {}
         self._rev_hint_cache = {}   # corpus fp -> reverse-scan lane entries
@@ -186,10 +206,90 @@ class BatchEngine:
             lambda: make_word_tiles(device_corpus(data, self.device), L,
                                     T // 4))
 
+    # -- needle scanners (K5-K7) ----------------------------------------
+    def _line_shape_parts(self, sp):
+        a_univ = sp.prefix_universal
+        b_empty = sp.suffix_ast.op == Op.EMPTY
+        b_univ = sp.suffix_universal
+        a_is_empty = litmod.exact_literals(sp.prefix_ast) == [sp.lit] \
+            and not sp.line_anchored
+        return a_univ, b_empty, b_univ, a_is_empty
+
+    def _line_shape_args(self):
+        """(needles, prefix, anchored) when the pattern is a line shape the
+        line kernels can count, else None."""
+        strat = self.plan.strategy
+        if self.longest:
+            return None
+        if strat == Strategy.LINE_SHAPE:
+            sp = self.plan.split
+            a_univ, _b_empty, b_univ, a_is_empty = \
+                self._line_shape_parts(sp)
+            if (a_univ != UNIV_ANY and b_univ != UNIV_ANY
+                    and (sp.line_anchored or a_univ == UNIV_LINE
+                         or a_is_empty)):
+                anchored = sp.line_anchored and len(sp.prefix_literal) > 0
+                prefix = sp.prefix_literal if anchored else b""
+                return [sp.lit], prefix, anchored
+        elif strat == Strategy.FULL_SCAN:
+            ls = litmod.line_set_split(self.ast)
+            if ls is not None:
+                anchored = ls.line_anchored and len(ls.prefix_literal) > 0
+                prefix = ls.prefix_literal if anchored else b""
+                return ls.lits, prefix, anchored
+        return None
+
+    def _literal_set(self):
+        """The plan's literals when it is a LITERAL / MULTI_LITERAL plan
+        counted leftmost-first, else None."""
+        if self.longest or self.plan.strategy not in (
+                Strategy.LITERAL, Strategy.MULTI_LITERAL):
+            return None
+        return [bytes(x) for x in self.plan.literals]
+
+    def _line_scanner(self):
+        """Lazy LineScanner (K5); False when out of scope."""
+        if self._line_sc is None:
+            self._line_sc = False
+            args = self._line_shape_args()
+            if args is not None and LineScanner.supported(args[0], args[1]):
+                self._line_sc = LineScanner(args[0], prefix=args[1],
+                                            anchored=args[2],
+                                            device=self.device)
+        return self._line_sc
+
+    def _hits_scanner(self):
+        """Lazy HitsScanner (K6) for literal sets; False when out of
+        scope."""
+        if self._hits_sc is None:
+            self._hits_sc = False
+            nds = self._literal_set()
+            if nds is not None and HitsScanner.supported(nds):
+                self._hits_sc = HitsScanner(nds, device=self.device)
+        return self._hits_sc
+
+    def _seq_scanner(self):
+        """Lazy SeqScanner (K7, MODE_MULTI) for literal sets: the count
+        when K6 finds two hits overlapping; False when out of scope."""
+        if self._seq_sc is None:
+            self._seq_sc = False
+            nds = self._literal_set()
+            if nds is not None and SeqScanner.supported(nds):
+                self._seq_sc = SeqScanner(MODE_MULTI, nds,
+                                          device=self.device)
+        return self._seq_sc
+
     # -- count ------------------------------------------------------------
-    def _count_route(self, data: np.ndarray) -> Optional[CountScanner]:
-        """The scanner that counts this corpus, or None (declined); host
-        work only, the corpus is not uploaded."""
+    def _count_route(self, data: np.ndarray):
+        """(kind, scanner) that counts this corpus, or None (declined); host
+        work only, the corpus is not uploaded.  kind is "line" (K5),
+        "hits" (K6, then K7 on an overlap) or "dfa" (the count
+        transducer)."""
+        if not self.plan.nullable:
+            if self._line_scanner():
+                return "line", self._line_sc
+            if self._hits_scanner() and self._seq_scanner():
+                return "hits", self._hits_sc
         ascii_ok = corpus_is_ascii(data, self.device)
         sc = self._count_scanner_for(ascii_ok)
         if not sc:
@@ -204,21 +304,32 @@ class BatchEngine:
             if not ascii_ok and bool(((data >= 0xC2)
                                       & (data <= 0xF4)).any()):
                 return None
-        return sc
+        return "dfa", sc
 
     def count(self, data: np.ndarray) -> Optional[int]:
-        """Match count through the count transducer, or None (declined:
-        the Engine's host loop counts)."""
+        """Match count through the route `_count_route` picks, or None
+        (declined: the Engine's host loop counts)."""
         if len(data) > MAX_CORPUS:
             raise ValueError(f"corpus of {len(data)} bytes exceeds the "
                              f"int32 position range ({MAX_CORPUS})")
         with self._lock:
-            sc = self._count_route(data)
-            if sc is None:
+            route = self._count_route(data)
+            if route is None:
                 return self._decline()
+            kind, sc = route
             geom = plan_geometry(len(data))
-            return sc.count(device_corpus(data, self.device), geom,
-                            self._word_tiles(data, *geom[:2]))
+            dev = device_corpus(data, self.device)
+            tiles = self._word_tiles(data, *geom[:2])
+            if kind == "line":
+                return sc.count(dev, data, geom, tiles)
+            if kind == "hits":
+                c = sc.count(dev, geom, tiles)
+                if c is None:
+                    # two hits overlap: the sequential leftmost-first count
+                    sq = self._seq_sc
+                    c = sq.count(dev, seq_geometry(len(data), sq.M), tiles)
+                return c
+            return sc.count(dev, geom, tiles)
 
     # -- single match: not on this slice ----------------------------------
     def is_match(self, data: np.ndarray):
@@ -248,7 +359,8 @@ class BatchEngine:
         fingerprint) the count is a device scalar and no sync is paid for
         the caps."""
         n = len(data)
-        if (self.plan.strategy not in self._BIDI_FAMILIES or n == 0
+        strat = self.plan.strategy
+        if (strat not in self._SPAN_FAMILIES or n == 0
                 or n > self.SPARSE_SPANS_LIMIT):
             return self._decline(None)
         if n > MAX_CORPUS:
@@ -257,11 +369,70 @@ class BatchEngine:
         fp = _fingerprint(data)
         known = self._spans_cnt_cache.get(fp) if defer_ok else None
         with self._lock:
-            route = self._bidi_route(corpus_is_ascii(data, self.device))
-            if route is None:
-                return self._decline(None)
-            spans, cnt, ok = self._bidi_spans_dev(*route, data, known, fp)
+            if strat == Strategy.LINE_SHAPE:
+                route = self._line_spans_route()
+                if route is None:
+                    return self._decline(None)
+                spans, cnt, ok = self._line_shape_spans_dev(route, data,
+                                                            known, fp)
+            else:
+                route = self._bidi_route(corpus_is_ascii(data, self.device))
+                if route is None:
+                    return self._decline(None)
+                spans, cnt, ok = self._bidi_spans_dev(*route, data, known,
+                                                      fp)
         return (spans, cnt, ok) if defer_ok else (spans, cnt)
+
+    # -- line-shape span path -------------------------------------------------
+    def _line_spans_route(self):
+        """(mode, lit, prefix, anchored) of the candidate chain, or None
+        (declined): a (?s) part, a newline in the literal or prefix, an
+        empty literal, or leftmost-longest.  Host work only."""
+        if self.longest:
+            return None
+        sp = self.plan.split
+        a_univ, b_empty, b_univ, a_is_empty = self._line_shape_parts(sp)
+        if a_univ == UNIV_ANY or b_univ == UNIV_ANY:
+            return None
+        mode = ("first_to_eol" if a_is_empty
+                else "bol_to_last" if b_empty else "bol_to_eol")
+        lit = bytes(sp.lit)
+        prefix = bytes(sp.prefix_literal) if sp.line_anchored else b""
+        if b"\n" in lit or b"\n" in prefix or not lit:
+            return None
+        return mode, lit, prefix, bool(sp.line_anchored)
+
+    def _line_shape_spans_dev(self, route, data, known_cnt, fp):
+        """(spans, count, ok) via the candidate chain (ref. batch.py:
+        798-848).  Cold: one sync for the candidate total, one for count
+        and ok (validated here, ok None); warm: the cached candidate total
+        sizes the caps, count and ok stay on the device."""
+        mode, lit, prefix, anchored = route
+        n = len(data)
+        words, cnts = line_event_words(device_corpus(data, self.device),
+                                       lit, prefix, anchored)
+        if known_cnt is None:
+            cand_total = int(cnts[1])
+            self._spans_cnt_cache[fp] = cand_total
+        else:
+            cand_total = known_cnt
+        if cand_total == 0:
+            return _empty_spans(self.device), 0, None
+        if cand_total > self.MAX_DEVICE_SPANS:
+            raise ValueError(f"{cand_total} candidates exceed the device "
+                             f"span limit ({self.MAX_DEVICE_SPANS})")
+        cap = _bucket(cand_total, 16)
+        spans, cnt_d, ok = line_spans_candidates(
+            list(words), n, cap, mode, anchored, len(lit), len(prefix))
+        if known_cnt is None:
+            if not bool(ok):
+                raise RuntimeError("line-shape span assembly failed its "
+                                   "consistency check")
+            cnt = int(cnt_d)
+            if cnt == 0:
+                return _empty_spans(self.device), 0, None
+            return spans, cnt, None
+        return spans, cnt_d, ok
 
     # -- bidirectional span path --------------------------------------------
     def _span_scanner(self, ascii_ok: bool):

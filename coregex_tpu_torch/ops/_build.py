@@ -1,10 +1,13 @@
 """Build and load the port's CUDA kernels (no counterpart in coregex_tpu).
 
 The sources under ``coregex_tpu_torch/csrc/`` compile at first use into one
-shared library with a plain C interface:
+shared library with a plain C interface: one ``nvcc -c`` per source, all
+started together, then one link:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o _build/libcoregex_cuda_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -c csrc/<source>.cu -o _build/<source>.<pid>.o
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared \
+         -o _build/libcoregex_cuda_<hash>.so _build/*.<pid>.o
 
 The library lands in ``coregex_tpu_torch/_build/`` (git-ignored), named by a
 hash of the sources and flags, so an edited source rebuilds and an unchanged
@@ -26,9 +29,9 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("lane_scan.cu", "compact.cu")
-FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "-shared", "-Xcompiler", "-fPIC")
+SOURCES = ("lane_scan.cu", "compact.cu", "needle_scan.cu")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -41,6 +44,11 @@ _SIGNATURES = {
                       _P, _P],
     "cgx_compact": [_P, ctypes.c_int64, _I, _P, _P, _P, _P, _I, _P, _P, _P,
                     _P, _P, _P, _P, _P, _P],
+    "cgx_line_lanes": [_P, _P, _I, _I, _I, _I, _P, _P, _I, _I, _P, _P, _P,
+                       _P, _P, _P],
+    "cgx_hits_lanes": [_P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _P],
+    "cgx_seq_lanes": [_I, _P, _P, _I, _I, _I, _I, _P, _I, _I, _I, _P, _P,
+                      _P, _P, _P, _P, _P],
 }
 
 _lock = threading.Lock()
@@ -66,15 +74,33 @@ def library_path() -> str:
 def _compile(path: str) -> None:
     global build_seconds, build_log
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *FLAGS, "-Xptxas", "-v", "-o", tmp,
-           *[os.path.join(CSRC, s) for s in SOURCES]]
+    tag = f"{os.getpid()}"
+    objs = [os.path.join(BUILD_DIR, f"{s}.{tag}.o") for s in SOURCES]
+    tmp = f"{path}.{tag}.tmp"
     t0 = time.perf_counter()
-    r = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    procs = [subprocess.Popen(
+        [_nvcc(), *FLAGS, "-Xptxas", "-v", "-c", os.path.join(CSRC, s),
+         "-o", o], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for s, o in zip(SOURCES, objs)]
+    logs, failed = [], []
+    for s, pr in zip(SOURCES, procs):
+        out, _ = pr.communicate(timeout=600)
+        logs.append(out)
+        if pr.returncode != 0:
+            failed.append(f"{s} ({pr.returncode})")
+    if not failed:
+        r = subprocess.run([_nvcc(), *ARCH, "-shared", "-o", tmp, *objs],
+                           capture_output=True, text=True, timeout=600)
+        logs.append(r.stdout + r.stderr)
+        if r.returncode != 0:
+            failed.append(f"link ({r.returncode})")
+    for o in objs:
+        if os.path.exists(o):
+            os.remove(o)
     build_seconds = time.perf_counter() - t0
-    build_log = r.stdout + r.stderr
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{build_log}")
+    build_log = "".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed: {', '.join(failed)}\n{build_log}")
     os.replace(tmp, path)
 
 

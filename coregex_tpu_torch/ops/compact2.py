@@ -1,8 +1,9 @@
 """Ordered stream compaction with payload routing (K4) and the sparse chain.
 
 Ports ``coregex_tpu/ops/compact2.py``: ``compact_pay`` (:316-344) with the
-contract of ``_compact_pay_xla`` (:292-308), ``sparse_chain_payloads`` and
-``_chain_pay_body`` (:517-588), and ``_bucket_up`` (:402).  For CUDA tensors
+contract of ``_compact_pay_xla`` (:292-308), ``pack_words`` (:351),
+``sparse_chain_payloads`` and ``_chain_pay_body`` (:517-588), and
+``_bucket_up`` (:402).  For CUDA tensors
 ``compact_pay`` launches ``csrc/compact.cu`` at every size (the reference
 sends inputs below 4 blocks to XLA); for CPU tensors it runs the plain
 scatter version.
@@ -10,7 +11,11 @@ scatter version.
 The sparse chain extracts set-bit positions from int32 event words in
 n/32 + ~12*hits work: nonzero WORDS compact with their values and the
 per-word payloads, each word expands to its nonzero BYTES, each byte to its
-set BITS; every level is one ordered compaction.
+set BITS; every level is one ordered compaction.  Per-word payloads do
+not ride the levels as in the reference (whose TPU kernel cannot gather):
+an event's word payload is its word's value, so after level 3 it is one
+gather at ``pos >> 5``.  K4 then routes at most two payloads per level,
+whatever the number of word payloads.
 """
 
 from __future__ import annotations
@@ -113,42 +118,42 @@ def _bucket_up(x: int) -> int:
     return _bucket(x, 1024)
 
 
+def pack_words(mask, nw: int):
+    """bool/uint8 0-1 mask [nw*32] -> int32 words [nw], bit j of word i =
+    mask[32i+j].  Each int64 view of eight mask bytes times
+    0x0102040810204080 carries byte t to bit 56 + t; every cross term lands
+    below bit 56 or past bit 63, each on its own bit, so nothing carries.
+    The top byte is then one byte of the word, and four such bytes view as
+    the int32 word (little-endian); the multiply wraps in int64."""
+    x = mask.contiguous().view(torch.uint8).view(torch.int64)
+    return ((x * 0x0102040810204080) >> 56).to(torch.uint8).view(
+        torch.int32)
+
+
 def _chain_pay_body(evw, wordpays, n: int, cap: int):
     """Event words + P per-WORD int32 payload arrays -> (pos[cap],
-    pay0[cap], ..., cnt, ok): every event inherits its word's payloads."""
-    P = len(wordpays)
+    pay0[cap], ..., cnt, ok): every event inherits its word's payloads,
+    gathered at the event's word after the last level."""
     dev = evw.device
     nwb = int(evw.shape[0])
     capw = min(nwb, cap)
-    out1 = compact_pay(evw != 0, [evw] + list(wordpays), capw)
-    wpos, wu = out1[0], out1[1]
-    wp = out1[2:2 + P]
-    cntw, ok1 = out1[2 + P], out1[3 + P]
+    wpos, wu, cntw, ok1 = compact_pay(evw != 0, [evw], capw)
     capb = min(4 * capw, cap)
     live = (torch.arange(capw, device=dev) < cntw)[:, None]
     j4 = torch.arange(4, dtype=torch.int32, device=dev)[None, :]
     bu = (wu[:, None] >> (8 * j4)) & 0xFF
     m2 = live & (bu != 0)
     base2 = wpos[:, None] * 32 + 8 * j4
-    out2 = compact_pay(
-        m2.reshape(-1),
-        [bu.reshape(-1), base2.reshape(-1)]
-        + [q[:, None].expand(capw, 4).reshape(-1) for q in wp], capb)
-    bu_c, bbase_c = out2[1], out2[2]
-    wp_c = out2[3:3 + P]
-    cntb, ok2 = out2[3 + P], out2[4 + P]
+    _, bu_c, bbase_c, cntb, ok2 = compact_pay(
+        m2.reshape(-1), [bu.reshape(-1), base2.reshape(-1)], capb)
     live3 = (torch.arange(capb, device=dev) < cntb)[:, None]
     j8 = torch.arange(8, dtype=torch.int32, device=dev)[None, :]
     m3 = live3 & (((bu_c[:, None] >> j8) & 1) != 0)
     pos3 = bbase_c[:, None] + j8
-    out3 = compact_pay(
-        m3.reshape(-1),
-        [pos3.reshape(-1)]
-        + [q[:, None].expand(capb, 8).reshape(-1) for q in wp_c], cap)
-    pos = out3[1]
-    pays = out3[2:2 + P]
-    cnt, ok3 = out3[2 + P], out3[3 + P]
+    _, pos, cnt, ok3 = compact_pay(m3.reshape(-1), [pos3.reshape(-1)], cap)
     live_o = torch.arange(cap, device=dev) < cnt
+    word = torch.where(live_o, pos >> 5, 0).long()
+    pays = [torch.where(live_o, q[word], 0) for q in wordpays]
     pos = torch.where(live_o, pos, n)
     return (pos, *pays, cnt, ok1 & ok2 & ok3)
 

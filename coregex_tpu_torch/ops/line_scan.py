@@ -1,0 +1,360 @@
+"""Single-launch needle counts: lines holding a needle (K5) and raw hits of a
+literal set with exact overlap detection (K6).
+
+Ports ``coregex_tpu/ops/line_scan.py``: ``LineScanner`` with ``_combine``
+(:268-400) and ``HitsScanner`` (:536-611).  Both kernels are exact in one
+launch: K5 keeps three running maxima per lane (last newline, last valid
+line start, last qualifying hit) and counts the commits at the lane's
+newlines after its first; the host combine stitches each lane's first line
+from O(1) outputs per lane.  K6 counts raw hits and flags a hit that starts
+inside an earlier hit's reach; on an overlap the caller counts with K7.
+
+The wrappers launch ``csrc/needle_scan.cu`` for CUDA tensors and run the
+plain versions for CPU tensors: the reference's running-max formulation in
+torch (``torch.cummax`` along the time axis of [positions, L] planes), in row
+chunks whose maxima carry from one chunk to the next.  Needle tables,
+lookahead and scope gates are those of ``seq_scan.py``.
+
+Changes from the reference: the anchored prefix check at the lane bases is
+one gather of plen bytes per lane instead of a Python loop over the lanes,
+the cross-lane overlap check an exclusive running max over lanes, and the
+TPU tile-row tuning variable is gone.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from . import _build
+from .count_scan import LaunchCounter, make_word_tiles, plan_geometry
+from .seq_scan import (AHEAD, _check_tables, chunk_rows, hit_plane,
+                       host_needles, lane_stream_words, needle_table,
+                       needles_ok, stream_bytes)
+
+NEG = -(1 << 30)
+BIG = 1 << 30
+
+LINE_KERNEL = LaunchCounter("line_scan")
+HITS_KERNEL = LaunchCounter("hits_scan")
+
+
+def _excl_max(x, carry):
+    """(exclusive, inclusive) running max along dim 0 from `carry`."""
+    incl = torch.maximum(torch.cummax(x, 0).values, carry[None])
+    return torch.cat([carry[None], incl[:-1]]), incl
+
+
+def _chunks(T4: int, L: int):
+    step = chunk_rows(L)
+    for r0 in range(0, T4, step):
+        yield r0, min(r0 + step, T4)
+
+
+# ---------------------------------------------------------------------------
+# K5
+# ---------------------------------------------------------------------------
+
+def line_lanes_plain(tbl, lens, jh: int, anchored: bool, plen: int, pnl,
+                     tiles):
+    """Plain torch K5: (cnt, lnl, lp, lh, mpre) [L] int32."""
+    T4, L = (int(x) for x in tiles.shape)
+    dev = tiles.device
+    nds = host_needles(tbl, lens)
+    full = torch.full((L,), NEG, dtype=torch.int64, device=dev)
+    c_ln, c_lp, c_lh = full, full, full
+    mpre = torch.full((L,), -1, dtype=torch.int64, device=dev)
+    cnt = torch.zeros(L, dtype=torch.int64, device=dev)
+    pnl_b = pnl.bool()
+    for r0, r1 in _chunks(T4, L):
+        P = 4 * (r1 - r0)
+        B = stream_bytes(lane_stream_words(tiles, r0, r1 + AHEAD))
+        pos = torch.arange(4 * r0, 4 * r1, device=dev)[:, None]
+        hit = torch.zeros((P, L), dtype=torch.bool, device=dev)
+        for nd in nds[:jh]:
+            hit |= hit_plane(B, nd, P)
+        isnl = B[:P] == 10
+        ln, incl_ln = _excl_max(torch.where(isnl, pos, NEG), c_ln)
+        if anchored:
+            prev_nl = torch.where(pos == 0, pnl_b[None], ln == pos - 1)
+            lps = prev_nl & hit_plane(B, nds[jh], P)
+            qual = hit & (ln >= 0) & (pos - ln - 1 >= plen)
+            lp, incl_lp = _excl_max(torch.where(lps, pos, NEG), c_lp)
+            c_lp = incl_lp[-1]
+        else:
+            qual = hit
+        mpre = torch.maximum(mpre, torch.where(hit & (ln < 0), pos,
+                                               -1).max(0).values)
+        lh, incl_lh = _excl_max(torch.where(qual, pos, NEG), c_lh)
+        commit = isnl & (lh > ln) & (ln >= 0)
+        if anchored:
+            commit &= lp > ln
+        cnt += commit.sum(0)
+        c_ln, c_lh = incl_ln[-1], incl_lh[-1]
+    return tuple(x.to(torch.int32) for x in (cnt, c_ln, c_lp, c_lh, mpre))
+
+
+def line_lanes_cuda(tbl, lens, jh: int, anchored: bool, plen: int, pnl,
+                    tiles):
+    """Launch cgx_line_lanes of csrc/needle_scan.cu; same outputs as
+    line_lanes_plain."""
+    _check_tables(tbl, lens, tiles)
+    T4, L = (int(x) for x in tiles.shape)
+    if (pnl.device != tiles.device or pnl.dtype != torch.int32
+            or tuple(pnl.shape) != (L,) or not pnl.is_contiguous()):
+        raise ValueError(f"pnl must be contiguous int32 [{L}] on the tiles' "
+                         f"device")
+    if int(tbl.shape[0]) != jh + int(anchored):
+        raise ValueError("the table holds jh needles plus the prefix")
+    dev = tiles.device
+    outs = [torch.empty(L, dtype=torch.int32, device=dev) for _ in range(5)]
+    p = _build.ptr
+    lib = _build.lib()
+    with torch.cuda.device(dev):
+        rc = lib.cgx_line_lanes(p(tbl), p(lens), int(tbl.shape[0]), jh,
+                                int(anchored), plen, p(pnl), p(tiles), T4, L,
+                                *[p(o) for o in outs], _build.stream(dev))
+    _build.check(rc, "line_lanes")
+    return tuple(outs)
+
+
+def line_lanes(tbl, lens, jh: int, anchored: bool, plen: int, pnl, tiles):
+    """K5 on the tiles' device: the kernel for CUDA tensors (counted on
+    LINE_KERNEL), the plain version for CPU tensors."""
+    args = (tbl, lens, jh, anchored, plen, pnl, tiles)
+    if tiles.device.type == "cuda":
+        out = line_lanes_cuda(*args)
+        LINE_KERNEL.launches += 1
+        return out
+    if tiles.device.type != "cpu":
+        raise ValueError(f"unsupported device {tiles.device}")
+    return line_lanes_plain(*args)
+
+
+class LineScanner:
+    """Exact single-launch count of the lines (newline-terminated, plus
+    the final unterminated one) that hold a needle; anchored: the line
+    starts with `prefix` and the needle sits at offset >= len(prefix)."""
+
+    def __init__(self, needles: Sequence[bytes], prefix: bytes = b"",
+                 anchored: bool = False, device="cpu"):
+        self.needles = [bytes(nd) for nd in needles]
+        self.prefix = bytes(prefix)
+        self.anchored = bool(anchored and len(prefix) > 0)
+        self.plen = len(prefix) if self.anchored else 0
+        items = self.needles + ([self.prefix] if self.anchored else [])
+        if not needles_ok(items, line_mode=True):
+            raise ValueError("needle set outside the kernel's scope")
+        self.jh = len(self.needles)
+        self.tbl, self.lens = needle_table(items, device)
+
+    @staticmethod
+    def supported(needles: Sequence[bytes], prefix: bytes = b"") -> bool:
+        items = list(needles) + ([prefix] if prefix else [])
+        return needles_ok(items, line_mode=True)
+
+    @staticmethod
+    def lane_starts(data_dev: torch.Tensor, L: int, T: int):
+        """[L] int32: the byte before the lane is a newline (lane 0: the
+        start of text)."""
+        n = int(data_dev.shape[0])
+        lanes = torch.arange(L, dtype=torch.int64, device=data_dev.device)
+        prev_b = data_dev[(lanes * T - 1).clamp(0, n - 1)]
+        pnl = (prev_b == 10).to(torch.int32)
+        pnl[0] = 1
+        return pnl
+
+    def lane_args(self, data_dev: torch.Tensor, geometry, tiles):
+        """The arguments of line_lanes for this scanner and corpus."""
+        L, T = geometry[:2]
+        return (self.tbl, self.lens, self.jh, self.anchored, self.plen,
+                self.lane_starts(data_dev, L, T), tiles)
+
+    def lanes(self, data_dev: torch.Tensor, geometry, tiles=None):
+        """Per-lane K5 outputs (cnt, lnl, lp, lh, mpre) under `geometry`."""
+        L, T = geometry[:2]
+        if tiles is None:
+            tiles = make_word_tiles(data_dev, L, T // 4)
+        return line_lanes(*self.lane_args(data_dev, geometry, tiles))
+
+    def count(self, data_dev: torch.Tensor, data_host: np.ndarray,
+              geometry: Optional[Tuple[int, int, int, int]] = None,
+              tiles: Optional[torch.Tensor] = None) -> int:
+        n = int(data_dev.shape[0])
+        if n == 0:
+            return 0
+        geometry = geometry or plan_geometry(n)
+        outs = self.lanes(data_dev, geometry, tiles)
+        cnt, lnl, lpe, lhe, mpre = (
+            x.cpu().numpy().astype(np.int64) for x in outs)
+        return self._combine(n, geometry[0], geometry[1], cnt, lnl, lpe,
+                             lhe, mpre, data_host)
+
+    def _prefix_at_bases(self, n: int, bases, data_host) -> np.ndarray:
+        """[L] bool: a line starts at the lane base and begins with the
+        prefix (one gather of plen bytes per lane)."""
+        pb = np.asarray(data_host, dtype=np.uint8)
+        L = len(bases)
+        pnl = np.zeros(L, dtype=bool)
+        pnl[0] = True
+        pnl[1:] = pb[np.clip(bases[1:] - 1, 0, n - 1)] == 10
+        fits = bases + self.plen <= n
+        idx = np.minimum(bases[:, None] + np.arange(self.plen), n - 1)
+        P = np.frombuffer(self.prefix, dtype=np.uint8)
+        return fits & pnl & (pb[idx] == P[None, :]).all(axis=1)
+
+    def _combine(self, n, L, T, cnt, lnl, lpe, lhe, mpre, data_host):
+        """O(L) host stitching: each lane's entry state affects only its
+        first line (committed at the lane's first newline, which the kernel
+        left out), plus the final unterminated line.  Carries are running
+        maxima of global positions (ref. _combine)."""
+        NEGH = np.int64(-(1 << 62))
+        total = int(cnt.sum())
+        bases = np.arange(L, dtype=np.int64) * T
+        has_nl = lnl > NEG // 2
+
+        nl_contrib = np.where(has_nl, bases + lnl, NEGH)
+        incl_ln = np.maximum.accumulate(nl_contrib)
+        entry_ln = np.maximum(np.concatenate([[NEGH], incl_ln[:-1]]), -1)
+
+        lh_contrib = np.where(lhe > NEG // 2, bases + lhe, NEGH)
+        mpre_ok = (mpre >= 0) & (bases + mpre >= entry_ln + 1 + self.plen)
+        lh_contrib = np.maximum(lh_contrib,
+                                np.where(mpre_ok, bases + mpre, NEGH))
+        incl_lh = np.maximum.accumulate(lh_contrib)
+        entry_lh = np.concatenate([[NEGH], incl_lh[:-1]])
+
+        if self.anchored:
+            lp_contrib = np.where(lpe > NEG // 2, bases + lpe, NEGH)
+            incl_lp = np.maximum.accumulate(lp_contrib)
+            entry_lp = np.concatenate([[NEGH], incl_lp[:-1]])
+            # the entry line may start at this lane's position 0: that
+            # event is in lpe of this lane, not in entry_lp
+            lp0 = np.where(self._prefix_at_bases(n, bases, data_host),
+                           bases, NEGH)
+            valid = np.maximum(entry_lp, lp0) > entry_ln
+            final_valid = incl_lp[-1] > max(int(incl_ln[-1]), -1)
+        else:
+            valid = np.ones(L, dtype=bool)
+            final_valid = True
+
+        s = entry_ln + 1
+        qual = (entry_lh > entry_ln) | \
+            ((mpre >= 0) & (bases + mpre >= s + self.plen))
+        total += int((has_nl & valid & qual).sum())
+
+        final_ln = max(int(incl_ln[-1]), -1)
+        if final_valid and int(incl_lh[-1]) > final_ln:
+            total += 1
+        return total
+
+
+# ---------------------------------------------------------------------------
+# K6
+# ---------------------------------------------------------------------------
+
+def hits_lanes_plain(tbl, lens, tiles):
+    """Plain torch K6: (cnt, ov, fh, reach) [L] int32."""
+    T4, L = (int(x) for x in tiles.shape)
+    dev = tiles.device
+    nds = host_needles(tbl, lens)
+    c_r = torch.full((L,), NEG, dtype=torch.int64, device=dev)
+    ov = torch.zeros(L, dtype=torch.bool, device=dev)
+    cnt = torch.zeros(L, dtype=torch.int64, device=dev)
+    fh = torch.full((L,), BIG, dtype=torch.int64, device=dev)
+    for r0, r1 in _chunks(T4, L):
+        P = 4 * (r1 - r0)
+        B = stream_bytes(lane_stream_words(tiles, r0, r1 + AHEAD))
+        pos = torch.arange(4 * r0, 4 * r1, device=dev)[:, None]
+        anyh = torch.zeros((P, L), dtype=torch.bool, device=dev)
+        reach = torch.full((P, L), NEG, dtype=torch.int64, device=dev)
+        for nd in nds:
+            h = hit_plane(B, nd, P)
+            anyh |= h
+            reach = torch.where(h, torch.maximum(reach, pos + len(nd) - 1),
+                                reach)
+        run, incl = _excl_max(reach, c_r)
+        ov |= (anyh & (run >= pos)).any(0)
+        cnt += anyh.sum(0)
+        fh = torch.minimum(fh, torch.where(anyh, pos, BIG).min(0).values)
+        c_r = incl[-1]
+    return tuple(x.to(torch.int32) for x in (cnt, ov, fh, c_r))
+
+
+def hits_lanes_cuda(tbl, lens, tiles):
+    """Launch cgx_hits_lanes of csrc/needle_scan.cu; same outputs as
+    hits_lanes_plain."""
+    _check_tables(tbl, lens, tiles)
+    T4, L = (int(x) for x in tiles.shape)
+    dev = tiles.device
+    outs = [torch.empty(L, dtype=torch.int32, device=dev) for _ in range(4)]
+    p = _build.ptr
+    lib = _build.lib()
+    with torch.cuda.device(dev):
+        rc = lib.cgx_hits_lanes(p(tbl), p(lens), int(tbl.shape[0]),
+                                p(tiles), T4, L, *[p(o) for o in outs],
+                                _build.stream(dev))
+    _build.check(rc, "hits_lanes")
+    return tuple(outs)
+
+
+def hits_lanes(tbl, lens, tiles):
+    """K6 on the tiles' device: the kernel for CUDA tensors (counted on
+    HITS_KERNEL), the plain version for CPU tensors."""
+    if tiles.device.type == "cuda":
+        out = hits_lanes_cuda(tbl, lens, tiles)
+        HITS_KERNEL.launches += 1
+        return out
+    if tiles.device.type != "cpu":
+        raise ValueError(f"unsupported device {tiles.device}")
+    return hits_lanes_plain(tbl, lens, tiles)
+
+
+def cross_lane_overlap(T: int, fh, reach) -> bool:
+    """A hit whose reach runs past its lane end covers a later lane's first
+    hit: the exclusive running max of the lanes' global reaches (ref.
+    HitsScanner.count:601-610)."""
+    L = len(fh)
+    bases = np.arange(L, dtype=np.int64) * T
+    glob = np.where(reach > NEG // 2, bases + reach, NEG)
+    run = np.concatenate([[NEG], np.maximum.accumulate(glob)[:-1]])
+    return bool(((fh < BIG) & (run >= bases + fh)).any())
+
+
+class HitsScanner:
+    """Raw-hit count with exact overlap detection for a literal set.
+    count() returns the exact Go count, or None when two hits overlap in
+    the data (the caller then counts with K7)."""
+
+    def __init__(self, needles: Sequence[bytes], device="cpu"):
+        nds = sorted({bytes(nd) for nd in needles}, key=len)
+        if not needles_ok(nds):
+            raise ValueError("needle set outside the kernel's scope")
+        self.needles = nds
+        self.tbl, self.lens = needle_table(nds, device)
+
+    @staticmethod
+    def supported(needles: Sequence[bytes]) -> bool:
+        return needles_ok(needles)
+
+    def lanes(self, data_dev: torch.Tensor, geometry, tiles=None):
+        """Per-lane K6 outputs (cnt, ov, fh, reach) under `geometry`."""
+        L, T, _W, _Lc = geometry
+        if tiles is None:
+            tiles = make_word_tiles(data_dev, L, T // 4)
+        return hits_lanes(self.tbl, self.lens, tiles)
+
+    def count(self, data_dev: torch.Tensor,
+              geometry: Optional[Tuple[int, int, int, int]] = None,
+              tiles: Optional[torch.Tensor] = None) -> Optional[int]:
+        n = int(data_dev.shape[0])
+        if n == 0:
+            return 0
+        geometry = geometry or plan_geometry(n)
+        cnt, ov, fh, reach = (x.cpu().numpy().astype(np.int64)
+                              for x in self.lanes(data_dev, geometry, tiles))
+        if ov.any() or cross_lane_overlap(geometry[1], fh, reach):
+            return None
+        return int(cnt.sum())

@@ -87,6 +87,80 @@ def test_bench_counts_match_reference_and_re(pattern):
     assert eng.batch_engine().host_routes == 0
 
 
+# patterns the needle kernels count, with the route the BatchEngine picks:
+# K5 for line shapes, K6 for literal sets (K7 when two hits overlap)
+NEEDLE_ROUTES = [(r".*keyword.*", "line"), (r"(?m)^/.*\.php", "line"),
+                 (r".*\.txt", "line"),
+                 (r"GET|POST|PUT|DELETE|HEAD|OPTIONS|PATCH", "hits"),
+                 (r"error|warning|notice|info|debug", "hits"),
+                 (ALT32, "hits"), (r"error", "hits"), (r"0\.0", "hits")]
+
+
+def _line_corpus(seed, size):
+    """Log lines, a fifth of them starting with a path."""
+    t = _log_corpus(seed, size)
+    return b"\n".join(b"/www" + ln if i % 5 == 0 else ln
+                      for i, ln in enumerate(t.split(b"\n")))
+
+
+@pytest.mark.parametrize("pattern, route", NEEDLE_ROUTES)
+def test_needle_routes_match_reference_and_re(pattern, route):
+    t = _line_corpus(30, 24000)
+    eng = ct.compile(pattern, device="cpu")
+    ref = ref_ct.compile(pattern)
+    be = eng.batch_engine()
+    assert be._count_route(_arr(t))[0] == route
+    exp = [m.span() for m in re.finditer(pattern.encode(), t)]
+    assert eng.count(t) == ref.count(t) == len(exp)
+    if route == "line":
+        got = eng.find_all_index(t)
+        assert got == ref.find_all_index(t)
+        assert [tuple(s) for s in got] == exp
+    assert be.host_routes == 0
+
+
+def test_overlapping_literal_counts_through_k7():
+    """0\\.0 overlaps itself in 10.0.0.255: K6 reports the overlap and
+    K7 counts leftmost-first."""
+    t = _log_corpus(31, 24000)
+    eng = ct.compile(r"0\.0", device="cpu")
+    be = eng.batch_engine()
+    seq = be._seq_scanner()
+    calls = []
+    count = seq.count
+    seq.count = lambda *a: calls.append(1) or count(*a)
+    assert eng.count(t) == len(re.findall(rb"0\.0", t))
+    assert calls == [1]
+    from coregex_tpu_torch.ops.count_scan import plan_geometry
+    assert be._hits_scanner().count(torch.from_numpy(_arr(t).copy()),
+                                    plan_geometry(len(t))) is None
+    assert be.host_routes == 0
+
+
+def test_line_shape_find_all_routes():
+    """A (?s) line shape declines before upload; a warm call sizes its caps
+    from the cached candidate total; too many candidates raise."""
+    t = _line_corpus(32, 20000)
+    eng = ct.compile(r"(?s).*keyword", device="cpu")
+    assert eng.batch_engine().plan.strategy.name == "LINE_SHAPE"
+    assert eng.find_all_index(t) == [m.span() for m in
+                                     re.finditer(rb"(?s).*keyword", t)]
+    assert eng.batch_engine().host_routes == 1
+    assert corpus_cache._entry(_arr(t), "cpu").buf is None
+    pattern = r".*\.txt"
+    be = ct.compile(pattern, device="cpu").batch_engine()
+    exp = [m.span() for m in re.finditer(pattern.encode(), t)]
+    spans, cnt, ok = be.find_all_spans_device(_arr(t), defer_ok=True)
+    assert isinstance(cnt, int) and ok is None and cnt == len(exp)
+    spans, cnt, ok = be.find_all_spans_device(_arr(t), defer_ok=True)
+    assert isinstance(cnt, torch.Tensor) and bool(ok)
+    assert [tuple(r) for r in spans[:int(cnt)].tolist()] == exp
+    be.MAX_DEVICE_SPANS = 4
+    with pytest.raises(ValueError, match="span limit"):
+        be.find_all_spans(_arr(t))
+    assert be.host_routes == 0
+
+
 def test_warm_defer_path():
     """A second find_all on the same corpus sizes its caps from the
     cached count: count and ok come back as device scalars."""
@@ -114,7 +188,7 @@ def test_declines_are_counted_and_served_by_host():
     assert eng.find_index(t) == exp[0]            # find_first: FALLBACK
     assert eng.is_match(t) is True                # is_match: None
     assert be.host_routes == 4
-    assert eng.count(t) == len(exp)               # transducer: no decline
+    assert eng.count(t) == len(exp)               # K6: no decline
     assert be.host_routes == 4
 
 
