@@ -6,11 +6,14 @@ plain torch versions.
 """
 from __future__ import annotations
 
-from coregex_tpu.api import quote_meta  # noqa: F401  (host-only helper)
-
 from .meta.engine import Engine
 
 Regex = Engine
+
+
+def quote_meta(s: str) -> str:
+    special = "\\.+*?()|[]{}^$"
+    return "".join("\\" + c if c in special else c for c in s)
 
 
 def compile(pattern, device="cuda", **kw):  # noqa: A001 - mirrors Go Compile

@@ -16,6 +16,12 @@
 // Contract (compact2.py:compact_pay / _compact_pay_xla): pos ascending,
 // payloads routed by the same permutation, entries past cap dropped.
 //
+// With npay = 0 it also replaces K8, coregex_tpu/ops/compact.py:
+// _compact_kernel (launched by _compact_call through compact_positions),
+// which left-packs 16,384-entry blocks through a shift network and carries
+// a row offset along the TPU's sequential grid: the function is the same
+// ordered compaction, so ops/compact.py launches this one.
+//
 // What bounds it on an H100: device-memory reads of the mask (twice) and of
 // the payloads, plus the scattered writes; the arithmetic is a few integer
 // ops per entry.  A single-pass scan with decoupled look-back would read the

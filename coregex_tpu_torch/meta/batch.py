@@ -5,8 +5,13 @@ selection (:296-344), ``_dense`` (:351-419) for the kinds the path uses, the
 count scanners (:1456-1629), ``count`` (:1698-1790) with ``nullable_count``'s
 route and UTF-8 gate (:1668-1696) folded in, ``_line_shape_parts``
 (:2091-2097), the bidirectional span path (:999-1184), the line-shape span
-path (:798-848), ``find_all_spans_device`` (:523-587) and
-``find_all_spans``.
+path (:798-848), the class-run path (``_chop_runs`` :54,
+``_charclass_spans_dev`` :710-742, ``_charclass_dense_pair`` :744-758),
+the nullable paths (``_core`` :2467-2476, ``_nullable_spans_dev``
+:589-633, ``_nullable_general_spans_dev`` :635-676),
+``find_all_spans_device`` (:523-587) and ``find_all_spans``.  The port
+builds on its own copy of the host pipeline (``..dfa``, ``..nfa``,
+``.strategy``, ``.literal``) and imports nothing of ``coregex_tpu``.
 
 Routes:
   * count, in the reference's order (:1740-1790): K5 (LineScanner) for a
@@ -14,25 +19,32 @@ Routes:
     accepts; K6 (HitsScanner) for LITERAL and MULTI_LITERAL plans, and K7
     (SeqScanner, MODE_MULTI) when K6 finds two hits overlapping; otherwise
     the count transducer (the nullable transducer, behind its UTF-8 gate,
-    for nullable plans).  The reference's class-run, memmem and
-    multi-literal XLA counts are not ported; the transducer gives the same
-    counts.  Unlike the reference, these routes run on every device (its
-    scanners run only on a TPU backend) and a failing scanner raises
-    instead of being retired.  The reference reaches K7 in MODE_LINE only
-    after retiring a LineScanner, since both take the same needle sets, so
-    the port does not route it.
+    for nullable plans).  A nullable plan outside that gate counts its
+    device find_all, as the reference counts its span list.  The
+    reference's class-run, memmem and multi-literal XLA counts are not
+    ported; the transducer gives the same counts.  Unlike the reference,
+    these routes run on every device (its scanners run only on a TPU
+    backend) and a failing scanner raises instead of being retired.  The
+    reference reaches K7 in MODE_LINE only after retiring a LineScanner,
+    since both take the same needle sets, so the port does not route it.
   * find_all: the bidirectional span path for PREFIX_RUN, PREFIX_SET,
     FULL_SCAN and INNER plans whose count transducer is spans_simple with
     no EOI_COMPLEX state; the candidate chain for LINE_SHAPE plans with
-    newline-free, non-empty literals and no ``(?s)`` part.
+    newline-free, non-empty literals and no ``(?s)`` part; class runs for
+    CHARCLASS plans that are ``[class]+`` or ``([class]{m,k})+`` (two
+    sparse chains, or K4 over the full masks when runs are dense); for
+    NULLABLE_CORE plans two K8 compactions when the core is ``[class]+``
+    and the corpus ASCII, else the core's own route plus the empty fill
+    when that route serves the corpus and the corpus is below
+    DEVICE_SPANS_LIMIT.  Leftmost-longest plans decline.
 A call outside these routes returns None (find_first returns FALLBACK) and
 the Engine's host loop serves it; each such decline adds one to
 ``host_routes``.  The route is decided on the host, from the plan, its
-tables and the corpus's ASCII verdict, before the corpus is uploaded.  Once
-a call is on the device it finishes there or raises: the repair fixpoints
-run until they settle (at most L rescans), a table too large for the
-kernels raises ValueError when it is built, and a result over
-MAX_DEVICE_SPANS spans raises ValueError.
+tables, the core's plan and the corpus's ASCII verdict, before the corpus
+is uploaded.  Once a call is on the device it finishes there or raises:
+the repair fixpoints run until they settle (at most L rescans), a table
+too large for the kernels raises ValueError when it is built, and a
+result over MAX_DEVICE_SPANS spans raises ValueError.
 
 Corpus state (the host array, its ASCII verdict) travels as arguments, not
 engine attributes, so concurrent calls on one engine cannot mix corpora
@@ -46,24 +58,14 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from coregex_tpu.dfa.countdfa import (EOI_COMPLEX, build_count_dfa,
-                                      build_count_dfa_nullable)
-from coregex_tpu.dfa.dense import CTX_SOT
-from coregex_tpu.dfa.determinize import (DFAOverflow, determinize,
-                                         determinize_py)
-from coregex_tpu.meta import literal as litmod
-from coregex_tpu.meta.batch import FALLBACK
-from coregex_tpu.meta.literal import UNIV_ANY, UNIV_LINE
-from coregex_tpu.meta.strategy import Plan, Strategy, select
-from coregex_tpu.nfa.thompson import compile_nfa
-from coregex_tpu.syntax.ast import Node, Op
-from coregex_tpu.syntax.parser import Parsed
-from coregex_tpu.utils.artifact_cache import load_dense, save_dense
-from coregex_tpu.utils.corpus_cache import _fingerprint
-from coregex_tpu.utils.device_lock import device_lock
-
-from ..ops.bytescan import _bucket
-from ..ops.compact2 import _bucket_up
+from ..dfa.countdfa import (EOI_COMPLEX, build_count_dfa,
+                            build_count_dfa_nullable)
+from ..dfa.dense import CTX_SOT
+from ..dfa.determinize import DFAOverflow, determinize, determinize_py
+from ..nfa.thompson import compile_nfa
+from ..ops.bytescan import _bucket, mask_count, table_to_ranges
+from ..ops.compact import compact_positions
+from ..ops.compact2 import _bucket_up, compact_pay, sparse_positions_words
 from ..ops.count_scan import CountScanner, make_word_tiles, plan_geometry
 from ..ops.dfa_scan import DFATables
 from ..ops.flag_scan import (FlagResetScanner, ResetFlagTables,
@@ -71,11 +73,27 @@ from ..ops.flag_scan import (FlagResetScanner, ResetFlagTables,
                              sym_base_tiles)
 from ..ops.line_scan import HitsScanner, LineScanner
 from ..ops.seq_scan import MODE_MULTI, SeqScanner, seq_geometry
-from ..ops.span_chain import (bidi_assemble, bidi_ends, line_event_words,
-                              line_spans_candidates)
+from ..ops.span_chain import (SPARSE_OK, bidi_assemble, bidi_ends,
+                              class_run_masks_dense, class_run_words,
+                              line_event_words, line_spans_candidates,
+                              nullable_class_masks, nullable_fill_words,
+                              nullable_merge, pair_spans_sparse)
 from ..ops.span_scan import SpanScanner
-from ..utils.corpus_cache import (corpus_is_ascii, corpus_tiles,
-                                  device_corpus, device_corpus_flipped)
+from ..syntax.ast import Node, Op
+from ..syntax.parser import Parsed
+from ..utils.artifact_cache import load_dense, save_dense
+from ..utils.corpus_cache import (_fingerprint, corpus_is_ascii,
+                                  corpus_tiles, device_corpus,
+                                  device_corpus_flipped)
+from ..utils.device_lock import device_lock
+from . import literal as litmod
+from .literal import UNIV_ANY, UNIV_LINE
+from .strategy import Plan, Strategy, select
+
+# Sentinel distinct from None ("no match"): the device path is out of scope
+# and the caller falls back to the host engine (ref. batch.py:40-43).
+# Never test find_first results by truthiness.
+FALLBACK = object()
 
 # positions are int32 on the device path (ROADMAP F6): the reverse scan
 # walks n + 32 symbols, and every position must stay below 2^31
@@ -86,23 +104,48 @@ def _empty_spans(device):
     return torch.zeros((16, 2), dtype=torch.int32, device=device)
 
 
+def _chop_runs(spans, mn: int, mx: int):
+    """([c]{m,k})+ whole-run form applied to maximal-run spans (ref.
+    batch.py:54-80): greedy k-chunks plus the remainder iff >= m, the
+    host path's arithmetic on hit-sized arrays.  Dead rows (end == start)
+    map to themselves."""
+    s, e = spans[:, 0], spans[:, 1]
+    r = (e - s) % mx
+    return torch.stack([s, e - torch.where(r < mn, r, 0)], dim=1)
+
+
 class BatchEngine:
     """Per-pattern batch plan + device artifacts on one torch device."""
 
-    # span limits of the reference (batch.py:484-492), kept at its values:
-    # the bidi families are all "sparse" families there (its 448 MiB
-    # DEVICE_SPANS_LIMIT governs pipelines not ported here)
+    # Span limits for one 80 GB H100 (the reference sized its own,
+    # batch.py:484-492, for a 16 GB chip).
+    #  * MAX_DEVICE_SPANS: a cap is an int in cgx_compact, and _bucket
+    #    rounds a total up to a power of two, so totals <= 2^30 keep every
+    #    cap <= 2^30.  A span then holds at most 16 bytes per cap slot on
+    #    the K8 path (two int32 position arrays + the stacked [cap, 2]
+    #    int32 spans), at most 32 bytes per span with the 2x bucketing:
+    #    16 GiB at the cap's 2^30 slots.  The corpus-sized masks beside it
+    #    (member, shifts, run starts and ends, empties, the two K8 masks:
+    #    about 8 bools per corpus byte) add 13 GiB at SPARSE_SPANS_LIMIT.
+    #  * DEVICE_SPANS_LIMIT (corpus bytes of the general nullable path): a
+    #    nullable pattern matches at most once per position plus once at
+    #    n, so n + 1 <= 2^30 keeps its total within MAX_DEVICE_SPANS.  Per
+    #    corpus byte it holds the int32 cover difference and its int32
+    #    running sum, three bool masks and the empty-position words (about
+    #    11 bytes: 11 GiB at 2^30); per cap slot the core spans (8 bytes),
+    #    the empty positions (4), the merged spans (8) and the merge's
+    #    int32 ranks and index arrays (12), 32 bytes: 32 GiB at 2^30.
+    #    With the core's own scan state (word tiles, flipped corpus,
+    #    symbol tiles: about 4 bytes per corpus byte) that is about 47 GiB.
     SPARSE_SPANS_LIMIT = 1600 * 1024 * 1024
-    MAX_DEVICE_SPANS = 128 * 1024 * 1024
+    MAX_DEVICE_SPANS = 2 ** 30
+    DEVICE_SPANS_LIMIT = 2 ** 30 - 1
     # plans whose find_all takes the bidirectional path: the bidi branches
     # of the reference's _prefix_family_spans_dev / _inner_family_spans_dev
     # and its FULL_SCAN builder (their candidate and INNER pipelines
     # behind the bidi path are not ported)
     _BIDI_FAMILIES = (Strategy.PREFIX_RUN, Strategy.PREFIX_SET,
                       Strategy.FULL_SCAN, Strategy.INNER)
-    # plans whose find_all runs on the device: the bidi families and the
-    # line shapes (all "sparse" families of the reference, :494-496)
-    _SPAN_FAMILIES = _BIDI_FAMILIES + (Strategy.LINE_SHAPE,)
 
     def __init__(self, parsed: Parsed, ast: Node, dfas_ok: bool, device,
                  longest: bool = False):
@@ -131,6 +174,7 @@ class BatchEngine:
         # without a count sync
         self._spans_cnt_cache = {}
         self._rev_hint_cache = {}   # corpus fp -> reverse-scan lane entries
+        self._core_engine = None    # lazy Engine over a nullable core
 
     def _decline(self, result=None):
         self.host_routes += 1
@@ -315,7 +359,7 @@ class BatchEngine:
         with self._lock:
             route = self._count_route(data)
             if route is None:
-                return self._decline()
+                return self._count_by_spans(data)
             kind, sc = route
             geom = plan_geometry(len(data))
             dev = device_corpus(data, self.device)
@@ -330,6 +374,17 @@ class BatchEngine:
                     c = sq.count(dev, seq_geometry(len(data), sq.M), tiles)
                 return c
             return sc.count(dev, geom, tiles)
+
+    def _count_by_spans(self, data: np.ndarray) -> Optional[int]:
+        """A nullable plan outside the transducer's gate counts its device
+        find_all when a find_all route serves the corpus (the reference
+        counts it from the span list of its device find_all, ref.
+        engine.py:337); else None (declined)."""
+        if (self.plan.strategy != Strategy.NULLABLE_CORE
+                or len(data) > self.SPARSE_SPANS_LIMIT
+                or self._spans_route(data) is None):
+            return self._decline()
+        return self.find_all_spans_device(data)[1]
 
     # -- single match: not on this slice ----------------------------------
     def is_match(self, data: np.ndarray):
@@ -355,33 +410,59 @@ class BatchEngine:
                               defer_ok: bool = False):
         """(spans [cap, 2] int32 on the device, count) or None (declined).
         With defer_ok=True returns (spans, count, ok): ok a device bool or
-        None (validated here), and on a warm call (a corpus with a cached
-        fingerprint) the count is a device scalar and no sync is paid for
-        the caps."""
+        None (validated here), and on a warm call of a family with a
+        count cache (a corpus with a cached fingerprint) the count is a
+        device scalar and no sync is paid for the caps."""
         n = len(data)
-        strat = self.plan.strategy
-        if (strat not in self._SPAN_FAMILIES or n == 0
-                or n > self.SPARSE_SPANS_LIMIT):
+        if n == 0 or n > self.SPARSE_SPANS_LIMIT:
             return self._decline(None)
         if n > MAX_CORPUS:
             raise ValueError(f"corpus of {n} bytes exceeds the int32 "
                              f"position range ({MAX_CORPUS})")
+        route = self._spans_route(data)
+        if route is None:
+            return self._decline(None)
+        kind, args = route
         fp = _fingerprint(data)
         known = self._spans_cnt_cache.get(fp) if defer_ok else None
         with self._lock:
-            if strat == Strategy.LINE_SHAPE:
-                route = self._line_spans_route()
-                if route is None:
-                    return self._decline(None)
-                spans, cnt, ok = self._line_shape_spans_dev(route, data,
+            if kind == "line":
+                spans, cnt, ok = self._line_shape_spans_dev(args, data,
                                                             known, fp)
-            else:
-                route = self._bidi_route(corpus_is_ascii(data, self.device))
-                if route is None:
-                    return self._decline(None)
-                spans, cnt, ok = self._bidi_spans_dev(*route, data, known,
+            elif kind == "bidi":
+                spans, cnt, ok = self._bidi_spans_dev(*args, data, known,
                                                       fp)
+            elif kind == "charclass":
+                spans, cnt, ok = self._charclass_spans_dev(args, data,
+                                                           known, fp)
+            elif kind == "nullable_k8":
+                spans, cnt, ok = self._nullable_spans_dev(args, data)
+            else:
+                spans, cnt, ok = self._nullable_general_spans_dev(
+                    args, data)
         return (spans, cnt, ok) if defer_ok else (spans, cnt)
+
+    def _spans_route(self, data: np.ndarray):
+        """(kind, args) of the find_all route serving this corpus, or None
+        (declined); host work only, the corpus is not uploaded.  Callers
+        check the size limits."""
+        strat = self.plan.strategy
+        if self.longest:
+            return None
+        if strat == Strategy.LINE_SHAPE:
+            route = self._line_spans_route()
+            return None if route is None else ("line", route)
+        if strat in self._BIDI_FAMILIES:
+            route = self._bidi_route(corpus_is_ascii(data, self.device))
+            return None if route is None else ("bidi", route)
+        if strat == Strategy.CHARCLASS:
+            cc = self.plan.charclass
+            plain = cc.min == 1 and cc.max == -1 and not cc.plus
+            # general {m,k} chopping: host (ref. batch.py:721-722)
+            return ("charclass", cc) if plain or cc.plus else None
+        if strat == Strategy.NULLABLE_CORE:
+            return self._nullable_route(data)
+        return None
 
     # -- line-shape span path -------------------------------------------------
     def _line_spans_route(self):
@@ -540,3 +621,139 @@ class BatchEngine:
                                    "its consistency check")
             return spans, total, None
         return spans, cnt_d, ok
+
+    # -- class runs (CHARCLASS) ----------------------------------------------
+    def _charclass_spans_dev(self, cc, data, known_cnt, fp):
+        """(spans, count, ok) of a [class]+ or ([class]{m,k})+ plan (ref.
+        batch.py:710-742): run masks packed to words, one sync for the run
+        count, then two sparse chains when runs are sparse, else one K4
+        compaction per full mask; the {m,k}+ chopping is hit-sized torch.
+        Warm: the cached count sizes the caps, count and ok stay on the
+        device."""
+        n = len(data)
+        dev = device_corpus(data, self.device)
+        plain = cc.min == 1 and cc.max == -1 and not cc.plus
+        mmin = cc.min if (cc.plus and cc.min > 1) else 1
+        ranges = table_to_ranges(np.array(cc.table, dtype=bool))
+        ws, we, cs_d, _ce = class_run_words(dev, ranges, mmin)
+        if known_cnt is None:
+            cnt = int(cs_d)
+            self._spans_cnt_cache[fp] = cnt
+        else:
+            cnt = known_cnt
+        if cnt == 0:
+            return _empty_spans(self.device), 0, None
+        if cnt > self.MAX_DEVICE_SPANS:
+            raise ValueError(f"{cnt} runs exceed the device span limit "
+                             f"({self.MAX_DEVICE_SPANS})")
+        cap = _bucket(cnt, 16)
+        if cnt / n < SPARSE_OK:
+            spans, _c, ok = pair_spans_sparse(ws, we, n, n, cap,
+                                              end_adjust=1)
+        else:
+            del ws, we
+            spans, ok = self._charclass_dense_pair(dev, ranges, mmin, cap,
+                                                   cs_d)
+        if not plain:
+            spans = _chop_runs(spans, cc.min, cc.max)
+        if known_cnt is None:
+            if not bool(ok):
+                raise RuntimeError("class-run span assembly failed its "
+                                   "consistency check")
+            return spans, cnt, None
+        return spans, cs_d, ok
+
+    @staticmethod
+    def _charclass_dense_pair(dev, ranges, mmin, cap, cnt):
+        """Dense runs (ref. batch.py:744-758): one K4 compaction over each
+        full mask, for corpora where the chain's levels would hold nearly
+        every word."""
+        smask, emask = class_run_masks_dense(dev, ranges, mmin)
+        starts, _c1, ok1 = compact_pay(smask, (), cap)
+        lasts, _c2, ok2 = compact_pay(emask, (), cap)
+        live = torch.arange(cap, dtype=torch.int32, device=dev.device) < cnt
+        ends = torch.where(live, lasts + 1, starts)
+        return torch.stack([starts, ends], dim=1), ok1 & ok2
+
+    # -- nullable patterns (NULLABLE_CORE) ------------------------------------
+    def _core(self):
+        """Lazy Engine over the non-empty core projection on this engine's
+        device (ref. batch.py:2467-2476); its own plan and routes serve
+        the core's find_all."""
+        if self._core_engine is None:
+            from .engine import Engine
+            sub = Parsed(self.plan.core_ast, 0, [],
+                         self.parsed.pattern + "<core>")
+            self._core_engine = Engine(sub, longest=False,
+                                       device=self.device)
+        return self._core_engine
+
+    def _nullable_route(self, data: np.ndarray):
+        """("nullable_k8", class shape) for a [class]+ core on an ASCII
+        corpus; ("nullable", (core BatchEngine, ASCII verdict)) when the
+        core's own find_all route serves the corpus; else None.  A
+        LITERAL or MULTI_LITERAL core (ROADMAP M3) and a {m,k} class core
+        decline."""
+        core_be = self._core().batch_engine()
+        cc = core_be.plan.charclass
+        ascii_ok = corpus_is_ascii(data, self.device)
+        if (core_be.plan.strategy == Strategy.CHARCLASS and cc.min == 1
+                and cc.max == -1 and not cc.plus and ascii_ok):
+            return "nullable_k8", cc
+        n = len(data)
+        if n < 4 or n > self.DEVICE_SPANS_LIMIT:
+            return None
+        if core_be._spans_route(data) is None:
+            return None
+        return "nullable", (core_be, ascii_ok)
+
+    def _nullable_spans_dev(self, cc, data):
+        """(spans, count, None) for a [class]+ core on an ASCII corpus
+        (ref. batch.py:589-633): the matches form an aligned mask pair,
+        starts = run starts and accepted empties, ends = run ends + 1 and
+        the same empties, disjoint and strictly interleaved, so two K8
+        compactions assemble the span list with no sort.  Empties sit at
+        the positions that are neither members nor a run's exclusive end;
+        ASCII makes every position a rune boundary."""
+        smask, emask = nullable_class_masks(
+            device_corpus(data, self.device), np.array(cc.table, dtype=bool))
+        total = int(mask_count(smask))
+        if total == 0:
+            return _empty_spans(self.device), 0, None
+        if total > self.MAX_DEVICE_SPANS:
+            raise ValueError(f"{total} matches exceed the device span "
+                             f"limit ({self.MAX_DEVICE_SPANS})")
+        cap = _bucket(total, 16)
+        starts, cs = compact_positions(smask, cap)
+        del smask
+        ends, ce = compact_positions(emask, cap)
+        del emask
+        if int(cs) != int(ce):
+            raise RuntimeError("nullable mask pair is not aligned")
+        return torch.stack([starts, ends], dim=1), total, None
+
+    def _nullable_general_spans_dev(self, args, data):
+        """(spans, count, None) for general cores and UTF-8 corpora (ref.
+        batch.py:635-676): the core's spans from the core engine's own
+        device route, the empty fill as device algebra, one chain
+        compaction of the empty positions and a searchsorted merge."""
+        core_be, ascii_ok = args
+        n = len(data)
+        spans_c, cnt_c = core_be.find_all_spans_device(data)
+        dev = device_corpus(data, self.device)
+        Bw, ne_d = nullable_fill_words(spans_c, cnt_c, dev, ascii_ok)
+        ne = int(ne_d)
+        total = cnt_c + ne
+        if total > self.MAX_DEVICE_SPANS:
+            raise ValueError(f"{total} matches exceed the device span "
+                             f"limit ({self.MAX_DEVICE_SPANS})")
+        if ne == 0:
+            return spans_c, cnt_c, None
+        emp_pos, ke, ok = sparse_positions_words(Bw, n + 1, _bucket(ne, 16))
+        del Bw
+        if not bool(ok & (ke == ne)):
+            raise RuntimeError("empty-position chain failed its "
+                               "consistency check")
+        spans, total = nullable_merge(spans_c, cnt_c, emp_pos, ne, n,
+                                      _bucket(total, 16))
+        return spans, total, None

@@ -1,10 +1,13 @@
-"""Byte-scan helpers; ports ``_bucket`` (:20) and ``_memmem_mask`` (:164)
-of ``coregex_tpu/ops/bytescan.py``."""
+"""Byte-scan helpers; ports ``_bucket`` (:20), ``mask_count`` (:28),
+``_memmem_mask`` (:164), ``table_to_ranges`` (:314),
+``_class_mask_from_table`` (:330) and ``_range_mask`` (:337) of
+``coregex_tpu/ops/bytescan.py``."""
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Sequence, Tuple
 
+import numpy as np
 import torch
 
 
@@ -14,6 +17,11 @@ def _bucket(x: int, lo: int = 16) -> int:
     while b < x:
         b *= 2
     return b
+
+
+def mask_count(mask: torch.Tensor) -> torch.Tensor:
+    """Set entries of a mask, as a 0-dim int32 tensor on its device."""
+    return mask.sum(dtype=torch.int32)
 
 
 def _memmem_mask(data: torch.Tensor, needle: Sequence[int]) -> torch.Tensor:
@@ -29,3 +37,36 @@ def _memmem_mask(data: torch.Tensor, needle: Sequence[int]) -> torch.Tensor:
     for i in range(1, k):
         acc[:m] &= data[i:i + m] == needle[i]
     return acc
+
+
+def table_to_ranges(table) -> Tuple[Tuple[int, int], ...]:
+    """256-entry membership table -> inclusive byte ranges."""
+    ranges = []
+    b = 0
+    while b < 256:
+        if table[b]:
+            e = b
+            while e + 1 < 256 and table[e + 1]:
+                e += 1
+            ranges.append((b, e))
+            b = e + 1
+        else:
+            b += 1
+    return tuple(ranges)
+
+
+def _range_mask(data: torch.Tensor, ranges) -> torch.Tensor:
+    """[n] bool: the byte lies in one of the inclusive `ranges`."""
+    acc = torch.zeros(data.shape, dtype=torch.bool, device=data.device)
+    for lo, hi in ranges:
+        if lo == hi:
+            acc |= data == lo
+        else:
+            acc |= (data >= lo) & (data <= hi)
+    return acc
+
+
+def _class_mask_from_table(data: torch.Tensor, table: np.ndarray):
+    """Membership via range compares: the 256-entry table is decomposed
+    into its byte ranges on the host."""
+    return _range_mask(data, table_to_ranges(table))

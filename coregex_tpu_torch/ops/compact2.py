@@ -2,7 +2,8 @@
 
 Ports ``coregex_tpu/ops/compact2.py``: ``compact_pay`` (:316-344) with the
 contract of ``_compact_pay_xla`` (:292-308), ``pack_words`` (:351),
-``sparse_chain_payloads`` and ``_chain_pay_body`` (:517-588), and
+``sparse_chain_payloads`` and ``_chain_pay_body`` (:517-588),
+``sparse_positions_words`` with ``_chain_body`` (:374-435), and
 ``_bucket_up`` (:402).  For CUDA tensors
 ``compact_pay`` launches ``csrc/compact.cu`` at every size (the reference
 sends inputs below 4 blocks to XLA); for CPU tensors it runs the plain
@@ -152,8 +153,10 @@ def _chain_pay_body(evw, wordpays, n: int, cap: int):
     pos3 = bbase_c[:, None] + j8
     _, pos, cnt, ok3 = compact_pay(m3.reshape(-1), [pos3.reshape(-1)], cap)
     live_o = torch.arange(cap, device=dev) < cnt
-    word = torch.where(live_o, pos >> 5, 0).long()
-    pays = [torch.where(live_o, q[word], 0) for q in wordpays]
+    pays = []
+    if wordpays:
+        word = torch.where(live_o, pos >> 5, 0).long()
+        pays = [torch.where(live_o, q[word], 0) for q in wordpays]
     pos = torch.where(live_o, pos, n)
     return (pos, *pays, cnt, ok1 & ok2 & ok3)
 
@@ -172,3 +175,12 @@ def sparse_chain_payloads(event_words, word_payloads, n: int, cap: int):
         evw = torch.cat([evw, z])
         pays = [torch.cat([p, z]) for p in pays]
     return _chain_pay_body(evw, pays, n, cap)
+
+
+def sparse_positions_words(words, n: int, cap: int):
+    """Set-bit positions of int32 `words` (ref. sparse_positions_words
+    :414-435 with _chain_body :374-399): the sparse chain with no word
+    payloads, three K4 compactions.  `cap` must bound the hit count (ok
+    is False and the result truncated otherwise).  Returns (pos[cap],
+    cnt, ok); pos holds n past cnt."""
+    return sparse_chain_payloads(words, [], n, cap)

@@ -28,9 +28,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from coregex_tpu.dfa.countdfa import CountDFA
-from coregex_tpu.dfa.dense import CTX_NL, CTX_OTHER, CTX_SOT, CTX_WORD
-
+from ..dfa.countdfa import CountDFA
+from ..dfa.dense import CTX_NL, CTX_OTHER, CTX_SOT, CTX_WORD
 from . import _build
 
 MODE_COUNT, MODE_SPAN, MODE_FLAG = 0, 1, 2

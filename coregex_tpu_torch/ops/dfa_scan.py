@@ -16,8 +16,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from coregex_tpu.dfa.dense import DenseDFA
-
+from ..dfa.dense import DenseDFA
 from .bytescan import _bucket
 
 

@@ -24,8 +24,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from coregex_tpu.dfa.dense import DEAD, DenseDFA
-
+from ..dfa.dense import DEAD, DenseDFA
 from .count_scan import (MODE_FLAG, LaunchCounter, device_table,
                          lane_walk, make_word_tiles, plan_geometry,
                          repair_fixpoint, require_fits, settled)

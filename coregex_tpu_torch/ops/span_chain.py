@@ -6,9 +6,14 @@ the plain function ``line_cand_spans``, ``line_spans_candidates``
 (:421-435), ``_floor_log2`` (:464), ``cummax_fast`` (:476),
 ``_word_lastpos_table`` (:494), ``_ctz32`` (:504), ``_word_nextpos_table``
 (:515), ``inner_flag_arrays_words`` (:603), ``_fit_words`` (:694),
-``bidi_ends`` (:703-761) and ``bidi_assemble`` (:766-804).  The JAX package computes these
-in XLA outside any Pallas kernel; here they are plain torch tensor code
-around the K4 compactions of ``sparse_chain_payloads``.  ``_dev_i32``
+``bidi_ends`` (:703-761), ``bidi_assemble`` (:766-804), the class-run
+producers ``class_run_words`` (:72) and ``class_run_masks_dense`` (:97),
+``pair_spans_sparse`` with ``_pair_spans_jit`` (:966-994), and the nullable
+fill ``_rune_boundaries`` (:835), ``nullable_fill_words`` (:866) and
+``nullable_merge`` (:895).  The JAX package computes these in XLA outside
+any Pallas kernel; here they are plain torch tensor code around the K4
+compactions of ``sparse_chain_payloads``.  ``cumsum_i32_fast`` (:819) is an
+XLA workaround; ``torch.cumsum`` is its natural form here.  ``_dev_i32``
 (:945) caches device scalars to avoid host-to-device transfers; torch
 passes host ints to its kernels as arguments, so it has no counterpart.
 
@@ -33,10 +38,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .bytescan import _memmem_mask
+from .bytescan import _class_mask_from_table, _memmem_mask, _range_mask, \
+    mask_count
 from .compact2 import _bucket_up, compact_pay, pack_words, \
-    sparse_chain_payloads
+    sparse_chain_payloads, sparse_positions_words
 from .span_scan import LOW_MASK
+
+# sparse-chain crossover (hits / n) of the reference (span_chain.py:39):
+# below it the chain wins, above it callers take their dense single-level
+# compactions
+SPARSE_OK = 1.0 / 18
 
 # EOI kinds (dfa/countdfa.py)
 _EOI_EXTEND = 1
@@ -316,3 +327,155 @@ def line_spans_candidates(words, n: int, cap: int, mode: str,
     return line_cand_spans(_fit_words(candw, nwb), _fit_words(nlw, nwb),
                            _fit_words(lspw, nwb), n, nwb, cap, mode,
                            anchored, k, plen)
+
+
+# ---------------------------------------------------------------------------
+# Class runs
+# ---------------------------------------------------------------------------
+
+def class_run_masks_dense(dev, ranges, mmin: int):
+    """(smask, emask) [n] bool: the first and the LAST member position of
+    each maximal run of the class of length >= mmin."""
+    mask = _range_mask(dev, ranges)
+    n = int(mask.shape[0])
+    smask = mask.clone()
+    smask[1:] &= ~mask[:-1]
+    emask = mask.clone()
+    emask[:-1] &= ~mask[1:]
+    if mmin > 1:
+        # a run start needs mmin members from it on, a run end mmin
+        # members up to it
+        ok_fwd = mask.clone()
+        ok_bwd = mask.clone()
+        for j in range(1, mmin):
+            s = min(j, n)
+            ok_fwd[:n - s] &= mask[s:]
+            ok_fwd[n - s:] = False
+            ok_bwd[s:] &= mask[:n - s]
+            ok_bwd[:s] = False
+        smask &= ok_fwd
+        emask &= ok_bwd
+    return smask, emask
+
+
+def class_run_words(dev, ranges, mmin: int):
+    """(start words, end words, start count, end count) of the class runs
+    of class_run_masks_dense, packed to the power-of-two word bucket for
+    the sparse chain."""
+    n = int(dev.shape[0])
+    smask, emask = class_run_masks_dense(dev, ranges, mmin)
+    return (_pad_pack(smask, n), _pad_pack(emask, n), mask_count(smask),
+            mask_count(emask))
+
+
+def pair_spans_sparse(words_s, words_e, ns: int, ne: int, cap: int,
+                      end_adjust: int = 0):
+    """Two chains zipped into spans: (spans [cap, 2], count, ok).  ns / ne
+    are the mask domains (their positions' sentinels); end_adjust is added
+    to live ends (a class run's end words mark its LAST member).  ok
+    checks both chains, equal counts, start < end and end <= next
+    start."""
+    starts, cs, ok1 = sparse_positions_words(words_s, ns, cap)
+    ends, ce, ok2 = sparse_positions_words(words_e, ne, cap)
+    idx = torch.arange(cap, dtype=torch.int32, device=starts.device)
+    live = idx < cs
+    if end_adjust:
+        ends = torch.where(live, ends + end_adjust, ends)
+    ok = ok1 & ok2 & (cs == ce) & torch.where(live, starts < ends,
+                                              True).all()
+    nxt = torch.cat([starts[1:], torch.full((1,), _POS_BIG,
+                                            dtype=torch.int32,
+                                            device=starts.device)])
+    ok = ok & torch.where(idx < cs - 1, ends <= nxt, True).all()
+    ends = torch.where(live, ends, starts)
+    return torch.stack([starts, ends], dim=1), cs, ok
+
+
+# ---------------------------------------------------------------------------
+# Nullable fill-in
+# ---------------------------------------------------------------------------
+# FindAll(R) = FindAll(core) + an empty match at every Go rune boundary not
+# covered by a core span and not equal to a core span's end (the
+# factorization of meta/nullable.py, host twin fill_empties).
+
+def _rune_boundaries(dev, n: int):
+    """[n+1] bool twin of meta/nullable.py:rune_boundary_mask: position p
+    is a boundary unless a valid 2-, 3- or 4-byte UTF-8 sequence started
+    before p runs past it (callers gate n >= 4)."""
+    d = dev
+    pad = torch.cat([d, torch.zeros(3, dtype=d.dtype, device=d.device)])
+    cont = (pad & 0xC0) == 0x80
+    s2 = pad[1:n + 1]
+    c2, c3, c4 = cont[1:n + 1], cont[2:n + 2], cont[3:n + 3]
+    two = (d >= 0xC2) & (d <= 0xDF) & c2
+    three = (((d == 0xE0) & (s2 >= 0xA0) & (s2 <= 0xBF))
+             | ((d >= 0xE1) & (d <= 0xEC) & c2)
+             | ((d == 0xED) & (s2 >= 0x80) & (s2 <= 0x9F))
+             | ((d >= 0xEE) & (d <= 0xEF) & c2)) & c3
+    four = (((d == 0xF0) & (s2 >= 0x90) & (s2 <= 0xBF))
+            | ((d >= 0xF1) & (d <= 0xF3) & c2)
+            | ((d == 0xF4) & (s2 >= 0x80) & (s2 <= 0x8F))) & c3 & c4
+    t = torch.ones(3, dtype=torch.bool, device=d.device)
+    b1 = torch.cat([t[:1], ~(two | three | four)])
+    m3 = torch.cat([t[:2], ~(three | four)[:n - 1]])
+    m4 = torch.cat([t, ~four[:n - 2]])
+    return b1 & m3 & m4
+
+
+def nullable_class_masks(dev, table):
+    """(smask, emask) [n+1] bool of a nullable pattern whose core is
+    [class]+, on an ASCII corpus: starts are run starts and accepted
+    empties, ends are exclusive run ends and the same empties.  An empty
+    match sits at every position that is neither a member nor a run's
+    exclusive end (ref. batch.py:615-624)."""
+    n = int(dev.shape[0])
+    member = torch.zeros(n + 1, dtype=torch.bool, device=dev.device)
+    member[:n] = _class_mask_from_table(dev, table)
+    prev = torch.zeros_like(member)
+    prev[1:] = member[:-1]
+    runend1 = prev & ~member
+    empties = ~(member | runend1)
+    return (member & ~prev) | empties, runend1 | empties
+
+
+def nullable_fill_words(spans_c, cnt_c: int, dev, ascii_only: bool):
+    """(empty-position words over the [n+1] domain, padded to the word
+    bucket; empty count as a 0-dim device tensor): rune boundaries minus
+    the positions core spans cover minus core span ends.  Only the cnt_c
+    live core spans are read; the reference marks dead ones with
+    2^30, which lands inside the domain past 2^30 bytes (ROADMAP F2)."""
+    n = int(dev.shape[0])
+    S = spans_c[:cnt_c, 0].long()
+    E = spans_c[:cnt_c, 1].long()
+    if ascii_only:
+        B = torch.ones(n + 1, dtype=torch.bool, device=dev.device)
+    else:
+        B = _rune_boundaries(dev, n)
+    diff = torch.zeros(n + 1, dtype=torch.int32, device=dev.device)
+    one = torch.ones(cnt_c, dtype=torch.int32, device=dev.device)
+    diff.index_add_(0, S, one)
+    diff.index_add_(0, E, -one)      # E <= n: core spans end in the corpus
+    B &= torch.cumsum(diff, 0, dtype=torch.int32) == 0
+    del diff
+    B[E] = False
+    return _pad_pack(B, n + 1), mask_count(B)
+
+
+def nullable_merge(spans_c, cnt_c: int, emp_pos, ne: int, n: int,
+                   capT: int):
+    """Interleave the cnt_c core spans with the ne empty matches by
+    position (the searchsorted twin of meta/nullable.py:fill_empties).
+    Positions are distinct: an empty match never lies inside or at the
+    start of a core span.  Returns (spans [capT, 2] with [n, n] past the
+    total, total)."""
+    S = spans_c[:cnt_c, 0].contiguous()
+    emp = emp_pos[:ne].contiguous()
+    dev = emp_pos.device
+    pos_core = (torch.arange(cnt_c, dtype=torch.int32, device=dev)
+                + torch.searchsorted(emp, S, out_int32=True))
+    pos_emp = (torch.arange(ne, dtype=torch.int32, device=dev)
+               + torch.searchsorted(S, emp, out_int32=True))
+    out = torch.full((capT, 2), n, dtype=torch.int32, device=dev)
+    out[pos_core] = spans_c[:cnt_c]
+    out[pos_emp] = emp[:, None].expand(ne, 2)
+    return out, cnt_c + ne

@@ -16,9 +16,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from coregex_tpu.dfa.countdfa import CountDFA
-from coregex_tpu.dfa.dense import CTX_SOT
-
+from ..dfa.countdfa import CountDFA
+from ..dfa.dense import CTX_SOT
 from .count_scan import (MODE_SPAN, DeviceCountDFA, LaunchCounter,
                          device_table, first_pass_inputs, lane_walk,
                          make_word_tiles, plan_geometry, repair_fixpoint,

@@ -10,9 +10,9 @@ The ASCII verdict is computed on the host, once per entry, before anything
 is uploaded: callers decide from it which tables serve the corpus, and a
 call the device path does not serve never uploads the corpus.
 
-Fingerprint contract (ROADMAP F5): the key is the reference's
-``_fingerprint``, which samples 64 bytes plus the first and last 32 bytes
-and the length, not a hash of the whole buffer.  Two corpora of one length
+Fingerprint contract (ROADMAP F5): the key is ``_fingerprint`` (a copy of
+the reference's, :25-33), which samples 64 bytes plus the first and last 32
+bytes and the length, not a hash of the whole buffer.  Two corpora of one length
 that agree on every sampled byte share an entry, so a caller that mutates a
 corpus in place between calls can be served the stale buffer and verdict.
 Corpora are treated as immutable during searches.
@@ -27,10 +27,19 @@ from typing import Callable, Hashable
 import numpy as np
 import torch
 
-from coregex_tpu.utils.corpus_cache import _fingerprint
-
 _MAX_ENTRIES = 4
 _MAX_TILES = 3      # derived tile sets kept per entry (LRU within the entry)
+
+
+def _fingerprint(arr: np.ndarray) -> tuple:
+    n = len(arr)
+    if n == 0:
+        return (0,)
+    step = max(1, n // 64)
+    sample = bytes(arr[::step][:64].tobytes())
+    head = bytes(arr[:32].tobytes())
+    tail = bytes(arr[-32:].tobytes())
+    return (n, hash(sample), hash(head), hash(tail))
 
 
 class _Entry:

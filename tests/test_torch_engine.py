@@ -194,8 +194,8 @@ def test_declines_are_counted_and_served_by_host():
 
 def test_nullable_count_utf8_gate():
     """Nullable plans count through the empty-match transducer on ASCII
-    corpora; a multi-byte UTF-8 lead declines to the host loop.  (Python's
-    re is no oracle here: it admits an empty match right after a
+    corpora; past a multi-byte UTF-8 lead they count the device find_all.
+    (Python's re is no oracle here: it admits an empty match right after a
     non-empty one, Go does not.)"""
     pattern = r"\w*"
     eng = ct.compile(pattern, device="cpu")
@@ -206,10 +206,10 @@ def test_nullable_count_utf8_gate():
     assert eng.batch_engine().host_routes == 0
     u = t[:16500] + "é".encode() + t[16500:]
     assert eng.count(u) == ref_ct.compile(pattern).count(u)
-    # two declines: the count, then the span call of the host loop that
-    # serves it (the gate is asked once, not a second time)
+    # no decline: the gate sends the count to the device find_all (and
+    # is asked once)
     be = eng.batch_engine()
-    assert be.host_routes == 2
+    assert be.host_routes == 0
     asked = []
     route = be._count_route
     be._count_route = lambda d: asked.append(1) or route(d)
