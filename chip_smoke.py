@@ -16,7 +16,10 @@ Phases (any failure exits non-zero before the final line):
                2^26-entry masks, and the sparse chain with 3 and 5 word
                payloads at the 2^26-word shape of its first level; the
                position compaction (K8) on 2^22-entry masks and on the
-               start mask of `\w*` over the 1536 MiB corpus (cap 2^30)
+               start mask of `\w*` over the 1536 MiB corpus (cap 2^30);
+               the match scan (K9) on the 4 MiB sample (break-at-match
+               DFAs) and on the whole corpus (`\s\d\s`, fwd_all); the
+               window-flag scan on 2^16 random starts at W = 256
   4. e2e     - the public API on a 1536 MiB log corpus (the JAX package's
                bench corpus), in two runs, each with the launch counts set
                to 0 before it and read after it.  Earlier slices: count for
@@ -33,9 +36,21 @@ Phases (any failure exits non-zero before the final line):
                largest whole-tile corpus the span limits admit, against
                the Go-rule oracle (re's matches less each empty match that
                abuts the previous one; the tiling checked on two tiles);
-               find_all_index on a one- or two-tile slice
+               find_all_index on a one- or two-tile slice.  Single match:
+               is_match and find_index (first call, then best of 2) of the
+               13 bench patterns, `\s\d\s`, `(a|b)+c`, `\s\d+\s` and `a\b`
+               (FULL_SCAN; the last two match the bench corpus),
+               `\d+$` (END_ANCHORED) and `\w*` (nullable) on three
+               corpora: the bench corpus (early match), spaces then a
+               newline then one base tile (late match) and spaces only (no
+               match), each of its own length, against `re` on windows
+               whose bounds no match can cross (the filler checked with re
+               to hold no match but the nullable one); and the re-tiling of
+               find_first's prefixes, timed
   5. routes  - every kernel K1-K7 was launched in the first run, K1-K4 and
-               K8 in the second, and no call was declined to the host loop
+               K8 in the second, K9 and the window scan in the third, and
+               no call was declined to the host loop but the nullable
+               find_index (the reference's FALLBACK, by design)
 
 The line before the last is a JSON object of per-kernel results; the last
 line is {"ok": true, "device": {...}}.  Imports no jax.
@@ -128,7 +143,15 @@ CLASS_NULLABLE = [("charclass_w", r"[\w]+", "full"),
                   ("word_star", r"\w*", "full"),
                   ("ip_opt", r"(\d+\.\d+\.\d+\.\d+)?", "limit"),
                   ("php_opt", r"(?m)(^/.*\.php)?", "limit")]
-PATTERNS = dict(CONFIGS + EXTRA_COUNTS
+# the single-match slice: the bench patterns and these
+SINGLE_EXTRA = [("ws_digit_ws", r"\s\d\s"), ("ab_plus_c", r"(a|b)+c"),
+                ("ws_digits_ws", r"\s\d+\s"), ("a_word_end", r"a\b"),
+                ("digits_end", r"\d+$"), ("word_star", r"\w*")]
+# Go's `$` outside (?m) matches only at the end of the text; Python's also
+# before a final newline
+ORACLE_RE = {r"\d+$": rb"\d+\Z"}
+FILLER = 0x20       # the late and no-match corpora's filler byte
+PATTERNS = dict(CONFIGS + EXTRA_COUNTS + SINGLE_EXTRA
                 + [(nm, p) for nm, p, _ in CLASS_NULLABLE])
 DEVICE = "cuda"
 CORPUS_MIB = 1536
@@ -272,8 +295,9 @@ def phase_kernels(base: bytes, corpus: np.ndarray):
     import torch
     import coregex_tpu_torch as ct
     from coregex_tpu_torch.ops import count_scan as cs
-    from coregex_tpu_torch.ops import (compact, compact2, flag_scan,
-                                       line_scan, seq_scan, span_chain)
+    from coregex_tpu_torch.ops import (compact, compact2, dfa_scan,
+                                       flag_scan, line_scan, seq_scan,
+                                       span_chain)
     from coregex_tpu_torch.ops.bytescan import _bucket
     from coregex_tpu_torch.ops.compact2 import _bucket_up
     from coregex_tpu_torch.ops.flag_scan import DEAD
@@ -537,8 +561,89 @@ def phase_kernels(base: bytes, corpus: np.ndarray):
                 reps=3, headline=cap < 1 << 30, in_bytes=smask.numel(),
                 library=lambda: torch.nonzero(smask))
     del smask
+
+    # K9 over break-at-match DFAs on the 4 MiB sample (the lanes after a
+    # match die: the fixpoint's dead cut), then over the fwd_all DFA of
+    # `\s\d\s` on the whole corpus, the shape of a FULL_SCAN is_match
+    def match_kernel(name, kind, data, label, headline):
+        n = int(data.shape[0])
+        L, T, W, _ = cs.plan_geometry(n)
+        tiles = cs.make_word_tiles(data, L, T // 4)
+        sc = ct.compile(PATTERNS[name], device=DEVICE).batch_engine() \
+            ._chunk_scanner(kind)
+        if sc is None:
+            fail(f"{name}: no {kind} match tables")
+        mt = sc.mt
+        e0, o0, lim = cs.first_pass_inputs(mt.starts, data, n, L, T, W)
+        args = (mt.packed, mt.segmap, tiles, W // 4, e0, o0, lim)
+        compare("match_scan", label,
+                lambda: cs.lane_walk_cuda(cs.MODE_MATCH, *args),
+                lambda: cs.lane_walk_plain(cs.MODE_MATCH, *args),
+                headline=headline, in_bytes=nbytes(*args))
+
+    for name in ("inner_keyword", "email", "ip"):
+        match_kernel(name, "fwd_break", sample, f"{name} fwd_break 4 MiB",
+                     False)
+    data = torch.from_numpy(corpus).to(dev)
+    match_kernel("ws_digit_ws", "fwd_all", data,
+                 f"\\s\\d\\s {CORPUS_MIB} MiB", True)
+
+    # the window-flag scan: 2^12 starts read forwards on the sample, then
+    # 2^16 starts over the whole corpus read backwards (find_first's
+    # reverse start search) under the anchored reverse DFA of
+    # `.*keyword.*`, half of them with random edge limits
+    rev = ct.compile(PATTERNS["inner_keyword"], device=DEVICE) \
+        .batch_engine()._chunk_scanner("rev_anch")
+    g = torch.Generator(device=dev).manual_seed(11)
+    for d, B, Ww, reverse, headline in ((sample, 1 << 12, 64, False, False),
+                                        (data, 1 << 16, 256, True, True)):
+        n = int(d.shape[0])
+        starts = torch.randint(0, n + 1, (B,), generator=g, device=dev,
+                               dtype=torch.int32)
+        edge = torch.full((B,), n, dtype=torch.int32, device=dev)
+        edge[B // 2:] = (starts[B // 2:].long() + torch.randint(
+            0, 2 * Ww, (B - B // 2,), generator=g, device=dev)).clamp(
+                max=n).to(torch.int32)
+        wargs = dfa_scan.window_args(rev.mt, d, starts, edge, Ww, reverse)
+        reads = window_reads(*wargs)
+        compare("window_scan",
+                f"2^{B.bit_length() - 1} starts W={Ww} "
+                f"{'reverse' if reverse else 'forward'} {n / 2 ** 20:.0f} MiB",
+                lambda: dfa_scan.window_flags_cuda(*wargs),
+                lambda: dfa_scan.window_flags_plain(*wargs),
+                headline=headline,
+                in_bytes=reads + nbytes(starts, edge, *wargs[:4]))
+    del data
     torch.cuda.empty_cache()
     return results
+
+
+def window_reads(packed, segmap, eoi, starts_tbl, data, reverse, starts,
+                 edge, W) -> int:
+    """Corpus bytes a window-flag scan must read: one for each step a lane
+    takes while it lives inside its window (the walk of
+    dfa_scan.window_flags_plain, counting steps)."""
+    import torch
+    from coregex_tpu_torch.ops.count_scan import _byte_ctx
+    n = int(data.shape[0])
+    nseg = int(packed.shape[1])
+    tbl, seg = packed.reshape(-1).long(), segmap.long()
+
+    def byte_at(j):
+        j = j.clamp(0, n - 1)
+        return data[n - 1 - j if reverse else j].long()
+
+    st0 = starts.long()
+    cut = edge.long().clamp(max=n)
+    s = starts_tbl.long()[torch.where(st0 == 0, 0,
+                                      _byte_ctx(byte_at(st0 - 1)))]
+    reads = torch.zeros((), dtype=torch.int64, device=data.device)
+    for t in range(W):
+        pos = st0 + t
+        step = (pos < cut) & (s != 0)         # DEAD is state 0
+        reads += step.sum()
+        s = torch.where(step, tbl[s * nseg + seg[byte_at(pos)]] >> 5, 0)
+    return int(reads)
 
 
 def chain_plain(evw, wpays, n: int, cap: int):
@@ -760,6 +865,111 @@ def phase_e2e_class_nullable(base: bytes, arr: np.ndarray):
     return routes
 
 
+def single_corpora(base: bytes, corpus: np.ndarray):
+    """The single-match corpora, each of its own length (the corpus cache
+    keys on length, head, tail and 64 sampled bytes, ROADMAP F5): the bench
+    corpus (early match); spaces, a newline and one base tile (late
+    match); spaces only (no match)."""
+    n = CORPUS_MIB * 1024 * 1024
+    late = np.full(n - 1, FILLER, dtype=np.uint8)
+    late[-len(base) - 1] = 10
+    late[-len(base):] = np.frombuffer(base, dtype=np.uint8)
+    return [("early", corpus), ("late", late),
+            ("none", np.full(n - 2, FILLER, dtype=np.uint8))]
+
+
+def oracle_first(pattern: str, which: str, arr: np.ndarray, base: bytes):
+    """Go's leftmost-first span of `pattern` in a single-match corpus, from
+    `re` on windows whose bounds no match can cross: the end for
+    end-anchored patterns, the head for the nullable one, one tile (plus
+    the next tile's head, and no match may reach past the tile) for the
+    bench corpus, the newline and base tile after the spaces for the late
+    corpus (a match there must not start at the window's first byte), none
+    for the spaces (checked on 4 KiB of them before)."""
+    rx = re.compile(ORACLE_RE.get(pattern, pattern.encode()))
+    n, B = len(arr), len(base)
+    if pattern in ORACLE_RE or pattern == r"\w*":
+        off = n - 4096 if pattern in ORACLE_RE else 0
+        m = rx.search(arr[off:off + 4096].tobytes())
+        if m is not None and off and m.start() == 0:
+            fail(f"{pattern}: oracle match reaches its window's start")
+        return None if m is None else (off + m.start(), off + m.end())
+    if which == "none":
+        return None
+    if which == "early":
+        m = rx.search(base + base[:65536])
+        if m is not None and m.end() + 64 >= B:
+            fail(f"{pattern}: oracle match reaches the tile's end")
+        return None if m is None else m.span()
+    off = n - B - 4097
+    m = rx.search(arr[off:].tobytes())
+    if m is not None and m.start() == 0:
+        fail(f"{pattern}: oracle match reaches its window's start")
+    return None if m is None else (off + m.start(), off + m.end())
+
+
+def phase_e2e_single_match(base: bytes, corpus: np.ndarray):
+    """is_match and find_index through the public API on the three
+    single-match corpora, first call then best of 2, against the oracle;
+    then the re-tiling of find_first's prefixes, timed."""
+    import coregex_tpu_torch as ct
+    from coregex_tpu_torch.ops.count_scan import (make_word_tiles,
+                                                  plan_geometry)
+    from coregex_tpu_torch.utils.corpus_cache import device_corpus
+
+    # 4 KiB: re backtracks quadratically on `.*lit` over a newline-free
+    # stretch, so a longer window would not finish; the filler is uniform
+    # and no pattern here needs more than a line to match
+    fill = bytes([FILLER]) * 4096
+    for name, pattern in CONFIGS + SINGLE_EXTRA:
+        hit = re.search(ORACLE_RE.get(pattern, pattern.encode()), fill)
+        if (hit is not None) != (pattern == r"\w*"):
+            fail(f"{name}: the filler byte {FILLER:#x} does not suit it")
+    corpora = single_corpora(base, corpus)
+    routes = {}
+    for name, pattern in CONFIGS + SINGLE_EXTRA:
+        eng = ct.compile(pattern, device=DEVICE)
+        calls = 0
+        for which, arr in corpora:
+            exp = oracle_first(pattern, which, arr, base)
+            line = f"[single] {name:16} {eng.strategy:13} {which:5}"
+            for what, fn, want in (("is_match", eng.is_match,
+                                    exp is not None),
+                                   ("find_index", eng.find_index, exp)):
+                t0 = time.perf_counter()
+                got = fn(arr)
+                first = time.perf_counter() - t0
+                best = float("inf")
+                for _ in range(2):
+                    t0 = time.perf_counter()
+                    again = fn(arr)
+                    best = min(best, time.perf_counter() - t0)
+                    if again != got:
+                        fail(f"{name} {which}: {what} changed on a rerun")
+                if got != want:
+                    fail(f"{name} {which}: {what} {got} != oracle {want}")
+                calls += 3 if what == "find_index" else 0
+                line += (f" | {what} {str(got):26} {best * 1e3:9.3f} ms "
+                         f"(first {first:.2f} s)")
+            print(line, flush=True)
+        # the nullable find_index is the reference's FALLBACK: the host
+        # answers it, by design
+        expected = calls if pattern == r"\w*" else 0
+        if eng.batch_engine().host_routes != expected:
+            fail(f"{name}: {eng.batch_engine().host_routes} host routes, "
+                 f"expected {expected}")
+        routes[f"{name} single"] = 0
+    # find_first tiles each prefix below the corpus afresh
+    dev = device_corpus(corpora[1][1], DEVICE)
+    for c in (1 << 22, 1 << 25, 1 << 28, int(dev.shape[0])):
+        L, T = plan_geometry(c)[:2]
+        ms = cuda_ms(lambda: make_word_tiles(dev[:c], L, T // 4), 3)
+        print(f"[single] word tiles of a {c} byte prefix: {ms:.3f} ms",
+              flush=True)
+    del dev
+    return routes
+
+
 def main():
     card = phase_device()
     import torch
@@ -768,8 +978,8 @@ def main():
     except ImportError as ex:
         fail(f"cannot import coregex_tpu_torch: {ex}")
     from coregex_tpu_torch.ops import (compact, compact2, count_scan,
-                                       flag_scan, line_scan, seq_scan,
-                                       span_scan)
+                                       dfa_scan, flag_scan, line_scan,
+                                       seq_scan, span_scan)
     counters = [
         (count_scan.COUNT_KERNEL, "lane_scan.cu", "count_scan.py:211"),
         (span_scan.SPAN_KERNEL, "lane_scan.cu", "span_scan.py:108"),
@@ -779,14 +989,20 @@ def main():
         (line_scan.HITS_KERNEL, "needle_scan.cu", "line_scan.py:407"),
         (seq_scan.SEQ_KERNEL, "needle_scan.cu", "seq_scan.py:103"),
         (compact.COMPACT_POS_KERNEL, "compact.cu", "compact.py:97"),
+        (dfa_scan.MATCH_KERNEL, "lane_scan.cu", "pallas_scan.py:35"),
+        # a lax.scan loop of the reference, with no Pallas kernel
+        (dfa_scan.WINDOW_KERNEL, "window_scan.cu", "dfa_scan.py:626"),
     ]
     # kernels each run of phase 4 must launch: the earlier slices' path,
     # then the class-run and nullable path (K1 for the `\w*` count, K2/K3
-    # for the ip core, K4 for class runs and chains, K8 for `\w*`)
+    # for the ip core, K4 for class runs and chains, K8 for `\w*`), then
+    # the single-match path (K9 and the window scan)
     paths = [("earlier slices", phase_e2e,
               [c for c, _, _ in counters[:7]]),
              ("class runs and nullable", phase_e2e_class_nullable,
-              [counters[i][0] for i in (0, 1, 2, 3, 7)])]
+              [counters[i][0] for i in (0, 1, 2, 3, 7)]),
+             ("single match", phase_e2e_single_match,
+              [counters[i][0] for i in (8, 9)])]
     build_s = phase_build()
     base = build_base()
     corpus = bench_corpus(base)
@@ -811,7 +1027,8 @@ def main():
             launches[k] += v
     if any(routes.values()):
         fail(f"slice calls declined to the host loop: {routes}")
-    print(f"[routes] host_routes 0 for all {len(routes)} patterns; "
+    print(f"[routes] no unexpected host routes in {len(routes)} pattern "
+          f"runs; "
           f"build {build_s} s on {card}")
     print(json.dumps({"kernels": [
         {"name": c.name, "route": "cuda",

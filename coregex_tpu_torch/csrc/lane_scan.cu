@@ -1,11 +1,15 @@
-// Lane-walk kernels K1-K3: the corpus splits into L lanes of T bytes and
-// each lane walks its bytes through a packed transition table.
+// Lane-walk kernels K1-K3 and K9: the corpus splits into L lanes of T bytes
+// and each lane walks its bytes through a packed transition table.
 //
-// Replaces three Pallas kernels of the JAX package:
+// Replaces four Pallas kernels of the JAX package:
 //   K1 count_scan.py:_count_kernel  value = delta*32 + emit
 //   K2 span_scan.py:_span_kernel    value = delta*32 + (commits<<2 | first<<1 | flag)
 //   K3 flag_scan.py:_flag_kernel    value = delta*32 + (interf<<1 | flag), symbols
 //                                   index columns directly
+//   K9 pallas_scan.py:_kernel       value = delta*32 + match: the chunked DFA
+//                                   match scan (the TPU kernel reads a
+//                                   4-byte class per corpus byte; here the
+//                                   word tiles and the byte map, as K1)
 // The TPU kernels walk a select tree over a row/column-merged table because
 // Mosaic has no dynamic gather; here the full packed [S, NSEG] table sits in
 // shared memory and each byte costs one shared-memory load.
@@ -24,6 +28,8 @@
 //   tiles   [T4, L]     word t of lane l = bytes l*T + 4t .. l*T + 4t + 3
 //   flagw   [T4/8, L]   bit 4*(t%8)+k of word t/8 = position 4t+k of the lane
 //   counts, exits, sync, entries, offsets, limits  [L]
+//   K9: counts = set flags of the lane, aux [L] = the lane-local position of
+//   its last set flag (-1 if none), so callers need no pass over the words
 // Warmup: a lane first steps the previous lane's last W4 words (lane 0 reads
 // lane L-1's, which its offset of W skips), skipping warmup position p when
 // p < offsets[l]; `sync` is the state after warmup, `exits` the state after
@@ -34,7 +40,7 @@
 
 namespace {
 
-enum Mode { kCount = 0, kSpan = 1, kFlag = 2 };
+enum Mode { kCount = 0, kSpan = 1, kFlag = 2, kMatch = 3 };
 
 template <int MODE>
 __global__ void lane_walk_kernel(
@@ -44,7 +50,7 @@ __global__ void lane_walk_kernel(
     const int32_t* __restrict__ entries, const int32_t* __restrict__ offsets,
     const int32_t* __restrict__ limits, int32_t* __restrict__ counts,
     int32_t* __restrict__ exits, int32_t* __restrict__ sync,
-    int32_t* __restrict__ flagw, int32_t* __restrict__ firstw) {
+    int32_t* __restrict__ flagw, int32_t* __restrict__ aux) {
   extern __shared__ int32_t smem[];
   int32_t* tbl = smem;
   int32_t* seg = smem + ntbl;
@@ -72,7 +78,7 @@ __global__ void lane_walk_kernel(
   sync[l] = s;
 
   const int lim = limits[l];
-  int cnt = 0;
+  int cnt = 0, last = -1;
   for (int g = 0; g < T4 / 8; ++g) {
     uint32_t fw = 0, gw = 0;
     if (g * 32 < lim) {
@@ -94,8 +100,10 @@ __global__ void lane_walk_kernel(
               cnt += (v >> 2) & 7;
               fw |= (uint32_t)(v & 1) << (j * 4 + k);
               gw |= (uint32_t)((v >> 1) & 1) << (j * 4 + k);
-            } else {
+            } else if (MODE == kFlag) {
               cnt += (v >> 1) & 1;
+              fw |= (uint32_t)(v & 1) << (j * 4 + k);
+            } else {
               fw |= (uint32_t)(v & 1) << (j * 4 + k);
             }
             s = v >> 5;
@@ -105,11 +113,16 @@ __global__ void lane_walk_kernel(
     } else if (MODE == kCount) {
       break;
     }
+    if (MODE == kMatch && fw != 0) {
+      cnt += __popc(fw);
+      last = g * 32 + 31 - __clz((int)fw);
+    }
     if (MODE != kCount) flagw[(size_t)g * L + l] = (int32_t)fw;
-    if (MODE == kSpan) firstw[(size_t)g * L + l] = (int32_t)gw;
+    if (MODE == kSpan) aux[(size_t)g * L + l] = (int32_t)gw;
   }
   counts[l] = cnt;
   exits[l] = s;
+  if (MODE == kMatch) aux[l] = last;
 }
 
 constexpr int kThreads = 128;
@@ -118,7 +131,7 @@ template <int MODE>
 int launch(const int32_t* packed, int S, int nseg, const int32_t* segmap,
            const int32_t* tiles, int T4, int L, int W4, const int32_t* entries,
            const int32_t* offsets, const int32_t* limits, int32_t* counts,
-           int32_t* exits, int32_t* sync, int32_t* flagw, int32_t* firstw,
+           int32_t* exits, int32_t* sync, int32_t* flagw, int32_t* aux,
            void* stream) {
   const int ntbl = S * nseg;
   const size_t smem = (size_t)(ntbl + (MODE == kFlag ? 0 : 256)) * sizeof(int32_t);
@@ -128,7 +141,7 @@ int launch(const int32_t* packed, int S, int nseg, const int32_t* segmap,
   const int blocks = (L + kThreads - 1) / kThreads;
   lane_walk_kernel<MODE><<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
       packed, nseg, ntbl, segmap, tiles, T4, L, W4, entries, offsets, limits,
-      counts, exits, sync, flagw, firstw);
+      counts, exits, sync, flagw, aux);
   return (int)cudaGetLastError();
 }
 
@@ -164,6 +177,16 @@ int cgx_lane_flag(const int32_t* packed, int S, int nseg, const int32_t* tiles,
   return launch<kFlag>(packed, S, nseg, nullptr, tiles, T4, L, W4, entries,
                        offsets, limits, counts, exits, sync, flagw, nullptr,
                        stream);
+}
+
+int cgx_lane_match(const int32_t* packed, int S, int nseg, const int32_t* segmap,
+                   const int32_t* tiles, int T4, int L, int W4,
+                   const int32_t* entries, const int32_t* offsets,
+                   const int32_t* limits, int32_t* counts, int32_t* exits,
+                   int32_t* sync, int32_t* flagw, int32_t* last, void* stream) {
+  return launch<kMatch>(packed, S, nseg, segmap, tiles, T4, L, W4, entries,
+                        offsets, limits, counts, exits, sync, flagw, last,
+                        stream);
 }
 
 const char* cgx_error_string(int e) {

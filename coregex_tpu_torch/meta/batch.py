@@ -1,32 +1,38 @@
-"""Corpus-scale execution on a torch device: count and find_all.
+"""Corpus-scale execution on a torch device: count, find_all, is_match and
+find_first.
 
 Ports the main path of ``coregex_tpu/meta/batch.py:BatchEngine``: plan
-selection (:296-344), ``_dense`` (:351-419) for the kinds the path uses, the
-count scanners (:1456-1629), ``count`` (:1698-1790) with ``nullable_count``'s
-route and UTF-8 gate (:1668-1696) folded in, ``_line_shape_parts``
-(:2091-2097), the bidirectional span path (:999-1184), the line-shape span
-path (:798-848), the class-run path (``_chop_runs`` :54,
-``_charclass_spans_dev`` :710-742, ``_charclass_dense_pair`` :744-758),
-the nullable paths (``_core`` :2467-2476, ``_nullable_spans_dev``
-:589-633, ``_nullable_general_spans_dev`` :635-676),
-``find_all_spans_device`` (:523-587) and ``find_all_spans``.  The port
-builds on its own copy of the host pipeline (``..dfa``, ``..nfa``,
+selection (:296-344), ``_dense`` (:351-419) for the kinds the paths use,
+the count scanners (:1456-1629), ``count`` (:1698-1790) with
+``nullable_count``'s route and UTF-8 gate (:1668-1696) folded in,
+``_line_shape_parts`` (:2091-2097), the bidirectional span path
+(:999-1184), the line-shape span path (:798-848), the class-run path
+(``_chop_runs`` :54, ``_charclass_spans_dev`` :710-742,
+``_charclass_dense_pair`` :744-758), the nullable paths (``_core``
+:2467-2476, ``_nullable_spans_dev`` :589-633,
+``_nullable_general_spans_dev`` :635-676), ``find_all_spans_device``
+(:523-587), ``find_all_spans``, ``_end_anchored_spans`` (:1402-1413),
+``is_match`` (:1415-1450), ``find_first`` (:1803-1863),
+``_charclass_first`` (:1865-1881), ``_find_first_dfa`` (:1883-1917) and
+``_rev_start_flags`` (:2252-2307, kind="rev_anch") as ``_rev_start``.  The
+port builds on its own copy of the host pipeline (``..dfa``, ``..nfa``,
 ``.strategy``, ``.literal``) and imports nothing of ``coregex_tpu``.
 
 Routes:
-  * count, in the reference's order (:1740-1790): K5 (LineScanner) for a
-    LINE_SHAPE or line-set FULL_SCAN plan that ``_line_shape_args``
-    accepts; K6 (HitsScanner) for LITERAL and MULTI_LITERAL plans, and K7
-    (SeqScanner, MODE_MULTI) when K6 finds two hits overlapping; otherwise
-    the count transducer (the nullable transducer, behind its UTF-8 gate,
-    for nullable plans).  A nullable plan outside that gate counts its
-    device find_all, as the reference counts its span list.  The
-    reference's class-run, memmem and multi-literal XLA counts are not
-    ported; the transducer gives the same counts.  Unlike the reference,
-    these routes run on every device (its scanners run only on a TPU
-    backend) and a failing scanner raises instead of being retired.  The
-    reference reaches K7 in MODE_LINE only after retiring a LineScanner,
-    since both take the same needle sets, so the port does not route it.
+  * count, in the reference's order (:1740-1790): END_ANCHORED plans scan
+    back from the end on the host; K5 (LineScanner) for a LINE_SHAPE or
+    line-set FULL_SCAN plan that ``_line_shape_args`` accepts; K6
+    (HitsScanner) for LITERAL and MULTI_LITERAL plans, and K7 (SeqScanner,
+    MODE_MULTI) when K6 finds two hits overlapping; otherwise the count
+    transducer (the nullable transducer, behind its UTF-8 gate, for
+    nullable plans).  A nullable plan outside that gate counts its device
+    find_all, as the reference counts its span list.  The reference's
+    class-run, memmem and multi-literal XLA counts are not ported; the
+    transducer gives the same counts.  Unlike the reference, these routes
+    run on every device (its scanners run only on a TPU backend) and a
+    failing scanner raises instead of being retired.  The reference
+    reaches K7 in MODE_LINE only after retiring a LineScanner, since both
+    take the same needle sets, so the port does not route it.
   * find_all: the bidirectional span path for PREFIX_RUN, PREFIX_SET,
     FULL_SCAN and INNER plans whose count transducer is spans_simple with
     no EOI_COMPLEX state; the candidate chain for LINE_SHAPE plans with
@@ -36,15 +42,28 @@ Routes:
     NULLABLE_CORE plans two K8 compactions when the core is ``[class]+``
     and the corpus ASCII, else the core's own route plus the empty fill
     when that route serves the corpus and the corpus is below
-    DEVICE_SPANS_LIMIT.  Leftmost-longest plans decline.
+    DEVICE_SPANS_LIMIT; the host reverse scan for END_ANCHORED plans (any
+    limit).  Leftmost-longest plans decline, but END_ANCHORED, whose one
+    match does not depend on the rule.  A limit (find_all_index(t, k))
+    declines otherwise.
+  * is_match: True for nullable plans; the host reverse scan for
+    END_ANCHORED; one K9 scan over ``fwd_all`` for FULL_SCAN; for the
+    other strategies ``find_first(...) is not None`` (the reference asks
+    its find_all pipelines with limit 1, not ported).  Any match rule.
+  * find_first: chunked literal scans for LITERAL and MULTI_LITERAL; the
+    first qualifying class run for CHARCLASS; the host reverse scan for
+    END_ANCHORED; K9 over ``fwd_break`` on growing prefixes, then the
+    window kernel from the end backwards, for the others.  Nullable plans
+    and BITSET_NFA decline, as in the reference.
 A call outside these routes returns None (find_first returns FALLBACK) and
 the Engine's host loop serves it; each such decline adds one to
 ``host_routes``.  The route is decided on the host, from the plan, its
-tables, the core's plan and the corpus's ASCII verdict, before the corpus
-is uploaded.  Once a call is on the device it finishes there or raises:
-the repair fixpoints run until they settle (at most L rescans), a table
-too large for the kernels raises ValueError when it is built, and a
-result over MAX_DEVICE_SPANS spans raises ValueError.
+tables (a DFA that overflows, or a packed table too large for the kernels'
+shared memory, declines), the core's plan and the corpus's ASCII verdict,
+before the corpus is uploaded.  Once a call is on the device it finishes
+there or raises: the repair fixpoints run until they settle (at most L
+rescans), a table too large for the kernels raises ValueError when it is
+built, and a result over MAX_DEVICE_SPANS spans raises ValueError.
 
 Corpus state (the host array, its ASCII verdict) travels as arguments, not
 engine attributes, so concurrent calls on one engine cannot mix corpora
@@ -60,21 +79,27 @@ import torch
 
 from ..dfa.countdfa import (EOI_COMPLEX, build_count_dfa,
                             build_count_dfa_nullable)
-from ..dfa.dense import CTX_SOT
+from ..dfa.dense import CTX_SOT, DEAD
 from ..dfa.determinize import DFAOverflow, determinize, determinize_py
+from ..dfa.search import find_rev_start
 from ..nfa.thompson import compile_nfa
-from ..ops.bytescan import _bucket, mask_count, table_to_ranges
+from ..ops.bytescan import (_bucket, _memmem_mask, _multi_literal_scan,
+                            _range_mask, first_run_geq, first_set_index,
+                            mask_count, table_to_ranges)
 from ..ops.compact import compact_positions
 from ..ops.compact2 import _bucket_up, compact_pay, sparse_positions_words
 from ..ops.count_scan import CountScanner, make_word_tiles, plan_geometry
-from ..ops.dfa_scan import DFATables
+from ..ops.dfa_scan import (ChunkScanner, DFATables, exit_at_end,
+                            flags_count_upto, flags_last, window_flags,
+                            window_words)
 from ..ops.flag_scan import (FlagResetScanner, ResetFlagTables,
                              reset_geometry, scatter_reset_tiles,
                              sym_base_tiles)
 from ..ops.line_scan import HitsScanner, LineScanner
 from ..ops.seq_scan import MODE_MULTI, SeqScanner, seq_geometry
-from ..ops.span_chain import (SPARSE_OK, bidi_assemble, bidi_ends,
-                              class_run_masks_dense, class_run_words,
+from ..ops.span_chain import (SPARSE_OK, _floor_log2, bidi_assemble,
+                              bidi_ends, class_run_masks_dense,
+                              class_run_words,
                               line_event_words, line_spans_candidates,
                               nullable_class_masks, nullable_fill_words,
                               nullable_merge, pair_spans_sparse)
@@ -175,25 +200,40 @@ class BatchEngine:
         self._spans_cnt_cache = {}
         self._rev_hint_cache = {}   # corpus fp -> reverse-scan lane entries
         self._core_engine = None    # lazy Engine over a nullable core
+        self._chunk_sc = {}         # dense kind -> ChunkScanner; False == none
 
     def _decline(self, result=None):
         self.host_routes += 1
         return result
 
+    @staticmethod
+    def _check_size(n: int) -> None:
+        if n > MAX_CORPUS:
+            raise ValueError(f"corpus of {n} bytes exceeds the int32 "
+                             f"position range ({MAX_CORPUS})")
+
     # -- artifact builders (lazy) ---------------------------------------
     def _dense(self, kind: str):
-        """Host DenseDFA of the given kind.  The main path needs only the
-        anchored reverse DFAs; later slices add the reference's others."""
+        """Host DenseDFA of the given kind (ref. :351-419): the anchored
+        reverse DFAs, the unanchored forward DFA (``fwd_all``) and its
+        break-at-match form (``fwd_break``: it dies right after the
+        leftmost match is complete, so its last flag is the leftmost-first
+        end).  Raises DFAOverflow past the state limit."""
         if kind in self._host_dense:
             return self._host_dense[kind]
         d = load_dense(self.parsed.pattern, kind)
         if d is None:
-            if kind not in ("rev_anch", "rev_anch_ascii"):
+            if kind in ("rev_anch", "rev_anch_ascii"):
+                nfa = compile_nfa(self.parsed, reverse=True,
+                                  ascii_only=(kind == "rev_anch_ascii"))
+                d = determinize(nfa, anchored=True, break_at_match=False,
+                                reverse=True)
+            elif kind in ("fwd_all", "fwd_break"):
+                nfa = compile_nfa(self.parsed, with_captures=False)
+                d = determinize(nfa, anchored=False,
+                                break_at_match=(kind == "fwd_break"))
+            else:
                 raise KeyError(kind)
-            nfa = compile_nfa(self.parsed, reverse=True,
-                              ascii_only=(kind == "rev_anch_ascii"))
-            d = determinize(nfa, anchored=True, break_at_match=False,
-                            reverse=True)
             save_dense(self.parsed.pattern, kind, d)
         self._host_dense[kind] = d
         return d
@@ -353,9 +393,10 @@ class BatchEngine:
     def count(self, data: np.ndarray) -> Optional[int]:
         """Match count through the route `_count_route` picks, or None
         (declined: the Engine's host loop counts)."""
-        if len(data) > MAX_CORPUS:
-            raise ValueError(f"corpus of {len(data)} bytes exceeds the "
-                             f"int32 position range ({MAX_CORPUS})")
+        self._check_size(len(data))
+        if self.plan.strategy == Strategy.END_ANCHORED:
+            sp = self._end_anchored_spans(data)
+            return None if sp is None else len(sp)
         with self._lock:
             route = self._count_route(data)
             if route is None:
@@ -386,18 +427,246 @@ class BatchEngine:
             return self._decline()
         return self.find_all_spans_device(data)[1]
 
-    # -- single match: not on this slice ----------------------------------
+    # -- single match (is_match, find_first) ------------------------------
+    # find_first's first forward prefix (ref. :1893); each miss scans a
+    # prefix 8x longer
+    FIRST_PREFIX = 1 << 22
+    # chunk of the literal find_first scans (ref. :1827)
+    FIRST_CHUNK = 1 << 24
+    # the reverse start search: lanes per launch (one live) and first window
+    # (ref. _rev_start_flags :2266-2274)
+    REV_LANES = 16
+    REV_WINDOW = 64
+
+    def _chunk_scanner(self, kind: str):
+        """Lazy ChunkScanner over a dense DFA kind, or None (out of scope:
+        the DFA overflows, or its packed table is too large for the
+        kernels' shared memory).  Host work only: decides a route before
+        the corpus is uploaded."""
+        sc = self._chunk_sc.get(kind)
+        if sc is None:
+            sc = False
+            try:
+                t = DFATables.from_dense(self._dense(kind))
+            except DFAOverflow:
+                t = None
+            if t is not None and t.fits():
+                sc = ChunkScanner(t, self.device)
+            self._chunk_sc[kind] = sc
+        return sc or None
+
+    def _end_anchored_spans(self, data: np.ndarray):
+        """The match of an END_ANCHORED plan as an [k, 2] int64 host array
+        (k <= 1), or None (declined: the reverse DFA overflows).  Every
+        match ends at n, so one host scan of the anchored reverse DFA from
+        the end finds the earliest start in O(match length), with no
+        upload (ref. :1402-1413).  Whether a match exists and where does
+        not depend on the match rule."""
+        try:
+            rev = self._dense("rev_anch")
+        except DFAOverflow:
+            return self._decline(None)
+        n = len(data)
+        s = find_rev_start(rev, data, 0, n)
+        if s < 0:
+            return np.empty((0, 2), dtype=np.int64)
+        return np.array([[s, n]], dtype=np.int64)
+
     def is_match(self, data: np.ndarray):
-        return self._decline(None)
+        """True/False, or None (declined: the Engine's host loop answers),
+        by strategy (ref. :1415-1450): nullable plans match; END_ANCHORED
+        scans back from the end on the host; FULL_SCAN runs one K9 scan of
+        the whole corpus over ``fwd_all`` (a flag below n, else the EOI
+        flag at the exact state at n); the other strategies answer
+        ``find_first(...) is not None`` where the reference asks its
+        ``find_all_spans(limit=1)``, whose limit pipelines are not ported
+        (ROADMAP M7): the same answer.  BITSET_NFA declines.  Whether a
+        match exists does not depend on the match rule, so a
+        leftmost-longest engine takes the same routes."""
+        n = len(data)
+        strat = self.plan.strategy
+        if strat in (Strategy.NULLABLE_CORE, Strategy.ALL_EMPTY):
+            return True
+        if strat == Strategy.END_ANCHORED:
+            sp = self._end_anchored_spans(data)
+            return None if sp is None else len(sp) > 0
+        if strat != Strategy.FULL_SCAN:
+            m = self.find_first(data)
+            return None if m is FALLBACK else m is not None
+        sc = self._chunk_scanner("fwd_all")
+        if n == 0 or sc is None:
+            return self._decline(None)
+        self._check_size(n)
+        geom = plan_geometry(n)
+        with self._lock:
+            scan = sc.scan_device(device_corpus(data, self.device), geom,
+                                  self._word_tiles(data, *geom[:2]))
+            cnt, exit_n = torch.stack([flags_count_upto(scan),
+                                       exit_at_end(scan)]).tolist()
+        return cnt > 0 or bool(sc.tables.match_eoi[exit_n, CTX_SOT])
 
     def find_first(self, data: np.ndarray):
-        return self._decline(FALLBACK)
+        """Leftmost-first span (start, end), None (no match), or FALLBACK
+        (declined: the Engine's host loop answers), by strategy (ref.
+        :1803-1863): LITERAL and MULTI_LITERAL scan 16 MiB chunks for the
+        first hit; CHARCLASS finds the first qualifying class run;
+        END_ANCHORED scans back from the end on the host; nullable plans
+        and BITSET_NFA decline (the reference's FALLBACK; a nullable
+        plan's leftmost match is O(match length) on the host); the others
+        take ``_find_first_dfa``.  The route is decided before the corpus
+        is uploaded.  The Engine asks only leftmost-first engines (ref.
+        engine.py:238); ``is_match`` asks for any, and reads only whether
+        a span came back."""
+        n = len(data)
+        strat = self.plan.strategy
+        if n == 0 or strat in (Strategy.BITSET_NFA, Strategy.NULLABLE_CORE,
+                               Strategy.ALL_EMPTY, Strategy.HOST):
+            return self._decline(FALLBACK)
+        if strat == Strategy.END_ANCHORED:
+            sp = self._end_anchored_spans(data)
+            if sp is None:
+                return FALLBACK
+            return None if len(sp) == 0 else (int(sp[0, 0]), int(sp[0, 1]))
+        if strat in (Strategy.LITERAL, Strategy.MULTI_LITERAL,
+                     Strategy.CHARCLASS):
+            self._check_size(n)
+            with self._lock:
+                dev = device_corpus(data, self.device)
+                if strat == Strategy.CHARCLASS:
+                    return self._charclass_first(dev)
+                return self._literal_first(dev)
+        fwd = self._chunk_scanner("fwd_break")
+        rev = self._chunk_scanner("rev_anch") if fwd else None
+        if rev is None:
+            return self._decline(FALLBACK)
+        self._check_size(n)
+        with self._lock:
+            return self._find_first_dfa(fwd, rev, data)
+
+    def _literal_first(self, dev):
+        """First hit of a LITERAL or MULTI_LITERAL plan (ref. :1822-1849):
+        chunks of FIRST_CHUNK bytes, each read with the longest literal's
+        length - 1 bytes of overlap, so a hit that starts in a chunk is
+        seen there; at a position the first literal in priority order
+        wins.  One sync per chunk."""
+        n = int(dev.shape[0])
+        lits = [bytes(x) for x in self.plan.literals]
+        ext = max(len(x) for x in lits) - 1
+        for off in range(0, n, self.FIRST_CHUNK):
+            end = min(n, off + self.FIRST_CHUNK)
+            sl = dev[off:min(n, end + ext)]
+            if len(lits) == 1:
+                p = first_set_index(_memmem_mask(sl, lits[0]))
+                if p < end - off:
+                    return off + p, off + p + len(lits[0])
+            else:
+                best, blen = _multi_literal_scan(sl, lits)
+                p = first_set_index(best >= 0)
+                if p < end - off:
+                    return off + p, off + p + int(blen[p])
+        return None
+
+    def _charclass_first(self, dev):
+        """The first match of a CHARCLASS plan (ref. :1865-1881) from the
+        first maximal class run of length >= min, on prefixes of
+        FIRST_PREFIX bytes, x8 per miss: a run that ends inside a prefix is
+        final, a run that touches its edge may go on, so the prefix grows
+        until the run ends or the prefix is the corpus."""
+        n = int(dev.shape[0])
+        cc = self.plan.charclass
+        ranges = table_to_ranges(np.array(cc.table, dtype=bool))
+        c = min(n, self.FIRST_PREFIX)
+        while True:
+            s, run = first_run_geq(_range_mask(dev[:c], ranges), cc.min)
+            if c == n or s + run < c:
+                break
+            c = min(n, c * 8)
+        if s >= n:
+            return None
+        m, k = cc.min, cc.max
+        if cc.plus:
+            r = run % k
+            return s, s + run - (r if r < m else 0)
+        if k == -1:
+            return s, s + run
+        return s, s + min(k, run)
+
+    def _find_first_dfa(self, fwd, rev, data: np.ndarray):
+        """Two-pass bidirectional find (ref. :1883-1917): K9 over the
+        break-at-match ``fwd_break`` DFA on prefixes of FIRST_PREFIX bytes,
+        x8 while the automaton lives at the prefix's end; the last flag
+        before it dies is the leftmost-first end (at n, the EOI flag at
+        the exact exit state).  The whole corpus reuses its cached word
+        tiles; a shorter prefix is tiled afresh.  Then the window kernel
+        finds the start (``_rev_start``)."""
+        n = len(data)
+        dev = device_corpus(data, self.device)
+        c = min(n, self.FIRST_PREFIX)
+        while True:
+            geom = plan_geometry(c)
+            if c == n:
+                tiles = self._word_tiles(data, *geom[:2])
+            else:
+                tiles = make_word_tiles(dev[:c], geom[0], geom[1] // 4)
+            scan = fwd.scan_device(dev[:c], geom, tiles)
+            del tiles
+            e, exit_c = torch.stack([flags_last(scan),
+                                     exit_at_end(scan)]).tolist()
+            if exit_c == DEAD:
+                break
+            if c == n:
+                if fwd.tables.match_eoi[exit_c, CTX_SOT]:
+                    e = n
+                break
+            c = min(n, c * 8)
+        if e < 0:
+            return None
+        return self._rev_start(rev, dev, e), e
+
+    def _rev_start(self, rev, dev, e: int) -> int:
+        """The earliest start of a match ending at e (ref.
+        ``_rev_start_flags`` :2252-2307 with kind="rev_anch", for one end):
+        the window kernel runs the anchored reverse DFA from e backwards,
+        W = REV_WINDOW bytes, x4 while the run lives; the last flag of the
+        finished run is the longest reverse match.  In reverse coordinates
+        the run starts at j0 = n - e and its context byte is forward byte
+        e; the kernel reads the forward corpus backwards, so no flipped
+        copy is made.  REV_LANES lanes per launch, the spares parked at n
+        (dead after one step)."""
+        n = int(dev.shape[0])
+        B = self.REV_LANES
+        starts = torch.full((B,), n, dtype=torch.int32, device=dev.device)
+        starts[0] = n - e
+        edge = torch.full((B,), n, dtype=torch.int32, device=dev.device)
+        W = self.REV_WINDOW
+        while True:
+            Wc = min(W, n + 1)
+            flagw, alive = window_flags(rev.mt, dev, starts, edge, Wc,
+                                        reverse=True)
+            w = flagw[:, 0]
+            base = torch.arange(window_words(Wc), dtype=torch.int32,
+                                device=w.device) * 32
+            top = torch.where(w != 0, base + _floor_log2(w), -1).max()
+            t_max, live = torch.stack([top, alive[0]]).tolist()
+            if not live:
+                break
+            W *= 4
+            if W > 4 * (n + 1):
+                raise RuntimeError("reverse window scan: the run outlived "
+                                   "the corpus")
+        if t_max < 0:
+            raise RuntimeError("reverse window scan found no start for a "
+                               "forward match end")
+        return e - t_max
 
     # -- find_all -----------------------------------------------------------
     def find_all_spans(self, data: np.ndarray, limit: int = -1
                        ) -> Optional[np.ndarray]:
         """All non-overlapping spans with Go semantics as an [m, 2] int64
         host array, or None (declined)."""
+        if self.plan.strategy == Strategy.END_ANCHORED:
+            sp = self._end_anchored_spans(data)
+            return sp if sp is None or limit < 0 else sp[:limit]
         if limit >= 0:
             return self._decline(None)
         r = self.find_all_spans_device(data)
@@ -416,9 +685,7 @@ class BatchEngine:
         n = len(data)
         if n == 0 or n > self.SPARSE_SPANS_LIMIT:
             return self._decline(None)
-        if n > MAX_CORPUS:
-            raise ValueError(f"corpus of {n} bytes exceeds the int32 "
-                             f"position range ({MAX_CORPUS})")
+        self._check_size(n)
         route = self._spans_route(data)
         if route is None:
             return self._decline(None)
@@ -437,6 +704,11 @@ class BatchEngine:
                                                            known, fp)
             elif kind == "nullable_k8":
                 spans, cnt, ok = self._nullable_spans_dev(args, data)
+            elif kind == "end_anchored":
+                sp = self._end_anchored_spans(data)
+                spans = _empty_spans(self.device)
+                spans[:len(sp)] = torch.from_numpy(sp.astype(np.int32))
+                cnt, ok = len(sp), None
             else:
                 spans, cnt, ok = self._nullable_general_spans_dev(
                     args, data)
@@ -447,6 +719,13 @@ class BatchEngine:
         (declined); host work only, the corpus is not uploaded.  Callers
         check the size limits."""
         strat = self.plan.strategy
+        if strat == Strategy.END_ANCHORED:
+            # rule-independent, so leftmost-longest takes it too
+            try:
+                self._dense("rev_anch")
+            except DFAOverflow:
+                return None
+            return "end_anchored", None
         if self.longest:
             return None
         if strat == Strategy.LINE_SHAPE:

@@ -29,7 +29,8 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("lane_scan.cu", "compact.cu", "needle_scan.cu")
+SOURCES = ("lane_scan.cu", "compact.cu", "needle_scan.cu",
+           "window_scan.cu")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
@@ -42,6 +43,10 @@ _SIGNATURES = {
                       _P, _P, _P, _P],
     "cgx_lane_flag": [_P, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                       _P, _P],
+    "cgx_lane_match": [_P, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
+                       _P, _P, _P, _P],
+    "cgx_window_flags": [_P, _I, _I, _P, _P, _P, _P, ctypes.c_longlong, _I,
+                         _P, _P, _I, _I, _P, _P, _P],
     "cgx_compact": [_P, ctypes.c_int64, _I, _P, _P, _P, _P, _I, _P, _P, _P,
                     _P, _P, _P, _P, _P, _P],
     "cgx_line_lanes": [_P, _P, _I, _I, _I, _I, _P, _P, _I, _I, _P, _P, _P,

@@ -1,7 +1,8 @@
 """Byte-scan helpers; ports ``_bucket`` (:20), ``mask_count`` (:28),
-``_memmem_mask`` (:164), ``table_to_ranges`` (:314),
-``_class_mask_from_table`` (:330) and ``_range_mask`` (:337) of
-``coregex_tpu/ops/bytescan.py``."""
+``first_set_index`` (:122-130), ``first_run_geq`` (:133-150),
+``_memmem_mask`` (:164), ``_multi_literal_scan`` (:218-238),
+``table_to_ranges`` (:314), ``_class_mask_from_table`` (:330) and
+``_range_mask`` (:337) of ``coregex_tpu/ops/bytescan.py``."""
 
 from __future__ import annotations
 
@@ -24,6 +25,51 @@ def mask_count(mask: torch.Tensor) -> torch.Tensor:
     return mask.sum(dtype=torch.int32)
 
 
+def first_set_index(mask: torch.Tensor) -> int:
+    """Index of the first set entry of a 1-D bool mask, or its length when
+    none is set (one sync)."""
+    n = int(mask.shape[0])
+    if n == 0:
+        return 0
+    m = mask.view(torch.uint8)
+    i = torch.argmax(m)          # the first maximal entry
+    return int(torch.where(m[i] != 0, i, n))
+
+
+def _window_all(mask: torch.Tensor, m: int) -> torch.Tensor:
+    """[n] bool: mask[p-m+1 .. p] are all set (False for p < m-1), by
+    doubling: windows of w combine into 2w, and two windows of w >= m/2
+    overlap into m."""
+    acc, w = mask, 1
+    while 2 * w <= m:
+        nxt = torch.zeros_like(acc)
+        nxt[w:] = acc[w:] & acc[:-w]
+        acc, w = nxt, 2 * w
+    if w < m:
+        nxt = torch.zeros_like(acc)
+        d = m - w
+        nxt[d:] = acc[d:] & acc[:-d]
+        acc = nxt
+    return acc
+
+
+def first_run_geq(mask: torch.Tensor, m: int) -> Tuple[int, int]:
+    """(start, length) of the first maximal run of set entries with length
+    >= m; start == len(mask) when none exists.  The reference takes each
+    run's length from a whole-mask cummax of run starts; here the first
+    position p where the m entries ending at p are all set lies in the
+    first qualifying run, at its start + m - 1, and the run ends at the
+    first unset entry after p: bool passes only, no int32 arrays (two
+    syncs)."""
+    n = int(mask.shape[0])
+    p = first_set_index(_window_all(mask, max(m, 1)))
+    if p >= n:
+        return n, 0
+    s = p - max(m, 1) + 1
+    e = p + first_set_index(~mask[p:])
+    return s, e - s
+
+
 def _memmem_mask(data: torch.Tensor, needle: Sequence[int]) -> torch.Tensor:
     """[n] bool: `needle` starts at the position (shifted compares ANDed;
     starts that would run off the end are False)."""
@@ -37,6 +83,21 @@ def _memmem_mask(data: torch.Tensor, needle: Sequence[int]) -> torch.Tensor:
     for i in range(1, k):
         acc[:m] &= data[i:i + m] == needle[i]
     return acc
+
+
+def _multi_literal_scan(data: torch.Tensor, lits: Sequence[bytes]):
+    """Per position: the index of the first literal (in priority order)
+    that starts there, or -1, and its length (0 where none): the
+    leftmost-first priority of an alternation of literals.  Literals are
+    applied in reverse priority so earlier ones overwrite."""
+    n = int(data.shape[0])
+    best = torch.full((n,), -1, dtype=torch.int32, device=data.device)
+    blen = torch.zeros(n, dtype=torch.int32, device=data.device)
+    for li in range(len(lits) - 1, -1, -1):
+        hit = _memmem_mask(data, lits[li])
+        best.masked_fill_(hit, li)
+        blen.masked_fill_(hit, len(lits[li]))
+    return best, blen
 
 
 def table_to_ranges(table) -> Tuple[Tuple[int, int], ...]:

@@ -13,8 +13,9 @@ differs from the previous lane's exit, so the result equals the sequential
 scan's.  The fixpoint runs on the host around the launches: one ``.item()``
 sync per pass.
 
-The lane walk itself is shared with the span scan (K2) and the flag scan
-(K3): :func:`lane_walk` launches ``csrc/lane_scan.cu`` for CUDA tensors and
+The lane walk itself is shared with the span scan (K2), the flag scan (K3)
+and the match scan (K9, ``dfa_scan.ChunkScanner``): :func:`lane_walk`
+launches ``csrc/lane_scan.cu`` for CUDA tensors and
 runs :func:`lane_walk_plain`, the reference's ``impl="gather"`` loop, for CPU
 tensors.  The TPU kernel's ``packed_rc`` row/column merge only served the
 Mosaic select tree and is left out: the CUDA kernel reads the full
@@ -32,7 +33,7 @@ from ..dfa.countdfa import CountDFA
 from ..dfa.dense import CTX_NL, CTX_OTHER, CTX_SOT, CTX_WORD
 from . import _build
 
-MODE_COUNT, MODE_SPAN, MODE_FLAG = 0, 1, 2
+MODE_COUNT, MODE_SPAN, MODE_FLAG, MODE_MATCH = 0, 1, 2, 3
 
 # a block stages the packed table (plus the 256-entry byte map) in shared
 # memory; an H100 block can hold at most this many bytes
@@ -165,8 +166,10 @@ COUNT_KERNEL = LaunchCounter("count_scan")
 def lane_walk_plain(mode: int, packed, segmap, tiles, W4: int, entries,
                     offsets, limits):
     """Plain torch lane walk (the reference's impl="gather" scan_once).
-    Returns (counts, exits, sync, flagw, firstw); flagw/firstw are
-    [T4/8, L] int32 words (None where the mode emits none)."""
+    Returns (counts, exits, sync, flagw, aux); flagw is [T4/8, L] int32
+    words (None for MODE_COUNT); aux is the first-flag words [T4/8, L] of
+    MODE_SPAN, the lane-local position of each lane's last set flag [L]
+    (-1 if none) of MODE_MATCH, else None.  MODE_MATCH counts set flags."""
     T4, L = (int(x) for x in tiles.shape)
     dev = tiles.device
     nseg = int(packed.shape[1])
@@ -191,6 +194,8 @@ def lane_walk_plain(mode: int, packed, segmap, tiles, W4: int, entries,
     flagw = torch.zeros((T4 // 8, L), dtype=torch.int32, device=dev) \
         if emit_words else None
     firstw = torch.zeros_like(flagw) if mode == MODE_SPAN else None
+    last = torch.full((L,), -1, dtype=torch.int32, device=dev) \
+        if mode == MODE_MATCH else None
     live_len = int(limits.max()) if L else 0
     for t in range(min(T4, -(-live_len // 4))):
         w = tiles[t]
@@ -201,8 +206,11 @@ def lane_walk_plain(mode: int, packed, segmap, tiles, W4: int, entries,
                 e = v & 31
             elif mode == MODE_SPAN:
                 e = (v >> 2) & 7
-            else:
+            elif mode == MODE_FLAG:
                 e = (v >> 1) & 1
+            else:
+                e = v & 1
+                last = torch.where(live & (e == 1), t * 4 + k, last)
             cnt += torch.where(live, e, 0)
             sh = (t % 8) * 4 + k
             if emit_words:
@@ -212,7 +220,8 @@ def lane_walk_plain(mode: int, packed, segmap, tiles, W4: int, entries,
                 gb = torch.where(live, (v >> 1) & 1, 0).to(torch.int32)
                 firstw[t // 8] |= gb << sh
             s = torch.where(live, v >> 5, s)
-    return (cnt.to(torch.int32), s.to(torch.int32), sync, flagw, firstw)
+    aux = firstw if mode == MODE_SPAN else last
+    return (cnt.to(torch.int32), s.to(torch.int32), sync, flagw, aux)
 
 
 def _check_lane_args(packed, segmap, tiles, W4, entries, offsets, limits):
@@ -254,11 +263,13 @@ def lane_walk_cuda(mode: int, packed, segmap, tiles, W4: int, entries,
     dev = tiles.device
     counts, exits, sync = (torch.empty(L, dtype=torch.int32, device=dev)
                            for _ in range(3))
-    flagw = firstw = None
+    flagw = aux = None
     if mode != MODE_COUNT:
         flagw = torch.empty((T4 // 8, L), dtype=torch.int32, device=dev)
     if mode == MODE_SPAN:
-        firstw = torch.empty_like(flagw)
+        aux = torch.empty_like(flagw)
+    elif mode == MODE_MATCH:
+        aux = torch.empty(L, dtype=torch.int32, device=dev)
     lib = _build.lib()
     p = _build.ptr
     with torch.cuda.device(dev):
@@ -272,14 +283,19 @@ def lane_walk_cuda(mode: int, packed, segmap, tiles, W4: int, entries,
             rc = lib.cgx_lane_span(
                 p(packed), S, nseg, p(segmap), p(tiles), T4, L, W4,
                 p(entries), p(offsets), p(limits), p(counts), p(exits),
-                p(sync), p(flagw), p(firstw), st)
+                p(sync), p(flagw), p(aux), st)
+        elif mode == MODE_MATCH:
+            rc = lib.cgx_lane_match(
+                p(packed), S, nseg, p(segmap), p(tiles), T4, L, W4,
+                p(entries), p(offsets), p(limits), p(counts), p(exits),
+                p(sync), p(flagw), p(aux), st)
         else:
             rc = lib.cgx_lane_flag(
                 p(packed), S, nseg, p(tiles), T4, L, W4, p(entries),
                 p(offsets), p(limits), p(counts), p(exits), p(sync),
                 p(flagw), st)
     _build.check(rc, "lane_scan")
-    return counts, exits, sync, flagw, firstw
+    return counts, exits, sync, flagw, aux
 
 
 def lane_walk(mode: int, counter: LaunchCounter, packed, segmap, tiles,

@@ -1,23 +1,63 @@
-"""Host table prep of a dense DFA for the device scans.
+"""Dense-DFA scans on a torch device: the chunked match scan (K9) and the
+window-flag scan.
 
-Ports the table prep of ``coregex_tpu/ops/dfa_scan.py:DeviceDFA.from_dense``
-(:84-120): transition and match tables expanded from byte classes to byte
-SEGMENTS (maximal byte ranges of constant class) and padded to power-of-two
-buckets, with the segment boundaries padded to a bucket with 256s.  Only
-what the reset flag scan reads is kept: the reference's ``comb`` onehot
-table serves only the TPU's matmul scan, and its EOI and byte-class tables
-serve scans not ported yet.  The arrays stay numpy; consumers upload what
-they use.
+Ports from ``coregex_tpu/ops/dfa_scan.py``:
+
+* ``DeviceDFA.from_dense`` (:84-121) as ``DFATables.from_dense``: tables
+  expanded from byte classes to byte SEGMENTS (maximal byte ranges of
+  constant class) and padded to power-of-two buckets, as the reset flag
+  scan reads them, plus the packed ``delta*32 + match`` table over the
+  unpadded segments with its byte -> segment map, the EOI flags and the
+  start states, as the match and window scans read them.  The reference's
+  ``comb`` onehot table serves only the TPU's matmul step and is left out.
+* ``ChunkScanner`` (:290-413) with ``scan_device`` and ``scan``: the
+  chunked full-corpus match-flag scan.  The TPU runs it as the Pallas
+  kernel K9, ``coregex_tpu/ops/pallas_scan.py:35`` ``_kernel``
+  (``pallas_call`` at :101), a select tree over a 4-byte class stream, or
+  as the XLA ``_chunk_scan_full``; here it is K1's lane walk in
+  ``MODE_MATCH`` (``csrc/lane_scan.cu`` ``cgx_lane_match``) over the
+  corpus word tiles: the match flag of every position below the lane's
+  limit as bit words, the lane's flag count and last flag position, exits
+  and sync.  K9's ``offsets`` are the walk's warmup offsets and its
+  ``true_steps`` the per-lane limits.  Lanes follow ``plan_geometry`` (at
+  most 8192, where the reference's ``_plan_geometry`` takes up to 65536);
+  settled results do not depend on the geometry.  The reference splits
+  scans past ``SEG_LIMIT`` = 2^29 bytes only for its remote compiler; the
+  port scans any corpus in one pass.
+* ``flags_count_upto`` (:432-442) and ``flags_last`` (:445-451), from the
+  per-lane counts and last positions.
+* ``_window_scan_flags`` (:626-674), a ``lax.scan`` loop with no Pallas
+  kernel, as ``window_flags``: ``csrc/window_scan.cu``
+  ``cgx_window_flags``, one thread per anchored run.
+
+The lanes freeze at their limit, so every flag lies below n.  The
+reference also counts the flag at n, which the first NUL pad byte raises;
+a flag that the pad raises at n implies the EOI flag at the same state (the
+pad byte is a non-word, non-newline byte, and end of text satisfies every
+assertion such a byte satisfies), so the exact EOI check at the exit state
+gives the same answers.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
+import torch
 
-from ..dfa.dense import DenseDFA
+from ..dfa.dense import CTX_SOT, DEAD, DenseDFA
+from . import _build
 from .bytescan import _bucket
+from .compact2 import pack_words
+from .count_scan import (MODE_MATCH, LaunchCounter, _byte_ctx,
+                         device_table, first_pass_inputs, lane_walk,
+                         make_word_tiles, plan_geometry, require_fits,
+                         segment_map, state_at_end, table_fits)
+from .span_scan import to_global
+
+MATCH_KERNEL = LaunchCounter("match_scan")
+WINDOW_KERNEL = LaunchCounter("window_scan")
 
 
 @dataclass
@@ -26,15 +66,17 @@ class DFATables:
     match_on: np.ndarray     # [SP, CP] bool
     bounds: np.ndarray       # [NB] int32 segment boundaries, padded with 256
     host_starts: np.ndarray  # [4]
+    match_eoi: np.ndarray    # [S, 4] bool
+    packed: np.ndarray       # [S, nseg] int32 delta*32 + match (unpadded)
+    segmap: np.ndarray       # [256] int32 byte -> segment
 
     @classmethod
     def from_dense(cls, dfa: DenseDFA) -> "DFATables":
         S, _C0 = dfa.delta.shape
-        classes = dfa.classes
-        bounds = [b for b in range(1, 256) if classes[b] != classes[b - 1]]
+        bounds, segmap = segment_map(dfa.classes)
         nseg = len(bounds) + 1
-        seg_cls = np.asarray([classes[b] for b in [0] + bounds],
-                             dtype=np.int64)
+        seg_cls = np.asarray(dfa.classes)[
+            np.concatenate([np.zeros(1, np.int64), bounds])]
         SP, CP = _bucket(S, 8), _bucket(nseg, 4)
         delta = np.zeros((SP, CP), dtype=np.int32)
         match = np.zeros((SP, CP), dtype=bool)
@@ -43,5 +85,276 @@ class DFATables:
         NB = _bucket(max(len(bounds), 1), 4)
         bpad = np.full(NB, 256, dtype=np.int32)
         bpad[:len(bounds)] = bounds
+        packed = delta[:S, :nseg] * 32 + match[:S, :nseg].astype(np.int32)
         return cls(delta=delta, match_on=match, bounds=bpad,
-                   host_starts=np.asarray(dfa.starts))
+                   host_starts=np.asarray(dfa.starts),
+                   match_eoi=np.asarray(dfa.match_eoi, dtype=bool),
+                   packed=packed, segmap=segmap)
+
+    def fits(self) -> bool:
+        """Whether the packed table fits the kernels' shared memory."""
+        return table_fits(*self.packed.shape)
+
+
+class MatchTables:
+    """The packed match table, byte map, EOI flags [S, 4] and start states
+    [4] of a DFATables on a torch device: the inputs of K9 and of the
+    window scan.  Raises ValueError on CUDA when the table is too large
+    for the kernels."""
+
+    def __init__(self, t: DFATables, device):
+        self.device = torch.device(device)
+        self.S, self.NSEG = (int(x) for x in t.packed.shape)
+        require_fits(self.S, self.NSEG, self.device)
+        self.packed = device_table(t.packed, self.device)
+        self.segmap = device_table(t.segmap, self.device)
+        self.eoi = device_table(t.match_eoi.astype(np.int32), self.device)
+        self.starts = device_table(t.host_starts, self.device)
+
+
+# ---------------------------------------------------------------------------
+# The chunked match scan (K9)
+# ---------------------------------------------------------------------------
+
+def match_lanes(packed, segmap, tiles, W4, entries, offsets, limits):
+    """K9: (flagw, counts, last, exits, sync) of one match-scan pass;
+    flagw [T4/8, L] time-major words, counts the lanes' set flags, last
+    the lane-local position of each lane's last set flag (-1 if none)."""
+    counts, exits, sync, fw, last = lane_walk(
+        MODE_MATCH, MATCH_KERNEL, packed, segmap, tiles, W4, entries,
+        offsets, limits)
+    return fw, counts, last, exits, sync
+
+
+def match_full(mt: MatchTables, data_u8, tiles, n: int, L: int, T: int,
+               W: int):
+    """One settled match scan: (flagw, counts, last, exits) with every lane
+    exact.  The repair fixpoint of ``count_scan.repair_fixpoint`` rescans
+    until each real lane's post-warmup state equals the previous lane's
+    exit, with one cut: a lane that ends DEAD on the exact chain ends the
+    scan, since DEAD is absorbing and raises no flag, so the lanes after it
+    are DEAD with no flags and are set so.  Without the cut a break-at-match
+    DFA that dies in an early lane needs one rescan per later lane to carry
+    DEAD along (the reference gives up after 4 and scans on its host).
+    Each pass makes at least one more lane exact, so the loop ends within
+    L passes; it syncs once per pass."""
+    dev = tiles.device
+    W4 = W // 4
+    entries, offsets, limits = first_pass_inputs(mt.starts, data_u8, n, L,
+                                                 T, W)
+    lane_ids = torch.arange(L, dtype=torch.int64, device=dev)
+    real = (lane_ids * T) < n
+    sot = mt.starts[CTX_SOT].reshape(1)
+    while True:
+        fw, counts, last, exits, sync = match_lanes(
+            mt.packed, mt.segmap, tiles, W4, entries, offsets, limits)
+        want = torch.cat([sot, exits[:-1]])
+        first_bad = torch.where(real & (want != sync), lane_ids, L).min()
+        first_dead = torch.where(real & (exits == DEAD), lane_ids, L).min()
+        fb, fd = torch.stack([first_bad, first_dead]).tolist()
+        if fd < fb:
+            if fd + 1 < L:
+                counts[fd + 1:] = 0
+                last[fd + 1:] = -1
+                exits[fd + 1:] = DEAD
+                fw[:, fd + 1:] = 0
+            return fw, counts, last, exits
+        if fb >= L:
+            return fw, counts, last, exits
+        entries = want.contiguous()
+        offsets = torch.full_like(offsets, W)
+
+
+class MatchScan(NamedTuple):
+    """A settled match scan of n bytes under geometry (L, T)."""
+    flagw: torch.Tensor     # [T4/8, L] time-major flag words
+    counts: torch.Tensor    # [L] set flags per lane
+    last: torch.Tensor      # [L] lane-local last flag position or -1
+    exits: torch.Tensor     # [L] lane exit states
+    n: int
+    L: int
+    T: int
+
+
+def flags_count_upto(scan: MatchScan) -> torch.Tensor:
+    """Set flags at offsets < n, as a 0-dim int64 device tensor (the
+    reference's flags_count_upto also counts the flag at n; the port
+    answers that with the EOI check, see the module docstring)."""
+    return scan.counts.sum(dtype=torch.int64)
+
+
+def flags_last(scan: MatchScan) -> torch.Tensor:
+    """Largest set flag offset < n, or -1, as a 0-dim int64 device
+    tensor."""
+    lanes = torch.arange(scan.L, dtype=torch.int64, device=scan.last.device)
+    pos = torch.where(scan.last >= 0, lanes * scan.T + scan.last, -1)
+    return pos.max()
+
+
+def exit_at_end(scan: MatchScan) -> torch.Tensor:
+    """The exact state at offset n (0-dim device tensor): the exit of the
+    lane holding byte n-1.  The reference replays that lane's tail on its
+    host (:378-396); the lanes here freeze at their limits."""
+    return state_at_end(scan.exits, scan.n, scan.L, scan.T)
+
+
+class ChunkScanner:
+    """Full-corpus match-flag scan with exact lane seams (ref.
+    ChunkScanner).  ``scan_device`` keeps everything on the device;
+    ``scan`` is the host-facing form the tests use."""
+
+    def __init__(self, tables: DFATables, device):
+        self.tables = tables
+        self.mt = MatchTables(tables, device)
+
+    def scan_device(self, data_dev: torch.Tensor,
+                    geometry: Optional[Tuple[int, int, int, int]] = None,
+                    tiles: Optional[torch.Tensor] = None) -> MatchScan:
+        """The settled scan of a non-empty device corpus; `tiles` are its
+        word tiles under the geometry (built when None)."""
+        n = int(data_dev.shape[0])
+        L, T, W, _Lc = geometry or plan_geometry(n)
+        if tiles is None:
+            tiles = make_word_tiles(data_dev, L, T // 4)
+        fw, counts, last, exits = match_full(self.mt, data_dev, tiles, n, L,
+                                             T, W)
+        return MatchScan(fw, counts, last, exits, n, L, T)
+
+    def scan(self, data_dev: torch.Tensor) -> Tuple[np.ndarray, int]:
+        """Host-facing: (flags bool [n+1], exit state at n); flags[n] is
+        the EOI flag at that state."""
+        n = int(data_dev.shape[0])
+        if n == 0:
+            s0 = int(self.tables.host_starts[CTX_SOT])
+            return np.array([bool(self.tables.match_eoi[s0, CTX_SOT])]), s0
+        sc = self.scan_device(data_dev)
+        words = to_global(sc.flagw, n).cpu().numpy()
+        out = np.zeros(n + 1, dtype=bool)
+        out[:n] = np.unpackbits(words.view(np.uint8),
+                                bitorder="little")[:n].astype(bool)
+        exit_state = int(exit_at_end(sc))
+        out[n] = bool(self.tables.match_eoi[exit_state, CTX_SOT])
+        return out, exit_state
+
+
+# ---------------------------------------------------------------------------
+# The window-flag scan
+# ---------------------------------------------------------------------------
+
+def window_words(W: int) -> int:
+    """Flag words per lane of a W-byte window (W + 1 columns)."""
+    return (W + 1 + 31) // 32
+
+
+def window_flags_plain(packed, segmap, eoi, starts_tbl, data, reverse: bool,
+                       starts, edge, W: int):
+    """Plain torch window-flag scan (the reference's impl="gather"
+    _window_scan_flags): B anchored runs of at most W steps.  Returns
+    (flagw [NW, B] int32, bit t%32 of word t/32 = column t of a lane,
+    alive [B] int32).  With `reverse` the scan reads data backwards
+    (scanned position j = byte n-1-j).  See csrc/window_scan.cu for the
+    semantics."""
+    dev = data.device
+    n = int(data.shape[0])
+    B = int(starts.shape[0])
+    nseg = int(packed.shape[1])
+    tbl = packed.reshape(-1).long()
+    seg = segmap.long()
+    eoi4 = eoi.reshape(-1).long()
+
+    def byte_at(j):
+        j = j.clamp(0, n - 1)
+        return data[n - 1 - j if reverse else j].long()
+
+    st0 = starts.long()
+    cut = edge.long().clamp(max=n)
+    s = starts_tbl.long()[torch.where(st0 == 0, CTX_SOT,
+                                      _byte_ctx(byte_at(st0 - 1)))]
+    cut_ctx = torch.where(cut >= n, CTX_SOT, _byte_ctx(byte_at(cut)))
+    NW = window_words(W)
+    flags = torch.zeros((NW * 32, B), dtype=torch.bool, device=dev)
+    for t in range(W):
+        pos = st0 + t
+        valid = pos < cut
+        v = tbl[s * nseg + seg[byte_at(pos)]]
+        at_cut = ~valid & (pos == cut) & (s != DEAD)
+        flags[t] = (valid & ((v & 1) == 1)) | (
+            at_cut & (eoi4[s * 4 + cut_ctx] == 1))
+        s = torch.where(valid, v >> 5, DEAD)
+    end = st0 + W
+    live = s != DEAD
+    flags[W] = (end == cut) & live & (eoi4[s * 4 + cut_ctx] == 1)
+    alive = (live & (end < cut)).to(torch.int32)
+    flagw = pack_words(flags.t().contiguous().reshape(-1), B * NW)
+    return flagw.reshape(B, NW).t().contiguous(), alive
+
+
+def _check_window_args(packed, segmap, eoi, starts_tbl, data, starts, edge,
+                       W):
+    dev = data.device
+    named = [("packed", packed), ("segmap", segmap), ("eoi", eoi),
+             ("starts_tbl", starts_tbl), ("starts", starts), ("edge", edge)]
+    for name, t in named + [("data", data)]:
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, data on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    for name, t in named:
+        if t.dtype != torch.int32:
+            raise ValueError(f"{name} must be int32, got {t.dtype}")
+    if data.dtype != torch.uint8 or data.dim() != 1 or data.numel() == 0:
+        raise ValueError("data must be a non-empty 1-D uint8 tensor")
+    S, nseg = (int(x) for x in packed.shape)
+    B = int(starts.shape[0])
+    if (tuple(segmap.shape) != (256,) or tuple(eoi.shape) != (S, 4)
+            or tuple(starts_tbl.shape) != (4,)
+            or tuple(edge.shape) != (B,) or starts.dim() != 1):
+        raise ValueError("bad window-scan table or lane shapes")
+    if not 0 < W < 2 ** 31 - 32:
+        raise ValueError(f"bad window width {W}")
+    if not table_fits(S, nseg):
+        raise ValueError(f"packed table [{S}, {nseg}] exceeds the "
+                         f"shared-memory limit")
+
+
+def window_flags_cuda(packed, segmap, eoi, starts_tbl, data, reverse: bool,
+                      starts, edge, W: int):
+    """Launch csrc/window_scan.cu; same outputs as window_flags_plain."""
+    _check_window_args(packed, segmap, eoi, starts_tbl, data, starts, edge,
+                       W)
+    dev = data.device
+    S, nseg = (int(x) for x in packed.shape)
+    B = int(starts.shape[0])
+    flagw = torch.zeros((window_words(W), B), dtype=torch.int32, device=dev)
+    alive = torch.empty(B, dtype=torch.int32, device=dev)
+    lib = _build.lib()
+    p = _build.ptr
+    with torch.cuda.device(dev):
+        rc = lib.cgx_window_flags(
+            p(packed), S, nseg, p(segmap), p(eoi), p(starts_tbl), p(data),
+            int(data.shape[0]), int(bool(reverse)), p(starts), p(edge), B, W,
+            p(flagw), p(alive), _build.stream(dev))
+    _build.check(rc, "window_scan")
+    return flagw, alive
+
+
+def window_args(mt: MatchTables, data, starts, edge, W: int,
+                reverse: bool = False):
+    """The argument tuple of window_flags_plain / window_flags_cuda."""
+    return (mt.packed, mt.segmap, mt.eoi, mt.starts, data, reverse, starts,
+            edge, W)
+
+
+def window_flags(mt: MatchTables, data, starts, edge, W: int,
+                 reverse: bool = False):
+    """The window-flag scan on the data's device: the kernel for CUDA
+    tensors (counted on WINDOW_KERNEL), the plain version for CPU
+    tensors.  starts, edge: [B] int32 with 0 <= start <= n."""
+    args = window_args(mt, data, starts, edge, W, reverse)
+    if data.device.type == "cuda":
+        out = window_flags_cuda(*args)
+        WINDOW_KERNEL.launches += 1
+        return out
+    if data.device.type != "cpu":
+        raise ValueError(f"unsupported device {data.device}")
+    return window_flags_plain(*args)

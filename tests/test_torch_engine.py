@@ -185,11 +185,11 @@ def test_declines_are_counted_and_served_by_host():
     assert be.host_routes == 1
     assert eng.find_all_index(t, 3) == exp[:3]    # limit: host loop
     assert be.host_routes == 2
-    assert eng.find_index(t) == exp[0]            # find_first: FALLBACK
-    assert eng.is_match(t) is True                # is_match: None
-    assert be.host_routes == 4
+    assert eng.find_index(t) == exp[0]            # find_first: no decline
+    assert eng.is_match(t) is True                # is_match: no decline
+    assert be.host_routes == 2
     assert eng.count(t) == len(exp)               # K6: no decline
-    assert be.host_routes == 4
+    assert be.host_routes == 2
 
 
 def test_nullable_count_utf8_gate():

@@ -2,8 +2,9 @@
 machine it runs on has no jax), and nothing of the JAX package coregex_tpu,
 not even its host modules.  A subprocess blocks `import jax` and `import
 coregex_tpu` with a meta-path finder that raises, imports the package,
-runs CPU counts and find_alls (a nullable pattern among them) against
-Python's re, and checks that neither entered sys.modules."""
+runs CPU counts and find_alls (a nullable pattern among them), is_match
+and find_index calls against Python's re, and checks that neither entered
+sys.modules."""
 
 import os
 import pathlib
@@ -39,6 +40,9 @@ eng = ct.compile(pattern, device="cpu")
 exp = [m.span() for m in re.finditer(pattern.encode(), text)]
 assert eng.count(np.frombuffer(text, dtype=np.uint8)) == len(exp)
 assert eng.find_all_index(text) == exp
+assert eng.find_index(text) == exp[0]
+assert eng.is_match(text) is True
+assert ct.compile(r"\s\d\s", device="cpu").is_match(text) is False
 assert eng.batch_engine().host_routes == 0
 # nullable: Go drops the empty match that abuts the previous match
 exp, prev = [], -1

@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Where the time of coregex_tpu_torch's device find_all goes, on one GPU.
 
-    python3 tools/profile_torch.py [name ...]
+    python3 tools/profile_torch.py [--single] [name ...]
 
 Builds the JAX package's bench corpus as chip_smoke.py does (the 6 MiB
 base tile, seed 7, tiled to 1536 MiB, or to the largest whole-tile corpus
 the span limits admit for the general nullable patterns), makes one warm
 find_all_spans_device call per pattern, then profiles one more with
-torch.profiler.  Prints the wall time, the device's busy time (the sum of
+torch.profiler.  With --single it does the same for is_match and
+find_index on chip_smoke's late-match corpus (spaces, a newline, one base
+tile), names from chip_smoke.SINGLE_EXTRA too.  Prints the wall time, the device's busy time (the sum of
 the kernels' times; one stream, so they do not overlap), its idle share,
 the call's peak device memory above what was allocated before it,
 the port's own kernels, and the eight operators whose kernels took the
@@ -28,7 +30,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 import chip_smoke  # noqa: E402
 
 
-def main(names):
+def main(names, single=False):
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -44,26 +46,36 @@ def main(names):
     corpus = chip_smoke.bench_corpus(base)
     B = len(base)
     sizes = {nm: size for nm, _, size in chip_smoke.CLASS_NULLABLE}
-    for name in names:
+    if single:
+        late = chip_smoke.single_corpora(base, corpus)[1][1]
+    for name, what in [(nm, w) for nm in names for w in (
+            ("is_match", "find_index") if single else ("find_all",))]:
         pattern = chip_smoke.PATTERNS[name]
         reps = len(corpus) // B
         if sizes.get(name) == "limit":
             reps = min(reps, BatchEngine.DEVICE_SPANS_LIMIT // B)
-        arr = corpus[:reps * B]
+        arr = late if single else corpus[:reps * B]
         corpus_cache.clear()
-        be = ct.compile(pattern, device="cuda").batch_engine()
-        be.find_all_spans_device(arr)          # tables, upload, warm-up
+        eng = ct.compile(pattern, device="cuda")
+        be = eng.batch_engine()
+
+        def call():
+            if what != "find_all":
+                return getattr(eng, what)(arr)
+            spans, cnt = be.find_all_spans_device(arr)
+            int(spans[:16].sum())
+            return f"{cnt} spans"
+
+        call()                                 # tables, upload, warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         held = torch.cuda.memory_allocated()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            spans, cnt = be.find_all_spans_device(arr)
-            int(spans[:16].sum())
+            out = call()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
-        del spans
         peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
         kernels = {}
         for e in prof.events():
@@ -71,8 +83,8 @@ def main(names):
                 ms, k = kernels.get(e.name, (0.0, 0))
                 kernels[e.name] = (ms + e.device_time_total / 1e3, k + 1)
         busy = sum(ms for ms, _ in kernels.values())
-        print(f"[profile] {name} ({pattern}) on {len(arr)} bytes, {cnt} "
-              f"spans, {card}: wall {wall:.1f} ms, device busy "
+        print(f"[profile] {name} ({pattern}) {what} on {len(arr)} bytes, "
+              f"{out}, {card}: wall {wall:.1f} ms, device busy "
               f"{busy:.1f} ms, idle share {max(0.0, 1 - busy / wall):.3f}, "
               f"peak {peak:.2f} GiB above the {held / 2 ** 30:.2f} GiB "
               f"held before the call")
@@ -92,4 +104,7 @@ def main(names):
 
 
 if __name__ == "__main__":
-    main(sys.argv[1:] or [nm for nm, _, _ in chip_smoke.CLASS_NULLABLE])
+    args = sys.argv[1:]
+    single = "--single" in args
+    names = [a for a in args if a != "--single"]
+    main(names or [nm for nm, _, _ in chip_smoke.CLASS_NULLABLE], single)
