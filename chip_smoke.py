@@ -19,9 +19,13 @@ Phases (any failure exits non-zero before the final line):
                start mask of `\w*` over the 1536 MiB corpus (cap 2^30);
                the match scan (K9) on the 4 MiB sample (break-at-match
                DFAs) and on the whole corpus (`\s\d\s`, fwd_all); the
-               window-flag scan on 2^16 random starts at W = 256
+               window-flag scan on 2^16 random starts at W = 256; the
+               single-pass compaction (K10) on the compaction rig's mask
+               (256 MiB at density 1/200, seed 11) at R = 128, at R = 256
+               with two payloads under cond_dma + skip_empty, and at
+               R = 512
   4. e2e     - the public API on a 1536 MiB log corpus (the JAX package's
-               bench corpus), in two runs, each with the launch counts set
+               bench corpus), in four runs, each with the launch counts set
                to 0 before it and read after it.  Earlier slices: count for
                the 13 bench patterns and for `0\.0` (whose hits overlap,
                so K6 hands over to K7), device find_all for the 4
@@ -46,11 +50,20 @@ Phases (any failure exits non-zero before the final line):
                match), each of its own length, against `re` on windows
                whose bounds no match can cross (the filler checked with re
                to hold no match but the nullable one); and the re-tiling of
-               find_first's prefixes, timed
+               find_first's prefixes, timed.  Literals: device find_all
+               (first call, then best of 2) of literal_error,
+               http_methods, alt_literal, multi_literal32, `0\.0` (a
+               self-overlapping literal) and `0\.0|\.0\.` (hits that
+               overlap) on the whole corpus against the tiled oracle,
+               `(error)?` at the span limits' corpus as the nullable
+               patterns above, then the compaction rig
+               (tools/profile_compact_torch.py): its check, its 15
+               variants and its production compactions, timed
   5. routes  - every kernel K1-K7 was launched in the first run, K1-K4 and
-               K8 in the second, K9 and the window scan in the third, and
-               no call was declined to the host loop but the nullable
-               find_index (the reference's FALLBACK, by design)
+               K8 in the second, K9 and the window scan in the third, K4
+               and K10 in the fourth, and no call was declined to the host
+               loop but the nullable find_index (the reference's FALLBACK,
+               by design)
 
 The line before the last is a JSON object of per-kernel results; the last
 line is {"ok": true, "device": {...}}.  Imports no jax.
@@ -143,6 +156,14 @@ CLASS_NULLABLE = [("charclass_w", r"[\w]+", "full"),
                   ("word_star", r"\w*", "full"),
                   ("ip_opt", r"(\d+\.\d+\.\d+\.\d+)?", "limit"),
                   ("php_opt", r"(?m)(^/.*\.php)?", "limit")]
+# the literal slice: device find_all of the four literal bench patterns,
+# `0\.0` (a self-overlapping literal) and a set whose hits overlap in
+# 10.0.0.255 on the whole corpus; a nullable pattern with a literal core on
+# the span limits' corpus (as CLASS_NULLABLE)
+LITERAL_EXTRA = [("overlap_set", r"0\.0|\.0\.")]
+LITERAL_FIND_ALL = ("literal_error", "http_methods", "alt_literal",
+                    "multi_literal32", "overlap_0.0", "overlap_set")
+LITERAL_NULLABLE = [("error_opt", r"(error)?", "limit")]
 # the single-match slice: the bench patterns and these
 SINGLE_EXTRA = [("ws_digit_ws", r"\s\d\s"), ("ab_plus_c", r"(a|b)+c"),
                 ("ws_digits_ws", r"\s\d+\s"), ("a_word_end", r"a\b"),
@@ -151,8 +172,8 @@ SINGLE_EXTRA = [("ws_digit_ws", r"\s\d\s"), ("ab_plus_c", r"(a|b)+c"),
 # before a final newline
 ORACLE_RE = {r"\d+$": rb"\d+\Z"}
 FILLER = 0x20       # the late and no-match corpora's filler byte
-PATTERNS = dict(CONFIGS + EXTRA_COUNTS + SINGLE_EXTRA
-                + [(nm, p) for nm, p, _ in CLASS_NULLABLE])
+PATTERNS = dict(CONFIGS + EXTRA_COUNTS + SINGLE_EXTRA + LITERAL_EXTRA
+                + [(nm, p) for nm, p, _ in CLASS_NULLABLE + LITERAL_NULLABLE])
 DEVICE = "cuda"
 CORPUS_MIB = 1536
 SLICE_MIB = 64
@@ -295,9 +316,9 @@ def phase_kernels(base: bytes, corpus: np.ndarray):
     import torch
     import coregex_tpu_torch as ct
     from coregex_tpu_torch.ops import count_scan as cs
-    from coregex_tpu_torch.ops import (compact, compact2, dfa_scan,
-                                       flag_scan, line_scan, seq_scan,
-                                       span_chain)
+    from coregex_tpu_torch.ops import (compact, compact2, compact_exp,
+                                       dfa_scan, flag_scan, line_scan,
+                                       seq_scan, span_chain)
     from coregex_tpu_torch.ops.bytescan import _bucket
     from coregex_tpu_torch.ops.compact2 import _bucket_up
     from coregex_tpu_torch.ops.flag_scan import DEAD
@@ -614,6 +635,31 @@ def phase_kernels(base: bytes, corpus: np.ndarray):
                 headline=headline,
                 in_bytes=reads + nbytes(starts, edge, *wargs[:4]))
     del data
+
+    # K10 on the compaction rig's mask (256 MiB at density 1/200, seed 11)
+    # at its three row counts: R = 128 with no payload, R = 256 with two
+    # payloads under cond_dma + skip_empty, R = 512; 50 launches each (0.3
+    # ms ones), since 5 after the mask's host-side build left the first
+    # configuration timed at three times its steady time
+    from tools import profile_compact_torch as rig
+    mask, nset, cap = rig.rig_mask(256, 1 / 200, DEVICE)
+    g = torch.Generator(device=dev).manual_seed(13)
+    rpays = [torch.randint(-2 ** 31, 2 ** 31 - 1, (mask.numel(),),
+                           dtype=torch.int32, device=dev, generator=g)
+             for _ in range(2)]
+    m8 = mask.view(torch.uint8)
+    for R, npay, kw in ((128, 0, {}),
+                        (256, 2, dict(cond_dma=True, skip_empty=True)),
+                        (512, 0, {})):
+        compare("compact_exp",
+                f"256 MiB R={R} p={npay}" + (" cond+skip" if kw else ""),
+                lambda: compact_exp.compact_exp_cuda(m8, rpays[:npay], cap,
+                                                     R, **kw),
+                lambda: compact_exp.compact_exp_plain(m8, rpays[:npay], cap),
+                reps=50, headline=R == 128,
+                in_bytes=mask.numel() + 4 * nset * npay,
+                library=lambda: torch.nonzero(mask))
+    del mask, m8, rpays
     torch.cuda.empty_cache()
     return results
 
@@ -804,7 +850,8 @@ def timed_count(eng, arr: np.ndarray):
     return got, best, first
 
 
-def phase_e2e_class_nullable(base: bytes, arr: np.ndarray):
+def phase_e2e_class_nullable(base: bytes, arr: np.ndarray,
+                             cases=CLASS_NULLABLE):
     """Class-run and nullable count and find_all through the public API,
     against the Go-rule oracle of the base tile scaled by the tile count
     (the scaling checked on two tiles for the nullable patterns)."""
@@ -815,7 +862,7 @@ def phase_e2e_class_nullable(base: bytes, arr: np.ndarray):
     B = len(base)
     rng = np.random.default_rng(321)
     routes = {}
-    for name, pattern, size in CLASS_NULLABLE:
+    for name, pattern, size in cases:
         spans0 = oracle_spans(pattern, base)
         inner, tail = tiled_spans(spans0, B, 1)
         nullable = bool(tail) or any(s == e for s, e in inner)
@@ -862,6 +909,54 @@ def phase_e2e_class_nullable(base: bytes, arr: np.ndarray):
               f"{len(got)} spans equal the oracle", flush=True)
         del got
         routes[f"{name} find_all"] = be.host_routes
+    return routes
+
+
+def phase_e2e_literal(base: bytes, arr: np.ndarray):
+    """Literal and literal-set device find_all through the public API on
+    the whole corpus against the tiled oracle (no literal holds a newline,
+    so no match crosses a tile seam), `(error)?` on the span limits'
+    corpus, then the compaction rig (tools/profile_compact_torch.py): its
+    check, its 15 variants and its production compactions on its own mask
+    (256 MiB at density 1/200, seed 11)."""
+    import torch
+    import coregex_tpu_torch as ct
+    from tools import profile_compact_torch as rig
+
+    B = len(base)
+    reps = len(arr) // B
+    rng = np.random.default_rng(456)
+    routes = {}
+    for name in LITERAL_FIND_ALL:
+        pattern = PATTERNS[name]
+        eng = ct.compile(pattern, device=DEVICE)
+        be = eng.batch_engine()
+        if eng.strategy not in ("literal", "multi_literal"):
+            fail(f"{name}: plan {eng.strategy}, not a literal plan")
+        exp = tiled_digest(oracle_spans(pattern, base), [], B, reps, rng)
+        print(f"[e2e] {name:16} {eng.strategy:13} "
+              + check_find_all(name, be, arr, exp), flush=True)
+        routes[f"{name} find_all"] = be.host_routes
+    routes.update(phase_e2e_class_nullable(base, arr, LITERAL_NULLABLE))
+    for line in rig.check(DEVICE):
+        print(f"[rig] check {line}")
+    mask, nhits, cap = rig.rig_mask(256, 1 / 200, DEVICE)
+    n = int(mask.shape[0])
+    expect = torch.nonzero(mask).flatten().to(torch.int32)
+    for variant in rig.VARIANTS:
+        ms, ok = rig.run_variant(variant, mask, nhits, cap, expect)
+        if ok is False:
+            fail(f"rig variant {variant} differs from torch.nonzero")
+        print(f"[rig] {variant:14} {ms:8.3f} ms "
+              f"({n / 1e9 / (ms / 1e3):7.2f} GB/s)"
+              + ("  ablation" if ok is None else "  ok"), flush=True)
+    for name, ms, ok in rig.prod(mask, nhits, cap, expect):
+        if not ok:
+            fail(f"rig prod {name} differs from torch.nonzero")
+        print(f"[rig] prod {name:9} {ms:8.3f} ms "
+              f"({n / 1e9 / (ms / 1e3):7.2f} GB/s)  ok", flush=True)
+    del mask, expect
+    torch.cuda.empty_cache()
     return routes
 
 
@@ -977,32 +1072,38 @@ def main():
         import coregex_tpu_torch  # noqa: F401
     except ImportError as ex:
         fail(f"cannot import coregex_tpu_torch: {ex}")
-    from coregex_tpu_torch.ops import (compact, compact2, count_scan,
-                                       dfa_scan, flag_scan, line_scan,
-                                       seq_scan, span_scan)
+    from coregex_tpu_torch.ops import (compact, compact2, compact_exp,
+                                       count_scan, dfa_scan, flag_scan,
+                                       line_scan, seq_scan, span_scan)
+    ops = "coregex_tpu/ops/"
     counters = [
-        (count_scan.COUNT_KERNEL, "lane_scan.cu", "count_scan.py:211"),
-        (span_scan.SPAN_KERNEL, "lane_scan.cu", "span_scan.py:108"),
-        (flag_scan.FLAG_KERNEL, "lane_scan.cu", "flag_scan.py:164"),
-        (compact2.COMPACT_KERNEL, "compact.cu", "compact2.py:91"),
-        (line_scan.LINE_KERNEL, "needle_scan.cu", "line_scan.py:78"),
-        (line_scan.HITS_KERNEL, "needle_scan.cu", "line_scan.py:407"),
-        (seq_scan.SEQ_KERNEL, "needle_scan.cu", "seq_scan.py:103"),
-        (compact.COMPACT_POS_KERNEL, "compact.cu", "compact.py:97"),
-        (dfa_scan.MATCH_KERNEL, "lane_scan.cu", "pallas_scan.py:35"),
+        (count_scan.COUNT_KERNEL, "lane_scan.cu", ops + "count_scan.py:211"),
+        (span_scan.SPAN_KERNEL, "lane_scan.cu", ops + "span_scan.py:108"),
+        (flag_scan.FLAG_KERNEL, "lane_scan.cu", ops + "flag_scan.py:164"),
+        (compact2.COMPACT_KERNEL, "compact.cu", ops + "compact2.py:91"),
+        (line_scan.LINE_KERNEL, "needle_scan.cu", ops + "line_scan.py:78"),
+        (line_scan.HITS_KERNEL, "needle_scan.cu", ops + "line_scan.py:407"),
+        (seq_scan.SEQ_KERNEL, "needle_scan.cu", ops + "seq_scan.py:103"),
+        (compact.COMPACT_POS_KERNEL, "compact.cu", ops + "compact.py:97"),
+        (dfa_scan.MATCH_KERNEL, "lane_scan.cu", ops + "pallas_scan.py:35"),
         # a lax.scan loop of the reference, with no Pallas kernel
-        (dfa_scan.WINDOW_KERNEL, "window_scan.cu", "dfa_scan.py:626"),
+        (dfa_scan.WINDOW_KERNEL, "window_scan.cu", ops + "dfa_scan.py:626"),
+        (compact_exp.COMPACT_EXP_KERNEL, "compact_exp.cu",
+         "tools/_compact_exp.py:67"),
     ]
     # kernels each run of phase 4 must launch: the earlier slices' path,
     # then the class-run and nullable path (K1 for the `\w*` count, K2/K3
     # for the ip core, K4 for class runs and chains, K8 for `\w*`), then
-    # the single-match path (K9 and the window scan)
+    # the single-match path (K9 and the window scan), then the literal
+    # path and the compaction rig (K4 for the literal chains, K10)
     paths = [("earlier slices", phase_e2e,
               [c for c, _, _ in counters[:7]]),
              ("class runs and nullable", phase_e2e_class_nullable,
               [counters[i][0] for i in (0, 1, 2, 3, 7)]),
              ("single match", phase_e2e_single_match,
-              [counters[i][0] for i in (8, 9)])]
+              [counters[i][0] for i in (8, 9)]),
+             ("literal find_all and compaction rig", phase_e2e_literal,
+              [counters[i][0] for i in (3, 10)])]
     build_s = phase_build()
     base = build_base()
     corpus = bench_corpus(base)
@@ -1033,7 +1134,7 @@ def main():
     print(json.dumps({"kernels": [
         {"name": c.name, "route": "cuda",
          "source": f"coregex_tpu_torch/csrc/{src}",
-         "replaces": f"coregex_tpu/ops/{ref}", "launches": launches[c.name],
+         "replaces": ref, "launches": launches[c.name],
          **{k: kres[c.name][k] for k in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")}}

@@ -7,8 +7,10 @@ the count scanners (:1456-1629), ``count`` (:1698-1790) with
 ``nullable_count``'s route and UTF-8 gate (:1668-1696) folded in,
 ``_line_shape_parts`` (:2091-2097), the bidirectional span path
 (:999-1184), the line-shape span path (:798-848), the class-run path
-(``_chop_runs`` :54, ``_charclass_spans_dev`` :710-742,
-``_charclass_dense_pair`` :744-758), the nullable paths (``_core``
+(``_chop_runs`` :54, ``_charclass_spans_dev`` :710-742 with
+``_charclass_dense_pair`` :744-758 folded in), the literal paths
+(``_literal_spans_dev`` :678-708, ``_multi_literal_spans_dev`` :760-796,
+one method here), the nullable paths (``_core``
 :2467-2476, ``_nullable_spans_dev`` :589-633,
 ``_nullable_general_spans_dev`` :635-676), ``find_all_spans_device``
 (:523-587), ``find_all_spans``, ``_end_anchored_spans`` (:1402-1413),
@@ -38,14 +40,16 @@ Routes:
     no EOI_COMPLEX state; the candidate chain for LINE_SHAPE plans with
     newline-free, non-empty literals and no ``(?s)`` part; class runs for
     CHARCLASS plans that are ``[class]+`` or ``([class]{m,k})+`` (two
-    sparse chains, or K4 over the full masks when runs are dense); for
-    NULLABLE_CORE plans two K8 compactions when the core is ``[class]+``
-    and the corpus ASCII, else the core's own route plus the empty fill
-    when that route serves the corpus and the corpus is below
-    DEVICE_SPANS_LIMIT; the host reverse scan for END_ANCHORED plans (any
-    limit).  Leftmost-longest plans decline, but END_ANCHORED, whose one
-    match does not depend on the rule.  A limit (find_all_index(t, k))
-    declines otherwise.
+    sparse chains, or K4 over the unpacked masks when runs are dense); for
+    LITERAL and MULTI_LITERAL plans the hit words and their chains (K4 over
+    the unpacked masks when hits are dense), with Go's leftmost-first
+    selection on the device when hits overlap; for NULLABLE_CORE plans
+    two K8 compactions when the core is ``[class]+`` and the corpus ASCII,
+    else the core's own route plus the empty fill when that route serves
+    the corpus and the corpus is below DEVICE_SPANS_LIMIT; the host
+    reverse scan for END_ANCHORED plans (any limit).  Leftmost-longest
+    plans decline, but END_ANCHORED, whose one match does not depend on
+    the rule.  A limit (find_all_index(t, k)) declines otherwise.
   * is_match: True for nullable plans; the host reverse scan for
     END_ANCHORED; one K9 scan over ``fwd_all`` for FULL_SCAN; for the
     other strategies ``find_first(...) is not None`` (the reference asks
@@ -85,9 +89,10 @@ from ..dfa.search import find_rev_start
 from ..nfa.thompson import compile_nfa
 from ..ops.bytescan import (_bucket, _memmem_mask, _multi_literal_scan,
                             _range_mask, first_run_geq, first_set_index,
-                            mask_count, table_to_ranges)
+                            literal_self_overlaps, mask_count,
+                            table_to_ranges)
 from ..ops.compact import compact_positions
-from ..ops.compact2 import _bucket_up, compact_pay, sparse_positions_words
+from ..ops.compact2 import _bucket_up, sparse_positions_words
 from ..ops.count_scan import CountScanner, make_word_tiles, plan_geometry
 from ..ops.dfa_scan import (ChunkScanner, DFATables, exit_at_end,
                             flags_count_upto, flags_last, window_flags,
@@ -97,12 +102,14 @@ from ..ops.flag_scan import (FlagResetScanner, ResetFlagTables,
                              sym_base_tiles)
 from ..ops.line_scan import HitsScanner, LineScanner
 from ..ops.seq_scan import MODE_MULTI, SeqScanner, seq_geometry
-from ..ops.span_chain import (SPARSE_OK, _floor_log2, bidi_assemble,
-                              bidi_ends, class_run_masks_dense,
-                              class_run_words,
-                              line_event_words, line_spans_candidates,
-                              nullable_class_masks, nullable_fill_words,
-                              nullable_merge, pair_spans_sparse)
+from ..ops.span_chain import (MULTI_FUSED_LIMIT, SPARSE_OK, _floor_log2,
+                              bidi_assemble, bidi_ends, class_run_words,
+                              leftmost_first_spans, line_event_words,
+                              line_spans_candidates, literal_spans_sparse,
+                              literal_words, multi_literal_words,
+                              multi_literal_words_big, nullable_class_masks,
+                              nullable_fill_words, nullable_merge,
+                              pair_spans_sparse, word_positions)
 from ..ops.span_scan import SpanScanner
 from ..syntax.ast import Node, Op
 from ..syntax.parser import Parsed
@@ -162,6 +169,13 @@ class BatchEngine:
     #    int32 ranks and index arrays (12), 32 bytes: 32 GiB at 2^30.
     #    With the core's own scan state (word tiles, flipped corpus,
     #    symbol tiles: about 4 bytes per corpus byte) that is about 47 GiB.
+    #  * The literal route's leftmost-first selection (hits that overlap)
+    #    holds int32 and bool arrays of cap slots: the hit starts, the
+    #    nodes' own indices, the hit ends, the links and the chain marks
+    #    with their scatter target and buffer (about 30 bytes per slot at
+    #    once, span_chain.leftmost_first_spans): 30 GiB at 2^30 slots,
+    #    beside the corpus (1 byte per corpus byte; 2^30 hits need n >
+    #    2^30).  tools/profile_torch.py --limit measures it at the limit.
     SPARSE_SPANS_LIMIT = 1600 * 1024 * 1024
     MAX_DEVICE_SPANS = 2 ** 30
     DEVICE_SPANS_LIMIT = 2 ** 30 - 1
@@ -702,6 +716,9 @@ class BatchEngine:
             elif kind == "charclass":
                 spans, cnt, ok = self._charclass_spans_dev(args, data,
                                                            known, fp)
+            elif kind == "literal":
+                spans, cnt, ok = self._literal_spans_dev(args, data, known,
+                                                         fp)
             elif kind == "nullable_k8":
                 spans, cnt, ok = self._nullable_spans_dev(args, data)
             elif kind == "end_anchored":
@@ -739,6 +756,9 @@ class BatchEngine:
             plain = cc.min == 1 and cc.max == -1 and not cc.plus
             # general {m,k} chopping: host (ref. batch.py:721-722)
             return ("charclass", cc) if plain or cc.plus else None
+        if strat in (Strategy.LITERAL, Strategy.MULTI_LITERAL):
+            lits = [bytes(x) for x in self.plan.literals]
+            return ("literal", lits) if all(lits) else None
         if strat == Strategy.NULLABLE_CORE:
             return self._nullable_route(data)
         return None
@@ -906,9 +926,10 @@ class BatchEngine:
         """(spans, count, ok) of a [class]+ or ([class]{m,k})+ plan (ref.
         batch.py:710-742): run masks packed to words, one sync for the run
         count, then two sparse chains when runs are sparse, else one K4
-        compaction per full mask; the {m,k}+ chopping is hit-sized torch.
-        Warm: the cached count sizes the caps, count and ok stay on the
-        device."""
+        compaction per unpacked mask (the reference's _charclass_dense_pair,
+        :744-758, rebuilds the masks from the corpus instead); the {m,k}+
+        chopping is hit-sized torch.  Warm: the cached count sizes the
+        caps, count and ok stay on the device."""
         n = len(data)
         dev = device_corpus(data, self.device)
         plain = cc.min == 1 and cc.max == -1 and not cc.plus
@@ -926,13 +947,8 @@ class BatchEngine:
             raise ValueError(f"{cnt} runs exceed the device span limit "
                              f"({self.MAX_DEVICE_SPANS})")
         cap = _bucket(cnt, 16)
-        if cnt / n < SPARSE_OK:
-            spans, _c, ok = pair_spans_sparse(ws, we, n, n, cap,
-                                              end_adjust=1)
-        else:
-            del ws, we
-            spans, ok = self._charclass_dense_pair(dev, ranges, mmin, cap,
-                                                   cs_d)
+        spans, _c, ok = pair_spans_sparse(ws, we, n, n, cap, end_adjust=1,
+                                          dense=cnt / n >= SPARSE_OK)
         if not plain:
             spans = _chop_runs(spans, cc.min, cc.max)
         if known_cnt is None:
@@ -942,17 +958,74 @@ class BatchEngine:
             return spans, cnt, None
         return spans, cs_d, ok
 
-    @staticmethod
-    def _charclass_dense_pair(dev, ranges, mmin, cap, cnt):
-        """Dense runs (ref. batch.py:744-758): one K4 compaction over each
-        full mask, for corpora where the chain's levels would hold nearly
-        every word."""
-        smask, emask = class_run_masks_dense(dev, ranges, mmin)
-        starts, _c1, ok1 = compact_pay(smask, (), cap)
-        lasts, _c2, ok2 = compact_pay(emask, (), cap)
-        live = torch.arange(cap, dtype=torch.int32, device=dev.device) < cnt
-        ends = torch.where(live, lasts + 1, starts)
-        return torch.stack([starts, ends], dim=1), ok1 & ok2
+    # -- literals and literal sets (LITERAL, MULTI_LITERAL) -------------------
+    def _literal_spans_dev(self, lits, data, known_cnt, fp):
+        """(spans, count, ok) of a literal or a literal set (ref. batch.py
+        :678-708 and :760-796): the hits packed to words (a set's in slices
+        past MULTI_FUSED_LIMIT), one sync for the hit count, then positions
+        from the sparse chain, or from K4 over the unpacked mask when hits
+        are dense.  Hits that cannot overlap give the spans directly: a
+        literal's fixed length, or a set's start and end words zipped (a
+        set's end is its winning literal's).  Hits that overlap -- a
+        self-overlapping literal such as `0\\.0`, a set whose start and end
+        counts differ, or whose zipped spans fail their check -- go
+        through leftmost_first_spans.  The reference hands those three
+        cases and dense sets to its host loop, after the upload (ROADMAP
+        F9).  Warm: the cached (hit count, selection) verdict sizes the
+        caps and picks the branch; count and ok stay on the device."""
+        n = len(data)
+        dev = device_corpus(data, self.device)
+        single = len(lits) == 1
+        if single:
+            ws, cnt_d = literal_words(dev, lits[0])
+        else:
+            producer = (multi_literal_words if n <= MULTI_FUSED_LIMIT
+                        else multi_literal_words_big)
+            ws, we, cnt_d, ce_d = producer(dev, lits)
+        if known_cnt is not None:
+            cnt, select = known_cnt
+        elif single:
+            cnt, select = int(cnt_d), literal_self_overlaps(lits[0])
+        else:
+            cnt, ce = torch.stack([cnt_d, ce_d]).tolist()
+            select = cnt != ce
+        self._spans_cnt_cache[fp] = (cnt, select)
+        if cnt == 0:
+            return _empty_spans(self.device), 0, None
+        if cnt > self.MAX_DEVICE_SPANS:
+            raise ValueError(f"{cnt} hits exceed the device span limit "
+                             f"({self.MAX_DEVICE_SPANS})")
+        cap = _bucket(cnt, 16)
+        dense = cnt / n >= SPARSE_OK
+        if not select:
+            if single:
+                spans, _c, ok = literal_spans_sparse(ws, n, cap,
+                                                     len(lits[0]), dense)
+            else:
+                spans, _c, ok = pair_spans_sparse(ws, we, n, n + 1, cap,
+                                                  dense=dense)
+            if known_cnt is not None:
+                return spans, cnt_d, ok
+            if bool(ok):
+                return spans, cnt, None
+            if single:
+                raise RuntimeError("literal span chain failed its "
+                                   "consistency check")
+            # two hits overlap, yet the set has as many ends as starts
+            self._spans_cnt_cache[fp] = (cnt, True)
+        if not single:
+            del we
+        starts, _c, ok1 = word_positions(ws, n, cap, dense)
+        del ws
+        spans, total, ok = leftmost_first_spans(dev, starts, cnt_d, lits,
+                                                cap)
+        ok = ok & ok1
+        if known_cnt is not None:
+            return spans, total, ok
+        if not bool(ok):
+            raise RuntimeError("leftmost-first literal selection failed its "
+                               "consistency check")
+        return spans, int(total), None
 
     # -- nullable patterns (NULLABLE_CORE) ------------------------------------
     def _core(self):
@@ -970,9 +1043,9 @@ class BatchEngine:
     def _nullable_route(self, data: np.ndarray):
         """("nullable_k8", class shape) for a [class]+ core on an ASCII
         corpus; ("nullable", (core BatchEngine, ASCII verdict)) when the
-        core's own find_all route serves the corpus; else None.  A
-        LITERAL or MULTI_LITERAL core (ROADMAP M3) and a {m,k} class core
-        decline."""
+        core's own find_all route serves the corpus (a literal core such as
+        `(error)?` or `(GET|POST)?` among them); else None: a {m,k} class
+        core, or a core whose plan declines find_all, declines."""
         core_be = self._core().batch_engine()
         cc = core_be.plan.charclass
         ascii_ok = corpus_is_ascii(data, self.device)

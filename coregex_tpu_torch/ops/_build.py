@@ -30,7 +30,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("lane_scan.cu", "compact.cu", "needle_scan.cu",
-           "window_scan.cu")
+           "window_scan.cu", "compact_exp.cu")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
@@ -49,6 +49,8 @@ _SIGNATURES = {
                          _P, _P, _I, _I, _P, _P, _P],
     "cgx_compact": [_P, ctypes.c_int64, _I, _P, _P, _P, _P, _I, _P, _P, _P,
                     _P, _P, _P, _P, _P, _P],
+    "cgx_compact_exp": [_P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P,
+                        _P, _I, _I, _I, _I, _P, _P, _P],
     "cgx_line_lanes": [_P, _P, _I, _I, _I, _I, _P, _P, _I, _I, _P, _P, _P,
                        _P, _P, _P],
     "cgx_hits_lanes": [_P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _P],

@@ -1,6 +1,7 @@
 """Byte-scan helpers; ports ``_bucket`` (:20), ``mask_count`` (:28),
 ``first_set_index`` (:122-130), ``first_run_geq`` (:133-150),
-``_memmem_mask`` (:164), ``_multi_literal_scan`` (:218-238),
+``_memmem_mask`` (:164), ``literal_self_overlaps`` (:208-215),
+``_multi_literal_scan`` (:218-238),
 ``table_to_ranges`` (:314), ``_class_mask_from_table`` (:330) and
 ``_range_mask`` (:337) of ``coregex_tpu/ops/bytescan.py``."""
 
@@ -83,6 +84,13 @@ def _memmem_mask(data: torch.Tensor, needle: Sequence[int]) -> torch.Tensor:
     for i in range(1, k):
         acc[:m] &= data[i:i + m] == needle[i]
     return acc
+
+
+def literal_self_overlaps(lit: bytes) -> bool:
+    """True iff the literal has a proper border (can overlap itself), in
+    which case its occurrence count differs from its match count."""
+    k = len(lit)
+    return any(lit[:w] == lit[k - w:] for w in range(1, k))
 
 
 def _multi_literal_scan(data: torch.Tensor, lits: Sequence[bytes]):

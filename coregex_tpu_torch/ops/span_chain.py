@@ -10,9 +10,14 @@ the plain function ``line_cand_spans``, ``line_spans_candidates``
 producers ``class_run_words`` (:72) and ``class_run_masks_dense`` (:97),
 ``pair_spans_sparse`` with ``_pair_spans_jit`` (:966-994), and the nullable
 fill ``_rune_boundaries`` (:835), ``nullable_fill_words`` (:866) and
-``nullable_merge`` (:895).  The JAX package computes these in XLA outside
-any Pallas kernel; here they are plain torch tensor code around the K4
-compactions of ``sparse_chain_payloads``.  ``cumsum_i32_fast`` (:819) is an
+``nullable_merge`` (:895), and the literal producers ``literal_words``
+(:63), ``multi_literal_words`` (:117), ``_ml_slice_words`` (:167),
+``_ml_counts`` (:200), ``multi_literal_words_big`` (:206) and
+``literal_spans_sparse`` (:933-961).  ``leftmost_first_spans`` has no
+counterpart: the reference hands overlapping literal hits to its host loop.
+The JAX package computes these in XLA outside any Pallas kernel; here they
+are plain torch tensor code around the K4 compactions of
+``sparse_chain_payloads``.  ``cumsum_i32_fast`` (:819) is an
 XLA workaround; ``torch.cumsum`` is its natural form here.  ``_dev_i32``
 (:945) caches device scalars to avoid host-to-device transfers; torch
 passes host ints to its kernels as arguments, so it has no counterpart.
@@ -369,14 +374,15 @@ def class_run_words(dev, ranges, mmin: int):
 
 
 def pair_spans_sparse(words_s, words_e, ns: int, ne: int, cap: int,
-                      end_adjust: int = 0):
+                      end_adjust: int = 0, dense: bool = False):
     """Two chains zipped into spans: (spans [cap, 2], count, ok).  ns / ne
     are the mask domains (their positions' sentinels); end_adjust is added
     to live ends (a class run's end words mark its LAST member).  ok
     checks both chains, equal counts, start < end and end <= next
-    start."""
-    starts, cs, ok1 = sparse_positions_words(words_s, ns, cap)
-    ends, ce, ok2 = sparse_positions_words(words_e, ne, cap)
+    start.  dense=True compacts the unpacked masks with K4 instead of the
+    chains (word_positions)."""
+    starts, cs, ok1 = word_positions(words_s, ns, cap, dense)
+    ends, ce, ok2 = word_positions(words_e, ne, cap, dense)
     idx = torch.arange(cap, dtype=torch.int32, device=starts.device)
     live = idx < cs
     if end_adjust:
@@ -389,6 +395,196 @@ def pair_spans_sparse(words_s, words_e, ns: int, ne: int, cap: int,
     ok = ok & torch.where(idx < cs - 1, ends <= nxt, True).all()
     ends = torch.where(live, ends, starts)
     return torch.stack([starts, ends], dim=1), cs, ok
+
+
+# ---------------------------------------------------------------------------
+# Literals and literal sets
+# ---------------------------------------------------------------------------
+# The fused set producer holds, beside the corpus, about 6 transient bytes
+# per corpus byte: the start and end masks, one literal's hit and win masks
+# with a compare temporary, then packing's int64 product and its shift.
+# MULTI_FUSED_LIMIT = 1 GiB keeps that at 6 GiB, under a tenth of an 80 GB
+# card, beside the resident corpus and other engines' tiles; past it,
+# slices of _ML_SEG = 256 MiB hold 1.5 GiB whatever the corpus.  The
+# reference (span_chain.py:141-142, sized for a 16 GB chip) also shrinks
+# its slices as J grows, since XLA fuses all J literals' transients into
+# one program; eager torch frees each literal's compares before the next,
+# so the slice does not depend on J here.
+MULTI_FUSED_LIMIT = 1 << 30
+_ML_SEG = 256 * 1024 * 1024
+
+
+def unpack_words(words, n: int):
+    """Bucket-padded int32 words -> [n] bool mask (bit j of word i is entry
+    32i + j): each byte of the little-endian words shifted by 0..7."""
+    b = words.contiguous().view(torch.uint8)[:-(-n // 8)]
+    sh = torch.arange(8, dtype=torch.uint8, device=words.device)
+    return ((b[:, None] >> sh) & 1).reshape(-1)[:n].view(torch.bool)
+
+
+def word_positions(words, n: int, cap: int, dense: bool):
+    """Set-bit positions of bucket-padded words over the [n] domain:
+    (pos [cap] padded with n, count, ok).  The sparse chain, or, when
+    `dense`, one K4 compaction of the unpacked mask (the reference's dense
+    branches compact their rebuilt masks)."""
+    if dense:
+        return compact_pay(unpack_words(words, n), (), cap)
+    return sparse_positions_words(words, n, cap)
+
+
+def popcount_sum(words):
+    """Set bits of int32 words as a 0-dim int32 tensor: a SWAR popcount of
+    each byte (uint8, so shifts are logical and nothing overflows)."""
+    b = words.contiguous().view(torch.uint8)
+    x = b - ((b >> 1) & 0x55)
+    x = (x & 0x33) + ((x >> 2) & 0x33)
+    return ((x + (x >> 4)) & 0x0F).sum(dtype=torch.int32)
+
+
+def literal_words(dev, lit):
+    """(start words bucket-padded over [n], hit count) of a literal (ref.
+    span_chain.py:63-68)."""
+    m = _memmem_mask(dev, lit)
+    return _pad_pack(m, int(dev.shape[0])), mask_count(m)
+
+
+def multi_literal_words(dev, lits):
+    """(start words over [n], end words over [n+1], start count, end count)
+    of a literal set (ref. span_chain.py:117-133): starts are every hit;
+    at a start the first-listed literal wins, and its end is set."""
+    n = int(dev.shape[0])
+    seen = torch.zeros(n, dtype=torch.bool, device=dev.device)
+    emask = torch.zeros(n + 1, dtype=torch.bool, device=dev.device)
+    for lit in lits:
+        k = len(lit)
+        if k > n:
+            continue
+        hit = _memmem_mask(dev, lit)
+        emask[k:] |= (hit & ~seen)[:n + 1 - k]
+        seen |= hit
+        del hit
+    return (_pad_pack(seen, n), _pad_pack(emask, n + 1), mask_count(seen),
+            mask_count(emask))
+
+
+def _ml_slice_words(ext, lits, lead: int, emit_n: int):
+    """Start and end words of emit positions [lead, lead + emit_n) of the
+    extended slice `ext` (ref. span_chain.py:167-196); emit_n is a
+    multiple of 32."""
+    m = int(ext.shape[0])
+    seen = torch.zeros(m, dtype=torch.bool, device=ext.device)
+    emask = torch.zeros(emit_n, dtype=torch.bool, device=ext.device)
+    for lit in lits:
+        hit = _memmem_mask(ext, lit)
+        win = hit & ~seen
+        seen |= hit
+        # end bit j <- win at local j + lead - k
+        lo = lead - len(lit)
+        a, b = max(lo, 0), min(lo + emit_n, m)
+        if a < b:
+            emask[a - lo:b - lo] |= win[a:b]
+        del hit, win
+    smask = torch.zeros(emit_n, dtype=torch.bool, device=ext.device)
+    t = min(emit_n, m - lead)
+    smask[:t] = seen[lead:lead + t]
+    nw = emit_n // 32
+    return pack_words(smask, nw), pack_words(emask, nw)
+
+
+def _ml_counts(seen_w, ew):
+    """(start count, end count) of the segmented words (ref. :200-203)."""
+    return popcount_sum(seen_w), popcount_sum(ew)
+
+
+def multi_literal_words_big(dev, lits):
+    """multi_literal_words in slices of _ML_SEG bytes (ref.
+    span_chain.py:206-240), both word arrays padded to the [n+1] bucket.
+    Exact: the only cross-position state, priority, is per position.  A
+    slice reads kmax bytes before it, where the reference reads kmax - 1
+    and so drops the end of a longest literal that ends on a slice seam
+    (it then finds fewer ends than starts and hands the call to its host
+    loop)."""
+    n = int(dev.shape[0])
+    kmax = max(len(x) for x in lits)
+    seg = max(32, _ML_SEG - _ML_SEG % 32)
+    ws, we = [], []
+    a = 0
+    while a < n:
+        b = min(a + seg, n)
+        lo, hi = max(0, a - kmax), min(n, b + kmax - 1)
+        emit = b - a if b < n else n + 1 - a
+        sw, ew = _ml_slice_words(dev[lo:hi], lits, a - lo,
+                                 -(-emit // 32) * 32)
+        ws.append(sw)
+        we.append(ew)
+        a = b
+    nwb1 = _bucket_up(max(-(-(n + 1) // 32), 1))
+    ws = _fit_words(torch.cat(ws), nwb1)
+    we = _fit_words(torch.cat(we), nwb1)
+    return (ws, we, *_ml_counts(ws, we))
+
+
+def literal_spans_sparse(words, n: int, cap: int, k: int,
+                         dense: bool = False):
+    """Positions plus the fixed length k: (spans [cap, 2], count, ok) of a
+    literal whose hits do not overlap (ref. span_chain.py:933-961).
+    dense=True takes K4 over the unpacked mask instead of the chain."""
+    starts, cnt, ok = word_positions(words, n, cap, dense)
+    live = torch.arange(cap, dtype=torch.int32, device=words.device) < cnt
+    ends = torch.where(live, starts + k, starts)
+    return torch.stack([starts, ends], dim=1), cnt, ok
+
+
+def leftmost_first_spans(dev, starts, cnt, lits, cap: int):
+    """Go's leftmost-first matches of a literal set from ALL its hits,
+    overlapping or not: (spans [cap, 2] with [n, n] past the count, count,
+    ok).  `starts` [cap] are the hit positions ascending (n past `cnt`).
+    The first-listed literal that matches at a start wins (one gather per
+    literal byte); a match [s, e) hands over to the first hit at or after
+    e (`searchsorted`); the matches are the chain of those links from hit
+    0, marked by pointer doubling in bit_length(cap) rounds of a scatter
+    and a gather; one K4 compaction collects them.  Every array is int32
+    or bool of cap (+ 1) entries, about 30 bytes per cap slot live at
+    once with `starts` (BatchEngine's span-limit note)."""
+    n = int(dev.shape[0])
+    d = dev.device
+    own = torch.arange(cap + 1, dtype=torch.int32, device=d)
+    live = own[:cap] < cnt
+    length = torch.zeros(cap, dtype=torch.int32, device=d)
+    for lit in reversed(lits):      # earlier literals overwrite later ones
+        hit = live & (starts <= n - len(lit))
+        for i, byte in enumerate(lit):
+            at = dev.index_select(0, (starts + i).clamp_(max=n - 1))
+            hit &= at == byte
+        length = torch.where(hit, len(lit), length)
+    del at, hit
+    ok = torch.where(live, length > 0, True).all()
+    ends = starts + length
+    del length
+    ext = torch.cat([starts, own.new_full((1,), n)])
+    # a link from the last match, or from a dead hit (start n, length 0),
+    # leads to a node at or past cnt; node cap loops on itself
+    jump = torch.cat([torch.searchsorted(ext, ends, out_int32=True),
+                      own[cap:]])
+    del ext
+    mark = torch.zeros(cap + 1, dtype=torch.int32, device=d)
+    mark[0] = 1
+    for _ in range(cap.bit_length()):
+        # marked: next^t(0) for t < 2^r, and jump = next^(2^r).  A link
+        # past the last hit pushes its node onto itself, so the marked
+        # nodes' pushes meet at no common target (no atomic contention)
+        tgt = torch.where(jump < cnt, jump, own)
+        mark |= torch.zeros_like(mark).index_add_(0, tgt, mark)
+        jump = jump.index_select(0, jump)
+    del tgt, jump
+    keep = live & (mark[:cap] != 0)
+    del mark, live
+    s_c, e_c, total, ok_c = compact_pay(keep, [starts, ends], cap)[1:]
+    del keep, ends
+    dead = own[:cap] >= total
+    s_c.masked_fill_(dead, n)
+    e_c.masked_fill_(dead, n)
+    return torch.stack([s_c, e_c], dim=1), total, ok & ok_c
 
 
 # ---------------------------------------------------------------------------

@@ -178,18 +178,18 @@ def test_warm_defer_path():
 
 def test_declines_are_counted_and_served_by_host():
     t = _log_corpus(5, 20000)
-    eng = ct.compile(r"error", device="cpu")     # LITERAL: no bidi path
+    eng = ct.compile(r"error", device="cpu")     # LITERAL
     be = eng.batch_engine()
     exp = [m.span() for m in re.finditer(rb"error", t)]
-    assert eng.find_all_index(t) == exp
-    assert be.host_routes == 1
+    assert eng.find_all_index(t) == exp           # literal chain: served
+    assert be.host_routes == 0
     assert eng.find_all_index(t, 3) == exp[:3]    # limit: host loop
-    assert be.host_routes == 2
+    assert be.host_routes == 1
     assert eng.find_index(t) == exp[0]            # find_first: no decline
     assert eng.is_match(t) is True                # is_match: no decline
-    assert be.host_routes == 2
+    assert be.host_routes == 1
     assert eng.count(t) == len(exp)               # K6: no decline
-    assert be.host_routes == 2
+    assert be.host_routes == 1
 
 
 def test_nullable_count_utf8_gate():
@@ -232,9 +232,9 @@ def test_repair_settles_instead_of_declining():
 
 def test_declines_are_decided_before_upload():
     t = _log_corpus(10, 20000)
-    eng = ct.compile(r"error", device="cpu")     # LITERAL: no bidi path
-    assert eng.find_all_index(t) == [m.span()
-                                     for m in re.finditer(rb"error", t)]
+    eng = ct.compile(r"[a-z]{2,5}", device="cpu")  # {m,k} class: host
+    assert eng.find_all_index(t) == [m.span() for m in
+                                     re.finditer(rb"[a-z]{2,5}", t)]
     assert eng.batch_engine().host_routes == 1
     assert corpus_cache._entry(_arr(t), "cpu").buf is None
     eng.count(t)                                  # served: uploads

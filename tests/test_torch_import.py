@@ -2,15 +2,16 @@
 machine it runs on has no jax), and nothing of the JAX package coregex_tpu,
 not even its host modules.  A subprocess blocks `import jax` and `import
 coregex_tpu` with a meta-path finder that raises, imports the package,
-runs CPU counts and find_alls (a nullable pattern among them), is_match
-and find_index calls against Python's re, and checks that neither entered
-sys.modules."""
+runs CPU counts and find_alls (a nullable pattern and an overlapping
+literal set among them), is_match and find_index calls against Python's
+re, and checks that neither entered sys.modules."""
 
 import os
 import pathlib
 import subprocess
 import sys
 
+import pytest
 import torch
 
 torch.set_num_threads(1)
@@ -44,6 +45,11 @@ assert eng.find_index(text) == exp[0]
 assert eng.is_match(text) is True
 assert ct.compile(r"\s\d\s", device="cpu").is_match(text) is False
 assert eng.batch_engine().host_routes == 0
+# a literal set whose hits overlap in 10.0.0.1: leftmost-first on the device
+lit = ct.compile(r"0\.0|\.0\.", device="cpu")
+assert lit.find_all_index(text) == [
+    m.span() for m in re.finditer(rb"0\.0|\.0\.", text)]
+assert lit.batch_engine().host_routes == 0
 # nullable: Go drops the empty match that abuts the previous match
 exp, prev = [], -1
 for m in re.finditer(rb"\w*", text):
@@ -70,19 +76,56 @@ def test_import_and_slice_without_jax():
     assert r.stdout.strip().endswith("ok")
 
 
+def _imported(line: str):
+    """The modules an import line names: `import a.b, c` gives a.b and c,
+    `from a import b, c` gives a, a.b and a.c.  A parenthesised or
+    continued line (`from a import (`, `from a import \\`) still gives a."""
+    words = line.translate(str.maketrans(",()\\", "    ")).split()
+    names = [w for i, w in enumerate(words)
+             if w != "as" and (i == 0 or words[i - 1] != "as")]
+    if names[:1] == ["import"]:
+        return names[1:]
+    if names[:1] == ["from"] and len(names) >= 3 and names[2] == "import":
+        return [names[1]] + [f"{names[1]}.{w}" for w in names[3:]]
+    return []
+
+
+@pytest.mark.parametrize("line,mods", [
+    ("import jax", ["jax"]),
+    ("import numpy as np, jax.numpy as jnp", ["numpy", "jax.numpy"]),
+    ("from jax import (", ["jax"]),
+    ("from coregex_tpu.ops import \\", ["coregex_tpu.ops"]),
+    ("from tools import _compact_exp as ce",
+     ["tools", "tools._compact_exp"]),
+    ("from bench import run as r, cells", ["bench", "bench.run",
+                                           "bench.cells"]),
+    ("x = 1  # import jax", []),
+])
+def test_imported_parses_every_import_form(line, mods):
+    assert _imported(line) == mods
+
+
 def test_no_source_file_imports_jax():
-    """Every module of the port, and chip_smoke.py, is free of imports of
-    jax and of coregex_tpu (checked on the text, so a lazy import inside a
-    function counts)."""
+    """Every module of the port, the torch tools (tools/*_torch.py) and
+    chip_smoke.py are free of imports of jax, of coregex_tpu and of the
+    JAX compaction rig (tools._compact_exp, tools.profile_compact); the
+    package imports nothing of tools at all (checked on the text, so a
+    lazy import inside a function counts)."""
     pkg = ROOT / "coregex_tpu_torch"
     files = sorted(f for f in pkg.rglob("*.py")
                    if "_build" not in f.relative_to(pkg).parts)
-    files.append(ROOT / "chip_smoke.py")
     assert len(files) > 10
-    for f in files:
+    outside = sorted((ROOT / "tools").glob("*_torch.py"))
+    assert {f.name for f in outside} >= {"profile_torch.py",
+                                          "profile_compact_torch.py"}
+    outside.append(ROOT / "chip_smoke.py")
+    banned = ("jax", "jaxlib", "bench", "coregex_tpu", "tools._compact_exp",
+              "tools.profile_compact")
+    for f in files + outside:
+        in_pkg = f not in outside
         for line in f.read_text().splitlines():
-            words = line.strip().split()
-            if words[:1] in (["import"], ["from"]) and len(words) > 1:
-                mod = words[1].split(".")[0]
-                assert mod not in ("jax", "jaxlib", "bench", "coregex_tpu"), \
+            for mod in _imported(line.strip()):
+                assert not any(mod == b or mod.startswith(b + ".")
+                               for b in banned), (f, line)
+                assert not (in_pkg and mod.split(".")[0] == "tools"), \
                     (f, line)

@@ -3,7 +3,7 @@ JAX package on the CPU: the rune-boundary mask, the empty fill and the
 merge as functions on the same inputs, then find_all_spans_device and
 find_all_index through the public API on seeded ASCII, UTF-8 and byte-soup
 corpora of at least 16 KiB, and the routing contract (served patterns
-never reach the host loop; a literal core, a {m,k} class core and
+never reach the host loop; a core with a look, a {m,k} class core and
 leftmost-longest decline and are counted), and chip_smoke.py's scaling of
 that oracle from one tile to many.  All outputs are integers: exact
 equality.
@@ -149,7 +149,7 @@ def test_k8_route_matches_reference_device_path(pattern):
                                   np.asarray(rspans)[:rcnt])
 
 
-@pytest.mark.parametrize("pattern", [r"(foo)?", r"a{0,3}"])
+@pytest.mark.parametrize("pattern", [r"(\bfoo)?", r"a{0,3}"])
 def test_unserved_cores_decline_before_upload(pattern):
     t = _log_corpus(23, 17000)
     eng = ct.compile(pattern, device="cpu")

@@ -2,6 +2,7 @@
 """Where the time of coregex_tpu_torch's device find_all goes, on one GPU.
 
     python3 tools/profile_torch.py [--single] [name ...]
+    python3 tools/profile_torch.py --limit
 
 Builds the JAX package's bench corpus as chip_smoke.py does (the 6 MiB
 base tile, seed 7, tiled to 1536 MiB, or to the largest whole-tile corpus
@@ -14,8 +15,11 @@ the kernels' times; one stream, so they do not overlap), its idle share,
 the call's peak device memory above what was allocated before it,
 the port's own kernels, and the eight operators whose kernels took the
 most device time.  Names
-come from chip_smoke.CLASS_NULLABLE and chip_smoke.CONFIGS; default: the
-class-run and nullable patterns.  Needs a CUDA card; imports no jax.
+come from chip_smoke.PATTERNS (the bench, class-run, nullable and literal
+patterns); default: the class-run and nullable patterns.  With --limit
+it profiles the literal route's leftmost-first selection at the span
+limit instead: `aa` on MAX_DEVICE_SPANS + 1 bytes of `a`, whose
+MAX_DEVICE_SPANS hits all overlap.  Needs a CUDA card; imports no jax.
 """
 
 import os
@@ -32,8 +36,6 @@ import chip_smoke  # noqa: E402
 
 def main(names, single=False):
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     import coregex_tpu_torch as ct
     from coregex_tpu_torch.meta.batch import BatchEngine
@@ -45,7 +47,8 @@ def main(names, single=False):
     base = chip_smoke.build_base()
     corpus = chip_smoke.bench_corpus(base)
     B = len(base)
-    sizes = {nm: size for nm, _, size in chip_smoke.CLASS_NULLABLE}
+    sizes = {nm: size for nm, _, size in (chip_smoke.CLASS_NULLABLE
+                                          + chip_smoke.LITERAL_NULLABLE)}
     if single:
         late = chip_smoke.single_corpora(base, corpus)[1][1]
     for name, what in [(nm, w) for nm in names for w in (
@@ -66,45 +69,84 @@ def main(names, single=False):
             int(spans[:16].sum())
             return f"{cnt} spans"
 
-        call()                                 # tables, upload, warm-up
+        profile_call(f"{name} ({pattern}) {what} on {len(arr)} bytes",
+                     call, card)
+
+
+def profile_call(label, call, card):
+    """One warm-up call, then one profiled call: prints the wall, busy and
+    idle share, the peak device memory above what the warm-up left
+    allocated, the port's kernels and the eight costliest operators."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    call()                                 # tables, upload, warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = call()
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        held = torch.cuda.memory_allocated()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            out = call()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
-        kernels = {}
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                ms, k = kernels.get(e.name, (0.0, 0))
-                kernels[e.name] = (ms + e.device_time_total / 1e3, k + 1)
-        busy = sum(ms for ms, _ in kernels.values())
-        print(f"[profile] {name} ({pattern}) {what} on {len(arr)} bytes, "
-              f"{out}, {card}: wall {wall:.1f} ms, device busy "
-              f"{busy:.1f} ms, idle share {max(0.0, 1 - busy / wall):.3f}, "
-              f"peak {peak:.2f} GiB above the {held / 2 ** 30:.2f} GiB "
-              f"held before the call")
-        # the port's own kernels (launched through ctypes, so under no
-        # operator), then operators by the device time of their kernels
-        anon = "(anonymous namespace)::"
-        for kname, (ms, k) in sorted(kernels.items(), key=lambda x: -x[1][0]):
-            if kname.replace("void ", "").startswith(anon):
-                short = kname.split(anon, 1)[1].split("(")[0]
-                print(f"[profile]   {ms:9.2f} ms {k:5d} x kernel {short}")
-        ops = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CPU]
-        for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:8]:
-            print(f"[profile]   {e.self_device_time_total / 1e3:9.2f} ms "
-                  f"{e.count:5d} x {e.key[:70]}")
-        sys.stdout.flush()
+        wall = (time.perf_counter() - t0) * 1e3
+    top = torch.cuda.max_memory_allocated() / 2 ** 30
+    peak = top - held / 2 ** 30
+    kernels = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            ms, k = kernels.get(e.name, (0.0, 0))
+            kernels[e.name] = (ms + e.device_time_total / 1e3, k + 1)
+    busy = sum(ms for ms, _ in kernels.values())
+    print(f"[profile] {label}, {out}, {card}: wall {wall:.1f} ms, device busy "
+          f"{busy:.1f} ms, idle share {max(0.0, 1 - busy / wall):.3f}, "
+          f"peak {peak:.2f} GiB above the {held / 2 ** 30:.2f} GiB "
+          f"held before the call ({top:.2f} GiB in all)")
+    # the port's own kernels (launched through ctypes, so under no
+    # operator), then operators by the device time of their kernels
+    anon = "(anonymous namespace)::"
+    for kname, (ms, k) in sorted(kernels.items(), key=lambda x: -x[1][0]):
+        if kname.replace("void ", "").startswith(anon):
+            short = kname.split(anon, 1)[1].split("(")[0]
+            print(f"[profile]   {ms:9.2f} ms {k:5d} x kernel {short}")
+    ops = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CPU]
+    for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"[profile]   {e.self_device_time_total / 1e3:9.2f} ms "
+              f"{e.count:5d} x {e.key[:70]}")
+    sys.stdout.flush()
+
+
+def limit():
+    """The selection at the span limit: MAX_DEVICE_SPANS hits of `aa`, of
+    which Go keeps every other one."""
+    import torch
+
+    import coregex_tpu_torch as ct
+    from coregex_tpu_torch.meta.batch import BatchEngine
+
+    if not torch.cuda.is_available():
+        chip_smoke.fail("torch.cuda.is_available() is false")
+    card = chip_smoke.phase_device()
+    n = BatchEngine.MAX_DEVICE_SPANS + 1
+    arr = np.full(n, ord("a"), dtype=np.uint8)
+    be = ct.compile("aa", device="cuda").batch_engine()
+
+    def call():
+        spans, cnt = be.find_all_spans_device(arr)
+        if cnt != n // 2 or spans[cnt - 1].tolist() != [n - 3, n - 1]:
+            chip_smoke.fail(f"aa on {n} bytes of a: {cnt} spans")
+        return f"{cnt} spans"
+
+    profile_call(f"limit (aa) find_all on {n} bytes of a", call, card)
 
 
 if __name__ == "__main__":
     args = sys.argv[1:]
+    if "--limit" in args:
+        limit()
+        sys.exit(0)
     single = "--single" in args
     names = [a for a in args if a != "--single"]
     main(names or [nm for nm, _, _ in chip_smoke.CLASS_NULLABLE], single)
