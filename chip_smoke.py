@@ -12,11 +12,17 @@ Phases (any failure exits non-zero before the final line):
                the compactions, torch.nonzero on the same mask.  The lane
                walks (K1-K3) and the needle kernels (K5-K7) run on a 4 MiB
                sample (several patterns) and on the whole 1536 MiB corpus
-               (one pattern each); the compaction (K4) on 2^22- and
-               2^26-entry masks, and the sparse chain with 3 and 5 word
-               payloads at the 2^26-word shape of its first level; the
-               position compaction (K8) on 2^22-entry masks and on the
-               start mask of `\w*` over the 1536 MiB corpus (cap 2^30);
+               (one pattern each); the single-pass compaction (K4, and
+               K8 through compact_positions) on ragged lengths around
+               its tile and sub-tile sizes at every byte offset 0-15 of
+               a buffer set outside the mask (densities 0-1, 0-4
+               payloads, caps under, at and over the count), on a
+               2^31 - 1-entry mask at offset 1, on 2^22- and 2^26-entry
+               masks and on charclass_w's unpacked run-start mask of
+               the 1536 MiB corpus, and the sparse chain with 3 and 5
+               word payloads at the 2^26-word shape of its first level;
+               K8 on 2^22-entry masks and on the start mask of `\w*`
+               over the 1536 MiB corpus (cap 2^30);
                the match scan (K9) on the 4 MiB sample (break-at-match
                DFAs) and on the whole corpus (`\s\d\s`, fwd_all); the
                window-flag scan on 2^16 random starts at W = 256; the
@@ -178,6 +184,7 @@ DEVICE = "cuda"
 CORPUS_MIB = 1536
 SLICE_MIB = 64
 BIG_WORDS = 1 << 26     # K4 mask / chain word count of a 1536 MiB find_all
+LONGEST = 2 ** 31 - 1   # the longest mask cgx_compact takes
 HBM_BYTES_PER_MS = 3.35e9   # H100 SXM: 3.35 TB/s
 OPS_PER_MS = 67e9           # H100 SXM: 67 TFLOP/s outside the tensor cores
 M32 = 1 << 32
@@ -518,6 +525,25 @@ def phase_kernels(base: bytes, corpus: np.ndarray):
                 reps=2)
     del evw, wpays
 
+    # K4/K8's single pass on ragged lengths at every byte offset 0-15 of a
+    # buffer whose other bytes are set (a read outside the mask would count
+    # them), densities 0, 1e-3, 0.5, 1, payloads 0-4, caps under, at and
+    # over the count; then the longest mask, 2^31 - 1 entries at offset 1
+    ncases = compact_sweep(dev)
+    print(f"[kernels] compact_pay  {ncases} small cases at byte offsets "
+          f"0-15: bit-equal (tolerance 0)", flush=True)
+    longest = torch.ones(LONGEST + 1, dtype=torch.uint8, device=dev)
+    lmask = longest[1:]
+    for lo in range(0, lmask.numel(), 1 << 28):
+        hi = min(lmask.numel(), lo + (1 << 28))
+        lmask[lo:hi] = torch.rand(hi - lo, device=dev, generator=g) < 1e-3
+    lcap = int(lmask.sum()) + 37
+    compare("compact_pay", f"n={LONGEST} offset 1 d=1e-3",
+            lambda: compact2.compact_pay_cuda(lmask, [], lcap),
+            lambda: k4_plain_nopay(lmask, lcap), reps=2,
+            in_bytes=lmask.numel(), library=lambda: torch.nonzero(lmask))
+    del longest, lmask
+
     # K4 on masks of several densities with 0-4 payloads (bit-31 words)
     rng = np.random.default_rng(5)
     m = 1 << 22
@@ -536,14 +562,11 @@ def phase_kernels(base: bytes, corpus: np.ndarray):
                             mask.view(torch.uint8), pays[:npay], cap),
                         reps=2)
     # the level-1 chain shape of a 1536 MiB find_all: 2^26 entries, so the
-    # block-offset carry runs across many chunks
+    # tiles' offset carry runs across many tiles
     big = BIG_WORDS
-    bpays = [torch.randint(-2 ** 31, 2 ** 31 - 1, (big,), dtype=torch.int32,
-                           device=dev) for _ in range(4)]
     for dens in (1.0, 0.01):
-        mask = torch.rand(big, device=dev) < dens
-        nset = int(mask.sum())
-        cap = nset + 16
+        mask, bpays, cap = chain_level(dev, dens)
+        nset = cap - 16
         for npay in (4, 3):
             # payloads are read at the set entries only
             compare("compact_pay", f"n=2^26 d={dens} p={npay}",
@@ -554,6 +577,15 @@ def phase_kernels(base: bytes, corpus: np.ndarray):
                     headline=True, in_bytes=big + 4 * nset * npay,
                     library=lambda: torch.nonzero(mask))
     del bpays, mask
+
+    # the class runs' dense branch at 1536 MiB
+    runs, rcap = class_run_starts(corpus, dev)
+    compare("compact_pay", f"charclass_w run starts {CORPUS_MIB} MiB",
+            lambda: compact2.compact_pay_cuda(runs.view(torch.uint8), [],
+                                              rcap),
+            lambda: k4_plain_nopay(runs.view(torch.uint8), rcap), reps=3,
+            in_bytes=runs.numel(), library=lambda: torch.nonzero(runs))
+    del runs
 
     # K8 on 2^22-entry masks, cap overflow included, and on the start mask
     # of `\w*` over the whole corpus (n + 1 entries, cap 2^30), the shape
@@ -566,14 +598,10 @@ def phase_kernels(base: bytes, corpus: np.ndarray):
                     lambda: compact.compact_positions(mask, cap),
                     lambda: compact.compact_positions_plain(
                         mask.view(torch.uint8), cap), reps=2)
-    core = ct.compile(r"\w*", device=DEVICE).batch_engine()._core()
-    table = np.array(core.batch_engine().plan.charclass.table, dtype=bool)
-    data = torch.from_numpy(corpus).to(dev)
-    smask, emask = span_chain.nullable_class_masks(data, table)
-    del data, emask
     # the main path's cap (the match count's bucket), then 2^30, the
     # largest cap the span limits give
-    for cap in (_bucket(int(smask.sum()), 16), 1 << 30):
+    smask, scap = word_starts(corpus, dev)
+    for cap in (scap, 1 << 30):
         compare("compact_positions",
                 f"\\w* starts {CORPUS_MIB} MiB cap=2^{cap.bit_length() - 1}",
                 lambda: compact.compact_positions(smask, cap),
@@ -664,6 +692,63 @@ def phase_kernels(base: bytes, corpus: np.ndarray):
     return results
 
 
+def k4_plain_nopay(mask8, cap: int):
+    """K4's plain version with no payloads, in K8's bounded chunks (the
+    unchunked one holds over 25 bytes of transients per entry): (pos, cnt,
+    ok)."""
+    from coregex_tpu_torch.ops import compact
+    pos, cnt = compact.compact_positions_plain(mask8, cap)
+    return pos, cnt, cnt <= cap
+
+
+def compact_sweep(dev) -> int:
+    """cgx_compact (through compact_pay_cuda and compact_positions) against
+    its plain versions on masks of ragged lengths around the tile and
+    sub-tile sizes, at each byte offset 0-15 of a buffer set outside the
+    mask.  Differences are summed on the device and checked once per
+    length; fails on any.  Returns the number of cases."""
+    import torch
+    from coregex_tpu_torch.ops import compact, compact2
+    T = compact2.TILE
+    ns = (1, 15, 16, 17, 4095, 4096, 4097, T - 1, T, T + 1, 3 * T + 77)
+    g = torch.Generator(device=dev).manual_seed(17)
+    pays = [torch.randint(-2 ** 31, 2 ** 31 - 1, (max(ns),),
+                          dtype=torch.int32, device=dev, generator=g)
+            for _ in range(4)]
+    cases = 0
+    for n in ns:
+        bad = torch.zeros((), dtype=torch.int64, device=dev)
+        for dens in (0.0, 1e-3, 0.5, 1.0):
+            m = (torch.rand(n, device=dev, generator=g) < dens).to(
+                torch.uint8) * torch.randint(1, 256, (n,), device=dev,
+                                             generator=g, dtype=torch.uint8)
+            buf = torch.ones(n + 32, dtype=torch.uint8, device=dev)
+            cnt = int((m != 0).sum())
+            for off in range(16):
+                buf.fill_(1)
+                buf[off:off + n] = m
+                mask8 = buf[off:off + n]
+                for cap in sorted({max(1, cnt - 1), max(1, cnt), cnt + 37}):
+                    for npay in range(5):
+                        pv = [p[:n] for p in pays[:npay]]
+                        k = compact2.compact_pay_cuda(mask8, pv, cap)
+                        p = compact2.compact_pay_plain(mask8, pv, cap)
+                        for x, y in zip(k, p):
+                            if x.shape != y.shape or x.dtype != y.dtype:
+                                fail(f"compact_pay: shape/dtype differs at "
+                                     f"n={n} offset {off}")
+                            bad += (x != y).sum()
+                        cases += 1
+                    k = compact.compact_positions(mask8, cap)
+                    p = compact.compact_positions_plain(mask8, cap)
+                    bad += sum((x != y).sum() for x, y in zip(k, p))
+                    cases += 1
+        if int(bad):
+            fail(f"compact kernel differs from its plain version at n={n} "
+                 f"({int(bad)} entries)")
+    return cases
+
+
 def window_reads(packed, segmap, eoi, starts_tbl, data, reverse, starts,
                  edge, W) -> int:
     """Corpus bytes a window-flag scan must read: one for each step a lane
@@ -713,6 +798,50 @@ def chain_plain(evw, wpays, n: int, cap: int):
         pays.append(o)
     return (pos, *pays, torch.tensor(cnt, dtype=torch.int32, device=dev),
             torch.tensor(cnt <= cap, device=dev))
+
+
+def chain_level(dev, dens: float):
+    """K4's input at the sparse chain's first level of a 1536 MiB find_all:
+    a BIG_WORDS-entry mask at density dens, four int32 payloads and the cap
+    (count + 16).  Its headline case takes d = 0.01 and three payloads."""
+    import torch
+    mask = torch.rand(BIG_WORDS, device=dev) < dens
+    pays = [torch.randint(-2 ** 31, 2 ** 31 - 1, (BIG_WORDS,),
+                          dtype=torch.int32, device=dev) for _ in range(4)]
+    return mask, pays, int(mask.sum()) + 16
+
+
+def class_run_starts(corpus: np.ndarray, dev):
+    """K4's input on the class runs' dense branch: the unpacked run-start
+    mask of charclass_w over `corpus`, and the main path's cap for it (the
+    run count's bucket)."""
+    import torch
+    import coregex_tpu_torch as ct
+    from coregex_tpu_torch.ops import span_chain
+    from coregex_tpu_torch.ops.bytescan import _bucket, table_to_ranges
+    data = torch.from_numpy(corpus).to(dev)
+    cc = ct.compile(PATTERNS["charclass_w"], device=DEVICE) \
+        .batch_engine().plan.charclass
+    ws, _we, nruns, _ne = span_chain.class_run_words(
+        data, table_to_ranges(np.array(cc.table, dtype=bool)), 1)
+    del data, _we
+    return (span_chain.unpack_words(ws, int(corpus.shape[0])),
+            _bucket(int(nruns), 16))
+
+
+def word_starts(corpus: np.ndarray, dev):
+    r"""K8's input on the nullable find_all of `\w*`: its start mask over
+    `corpus` (n + 1 entries), and the main path's cap for it (the match
+    count's bucket)."""
+    import torch
+    import coregex_tpu_torch as ct
+    from coregex_tpu_torch.ops import span_chain
+    from coregex_tpu_torch.ops.bytescan import _bucket
+    core = ct.compile(r"\w*", device=DEVICE).batch_engine()._core()
+    table = np.array(core.batch_engine().plan.charclass.table, dtype=bool)
+    data = torch.from_numpy(corpus).to(dev)
+    smask, _emask = span_chain.nullable_class_masks(data, table)
+    return smask, _bucket(int(smask.sum()), 16)
 
 
 def bench_corpus(base: bytes) -> np.ndarray:

@@ -17,7 +17,8 @@
 //   3. it publishes its count (flag 1) in a 64-bit status word, then one
 //      warp looks back 32 predecessors at a time, summing their counts
 //      until it meets an inclusive prefix (flag 2); flag and value share
-//      the word, written with st.release and read with ld.acquire;
+//      the word, written with st.release and read with ld.acquire (the
+//      helpers are compact_common.cuh's, shared with compact.cu);
 //   4. it publishes its own inclusive prefix;
 //   5. it walks the cached chunk in sub-tiles of 4096 entries, ranks the
 //      set entries (block scan of per-thread counts), stages positions and
@@ -46,47 +47,19 @@
 // status round trip per block on the critical path, overlapped with the
 // other blocks' counting.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "compact_common.cuh"
 
 namespace {
+
+using cgx::kFlagAgg;
+using cgx::kFlagPrefix;
+using cgx::nz16;
+using cgx::st_release;
+using cgx::warp_incl_scan;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kSub = kThreads * 16;   // sub-tile entries: one 16-byte load a thread
-constexpr unsigned long long kFlagAgg = 1ull << 32;
-constexpr unsigned long long kFlagPrefix = 2ull << 32;
-
-__device__ __forceinline__ unsigned long long ld_acquire(
-    const unsigned long long* p) {
-  unsigned long long v;
-  asm volatile("ld.acquire.gpu.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void st_release(unsigned long long* p,
-                                           unsigned long long v) {
-  asm volatile("st.release.gpu.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
-}
-
-// bit t set iff byte t of w is non-zero
-__device__ __forceinline__ unsigned nz4(unsigned w) {
-  const unsigned v = __vcmpne4(w, 0u);
-  return ((v >> 7) & 1u) | ((v >> 14) & 2u) | ((v >> 21) & 4u) |
-         ((v >> 28) & 8u);
-}
-
-__device__ __forceinline__ unsigned nz16(uint4 v) {
-  return nz4(v.x) | (nz4(v.y) << 4) | (nz4(v.z) << 8) | (nz4(v.w) << 12);
-}
-
-__device__ __forceinline__ int warp_incl_scan(int x, int lane) {
-  for (int d = 1; d < 32; d <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, x, d);
-    if (lane >= d) x += y;
-  }
-  return x;
-}
 
 struct Pays {
   const int32_t* in[4];
@@ -135,21 +108,7 @@ compact_exp_kernel(const uint8_t* __restrict__ mask, int nc, int ch, Pays pays,
       if (lane == 0) st_release(&status[0], kFlagPrefix | (unsigned)agg);
     } else {
       if (lane == 0) st_release(&status[b], kFlagAgg | (unsigned)agg);
-      for (int j = b - 1;; j -= 32) {
-        const int idx = j - lane;      // lane 0: the nearest predecessor
-        unsigned long long v;
-        do {
-          v = idx >= 0 ? ld_acquire(&status[idx]) : kFlagPrefix;
-        } while (__any_sync(0xffffffffu, (v >> 32) == 0));
-        const unsigned pm = __ballot_sync(0xffffffffu, (v >> 32) == 2);
-        const int val = (int)(unsigned)(v & 0xffffffffu);
-        if (pm) {
-          const int k = __ffs(pm) - 1;
-          excl += __reduce_add_sync(0xffffffffu, lane <= k ? val : 0);
-          break;
-        }
-        excl += __reduce_add_sync(0xffffffffu, val);
-      }
+      excl = cgx::lookback(status, b, lane);
       if (lane == 0)
         st_release(&status[b], kFlagPrefix | (unsigned)(excl + agg));
     }

@@ -10,11 +10,11 @@ started together, then one link:
          -o _build/libcoregex_cuda_<hash>.so _build/*.<pid>.o
 
 The library lands in ``coregex_tpu_torch/_build/`` (git-ignored), named by a
-hash of the sources and flags, so an edited source rebuilds and an unchanged
-one loads the existing file.  It is loaded with ctypes; every entry point
-returns a ``cudaError_t``, and :func:`check` raises on any non-zero code.
-Nothing here falls back to the plain versions: a failed build or launch is an
-error.
+hash of the sources, the headers they include and the flags, so an edited
+source or header rebuilds and an unchanged tree loads the existing file.
+It is loaded with ctypes; every entry point returns a ``cudaError_t``, and
+:func:`check` raises on any non-zero code.  Nothing here falls back to the
+plain versions: a failed build or launch is an error.
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("lane_scan.cu", "compact.cu", "needle_scan.cu",
            "window_scan.cu", "compact_exp.cu")
+HEADERS = ("compact_common.cuh",)   # included by the sources; hashed too
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
@@ -47,8 +48,8 @@ _SIGNATURES = {
                        _P, _P, _P, _P],
     "cgx_window_flags": [_P, _I, _I, _P, _P, _P, _P, ctypes.c_longlong, _I,
                          _P, _P, _I, _I, _P, _P, _P],
-    "cgx_compact": [_P, ctypes.c_int64, _I, _P, _P, _P, _P, _I, _P, _P, _P,
-                    _P, _P, _P, _P, _P, _P],
+    "cgx_compact": [_P, ctypes.c_int64, _I, ctypes.c_int64, _I, _I, _P, _P,
+                    _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P],
     "cgx_compact_exp": [_P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P,
                         _P, _I, _I, _I, _I, _P, _P, _P],
     "cgx_line_lanes": [_P, _P, _I, _I, _I, _I, _P, _P, _I, _I, _P, _P, _P,
@@ -71,7 +72,7 @@ def _nvcc() -> str:
 
 def library_path() -> str:
     h = hashlib.sha256()
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         with open(os.path.join(CSRC, name), "rb") as f:
             h.update(name.encode() + b"\0" + f.read())
     h.update(" ".join(FLAGS).encode())

@@ -8,8 +8,8 @@ binary-weighted shift network and writes rows at a running offset carried
 along the sequential grid.  On Hopper the function is K4's with no
 payloads (ordered positions of the set entries), so for CUDA tensors
 ``compact_positions`` launches ``csrc/compact.cu`` (``cgx_compact``,
-``npay = 0``) at every size; the reference sends masks below 4 blocks to
-XLA.  K8 keeps its own entry point and launch count.  For CPU tensors it
+``npay = 0``: one pass over the mask, at any length and byte offset) at
+every size; the reference sends masks below 4 blocks to XLA.  K8 keeps its own entry point and launch count.  For CPU tensors it
 runs the plain scatter version.
 """
 

@@ -6,8 +6,11 @@ contract of ``_compact_pay_xla`` (:292-308), ``pack_words`` (:351),
 ``sparse_positions_words`` with ``_chain_body`` (:374-435), and
 ``_bucket_up`` (:402).  For CUDA tensors
 ``compact_pay`` launches ``csrc/compact.cu`` at every size (the reference
-sends inputs below 4 blocks to XLA); for CPU tensors it runs the plain
-scatter version.
+sends inputs below 4 blocks to XLA): one pass over the mask in tiles of
+``TILE`` bytes, loaded in bulk from the mask's first 16-byte aligned byte
+on, with the unaligned head and the ragged tail read byte by byte
+(``_tile_plan``), then a fill of the slots past the count.  For CPU
+tensors it runs the plain scatter version.
 
 The sparse chain extracts set-bit positions from int32 event words in
 n/32 + ~12*hits work: nonzero WORDS compact with their values and the
@@ -21,6 +24,8 @@ whatever the number of word payloads.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from . import _build
@@ -29,7 +34,10 @@ from .count_scan import LaunchCounter
 
 COMPACT_KERNEL = LaunchCounter("compact_pay")
 MAX_PAYLOADS = 4
-_CHUNK = 4096   # mask entries per block of csrc/compact.cu
+# csrc/compact.cu's kTile and kStage, mirrored for _tile_plan: the kernel
+# refuses a tile count made with another TILE
+TILE = 32 * 1024            # mask bytes per tile
+_STAGE = 4096               # positions staged per store round
 
 
 def compact_pay_plain(mask8, pays, cap: int):
@@ -56,10 +64,40 @@ def compact_pay_plain(mask8, pays, cap: int):
     return (pos, *pouts, cnt, cnt <= cap)
 
 
-def compact_pay_cuda(mask8, pays, cap: int):
-    """Launch csrc/compact.cu; same contract as compact_pay_plain."""
+class TilePlan(NamedTuple):
+    """How csrc/compact.cu reads a mask of n bytes at a byte offset.  The
+    wrapper passes head, body and tiles to the kernel and sizes its scratch
+    by scratch_words; tail and smem (the kernel's kSmem) are for checks."""
+    head: int           # bytes before the first 16-byte aligned one
+    body: int           # aligned bytes after them, a multiple of 16
+    tail: int           # bytes after the body
+    tiles: int          # TILE-byte tiles (tile 0 starts 16 - head bytes early)
+    scratch_words: int  # int64 status words, one a tile, plus the ticket
+    smem: int           # dynamic shared memory of a block
+
+
+def _tile_plan(offset: int, n: int) -> TilePlan:
+    """The launch arithmetic of csrc/compact.cu for an n-byte mask whose
+    first byte lies `offset` bytes past a 16-byte boundary.  The bulk
+    copies read [head, head + body), whose ends are 16-byte aligned; the
+    kernel reads the head and the tail byte by byte.  Tile t covers mask
+    bytes [t*TILE - lead, (t+1)*TILE - lead), lead putting the body's first
+    byte on a 16-byte boundary of the tile.  Shared memory holds two tiles
+    and two rounds of staged positions, whatever the payload count, since
+    payloads are read in output order from device memory."""
+    head = min(n, -offset % 16)
+    body = (n - head) // 16 * 16
+    lead = -head % 16
+    tiles = -(-(lead + n) // TILE)
+    return TilePlan(head, body, n - head - body, tiles, tiles + 1,
+                    2 * TILE + 2 * _STAGE * 4)
+
+
+def _check_args(mask8, pays) -> None:
+    """What csrc/compact.cu takes: a contiguous uint8 mask of n in [1,
+    2^31) entries at any byte offset, at most MAX_PAYLOADS contiguous int32
+    payloads of n entries on its device."""
     n = int(mask8.shape[0])
-    dev = mask8.device
     if mask8.dtype != torch.uint8 or not mask8.is_contiguous():
         raise ValueError("mask must be contiguous uint8")
     if not 0 < n < 2 ** 31:
@@ -67,15 +105,21 @@ def compact_pay_cuda(mask8, pays, cap: int):
     if len(pays) > MAX_PAYLOADS:
         raise ValueError(f"at most {MAX_PAYLOADS} payloads")
     for p in pays:
-        if (p.device != dev or p.dtype != torch.int32
+        if (p.device != mask8.device or p.dtype != torch.int32
                 or not p.is_contiguous() or tuple(p.shape) != (n,)):
             raise ValueError("payloads must be contiguous int32 [n] on the "
                              "mask's device")
-    nb = -(-n // _CHUNK)
+
+
+def compact_pay_cuda(mask8, pays, cap: int):
+    """Launch csrc/compact.cu; same contract as compact_pay_plain."""
+    _check_args(mask8, pays)
+    n = int(mask8.shape[0])
+    dev = mask8.device
+    plan = _tile_plan(mask8.data_ptr() % 16, n)
     pos = torch.empty(cap, dtype=torch.int32, device=dev)
     outs = [torch.empty(cap, dtype=torch.int32, device=dev) for _ in pays]
-    block_counts = torch.empty(nb, dtype=torch.int32, device=dev)
-    block_offs = torch.empty(nb, dtype=torch.int32, device=dev)
+    scratch = torch.empty(plan.scratch_words, dtype=torch.int64, device=dev)
     scal = torch.empty(2, dtype=torch.int32, device=dev)
     p = _build.ptr
     ins = [p(t) for t in pays] + [0] * (MAX_PAYLOADS - len(pays))
@@ -83,8 +127,9 @@ def compact_pay_cuda(mask8, pays, cap: int):
     lib = _build.lib()
     with torch.cuda.device(dev):
         rc = lib.cgx_compact(
-            p(mask8), n, len(pays), *ins, cap, p(pos), *ops,
-            p(block_counts), p(block_offs), p(scal), _build.stream(dev))
+            p(mask8), n, plan.head, plan.body, plan.tiles, len(pays), *ins,
+            cap, p(pos), *ops, p(scratch), p(scal),
+            _build.stream(dev))
     _build.check(rc, "compact")
     return (pos, *outs, scal[0], scal[1] != 0)
 

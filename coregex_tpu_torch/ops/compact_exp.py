@@ -25,7 +25,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .compact2 import MAX_PAYLOADS, compact_pay_plain
+from .compact2 import MAX_PAYLOADS, _check_args, compact_pay_plain
 from .count_scan import LaunchCounter
 
 COMPACT_EXP_KERNEL = LaunchCounter("compact_exp")
@@ -59,14 +59,9 @@ def compact_exp_cuda(mask8, pays, cap: int, R: int = 128,
     n = int(mask8.shape[0])
     dev = mask8.device
     _check_shape(n, R, len(pays))
-    if mask8.dtype != torch.uint8 or not mask8.is_contiguous() \
-            or mask8.data_ptr() % 16:
-        raise ValueError("mask must be contiguous, 16-byte aligned uint8")
-    for p in pays:
-        if (p.device != dev or p.dtype != torch.int32
-                or not p.is_contiguous() or tuple(p.shape) != (n,)):
-            raise ValueError("payloads must be contiguous int32 [n] on the "
-                             "mask's device")
+    _check_args(mask8, pays)
+    if mask8.data_ptr() % 16:
+        raise ValueError("mask must be 16-byte aligned")
     ch = R * 128
     nc = n // ch
     out_len = (-(-cap // 128) + R + 2) * 128
