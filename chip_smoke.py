@@ -12,7 +12,12 @@ Phases (any failure exits non-zero before the final line):
                the compactions, torch.nonzero on the same mask.  The lane
                walks (K1-K3) and the needle kernels (K5-K7) run on a 4 MiB
                sample (several patterns) and on the whole 1536 MiB corpus
-               (one pattern each); the single-pass compaction (K4, and
+               (one pattern each), K1 and K2 at the main path's split into
+               sub-lanes (count_scan.lane_split; with its size, the table's
+               form and the resident warps an SM printed) and, on the
+               sample, also K1's and K2's two repair passes (over
+               unsettled sub-lanes, over the lanes holding one) from exits
+               of which a tenth are random; the single-pass compaction (K4, and
                K8 through compact_positions) on ragged lengths around
                its tile and sub-tile sizes at every byte offset 0-15 of
                a buffer set outside the mask (densities 0-1, 0-4
@@ -39,7 +44,12 @@ Phases (any failure exits non-zero before the final line):
                against a Python `re` oracle on the 6 MiB base tile scaled
                by the tile count; find_all_index on a 64 MiB slice compared
                span by span.  The 7 patterns that count through K5 or K6
-               are also counted through K1, timed side by side.  Class runs
+               are also counted through K1, timed side by side.  Each count
+               and find_all prints the repair passes of K1 or K2 (over
+               sub-lanes + over lanes).  Quote parity (`"[^"]*"` on 16 MiB
+               of `"` + 299 x, whose state reaches back to the corpus
+               start) is counted against its known count, with its passes
+               and time.  Class runs
                and nullable patterns: count and device find_all of
                charclass_w, word_repeat and `\w*` at 1536 MiB, and of
                `(\d+\.\d+\.\d+\.\d+)?` and `(?m)(^/.*\.php)?` at the
@@ -239,6 +249,15 @@ def tiled_digest(inner, tail, B: int, reps: int, rng):
 
 # -- timing ------------------------------------------------------------------
 
+def reset_passes(counter):
+    """Zero a K1/K2 counter's repair passes."""
+    counter.sub_passes = counter.lane_passes = 0
+
+
+def passes(counter) -> str:
+    return f"{counter.sub_passes}+{counter.lane_passes}"
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Mean device time of fn() over reps launches, after one warmup."""
     import torch
@@ -324,11 +343,7 @@ def phase_kernels(base: bytes, corpus: np.ndarray):
     import coregex_tpu_torch as ct
     from coregex_tpu_torch.ops import count_scan as cs
     from coregex_tpu_torch.ops import (compact, compact2, compact_exp,
-                                       dfa_scan, flag_scan, line_scan,
-                                       seq_scan, span_chain)
-    from coregex_tpu_torch.ops.bytescan import _bucket
-    from coregex_tpu_torch.ops.compact2 import _bucket_up
-    from coregex_tpu_torch.ops.flag_scan import DEAD
+                                       dfa_scan, line_scan, seq_scan)
 
     dev = torch.device(DEVICE)
     results = {}
@@ -377,57 +392,52 @@ def phase_kernels(base: bytes, corpus: np.ndarray):
                 r["bound_by"] = "bytes" if by_bytes >= by_ops \
                     else "operations"
 
+    def repair_kernels(kind, mode, d, data, geom, tiles, splits, label):
+        """K1's or K2's two repair passes (sub-lane and lane) against their
+        plain versions at each split in `splits`."""
+        for kk in splits:
+            run = repair_case(mode, d, split_args(d, data, geom, tiles, kk))
+            for whole in (False, True):
+                compare(kind, f"{label} k={kk} "
+                        f"{'lane' if whole else 'sub-lane'} pass",
+                        lambda: run(cs.lane_repair_cuda, whole),
+                        lambda: run(cs.lane_repair_plain, whole))
+
     def lane_kernels(name, data, label, headline):
-        """K1, K2 and K3 on one corpus under the main path's geometry."""
+        """K1 and K2 at the main path's split with their two repair passes
+        (on the sample also unsplit), and K3 (one walker a lane), on one
+        corpus under the main path's geometry."""
         n = int(data.shape[0])
         L, T, W, _ = cs.plan_geometry(n)
+        k = cs.lane_split(T, W)
         tiles = cs.make_word_tiles(data, L, T // 4)
-        print(f"[kernels] {label}: {n} bytes, geometry L={L} T={T} W={W}")
+        print(f"[kernels] {label}: {n} bytes, geometry L={L} T={T} W={W}, "
+              f"K1/K2 split k={k}: {k * L} walkers of {T // k} bytes")
         be = ct.compile(dict(CONFIGS)[name], device=DEVICE).batch_engine()
         sc = be._count_scanner_ascii()
         if not sc:
             fail(f"{name}: no ASCII count transducer")
-        d = sc.dcd
-        e0, o0, lim = cs.first_pass_inputs(d.starts, data, n, L, T, W)
-        args = (d.packed, d.segmap, tiles, W // 4, e0, o0, lim)
-        compare("count_scan", label,
-                lambda: cs.lane_walk_cuda(cs.MODE_COUNT, *args),
-                lambda: cs.lane_walk_plain(cs.MODE_COUNT, *args),
-                headline=headline, in_bytes=nbytes(*args))
         ssc = be._span_scanner(True)
-        if not ssc:
+        for kind, mode, d in (("count_scan", cs.MODE_COUNT, sc.dcd),
+                              ("span_scan", cs.MODE_SPAN,
+                               ssc.dsd if ssc else None)):
+            if d is None:
+                continue
+            args = split_args(d, data, (L, T, W), tiles, k)
+            print(f"[kernels] {kind:11} {label}: table [{d.S}, {d.NSEG}], "
+                  f"{cs.resident_warps(mode, d.S, d.NSEG)} resident warps "
+                  f"an SM")
+            compare(kind, label,
+                    lambda: cs.lane_walk_cuda(mode, *args),
+                    lambda: cs.lane_walk_plain(mode, *args),
+                    headline=headline, in_bytes=nbytes(*args))
+            # the repair passes at the main path's split, and on the
+            # sample unsplit (a corpus of at most 2 MiB walks k = 1)
+            repair_kernels(kind, mode, d, data, (L, T, W), tiles,
+                           [k] if headline else sorted({1, k}), label)
+        fargs = flag_args(be, data)
+        if fargs is None:
             return
-        s = ssc.dsd
-        e0, o0, lim = cs.first_pass_inputs(s.starts, data, n, L, T, W)
-        sargs = (s.packed, s.segmap, tiles, W // 4, e0, o0, lim)
-        compare("span_scan", label,
-                lambda: cs.lane_walk_cuda(cs.MODE_SPAN, *sargs),
-                lambda: cs.lane_walk_plain(cs.MODE_SPAN, *sargs),
-                headline=headline, in_bytes=nbytes(*sargs))
-        rsc = be._rev_flag_scanner(True)
-        if not rsc:
-            return
-        # reset symbols at the reversed match ends, as the bidi path
-        fw, gw, total, kind, _conv = ssc.scan(data)
-        total = int(total)
-        capM = _bucket(total + 1, 16)
-        nwb = _bucket_up(-(-n // 32))
-        nwb1 = _bucket_up(-(-(n + 1) // 32))
-        _e, _c, rq, _rw, _ok = span_chain.bidi_ends(
-            fw, gw, n, total, int(kind), capM, nwb, nwb1)
-        del fw, gw
-        Lr, Tr, Wr, _ = flag_scan.reset_geometry(n)
-        symt = flag_scan.scatter_reset_tiles(
-            flag_scan.sym_base_tiles(torch.flip(data, [0]),
-                                     rsc.byte_bounds(), Lr, Tr // 4),
-            rq, Lr, Tr // 4)
-        lanes = torch.arange(Lr, dtype=torch.int64, device=dev)
-        entries = torch.full((Lr,), DEAD, dtype=torch.int32, device=dev)
-        offs = torch.zeros(Lr, dtype=torch.int32, device=dev)
-        offs[0] = Wr
-        flim = (n + 1 - lanes * Tr).clamp(0, Tr).to(torch.int32)
-        fargs = (rsc.tables.packed_full, None, symt, Wr // 4, entries, offs,
-                 flim)
         compare("flag_scan", label,
                 lambda: cs.lane_walk_cuda(cs.MODE_FLAG, *fargs),
                 lambda: cs.lane_walk_plain(cs.MODE_FLAG, *fargs),
@@ -441,6 +451,16 @@ def phase_kernels(base: bytes, corpus: np.ndarray):
     # the main path's lane length: the whole corpus, one pattern
     data = torch.from_numpy(corpus).to(dev)
     lane_kernels("ip", data, f"ip {CORPUS_MIB} MiB", headline=True)
+    del data
+    # quote parity, whose count walks the most repair passes of the main
+    # path (about one a lane), at its split
+    data = torch.from_numpy(quote_corpus()).to(dev)
+    L, T, W, _ = cs.plan_geometry(int(data.shape[0]))
+    sc = ct.compile(QUOTES, device=DEVICE).batch_engine() \
+        ._count_scanner_ascii()
+    repair_kernels("count_scan", cs.MODE_COUNT, sc.dcd, data, (L, T, W),
+                   cs.make_word_tiles(data, L, T // 4),
+                   [cs.lane_split(T, W)], "quote parity 16 MiB")
     del data
     for kind in ("count_scan", "span_scan", "flag_scan"):
         if kind not in results:
@@ -618,13 +638,7 @@ def phase_kernels(base: bytes, corpus: np.ndarray):
         n = int(data.shape[0])
         L, T, W, _ = cs.plan_geometry(n)
         tiles = cs.make_word_tiles(data, L, T // 4)
-        sc = ct.compile(PATTERNS[name], device=DEVICE).batch_engine() \
-            ._chunk_scanner(kind)
-        if sc is None:
-            fail(f"{name}: no {kind} match tables")
-        mt = sc.mt
-        e0, o0, lim = cs.first_pass_inputs(mt.starts, data, n, L, T, W)
-        args = (mt.packed, mt.segmap, tiles, W // 4, e0, o0, lim)
+        args = match_args(name, kind, data, (L, T, W), tiles)
         compare("match_scan", label,
                 lambda: cs.lane_walk_cuda(cs.MODE_MATCH, *args),
                 lambda: cs.lane_walk_plain(cs.MODE_MATCH, *args),
@@ -690,6 +704,132 @@ def phase_kernels(base: bytes, corpus: np.ndarray):
     del mask, m8, rpays
     torch.cuda.empty_cache()
     return results
+
+
+def flag_args(be, data):
+    """K3's arguments on `data` as the bidi find_all of `be`'s pattern
+    makes them: the reverse reset tiles with a reset at each reversed
+    match end, fresh (DEAD) entries; None without a bidi route."""
+    import torch
+    from coregex_tpu_torch.ops import flag_scan, span_chain
+    from coregex_tpu_torch.ops.bytescan import _bucket
+    from coregex_tpu_torch.ops.compact2 import _bucket_up
+    ssc = be._span_scanner(True)
+    rsc = be._rev_flag_scanner(True)
+    if not ssc or not rsc:
+        return None
+    dev = data.device
+    n = int(data.shape[0])
+    fw, gw, total, kind, _conv = ssc.scan(data)
+    total = int(total)
+    capM = _bucket(total + 1, 16)
+    nwb = _bucket_up(-(-n // 32))
+    nwb1 = _bucket_up(-(-(n + 1) // 32))
+    _e, _c, rq, _rw, _ok = span_chain.bidi_ends(
+        fw, gw, n, total, int(kind), capM, nwb, nwb1)
+    del fw, gw
+    Lr, Tr, Wr, _ = flag_scan.reset_geometry(n)
+    symt = flag_scan.scatter_reset_tiles(
+        flag_scan.sym_base_tiles(torch.flip(data, [0]),
+                                 rsc.byte_bounds(), Lr, Tr // 4),
+        rq, Lr, Tr // 4)
+    lanes = torch.arange(Lr, dtype=torch.int64, device=dev)
+    entries = torch.full((1, Lr), flag_scan.DEAD, dtype=torch.int32,
+                         device=dev)
+    offs = torch.zeros(Lr, dtype=torch.int32, device=dev)
+    offs[0] = Wr
+    flim = (n + 1 - lanes * Tr).clamp(0, Tr).to(torch.int32)
+    return (rsc.tables.packed_full, None, symt, Wr // 4, entries, offs, flim)
+
+
+def match_args(name, kind, data, geom, tiles):
+    """K9's arguments on `data` under geometry (L, T, W): pattern `name`'s
+    match tables of `kind` (fwd_all, fwd_break), first-pass entries."""
+    import coregex_tpu_torch as ct
+    from coregex_tpu_torch.ops import count_scan as cs
+    sc = ct.compile(PATTERNS[name], device=DEVICE).batch_engine() \
+        ._chunk_scanner(kind)
+    if sc is None:
+        fail(f"{name}: no {kind} match tables")
+    mt = sc.mt
+    L, T, W = geom
+    e0, o0, lim = cs.first_pass_inputs(mt.starts, data, int(data.shape[0]),
+                                       L, T, W)
+    return (mt.packed, mt.segmap, tiles, W // 4, e0, o0, lim)
+
+
+def split_args(d, data, geom, tiles, k):
+    """K1's or K2's pass-0 arguments on `data` under geometry (L, T, W) at
+    k sub-lanes a lane (k = None: the unsplit walk of a checkout that has
+    no split), as the count and span scans make them."""
+    from coregex_tpu_torch.ops import count_scan as cs
+    L, T, W = geom
+    n = int(data.shape[0])
+    if k is None:
+        e0, o0, lim = cs.first_pass_inputs(d.starts, data, n, L, T, W)
+    else:
+        e0, o0, lim = cs.first_pass_inputs(d.starts, data, n, L, T, W, k)
+    return (d.packed, d.segmap, tiles, W // 4, e0, o0, lim)
+
+
+def repair_case(mode, d, args):
+    """A K1/K2 repair pass's inputs: pass 0's outputs on `args`, whose
+    exits are replaced by random states at a tenth of the sub-lanes, so
+    their successors walk.  Returns run(fn, whole): the sub-lane
+    (whole=False) or lane pass through fn (lane_repair_cuda or
+    lane_repair_plain) on fresh copies, giving (exits, counts, sync,
+    flagw, aux, walked)."""
+    import torch
+    from coregex_tpu_torch.ops import count_scan as cs
+    counts, exits, sync, fw, aux = cs.lane_walk_plain(mode, *args)
+    dev = exits.device
+    g = torch.Generator(device=dev).manual_seed(29)
+    pick = torch.rand(exits.shape, device=dev, generator=g) < 0.1
+    prev = torch.where(pick, torch.randint(
+        0, d.S, exits.shape, device=dev, generator=g,
+        dtype=torch.int32), exits).contiguous()
+    tiles, lim = args[2], args[6]
+
+    def run(fn, whole):
+        out = [torch.empty_like(prev), counts.clone(), sync.clone(),
+               None if fw is None else fw.clone(),
+               None if aux is None else aux.clone(),
+               torch.zeros(1, dtype=torch.int32, device=dev)]
+        fn(mode, whole, d.packed, d.segmap, tiles, d.sot, lim, prev, *out)
+        return out
+    return run
+
+
+QUOTES = r'"[^"]*"'
+
+
+def quote_corpus() -> np.ndarray:
+    """16 MiB (less a remainder) of `"` + 299 x."""
+    return np.frombuffer((b'"' + b"x" * 299) * ((16 << 20) // 300),
+                         dtype=np.uint8).copy()
+
+
+def quote_parity(eng=None):
+    r"""Quote parity: `"[^"]*"` counted over quote_corpus(), whose in-quote
+    state reaches back to the corpus start, so the lane seams settle one
+    lane a pass.  Returns (count, its known value, best of 2 ms, sub-lane
+    passes, lane passes, K1 launches) of the last call."""
+    import coregex_tpu_torch as ct
+    from coregex_tpu_torch.ops import count_scan as cs
+    arr = quote_corpus()
+    eng = eng or ct.compile(QUOTES, device=DEVICE)
+    c = cs.COUNT_KERNEL
+    eng.count(arr)
+    best = float("inf")
+    for _ in range(2):
+        reset_passes(c)
+        launches = c.launches
+        t0 = time.perf_counter()
+        got = eng.count(arr)
+        best = min(best, time.perf_counter() - t0)
+        launches = c.launches - launches
+    return (got, len(arr) // 600, best * 1e3, c.sub_passes, c.lane_passes,
+            launches)
 
 
 def k4_plain_nopay(mask8, cap: int):
@@ -870,21 +1010,15 @@ def phase_e2e(base: bytes, arr: np.ndarray):
         m0 = len(spans0)
         eng = ct.compile(pattern, device=DEVICE)
         engines.append((name, eng))
-        t0 = time.perf_counter()
-        got = eng.count(arr)
-        first = time.perf_counter() - t0
-        best = float("inf")
-        for _ in range(2):
-            t0 = time.perf_counter()
-            eng.count(arr)
-            best = min(best, time.perf_counter() - t0)
+        got, best, first = timed_count(eng, arr)
         if got != reps * m0:
             fail(f"{name}: count {got} != oracle {reps * m0}")
         be = eng.batch_engine()
         route = be._count_route(arr)[0]
         line = (f"[e2e] {name:16} {eng.strategy:13} count {got:>10} ok  "
                 f"{n / best / 1e9:7.2f} GB/s ({best * 1e3:.1f} ms via "
-                f"{route}, first {first:.2f} s)")
+                f"{route}, first {first:.2f} s, K1 repair passes "
+                f"{passes(count_scan.COUNT_KERNEL)})")
         if name in REROUTED:
             # the same count through K1, the count transducer; these
             # launches are a comparison, not the main path's
@@ -924,6 +1058,15 @@ def phase_e2e(base: bytes, arr: np.ndarray):
                  f"differs from the oracle")
         print(f"[e2e] {name:16} find_all_index on {len(sl)} bytes: "
               f"{len(got)} spans equal the oracle")
+    # the repair's worst case: a state that reaches back to the corpus start
+    eng = ct.compile(QUOTES, device=DEVICE)
+    got, want, ms, subs, lanes, launches = quote_parity(eng)
+    if got != want:
+        fail(f"quote parity: count {got} != {want}")
+    print(f"[e2e] quote parity {QUOTES} on 16 MiB: count {got} ok  "
+          f"{ms:.1f} ms, K1 repair passes {subs} over sub-lanes + {lanes} "
+          f"over lanes, {launches} launches", flush=True)
+    routes["quote parity"] = eng.batch_engine().host_routes
     return routes
 
 
@@ -947,11 +1090,13 @@ def check_find_all(name, be, arr: np.ndarray, exp) -> str:
                 int(spans[:cnt, 1].sum(dtype=torch.int64)) % M32,
                 spans[sidx_d].cpu().numpy().astype(np.int64))
 
+    from coregex_tpu_torch.ops.span_scan import SPAN_KERNEL
     t0 = time.perf_counter()
     res = run()
     fa_first = time.perf_counter() - t0
     fa_best = float("inf")
     for _ in range(2):
+        reset_passes(SPAN_KERNEL)
         t0 = time.perf_counter()
         res = run()
         fa_best = min(fa_best, time.perf_counter() - t0)
@@ -963,16 +1108,20 @@ def check_find_all(name, be, arr: np.ndarray, exp) -> str:
         fail(f"{name}: sampled spans differ from the oracle")
     return (f"find_all {cnt} spans digest+64 samples ok  "
             f"{n / fa_best / 1e9:7.2f} GB/s ({fa_best * 1e3:.1f} ms, "
-            f"first {fa_first:.2f} s)")
+            f"first {fa_first:.2f} s, K2 repair passes "
+            f"{passes(SPAN_KERNEL)})")
 
 
 def timed_count(eng, arr: np.ndarray):
-    """(count, best of 2 seconds, first call seconds)."""
+    """(count, best of 2 seconds, first call seconds); the K1 counter's
+    repair passes are those of the last call."""
+    from coregex_tpu_torch.ops.count_scan import COUNT_KERNEL
     t0 = time.perf_counter()
     got = eng.count(arr)
     first = time.perf_counter() - t0
     best = float("inf")
     for _ in range(2):
+        reset_passes(COUNT_KERNEL)
         t0 = time.perf_counter()
         eng.count(arr)
         best = min(best, time.perf_counter() - t0)
@@ -986,6 +1135,7 @@ def phase_e2e_class_nullable(base: bytes, arr: np.ndarray,
     (the scaling checked on two tiles for the nullable patterns)."""
     import coregex_tpu_torch as ct
     from coregex_tpu_torch.meta.batch import BatchEngine
+    from coregex_tpu_torch.ops.count_scan import COUNT_KERNEL
     from coregex_tpu_torch.utils import corpus_cache
 
     B = len(base)
@@ -1024,7 +1174,8 @@ def phase_e2e_class_nullable(base: bytes, arr: np.ndarray,
         line = (f"[e2e] {name:12} {eng.strategy:13} {n} bytes "
                 f"({reps} tiles), find_all route {route[0]}: count "
                 f"{got:>10} ok {n / best / 1e9:7.2f} GB/s "
-                f"({best * 1e3:.1f} ms, first {first:.2f} s) | "
+                f"({best * 1e3:.1f} ms, first {first:.2f} s, K1 repair "
+                f"passes {passes(COUNT_KERNEL)}) | "
                 + check_find_all(name, be, corpus, exp))
         print(line, flush=True)
         # exact spans through the public API on one tile (nullable) or two

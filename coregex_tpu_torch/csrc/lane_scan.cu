@@ -11,29 +11,54 @@
 //                                   4-byte class per corpus byte; here the
 //                                   word tiles and the byte map, as K1)
 // The TPU kernels walk a select tree over a row/column-merged table because
-// Mosaic has no dynamic gather; here the full packed [S, NSEG] table sits in
-// shared memory and each byte costs one shared-memory load.
+// Mosaic has no dynamic gather; here the packed table sits in shared memory
+// and each byte costs one or two shared-memory loads.
 //
-// What bounds it on an H100: the per-byte step is a dependent chain
-// (state -> table load -> state), so one lane runs at one shared-memory
-// latency per byte.  plan_geometry caps the corpus at 8192 lanes, about 62
-// threads per SM, far too few to hide that latency; widening the lanes is
-// later work.  Device-memory traffic is one read of the word tiles (plus
-// n/16 bytes of flag words for K2/K3): adjacent lanes read adjacent words of
-// the time-major [T4, L] layout, so each warp load is one 128-byte line.
-// Each thread issues the 8 loads of a 32-position group before stepping
-// through them, which keeps several loads in flight per thread.
+// What bounds it on an H100: each byte is a dependent chain (byte extract,
+// the byte's column, the table load, the shift to the next state), so one
+// walker advances one byte per shared-memory latency.  The work is about
+// ten instructions and one or two shared loads a byte: at 1,610,608,640
+// bytes over 132 SMs that is about 0.5 ms of instruction issue, against
+// 0.48 ms to read the bytes once.  The card reaches that only with enough
+// walkers to cover the chain's latency: plan_geometry gives 8192 lanes, 62
+// threads an SM, and one thread a lane ran 30x above the bound.  So K1 and
+// K2 split each lane into k consecutive sub-lanes (count_scan.lane_split:
+// k = 64 at 1536 MiB, 524,288 walkers), each warming up over the W bytes
+// before it; the repair passes then fix the k-times more seams, walking
+// only the sub-lanes (or, after a few passes, whole lanes) whose entry
+// differs from their predecessor's exit.  The tables are small, so blocks
+// stay resident by registers, not shared memory.  K3 and K9 walk one
+// thread a lane (k = 1).
+//
+// Device-memory traffic is one read of the word tiles (plus n/16 bytes of
+// flag words for K2/K3): sub-lane (j, l) reads words j*T4/k .. of lane l,
+// and adjacent threads take adjacent lanes of the time-major [T4, L]
+// layout, so each warp load is one 128-byte line.  Each thread issues the
+// 8 loads of a 32-position group before stepping through them.
 //
 // Layouts (int32, little-endian bytes within a word):
 //   tiles   [T4, L]     word t of lane l = bytes l*T + 4t .. l*T + 4t + 3
-//   flagw   [T4/8, L]   bit 4*(t%8)+k of word t/8 = position 4t+k of the lane
-//   counts, exits, sync, entries, offsets, limits  [L]
+//   flagw   [T4/8, L]   bit 4*(t%8)+k of word t/8 = position 4t+k of the lane;
+//                       sub-lane j owns groups j*T4/(8k) .. (j+1)*T4/(8k) - 1
+//   counts, exits, sync, entries  [k, L]: row j = sub-lanes (j, .)
+//   offsets, limits  [L]; sub-lane j's limit = clamp(limits[l] - j*T/k, 0, T/k)
 //   K9: counts = set flags of the lane, aux [L] = the lane-local position of
 //   its last set flag (-1 if none), so callers need no pass over the words
-// Warmup: a lane first steps the previous lane's last W4 words (lane 0 reads
-// lane L-1's, which its offset of W skips), skipping warmup position p when
-// p < offsets[l]; `sync` is the state after warmup, `exits` the state after
-// the lane.  Positions p >= limits[l] leave the state frozen and emit nothing.
+// First pass: sub-lane (j, l) steps the W4 words before its own first word
+// (j = 0: lane l-1's last W4 words, lane 0 reading lane L-1's, which its
+// offset of W skips; the offset skips warmup position p < offsets[l] for
+// j = 0 only), then its own words; `sync` is the state after warmup,
+// `exits` the state after the sub-lane.  Positions past a limit leave the
+// state frozen and emit nothing.
+// Repair passes read `prev`, the previous pass's exits, and write `exits`
+// (a second buffer).  A sub-lane is unsettled when it is real (limit > 0)
+// and its sync differs from the previous sub-lane's exit (`first`, the
+// true start state, for sub-lane (0, 0)).  kSub: each unsettled sub-lane
+// walks its words from that exit, with no warmup.  kLane: each lane holding
+// an unsettled sub-lane walks whole from the previous lane's exit, writing
+// every sub-lane's sync, counts, exits and flag groups.  Settled ones, and
+// the ones past the corpus, which nothing reads, keep theirs and copy their
+// exit; `walked` counts the walkers.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -41,72 +66,77 @@
 namespace {
 
 enum Mode { kCount = 0, kSpan = 1, kFlag = 2, kMatch = 3 };
+enum Pass { kFirst = 0, kSub = 1, kLane = 2 };
+
+constexpr int kThreads = 128;
 
 template <int MODE>
-__global__ void lane_walk_kernel(
-    const int32_t* __restrict__ packed, int nseg, int ntbl,
-    const int32_t* __restrict__ segmap,
-    const int32_t* __restrict__ tiles, int T4, int L, int W4,
-    const int32_t* __restrict__ entries, const int32_t* __restrict__ offsets,
-    const int32_t* __restrict__ limits, int32_t* __restrict__ counts,
-    int32_t* __restrict__ exits, int32_t* __restrict__ sync,
-    int32_t* __restrict__ flagw, int32_t* __restrict__ aux) {
-  extern __shared__ int32_t smem[];
-  int32_t* tbl = smem;
-  int32_t* seg = smem + ntbl;
-  for (int i = threadIdx.x; i < ntbl; i += blockDim.x) tbl[i] = packed[i];
-  if (MODE != kFlag) {
-    for (int i = threadIdx.x; i < 256; i += blockDim.x) seg[i] = segmap[i];
+struct Table {
+  const int32_t* tbl;
+  const int32_t* seg;
+  int nseg;
+
+  __device__ __forceinline__ int step(int s, int b) const {
+    return tbl[s * nseg + (MODE == kFlag ? b : seg[b])];
   }
-  __syncthreads();
+};
 
-  const int l = blockIdx.x * blockDim.x + threadIdx.x;
-  if (l >= L) return;
-
-  int s = entries[l];
-  const int off = offsets[l];
-  const int prev = (l == 0) ? L - 1 : l - 1;
-  for (int tw = 0; tw < W4; ++tw) {
-    const uint32_t w = (uint32_t)tiles[(size_t)(T4 - W4 + tw) * L + prev];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int b = (w >> (8 * k)) & 255;
-      const int c = (MODE == kFlag) ? b : seg[b];
-      if (tw * 4 + k >= off) s = tbl[s * nseg + c] >> 5;
-    }
+// One packed value's outputs at bit `bit` of its group.
+template <int MODE>
+__device__ __forceinline__ void take(int v, int bit, int& cnt, uint32_t& fw,
+                                     uint32_t& gw) {
+  if (MODE == kCount) {
+    cnt += v & 31;
+  } else if (MODE == kSpan) {
+    cnt += (v >> 2) & 7;
+    fw |= (uint32_t)(v & 1) << bit;
+    gw |= (uint32_t)((v >> 1) & 1) << bit;
+  } else if (MODE == kFlag) {
+    cnt += (v >> 1) & 1;
+    fw |= (uint32_t)(v & 1) << bit;
+  } else {
+    fw |= (uint32_t)(v & 1) << bit;
   }
-  sync[l] = s;
+}
 
-  const int lim = limits[l];
-  int cnt = 0, last = -1;
-  for (int g = 0; g < T4 / 8; ++g) {
+// Walks groups g0 .. g0+G-1 of lane l from state s over positions < lim
+// (counted from group g0), writing each group's flag words; returns the
+// exit state.  `last` is the walk-local position of the last set flag
+// (kMatch).
+template <int MODE>
+__device__ __forceinline__ int walk(const Table<MODE>& t,
+                                    const int32_t* __restrict__ tiles, int L,
+                                    int l, int g0, int G, int lim, int s,
+                                    int& cnt, int& last,
+                                    int32_t* __restrict__ flagw,
+                                    int32_t* __restrict__ firstw) {
+  for (int g = 0; g < G; ++g) {
     uint32_t fw = 0, gw = 0;
     if (g * 32 < lim) {
+      const int32_t* src = tiles + (size_t)(g0 + g) * 8 * L + l;
       uint32_t w[8];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) w[j] = (uint32_t)tiles[(size_t)(g * 8 + j) * L + l];
+      for (int j = 0; j < 8; ++j) w[j] = (uint32_t)src[(size_t)j * L];
+      if (g * 32 + 32 <= lim) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+        for (int j = 0; j < 8; ++j) {
 #pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const int p = g * 32 + j * 4 + k;
-          if (p < lim) {
-            const int b = (w[j] >> (8 * k)) & 255;
-            const int c = (MODE == kFlag) ? b : seg[b];
-            const int v = tbl[s * nseg + c];
-            if (MODE == kCount) {
-              cnt += v & 31;
-            } else if (MODE == kSpan) {
-              cnt += (v >> 2) & 7;
-              fw |= (uint32_t)(v & 1) << (j * 4 + k);
-              gw |= (uint32_t)((v >> 1) & 1) << (j * 4 + k);
-            } else if (MODE == kFlag) {
-              cnt += (v >> 1) & 1;
-              fw |= (uint32_t)(v & 1) << (j * 4 + k);
-            } else {
-              fw |= (uint32_t)(v & 1) << (j * 4 + k);
-            }
+          for (int k = 0; k < 4; ++k) {
+            const int v = t.step(s, (w[j] >> (8 * k)) & 255);
+            take<MODE>(v, j * 4 + k, cnt, fw, gw);
             s = v >> 5;
+          }
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            if (g * 32 + j * 4 + k < lim) {
+              const int v = t.step(s, (w[j] >> (8 * k)) & 255);
+              take<MODE>(v, j * 4 + k, cnt, fw, gw);
+              s = v >> 5;
+            }
           }
         }
       }
@@ -117,56 +147,195 @@ __global__ void lane_walk_kernel(
       cnt += __popc(fw);
       last = g * 32 + 31 - __clz((int)fw);
     }
-    if (MODE != kCount) flagw[(size_t)g * L + l] = (int32_t)fw;
-    if (MODE == kSpan) aux[(size_t)g * L + l] = (int32_t)gw;
+    if (MODE != kCount) flagw[(size_t)(g0 + g) * L + l] = (int32_t)fw;
+    if (MODE == kSpan) firstw[(size_t)(g0 + g) * L + l] = (int32_t)gw;
   }
-  counts[l] = cnt;
-  exits[l] = s;
-  if (MODE == kMatch) aux[l] = last;
+  return s;
 }
 
-constexpr int kThreads = 128;
+__device__ __forceinline__ int sub_limit(int lim, int j, int Tk) {
+  return min(max(lim - j * Tk, 0), Tk);
+}
+
+// Adds this warp's walking threads to *walked, one atomic per warp.
+__device__ __forceinline__ void count_walker(int32_t* walked) {
+  const unsigned m = __activemask();
+  if ((int)(threadIdx.x & 31) == __ffs(m) - 1) atomicAdd(walked, __popc(m));
+}
+
+template <int MODE, int PASS>
+__global__ void __launch_bounds__(kThreads) lane_walk_kernel(
+    const int32_t* __restrict__ packed, int S, int nseg,
+    const int32_t* __restrict__ segmap, const int32_t* __restrict__ tiles,
+    int T4, int L, int W4, int k, const int32_t* __restrict__ entries,
+    const int32_t* __restrict__ offsets, const int32_t* __restrict__ limits,
+    int first, const int32_t* __restrict__ prev, int32_t* __restrict__ counts,
+    int32_t* __restrict__ exits, int32_t* __restrict__ sync,
+    int32_t* __restrict__ flagw, int32_t* __restrict__ aux,
+    int32_t* __restrict__ walked) {
+  extern __shared__ int32_t smem[];
+  Table<MODE> t{smem, smem + S * nseg, nseg};
+  for (int i = threadIdx.x; i < S * nseg; i += blockDim.x) smem[i] = packed[i];
+  if (MODE != kFlag) {
+    for (int i = threadIdx.x; i < 256; i += blockDim.x)
+      smem[S * nseg + i] = segmap[i];
+  }
+  __syncthreads();
+
+  const int G = T4 / 8 / k;   // groups of a sub-lane
+  const int Tk = G * 32;      // bytes of a sub-lane
+  int32_t* firstw = MODE == kSpan ? aux : nullptr;
+
+  if (PASS == kLane) {
+    const int l = blockIdx.x * blockDim.x + threadIdx.x;
+    if (l >= L) return;
+    const int lim = limits[l];
+    const int enter = l > 0 ? prev[(size_t)(k - 1) * L + l - 1] : first;
+    bool bad = false;
+    for (int j = 0; j < k; ++j) {
+      const int want = j > 0 ? prev[(size_t)(j - 1) * L + l] : enter;
+      bad |= sub_limit(lim, j, Tk) > 0 && sync[(size_t)j * L + l] != want;
+    }
+    if (!bad) {
+      for (int j = 0; j < k; ++j) exits[(size_t)j * L + l] = prev[(size_t)j * L + l];
+      return;
+    }
+    count_walker(walked);
+    int s = enter;
+    for (int j = 0; j < k; ++j) {
+      const size_t i = (size_t)j * L + l;
+      int cnt = 0, last = -1;
+      sync[i] = s;
+      s = walk<MODE>(t, tiles, L, l, j * G, G, sub_limit(lim, j, Tk), s, cnt,
+                     last, flagw, firstw);
+      counts[i] = cnt;
+      exits[i] = s;
+    }
+    return;
+  }
+
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= k * L) return;
+  const int j = i / L, l = i - j * L;
+  const int lim = sub_limit(limits[l], j, Tk);
+  int s;
+  if (PASS == kSub) {
+    const int want =
+        j > 0 ? prev[i - L] : (l > 0 ? prev[(size_t)(k - 1) * L + l - 1] : first);
+    if (lim == 0 || sync[i] == want) {
+      exits[i] = prev[i];
+      return;
+    }
+    count_walker(walked);
+    s = want;
+  } else {
+    // warmup over the W4 words before the sub-lane's first word
+    s = entries[i];
+    const int off = j == 0 ? offsets[l] : 0;
+    const int src = j == 0 ? (l == 0 ? L - 1 : l - 1) : l;
+    const int w0 = (j == 0 ? T4 : j * G * 8) - W4;
+    for (int tw = 0; tw < W4; ++tw) {
+      const uint32_t w = (uint32_t)tiles[(size_t)(w0 + tw) * L + src];
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        if (tw * 4 + b >= off) s = t.step(s, (w >> (8 * b)) & 255) >> 5;
+      }
+    }
+  }
+  sync[i] = s;
+  int cnt = 0, last = -1;
+  s = walk<MODE>(t, tiles, L, l, j * G, G, lim, s, cnt, last, flagw, firstw);
+  counts[i] = cnt;
+  exits[i] = s;
+  if (MODE == kMatch) aux[i] = last;
+}
 
 template <int MODE>
+size_t smem_bytes(int S, int nseg) {
+  return (size_t)(S * nseg + (MODE == kFlag ? 0 : 256)) * sizeof(int32_t);
+}
+
+template <int MODE, int PASS>
 int launch(const int32_t* packed, int S, int nseg, const int32_t* segmap,
-           const int32_t* tiles, int T4, int L, int W4, const int32_t* entries,
-           const int32_t* offsets, const int32_t* limits, int32_t* counts,
-           int32_t* exits, int32_t* sync, int32_t* flagw, int32_t* aux,
-           void* stream) {
-  const int ntbl = S * nseg;
-  const size_t smem = (size_t)(ntbl + (MODE == kFlag ? 0 : 256)) * sizeof(int32_t);
+           const int32_t* tiles, int T4, int L, int W4, int k,
+           const int32_t* entries, const int32_t* offsets,
+           const int32_t* limits, int first, const int32_t* prev,
+           int32_t* counts, int32_t* exits, int32_t* sync, int32_t* flagw,
+           int32_t* aux, int32_t* walked, void* stream) {
+  const size_t smem = smem_bytes<MODE>(S, nseg);
+  auto kernel = lane_walk_kernel<MODE, PASS>;
   cudaError_t e = cudaFuncSetAttribute(
-      lane_walk_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  const int blocks = (L + kThreads - 1) / kThreads;
-  lane_walk_kernel<MODE><<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-      packed, nseg, ntbl, segmap, tiles, T4, L, W4, entries, offsets, limits,
-      counts, exits, sync, flagw, aux);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (PASS != kFirst) {
+    e = cudaMemsetAsync(walked, 0, sizeof(int32_t), st);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const long long walkers = PASS == kLane ? L : (long long)k * L;
+  const int blocks = (int)((walkers + kThreads - 1) / kThreads);
+  kernel<<<blocks, kThreads, smem, st>>>(
+      packed, S, nseg, segmap, tiles, T4, L, W4, k, entries, offsets, limits,
+      first, prev, counts, exits, sync, flagw, aux, walked);
   return (int)cudaGetLastError();
+}
+
+// K1/K2 dispatch over the pass
+template <int MODE>
+int launch_split(int pass, const int32_t* packed, int S, int nseg,
+                 const int32_t* segmap, const int32_t* tiles, int T4, int L,
+                 int W4, int k, const int32_t* entries, const int32_t* offsets,
+                 const int32_t* limits, int first, const int32_t* prev,
+                 int32_t* counts, int32_t* exits, int32_t* sync,
+                 int32_t* flagw, int32_t* aux, int32_t* walked, void* stream) {
+#define CGX_LAUNCH(P)                                                        \
+  return launch<MODE, P>(packed, S, nseg, segmap, tiles, T4, L, W4, k,        \
+                         entries, offsets, limits, first, prev, counts, exits, \
+                         sync, flagw, aux, walked, stream)
+  if (pass == kFirst) CGX_LAUNCH(kFirst);
+  if (pass == kSub) CGX_LAUNCH(kSub);
+  CGX_LAUNCH(kLane);
+#undef CGX_LAUNCH
+}
+
+template <int MODE>
+int occupancy(int S, int nseg, int* blocks) {
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, lane_walk_kernel<MODE, kFirst>, kThreads,
+      smem_bytes<MODE>(S, nseg));
 }
 
 }  // namespace
 
 extern "C" {
 
-int cgx_lane_count(const int32_t* packed, int S, int nseg, const int32_t* segmap,
-                   const int32_t* tiles, int T4, int L, int W4,
-                   const int32_t* entries, const int32_t* offsets,
-                   const int32_t* limits, int32_t* counts, int32_t* exits,
-                   int32_t* sync, void* stream) {
-  return launch<kCount>(packed, S, nseg, segmap, tiles, T4, L, W4, entries,
-                        offsets, limits, counts, exits, sync, nullptr, nullptr,
-                        stream);
+// K1: pass 0 (kFirst, with warmup) or a repair pass (kSub, kLane) of the
+// count transducer over k sub-lanes a lane.  Repair passes read prev and
+// write exits, and zero then count *walked.
+int cgx_lane_count(int pass, const int32_t* packed, int S, int nseg,
+                   const int32_t* segmap, const int32_t* tiles, int T4, int L,
+                   int W4, int k, const int32_t* entries,
+                   const int32_t* offsets, const int32_t* limits, int first,
+                   const int32_t* prev, int32_t* counts, int32_t* exits,
+                   int32_t* sync, int32_t* walked, void* stream) {
+  return launch_split<kCount>(pass, packed, S, nseg, segmap, tiles, T4,
+                              L, W4, k, entries, offsets, limits, first, prev,
+                              counts, exits, sync, nullptr, nullptr, walked,
+                              stream);
 }
 
-int cgx_lane_span(const int32_t* packed, int S, int nseg, const int32_t* segmap,
-                  const int32_t* tiles, int T4, int L, int W4,
-                  const int32_t* entries, const int32_t* offsets,
-                  const int32_t* limits, int32_t* counts, int32_t* exits,
-                  int32_t* sync, int32_t* flagw, int32_t* firstw, void* stream) {
-  return launch<kSpan>(packed, S, nseg, segmap, tiles, T4, L, W4, entries,
-                       offsets, limits, counts, exits, sync, flagw, firstw,
-                       stream);
+// K2: as K1, also writing the flag and first-flag words.
+int cgx_lane_span(int pass, const int32_t* packed, int S, int nseg,
+                  const int32_t* segmap, const int32_t* tiles, int T4, int L,
+                  int W4, int k, const int32_t* entries, const int32_t* offsets,
+                  const int32_t* limits, int first, const int32_t* prev,
+                  int32_t* counts, int32_t* exits, int32_t* sync,
+                  int32_t* flagw, int32_t* firstw, int32_t* walked,
+                  void* stream) {
+  return launch_split<kSpan>(pass, packed, S, nseg, segmap, tiles, T4,
+                             L, W4, k, entries, offsets, limits, first, prev,
+                             counts, exits, sync, flagw, firstw, walked,
+                             stream);
 }
 
 int cgx_lane_flag(const int32_t* packed, int S, int nseg, const int32_t* tiles,
@@ -174,9 +343,9 @@ int cgx_lane_flag(const int32_t* packed, int S, int nseg, const int32_t* tiles,
                   const int32_t* offsets, const int32_t* limits,
                   int32_t* counts, int32_t* exits, int32_t* sync,
                   int32_t* flagw, void* stream) {
-  return launch<kFlag>(packed, S, nseg, nullptr, tiles, T4, L, W4, entries,
-                       offsets, limits, counts, exits, sync, flagw, nullptr,
-                       stream);
+  return launch<kFlag, kFirst>(
+      packed, S, nseg, nullptr, tiles, T4, L, W4, 1, entries, offsets, limits,
+      0, nullptr, counts, exits, sync, flagw, nullptr, nullptr, stream);
 }
 
 int cgx_lane_match(const int32_t* packed, int S, int nseg, const int32_t* segmap,
@@ -184,9 +353,16 @@ int cgx_lane_match(const int32_t* packed, int S, int nseg, const int32_t* segmap
                    const int32_t* entries, const int32_t* offsets,
                    const int32_t* limits, int32_t* counts, int32_t* exits,
                    int32_t* sync, int32_t* flagw, int32_t* last, void* stream) {
-  return launch<kMatch>(packed, S, nseg, segmap, tiles, T4, L, W4, entries,
-                        offsets, limits, counts, exits, sync, flagw, last,
-                        stream);
+  return launch<kMatch, kFirst>(
+      packed, S, nseg, segmap, tiles, T4, L, W4, 1, entries, offsets, limits,
+      0, nullptr, counts, exits, sync, flagw, last, nullptr, stream);
+}
+
+// Resident blocks of kThreads threads per SM for a K1 (mode 0) or K2
+// (mode 1) pass-0 launch on an [S, nseg] table.
+int cgx_lane_occupancy(int mode, int S, int nseg, int* blocks) {
+  return mode == kCount ? occupancy<kCount>(S, nseg, blocks)
+                        : occupancy<kSpan>(S, nseg, blocks);
 }
 
 const char* cgx_error_string(int e) {

@@ -38,10 +38,11 @@ FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "cgx_lane_count": [_P, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
-                       _P, _P],
-    "cgx_lane_span": [_P, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
-                      _P, _P, _P, _P],
+    "cgx_lane_count": [_I, _P, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P,
+                       _I, _P, _P, _P, _P, _P, _P],
+    "cgx_lane_span": [_I, _P, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P,
+                      _I, _P, _P, _P, _P, _P, _P, _P, _P],
+    "cgx_lane_occupancy": [_I, _I, _I, ctypes.POINTER(ctypes.c_int)],
     "cgx_lane_flag": [_P, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                       _P, _P],
     "cgx_lane_match": [_P, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,

@@ -5,13 +5,17 @@ and ``_byte_ctx`` unchanged; ``_make_word_tiles`` (:165-186; callers cache
 the tiles with the corpus, ``utils/corpus_cache.py``); ``DeviceCountDFA`` (:60-108) as ``DeviceCountDFA.from_host``;
 ``_count_full`` (:341-510) as host-driven torch code; ``CountScanner.count``.
 
-The corpus splits into L lanes of T bytes.  Each lane first warms up over the
-W-byte tail of the previous lane from a guessed entry state, then walks its
-own bytes through the packed table (value = delta*32 + emit), summing the
-emissions.  A bounded fixpoint rescans while some lane's post-warmup state
-differs from the previous lane's exit, so the result equals the sequential
-scan's.  The fixpoint runs on the host around the launches: one ``.item()``
-sync per pass.
+The corpus splits into L lanes of T bytes (``plan_geometry``, the
+reference's rule, so every caller shares one cached set of word tiles),
+and for the count scan each lane into k = ``lane_split(T, W)`` sub-lanes
+of T/k bytes, so that enough walkers fill the card.  Each sub-lane first
+warms up over the W bytes before it from a guessed entry state, then walks
+its own bytes through the packed table (value = delta*32 + emit), summing
+the emissions.  A fixpoint (``split_fixpoint``) walks again only the
+sub-lanes, and then the whole lanes, whose post-warmup state differs from
+the previous sub-lane's exit, until none does, so the result equals the
+sequential scan's.  It runs on the host around the launches: one
+``.item()`` sync per pass.
 
 The lane walk itself is shared with the span scan (K2), the flag scan (K3)
 and the match scan (K9, ``dfa_scan.ChunkScanner``): :func:`lane_walk`
@@ -19,11 +23,14 @@ launches ``csrc/lane_scan.cu`` for CUDA tensors and
 runs :func:`lane_walk_plain`, the reference's ``impl="gather"`` loop, for CPU
 tensors.  The TPU kernel's ``packed_rc`` row/column merge only served the
 Mosaic select tree and is left out: the CUDA kernel reads the full
-``[S, NSEG]`` table from shared memory.
+``[S, NSEG]`` table from shared memory.  Every lane walk takes entries and
+gives counts, exits and syncs of shape [k, L], row j holding sub-lane j of
+each lane; K3 and K9 walk k = 1.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
 import numpy as np
@@ -34,10 +41,20 @@ from ..dfa.dense import CTX_NL, CTX_OTHER, CTX_SOT, CTX_WORD
 from . import _build
 
 MODE_COUNT, MODE_SPAN, MODE_FLAG, MODE_MATCH = 0, 1, 2, 3
+# K1/K2 launches: pass 0 (with warmup), a pass over the unsettled
+# sub-lanes, a pass over the lanes holding one (csrc/lane_scan.cu's Pass)
+PASS_FIRST, PASS_SUB, PASS_LANE = 0, 1, 2
+THREADS = 128       # threads a block (lane_scan.cu's kThreads)
 
 # a block stages the packed table (plus the 256-entry byte map) in shared
 # memory; an H100 block can hold at most this many bytes
 SMEM_LIMIT = 232448
+# most sub-lanes a lane for K1 and K2 (lane_split): 64 sub-lanes of 3 KiB
+# at 1536 MiB, 524,288 walkers, about two waves of resident threads; 16
+# and 32 were slower on the H100 (PERF.md)
+MAX_SPLIT = 64
+# repair passes over sub-lanes before the fixpoint re-walks whole lanes
+SUB_PASSES = 2
 
 
 def device_table(x, device) -> torch.Tensor:
@@ -87,6 +104,7 @@ class DeviceCountDFA:
         self.packed = device_table(packed, self.device)
         self.segmap = device_table(segmap, self.device)
         self.starts = device_table(starts, self.device)
+        self.sot = int(np.asarray(starts)[CTX_SOT])   # the true start state
         self.eoi = device_table(eoi, self.device)
 
     @staticmethod
@@ -148,60 +166,70 @@ def make_word_tiles(data_u8: torch.Tensor, L: int, T4: int) -> torch.Tensor:
     return buf.view(torch.int32).reshape(L, T4).t().contiguous()
 
 
+def lane_split(T: int, W: int) -> int:
+    """Sub-lanes per lane for K1 and K2 under a geometry of T-byte lanes
+    and a W-byte warmup: the largest power of two k <= MAX_SPLIT that
+    divides T/32, the lane's flag groups, with T/k >= 4W, so the warmup
+    stays within a quarter of a sub-lane's walk.  1 below T = 8W."""
+    k = 1
+    while (2 * k <= MAX_SPLIT and (T // 32) % (2 * k) == 0
+           and T // (2 * k) >= 4 * W):
+        k *= 2
+    return k
+
+
+def sub_limits(limits, k: int, Tk: int):
+    """Per-sub-lane limits [k*L] in row order (row j = sub-lanes (j, .))
+    from the lanes' limits [L]: clamp(limits[l] - j*Tk, 0, Tk)."""
+    j = torch.arange(k, dtype=torch.int32, device=limits.device)
+    return (limits[None, :] - j[:, None] * Tk).clamp(0, Tk).reshape(-1)
+
+
 # ---------------------------------------------------------------------------
 # The lane walk: kernel K1 (and K2/K3 through `mode`) and its plain version
 # ---------------------------------------------------------------------------
 
 class LaunchCounter:
-    """Launches of one CUDA kernel, counted by its wrapper."""
+    """Launches of one CUDA kernel, counted by its wrapper, and the repair
+    passes of the split fixpoint (split_fixpoint) that walked something:
+    passes over sub-lanes and passes over whole lanes."""
 
     def __init__(self, name: str):
         self.name = name
         self.launches = 0
+        self.sub_passes = 0
+        self.lane_passes = 0
 
 
 COUNT_KERNEL = LaunchCounter("count_scan")
 
 
-def lane_walk_plain(mode: int, packed, segmap, tiles, W4: int, entries,
-                    offsets, limits):
-    """Plain torch lane walk (the reference's impl="gather" scan_once).
-    Returns (counts, exits, sync, flagw, aux); flagw is [T4/8, L] int32
-    words (None for MODE_COUNT); aux is the first-flag words [T4/8, L] of
-    MODE_SPAN, the lane-local position of each lane's last set flag [L]
-    (-1 if none) of MODE_MATCH, else None.  MODE_MATCH counts set flags."""
-    T4, L = (int(x) for x in tiles.shape)
-    dev = tiles.device
-    nseg = int(packed.shape[1])
-    tbl = packed.reshape(-1).long()
-    seg = None if segmap is None else segmap.long()
-    prev = torch.roll(torch.arange(L, device=dev), 1)
-    warm = tiles[T4 - W4:][:, prev]
+def _cols(seg, w, k):
+    b = ((w >> (8 * k)) & 255).long()
+    return b if seg is None else seg[b]
 
-    def cols(w, k):
-        b = ((w >> (8 * k)) & 255).long()
-        return b if seg is None else seg[b]
 
-    s = entries.long()
-    for tw in range(W4):
-        for k in range(4):
-            nxt = tbl[s * nseg + cols(warm[tw], k)] >> 5
-            s = torch.where((tw * 4 + k) >= offsets, nxt, s)
-    sync = s.to(torch.int32)
-
-    cnt = torch.zeros(L, dtype=torch.int64, device=dev)
+def _walk_plain(mode, tbl, seg, nseg, word, steps: int, s, lim):
+    """Walk M columns from states s (int64 [M]) over `steps` words, word(t)
+    giving word t of every column, positions >= lim [M] frozen.  Returns
+    (counts int64, exit states int64, flag words [steps/8, M] or None, aux):
+    aux is the first-flag words of MODE_SPAN, the walk-local position of
+    the last set flag (-1 if none) of MODE_MATCH, else None."""
+    M = int(s.shape[0])
+    dev = s.device
+    cnt = torch.zeros(M, dtype=torch.int64, device=dev)
     emit_words = mode != MODE_COUNT
-    flagw = torch.zeros((T4 // 8, L), dtype=torch.int32, device=dev) \
+    flagw = torch.zeros((steps // 8, M), dtype=torch.int32, device=dev) \
         if emit_words else None
     firstw = torch.zeros_like(flagw) if mode == MODE_SPAN else None
-    last = torch.full((L,), -1, dtype=torch.int32, device=dev) \
+    last = torch.full((M,), -1, dtype=torch.int32, device=dev) \
         if mode == MODE_MATCH else None
-    live_len = int(limits.max()) if L else 0
-    for t in range(min(T4, -(-live_len // 4))):
-        w = tiles[t]
+    live_len = int(lim.max()) if M else 0
+    for t in range(min(steps, -(-live_len // 4))):
+        w = word(t)
         for k in range(4):
-            live = (t * 4 + k) < limits
-            v = tbl[s * nseg + cols(w, k)]
+            live = (t * 4 + k) < lim
+            v = tbl[s * nseg + _cols(seg, w, k)]
             if mode == MODE_COUNT:
                 e = v & 31
             elif mode == MODE_SPAN:
@@ -220,11 +248,135 @@ def lane_walk_plain(mode: int, packed, segmap, tiles, W4: int, entries,
                 gb = torch.where(live, (v >> 1) & 1, 0).to(torch.int32)
                 firstw[t // 8] |= gb << sh
             s = torch.where(live, v >> 5, s)
-    aux = firstw if mode == MODE_SPAN else last
-    return (cnt.to(torch.int32), s.to(torch.int32), sync, flagw, aux)
+    return cnt, s, flagw, firstw if mode == MODE_SPAN else last
 
 
-def _check_lane_args(packed, segmap, tiles, W4, entries, offsets, limits):
+def _lane_words(words, k: int, L: int):
+    """Flag words [G, k*L] of sub-lane columns (j, l) -> the lanes' [k*G, L]
+    (sub-lane j's groups are rows j*G .. (j+1)*G - 1)."""
+    G = int(words.shape[0])
+    return words.reshape(G, k, L).permute(1, 0, 2).reshape(k * G, L)
+
+
+def lane_walk_plain(mode: int, packed, segmap, tiles, W4: int, entries,
+                    offsets, limits):
+    """Plain torch lane walk (the reference's impl="gather" scan_once), one
+    torch step per byte of a sub-lane.  entries [k, L] for k sub-lanes a
+    lane (k > 1 for K1 and K2 only); offsets and limits [L].  Returns
+    (counts, exits, sync, flagw, aux), the first three [k, L]; flagw is
+    [T4/8, L] int32 words (None for MODE_COUNT); aux is the first-flag
+    words [T4/8, L] of MODE_SPAN, the lane-local position of each lane's
+    last set flag [L] (-1 if none) of MODE_MATCH, else None.  MODE_MATCH
+    counts set flags."""
+    T4, L = (int(x) for x in tiles.shape)
+    k = int(entries.shape[0])
+    T4k = T4 // k
+    dev = tiles.device
+    nseg = int(packed.shape[1])
+    tbl = packed.reshape(-1).long()
+    seg = None if segmap is None else segmap.long()
+    tv = tiles.view(k, T4k, L)
+    prev = torch.roll(torch.arange(L, device=dev), 1)
+
+    def warm(tw):
+        # sub-lane (0, l) warms up over lane l-1's last W4 words, (j, l)
+        # over the W4 words of lane l before its own first word
+        return torch.cat([tiles[T4 - W4 + tw][prev],
+                          tv[:-1, T4k - W4 + tw].reshape(-1)])
+
+    off = torch.cat([offsets, offsets.new_zeros((k - 1) * L)])
+    s = entries.reshape(-1).long()
+    for tw in range(W4):
+        w = warm(tw)
+        for b in range(4):
+            nxt = tbl[s * nseg + _cols(seg, w, b)] >> 5
+            s = torch.where((tw * 4 + b) >= off, nxt, s)
+    sync = s.to(torch.int32)
+    cnt, s, flagw, aux = _walk_plain(
+        mode, tbl, seg, nseg, lambda t: tv[:, t].reshape(-1), T4k, s,
+        sub_limits(limits, k, T4k * 4))
+    if flagw is not None:
+        flagw = _lane_words(flagw, k, L)
+    if mode == MODE_SPAN:
+        aux = _lane_words(aux, k, L)
+    return (cnt.to(torch.int32).reshape(k, L),
+            s.to(torch.int32).reshape(k, L), sync.reshape(k, L), flagw, aux)
+
+
+def want_of(exits, first: int):
+    """The state each sub-lane should enter at: the previous sub-lane's
+    exit in corpus order (sub-lane (j, l) is the l*k + j-th), `first` for
+    sub-lane (0, 0).  exits [k, L] -> [k, L]."""
+    k, L = (int(x) for x in exits.shape)
+    flat = exits.t().reshape(-1)
+    head = torch.full((1,), first, dtype=flat.dtype, device=flat.device)
+    return torch.cat([head, flat[:-1]]).reshape(L, k).t()
+
+
+def unsettled(exits, sync, limits, first: int, T: int):
+    """[k, L] bool: the real sub-lanes whose sync differs from the previous
+    sub-lane's exit."""
+    k, L = (int(x) for x in exits.shape)
+    real = sub_limits(limits, k, T // k).reshape(k, L) > 0
+    return real & (sync != want_of(exits, first))
+
+
+def lane_repair_plain(mode: int, whole: bool, packed, segmap, tiles,
+                      first: int, limits, prev, exits, counts, sync, flagw,
+                      aux, walked):
+    """One repair pass of the plain version, in place: every unsettled
+    sub-lane (whole=False), or every lane holding one (whole=True), walks
+    again from the previous exit in `prev` [k, L], with no warmup; the
+    walkers rewrite their sync, counts and flag groups, `exits` gets every
+    sub-lane's exit (the settled ones, and the ones past the corpus, which
+    nothing reads, copy theirs from prev), and walked[0] the number of
+    walkers."""
+    T4, L = (int(x) for x in tiles.shape)
+    k = int(prev.shape[0])
+    T4k, G = T4 // k, T4 // k // 8
+    nseg = int(packed.shape[1])
+    tbl = packed.reshape(-1).long()
+    seg = None if segmap is None else segmap.long()
+    lim = sub_limits(limits, k, T4k * 4).reshape(k, L)
+    want = want_of(prev, first)
+    bad = (lim > 0) & (sync != want)
+
+    def commit(rows, sel, c, s_in, s_out, fw, gw):
+        sync[rows] = torch.where(sel, s_in.to(torch.int32), sync[rows])
+        counts[rows] = torch.where(sel, c.to(torch.int32), counts[rows])
+        exits[rows] = torch.where(sel, s_out.to(torch.int32), prev[rows])
+        for out, w in ((flagw, fw), (aux, gw)):
+            if w is not None:
+                lw = _lane_words(w, int(sel.numel()) // L, L).reshape(
+                    -1, G, L)
+                cur = out.view(k, G, L)[rows]
+                out.view(k, G, L)[rows] = torch.where(
+                    sel.reshape(-1, 1, L), lw, cur.reshape(-1, G, L)
+                ).reshape(cur.shape)
+
+    if whole:
+        lanes = bad.any(dim=0)
+        s = want[0].long()
+        for j in range(k):
+            c, s2, fw, gw = _walk_plain(
+                mode, tbl, seg, nseg, lambda t: tiles[j * T4k + t], T4k, s,
+                lim[j])
+            commit(j, lanes, c, s, s2, fw, gw if mode == MODE_SPAN else None)
+            s = s2
+        walked.fill_(int(lanes.sum()))
+    else:
+        tv = tiles.view(k, T4k, L)
+        s = want.reshape(-1).long()
+        c, s2, fw, gw = _walk_plain(
+            mode, tbl, seg, nseg, lambda t: tv[:, t].reshape(-1), T4k, s,
+            lim.reshape(-1))
+        commit(slice(None), bad, c.reshape(k, L), s.reshape(k, L),
+               s2.reshape(k, L), fw, gw if mode == MODE_SPAN else None)
+        walked.fill_(int(bad.sum()))
+
+
+def _check_lane_args(mode, packed, segmap, tiles, W4, entries, offsets,
+                     limits):
     dev = tiles.device
     T4, L = (int(x) for x in tiles.shape)
     named = [("packed", packed), ("tiles", tiles), ("entries", entries),
@@ -238,31 +390,40 @@ def _check_lane_args(packed, segmap, tiles, W4, entries, offsets, limits):
             raise ValueError(f"{name} must be int32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    for name, t in (("entries", entries), ("offsets", offsets),
-                    ("limits", limits)):
-        if tuple(t.shape) != (L,):
-            raise ValueError(f"{name} must have shape ({L},)")
-    if segmap is not None and tuple(segmap.shape) != (256,):
-        raise ValueError("segmap must have shape (256,)")
     if packed.dim() != 2:
         raise ValueError("packed must be [S, NSEG]")
-    if T4 % 8 or not 0 < W4 <= T4:
-        raise ValueError(f"bad tile geometry T4={T4} W4={W4}")
     S, nseg = (int(x) for x in packed.shape)
     if not table_fits(S, nseg):
         raise ValueError(f"packed table [{S}, {nseg}] exceeds the "
                          f"{SMEM_LIMIT}-byte shared-memory limit")
+    if entries.dim() != 2 or int(entries.shape[1]) != L:
+        raise ValueError(f"entries must have shape (k, {L})")
+    k = int(entries.shape[0])
+    if k > 1 and (mode not in (MODE_COUNT, MODE_SPAN)
+                  or k & (k - 1) or (T4 // 8) % k):
+        raise ValueError(f"entries of shape {tuple(entries.shape)}: only "
+                         f"K1 and K2 split lanes, into a power of two that "
+                         f"divides T4/8 = {T4 // 8}")
+    for name, t in (("offsets", offsets), ("limits", limits)):
+        if tuple(t.shape) != (L,):
+            raise ValueError(f"{name} must have shape ({L},)")
+    if segmap is not None and tuple(segmap.shape) != (256,):
+        raise ValueError("segmap must have shape (256,)")
+    if T4 % 8 or not 0 < W4 <= T4 // k:
+        raise ValueError(f"bad tile geometry T4={T4} W4={W4} k={k}")
 
 
 def lane_walk_cuda(mode: int, packed, segmap, tiles, W4: int, entries,
                    offsets, limits):
-    """Launch csrc/lane_scan.cu; same outputs as lane_walk_plain."""
-    _check_lane_args(packed, segmap, tiles, W4, entries, offsets, limits)
+    """Launch csrc/lane_scan.cu (pass 0); same outputs as lane_walk_plain."""
+    _check_lane_args(mode, packed, segmap, tiles, W4, entries, offsets,
+                     limits)
     T4, L = (int(x) for x in tiles.shape)
     S, nseg = (int(x) for x in packed.shape)
+    k = int(entries.shape[0])
     dev = tiles.device
-    counts, exits, sync = (torch.empty(L, dtype=torch.int32, device=dev)
-                           for _ in range(3))
+    counts, exits, sync = (torch.empty(entries.shape, dtype=torch.int32,
+                                       device=dev) for _ in range(3))
     flagw = aux = None
     if mode != MODE_COUNT:
         flagw = torch.empty((T4 // 8, L), dtype=torch.int32, device=dev)
@@ -276,14 +437,14 @@ def lane_walk_cuda(mode: int, packed, segmap, tiles, W4: int, entries,
         st = _build.stream(dev)
         if mode == MODE_COUNT:
             rc = lib.cgx_lane_count(
-                p(packed), S, nseg, p(segmap), p(tiles), T4, L, W4,
-                p(entries), p(offsets), p(limits), p(counts), p(exits),
-                p(sync), st)
+                PASS_FIRST, p(packed), S, nseg, p(segmap), p(tiles), T4, L,
+                W4, k, p(entries), p(offsets), p(limits), 0, None, p(counts),
+                p(exits), p(sync), None, st)
         elif mode == MODE_SPAN:
             rc = lib.cgx_lane_span(
-                p(packed), S, nseg, p(segmap), p(tiles), T4, L, W4,
-                p(entries), p(offsets), p(limits), p(counts), p(exits),
-                p(sync), p(flagw), p(aux), st)
+                PASS_FIRST, p(packed), S, nseg, p(segmap), p(tiles), T4, L,
+                W4, k, p(entries), p(offsets), p(limits), 0, None, p(counts),
+                p(exits), p(sync), p(flagw), p(aux), None, st)
         elif mode == MODE_MATCH:
             rc = lib.cgx_lane_match(
                 p(packed), S, nseg, p(segmap), p(tiles), T4, L, W4,
@@ -296,6 +457,41 @@ def lane_walk_cuda(mode: int, packed, segmap, tiles, W4: int, entries,
                 p(flagw), st)
     _build.check(rc, "lane_scan")
     return counts, exits, sync, flagw, aux
+
+
+def lane_repair_cuda(mode: int, whole: bool, packed, segmap, tiles,
+                     first: int, limits, prev, exits, counts, sync, flagw,
+                     aux, walked):
+    """Launch one repair pass of csrc/lane_scan.cu (K1 or K2); same
+    in-place outputs as lane_repair_plain."""
+    if mode not in (MODE_COUNT, MODE_SPAN):
+        raise ValueError("only K1 and K2 take repair passes")
+    _check_lane_args(mode, packed, segmap, tiles, 1, prev, limits, limits)
+    for name, t in (("exits", exits), ("counts", counts), ("sync", sync)):
+        if (t.shape != prev.shape or t.dtype != torch.int32
+                or not t.is_contiguous() or t.device != tiles.device):
+            raise ValueError(f"{name} must be int32 like prev")
+    if walked.dtype != torch.int32 or walked.device != tiles.device:
+        raise ValueError("walked must be an int32 tensor beside the tiles")
+    T4, L = (int(x) for x in tiles.shape)
+    S, nseg = (int(x) for x in packed.shape)
+    k = int(prev.shape[0])
+    lib = _build.lib()
+    p = _build.ptr
+    how = PASS_LANE if whole else PASS_SUB
+    with torch.cuda.device(tiles.device):
+        st = _build.stream(tiles.device)
+        if mode == MODE_COUNT:
+            rc = lib.cgx_lane_count(
+                how, p(packed), S, nseg, p(segmap), p(tiles), T4, L, 0, k,
+                None, None, p(limits), first, p(prev), p(counts), p(exits),
+                p(sync), p(walked), st)
+        else:
+            rc = lib.cgx_lane_span(
+                how, p(packed), S, nseg, p(segmap), p(tiles), T4, L, 0, k,
+                None, None, p(limits), first, p(prev), p(counts), p(exits),
+                p(sync), p(flagw), p(aux), p(walked), st)
+    _build.check(rc, "lane_scan")
 
 
 def lane_walk(mode: int, counter: LaunchCounter, packed, segmap, tiles,
@@ -313,10 +509,38 @@ def lane_walk(mode: int, counter: LaunchCounter, packed, segmap, tiles,
                            offsets, limits)
 
 
+def lane_repair(mode: int, counter: LaunchCounter, whole: bool, *args):
+    """One repair pass on the tiles' device (args as lane_repair_plain's
+    after `whole`): the kernel for CUDA tensors, counted on `counter`."""
+    tiles = args[2]
+    if tiles.device.type == "cuda":
+        lane_repair_cuda(mode, whole, *args)
+        counter.launches += 1
+    elif tiles.device.type == "cpu":
+        lane_repair_plain(mode, whole, *args)
+    else:
+        raise ValueError(f"unsupported device {tiles.device}")
+
+
+def resident_warps(mode: int, S: int, nseg: int) -> int:
+    """Warps of a K1 (MODE_COUNT) or K2 (MODE_SPAN) pass 0 on an [S, nseg]
+    table that one SM holds at once (the CUDA occupancy calculator)."""
+    blocks = ctypes.c_int(0)
+    _build.check(_build.lib().cgx_lane_occupancy(
+        mode, S, nseg, ctypes.byref(blocks)), "lane_scan")
+    return blocks.value * THREADS // 32
+
+
 def count_lanes(packed, segmap, tiles, W4, entries, offsets, limits):
     """K1: (counts, exits, sync) of one count-transducer pass."""
     return lane_walk(MODE_COUNT, COUNT_KERNEL, packed, segmap, tiles, W4,
                      entries, offsets, limits)[:3]
+
+
+def lane_aggregates(counts, exits, sync):
+    """Per-lane outputs [L] of a split walk's [k, L] ones: counts summed
+    over the sub-lanes, the last sub-lane's exit, the first one's sync."""
+    return counts.sum(dim=0, dtype=torch.int32), exits[-1], sync[0]
 
 
 # ---------------------------------------------------------------------------
@@ -330,19 +554,22 @@ def _byte_ctx(b):
                        torch.where(b == 10, CTX_NL, CTX_OTHER))
 
 
-def first_pass_inputs(starts, data_u8, n: int, L: int, T: int, W: int):
-    """(entries0, offsets0, limits) of a transducer scan's first pass:
-    entries guessed from the byte before each lane's warmup window, lane 0
-    at the true start (ref. _count_full:358-380)."""
+def first_pass_inputs(starts, data_u8, n: int, L: int, T: int, W: int,
+                      k: int = 1):
+    """(entries0 [k, L], offsets0 [L], limits [L]) of a transducer scan's
+    first pass over k sub-lanes a lane: each sub-lane's entry guessed from
+    the byte before its warmup window, sub-lane (0, 0) at the true start
+    (ref. _count_full:358-380)."""
     dev = data_u8.device
     lane_ids = torch.arange(L, dtype=torch.int32, device=dev)
-    guess_pos = lane_ids * T - W - 1
+    sub = torch.arange(k, dtype=torch.int32, device=dev) * (T // k)
+    guess_pos = lane_ids[None, :] * T + sub[:, None] - W - 1
     prev_b = data_u8[guess_pos.clamp(0, max(n - 1, 0)).long()].to(
         torch.int32)
     ctx = _byte_ctx(prev_b)
     entries0 = torch.where(guess_pos < 0, starts[CTX_SOT],
                            starts[ctx.long()])
-    entries0[0] = starts[CTX_SOT]
+    entries0[0, 0] = starts[CTX_SOT]
     offsets0 = torch.zeros(L, dtype=torch.int32, device=dev)
     offsets0[0] = W
     limits = (n - lane_ids * T).clamp(0, T)
@@ -353,7 +580,8 @@ def repair_fixpoint(scan_once, entries0, offsets0, first_entry, real,
                     W: int, max_repair: int):
     """Run scan_once(entries, offsets) -> (..., exits, sync) until every
     real lane's post-warmup state equals the previous lane's exit, at most
-    max_repair rescans.  Returns (outputs of the last pass, converged).
+    max_repair rescans of every lane.  Returns (outputs of the last pass,
+    converged).  The unsplit walks (K3 and K7) repair so.
 
     A rescan enters each lane at the previous lane's exit, and lane 0 at
     the true start, so rescan k makes lanes 0..k exact: max_repair = L
@@ -374,34 +602,74 @@ def repair_fixpoint(scan_once, entries0, offsets0, first_entry, real,
         k += 1
 
 
+def split_fixpoint(mode: int, counter: LaunchCounter, d: "DeviceCountDFA",
+                   tiles, W: int, entries0, offsets0, limits,
+                   max_repair: int):
+    """K1 or K2 over the sub-lanes of entries0 [k, L], repaired until every
+    real sub-lane's sync equals the previous sub-lane's exit.  Returns
+    ((counts, exits, sync, flagw, aux), converged), the first three [k, L].
+
+    Pass 0 walks every sub-lane after its warmup.  Each repair pass walks
+    only what is unsettled, from the previous pass's exits with no warmup:
+    the kernel tests each sub-lane against the exits it reads, and a thread
+    with nothing to walk returns after reading two ints, so no compacted
+    list is built and the host needs no check of its own; a pass that
+    walks nothing ends the loop (one host sync a pass).  First up to
+    SUB_PASSES passes over the unsettled sub-lanes, which settle a state
+    reaching back less than a sub-lane; then passes over the lanes holding
+    one, each lane walking whole from the previous lane's exit, so its own
+    seams agree by construction.  A lane pass enters the first unsettled
+    lane at an exact state, so it makes at least one more lane exact: at
+    most L lane passes settle any input, as the unsplit repair's L
+    rescans, and each walks only the lanes that need it.  At most
+    max_repair passes walk; converged says whether the last one settled."""
+    counts, exits, sync, flagw, aux = lane_walk(
+        mode, counter, d.packed, d.segmap, tiles, W // 4, entries0, offsets0,
+        limits)
+    spare = torch.empty_like(exits)
+    walked = torch.zeros(1, dtype=torch.int32, device=tiles.device)
+    whole = int(entries0.shape[0]) == 1
+    passes = subs = 0
+    while passes < max_repair:
+        lane_repair(mode, counter, whole, d.packed, d.segmap, tiles, d.sot,
+                    limits, exits, spare, counts, sync, flagw, aux, walked)
+        exits, spare = spare, exits
+        if int(walked[0]) == 0:
+            return (counts, exits, sync, flagw, aux), True
+        passes += 1
+        if whole:
+            counter.lane_passes += 1
+        else:
+            counter.sub_passes += 1
+            subs += 1
+            whole = subs >= SUB_PASSES
+    T = int(tiles.shape[0]) * 4
+    settled_now = not bool(unsettled(exits, sync, limits, d.sot, T).any())
+    return (counts, exits, sync, flagw, aux), settled_now
+
+
 def settled(converged: bool, what: str) -> None:
     """Raise if a fixpoint run with max_repair = L did not converge (it
-    cannot: see repair_fixpoint)."""
+    cannot: see repair_fixpoint and split_fixpoint)."""
     if not converged:
         raise RuntimeError(f"{what}: repair fixpoint did not settle")
 
 
 def state_at_end(exits, n: int, L: int, T: int):
-    """Exit state of the lane holding byte n-1."""
-    lane_n = n // T - 1 if n % T == 0 else n // T
-    return exits[min(max(lane_n, 0), L - 1)].long()
+    """Exit state of the sub-lane holding byte n-1, from exits [k, L]."""
+    k = int(exits.shape[0])
+    q = min(max((n - 1) // (T // k), 0), k * L - 1)
+    return exits[q % k, q // k].long()
 
 
 def count_full(d: DeviceCountDFA, data_u8, tiles, n: int, L: int, T: int,
-               W: int, max_repair: int = 4):
-    """Returns (count as a 0-dim int64 tensor, converged bool)."""
-    W4 = W // 4
+               W: int, max_repair: int = 4, k: int = 1):
+    """Returns (count as a 0-dim int64 tensor, converged bool), walking k
+    sub-lanes a lane."""
     entries0, offsets0, limits = first_pass_inputs(d.starts, data_u8, n,
-                                                   L, T, W)
-    lane_ids = torch.arange(L, dtype=torch.int64, device=tiles.device)
-    real = (lane_ids * T) < n
-
-    def scan_once(entries, offsets):
-        return count_lanes(d.packed, d.segmap, tiles, W4, entries, offsets,
-                           limits)
-
-    (counts, exits, _sync), converged = repair_fixpoint(
-        scan_once, entries0, offsets0, d.starts[CTX_SOT], real, W,
+                                                   L, T, W, k)
+    (counts, exits, _sync, _fw, _aux), converged = split_fixpoint(
+        MODE_COUNT, COUNT_KERNEL, d, tiles, W, entries0, offsets0, limits,
         max_repair)
     state_n = state_at_end(exits, n, L, T)
     total = counts.sum(dtype=torch.int64) + d.eoi[state_n, CTX_SOT]
@@ -419,9 +687,10 @@ class CountScanner:
     def count(self, data_dev: torch.Tensor,
               geometry: Optional[Tuple[int, int, int, int]] = None,
               tiles: Optional[torch.Tensor] = None) -> int:
-        """Exact count for the device corpus.  The repair fixpoint runs
-        until it settles (the reference stops after 4 rescans and falls
-        back to its host loop).  `tiles`: the corpus's word tiles under
+        """Exact count for the device corpus, each lane split into
+        lane_split(T, W) sub-lanes.  The repair fixpoint runs until it
+        settles (the reference stops after 4 rescans and falls back to its
+        host loop).  `tiles`: the corpus's word tiles under
         the geometry (built when None)."""
         n = int(data_dev.shape[0])
         if n == 0:
@@ -431,6 +700,7 @@ class CountScanner:
         if tiles is None:
             tiles = make_word_tiles(data_dev, L, T // 4)
         total, conv = count_full(self.dcd, data_dev, tiles, n, L, T, W,
-                                 max_repair=L)
+                                 max_repair=L + SUB_PASSES,
+                                 k=lane_split(T, W))
         settled(conv, "count scan")
         return int(total)

@@ -117,13 +117,14 @@ class MatchTables:
 # ---------------------------------------------------------------------------
 
 def match_lanes(packed, segmap, tiles, W4, entries, offsets, limits):
-    """K9: (flagw, counts, last, exits, sync) of one match-scan pass;
-    flagw [T4/8, L] time-major words, counts the lanes' set flags, last
-    the lane-local position of each lane's last set flag (-1 if none)."""
+    """K9: (flagw, counts, last, exits, sync) of one match-scan pass, one
+    walker a lane; flagw [T4/8, L] time-major words, counts the lanes' set
+    flags, last the lane-local position of each lane's last set flag (-1
+    if none); entries and the last four [L]."""
     counts, exits, sync, fw, last = lane_walk(
-        MODE_MATCH, MATCH_KERNEL, packed, segmap, tiles, W4, entries,
-        offsets, limits)
-    return fw, counts, last, exits, sync
+        MODE_MATCH, MATCH_KERNEL, packed, segmap, tiles, W4,
+        entries.reshape(1, -1), offsets, limits)
+    return fw, counts[0], last, exits[0], sync[0]
 
 
 def match_full(mt: MatchTables, data_u8, tiles, n: int, L: int, T: int,
@@ -195,7 +196,7 @@ def exit_at_end(scan: MatchScan) -> torch.Tensor:
     """The exact state at offset n (0-dim device tensor): the exit of the
     lane holding byte n-1.  The reference replays that lane's tail on its
     host (:378-396); the lanes here freeze at their limits."""
-    return state_at_end(scan.exits, scan.n, scan.L, scan.T)
+    return state_at_end(scan.exits[None], scan.n, scan.L, scan.T)
 
 
 class ChunkScanner:

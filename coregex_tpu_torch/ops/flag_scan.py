@@ -111,11 +111,12 @@ def scatter_reset_tiles(base_tiles, rq, L: int, T4: int):
 
 
 def flag_lanes(packed, tiles, W4, entries, offsets, limits):
-    """K3: (flagw, counts, exits, sync) of one reset-scan pass."""
+    """K3: (flagw, counts, exits, sync) of one reset-scan pass, one walker
+    a lane: entries and the last three [L]."""
     counts, exits, sync, fw, _ = lane_walk(
-        MODE_FLAG, FLAG_KERNEL, packed, None, tiles, W4, entries, offsets,
-        limits)
-    return fw, counts, exits, sync
+        MODE_FLAG, FLAG_KERNEL, packed, None, tiles, W4,
+        entries.reshape(1, -1), offsets, limits)
+    return fw, counts[0], exits[0], sync[0]
 
 
 def flag_full(packed_full, tiles, n1: int, entries_init, L: int, T: int,

@@ -18,10 +18,10 @@ import torch
 
 from ..dfa.countdfa import CountDFA
 from ..dfa.dense import CTX_SOT
-from .count_scan import (MODE_SPAN, DeviceCountDFA, LaunchCounter,
-                         device_table, first_pass_inputs, lane_walk,
-                         make_word_tiles, plan_geometry, repair_fixpoint,
-                         settled, state_at_end)
+from .count_scan import (MODE_SPAN, SUB_PASSES, DeviceCountDFA,
+                         LaunchCounter, device_table, first_pass_inputs,
+                         lane_split, make_word_tiles, plan_geometry, settled,
+                         split_fixpoint, state_at_end)
 
 SPAN_KERNEL = LaunchCounter("span_scan")
 
@@ -48,15 +48,6 @@ class DeviceSpanDFA(DeviceCountDFA):
         return d
 
 
-def span_lanes(packed, segmap, tiles, W4, entries, offsets, limits):
-    """K2: (flagw, firstw, counts, exits, sync) of one span-event pass;
-    flagw/firstw are time-major [T4/8, L] words."""
-    counts, exits, sync, fw, gw = lane_walk(
-        MODE_SPAN, SPAN_KERNEL, packed, segmap, tiles, W4, entries,
-        offsets, limits)
-    return fw, gw, counts, exits, sync
-
-
 def to_global(words, n: int):
     """Time-major [T4/8, L] words -> position-major [L*T4/8] (lane l's
     words are contiguous, word j covers positions 32j..32j+31), bits at
@@ -69,24 +60,18 @@ def to_global(words, n: int):
 
 
 def span_full(d: DeviceSpanDFA, data_u8, tiles, n: int, L: int, T: int,
-              W: int, max_repair: int = 4):
+              W: int, max_repair: int = 4, k: int = 1):
     """Returns (flag words [L*T/32] position-major with bits >= n masked,
     first words likewise, total match count incl. EOI, EOI kind at the
     final state, converged) — the count and kind as 0-dim device tensors,
-    converged a bool.  The reference also returns the event count; its
-    only caller discards it, so it is not computed here."""
-    W4 = W // 4
+    converged a bool — walking k sub-lanes a lane (count_scan.lane_split),
+    repaired by count_scan.split_fixpoint.  The reference also returns the
+    event count; its only caller discards it, so it is not computed
+    here."""
     entries0, offsets0, limits = first_pass_inputs(d.starts, data_u8, n,
-                                                   L, T, W)
-    lane_ids = torch.arange(L, dtype=torch.int64, device=tiles.device)
-    real = (lane_ids * T) < n
-
-    def scan_once(entries, offsets):
-        return span_lanes(d.packed, d.segmap, tiles, W4, entries, offsets,
-                          limits)
-
-    (fw, gw, cnts, exits, _sync), converged = repair_fixpoint(
-        scan_once, entries0, offsets0, d.starts[CTX_SOT], real, W,
+                                                   L, T, W, k)
+    (cnts, exits, _sync, fw, gw), converged = split_fixpoint(
+        MODE_SPAN, SPAN_KERNEL, d, tiles, W, entries0, offsets0, limits,
         max_repair)
     state_n = state_at_end(exits, n, L, T)
     total = cnts.sum(dtype=torch.int64) + d.eoi[state_n, CTX_SOT]
@@ -114,6 +99,7 @@ class SpanScanner:
         L, T, W, _Lc = geometry or plan_geometry(n)
         if tiles is None:
             tiles = make_word_tiles(data_dev, L, T // 4)
-        out = span_full(self.dsd, data_dev, tiles, n, L, T, W, max_repair=L)
+        out = span_full(self.dsd, data_dev, tiles, n, L, T, W,
+                        max_repair=L + SUB_PASSES, k=lane_split(T, W))
         settled(out[-1], "span scan")
         return out

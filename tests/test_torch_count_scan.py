@@ -129,8 +129,8 @@ def test_lane_walk_matches_pallas_interpret():
     dev = torch.from_numpy(arr.copy())
     tiles = cs.make_word_tiles(dev, L, T // 4)
     e0, o0, lim = cs.first_pass_inputs(d.starts, dev, n, L, T, W)
-    counts, exits, sync = cs.count_lanes(d.packed, d.segmap, tiles, W // 4,
-                                         e0, o0, lim)
+    counts, exits, sync = (x[0] for x in cs.count_lanes(
+        d.packed, d.segmap, tiles, W // 4, e0, o0, lim))
     r = ref.DeviceCountDFA(cd)
     T4, W4 = T // 4, W // 4
     jt = jnp.asarray(tiles.numpy().reshape(T4, 8, Lc))
