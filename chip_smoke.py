@@ -12,12 +12,13 @@ Phases (any failure exits non-zero before the final line):
                the compactions, torch.nonzero on the same mask.  The lane
                walks (K1-K3) and the needle kernels (K5-K7) run on a 4 MiB
                sample (several patterns) and on the whole 1536 MiB corpus
-               (one pattern each), K1 and K2 at the main path's split into
-               sub-lanes (count_scan.lane_split; with its size, the table's
-               form and the resident warps an SM printed) and, on the
-               sample, also K1's and K2's two repair passes (over
-               unsettled sub-lanes, over the lanes holding one) from exits
-               of which a tenth are random; the single-pass compaction (K4, and
+               (one pattern each), K1, K2, K3 and K6 at the main path's
+               split into sub-lanes (count_scan.lane_split; with its size,
+               the table's form and the resident warps an SM printed), with
+               K1's, K2's and K3's two repair passes (over unsettled
+               sub-lanes, over the lanes holding one) from exits of which
+               a tenth are random, at that split and, on the sample, also
+               unsplit; the single-pass compaction (K4, and
                K8 through compact_positions) on ragged lengths around
                its tile and sub-tile sizes at every byte offset 0-15 of
                a buffer set outside the mask (densities 0-1, 0-4
@@ -45,8 +46,8 @@ Phases (any failure exits non-zero before the final line):
                by the tile count; find_all_index on a 64 MiB slice compared
                span by span.  The 7 patterns that count through K5 or K6
                are also counted through K1, timed side by side.  Each count
-               and find_all prints the repair passes of K1 or K2 (over
-               sub-lanes + over lanes).  Quote parity (`"[^"]*"` on 16 MiB
+               and find_all prints the repair passes of K1, or of K2 and
+               K3 (over sub-lanes + over lanes).  Quote parity (`"[^"]*"` on 16 MiB
                of `"` + 299 x, whose state reaches back to the corpus
                start) is counted against its known count, with its passes
                and time.  Class runs
@@ -250,7 +251,7 @@ def tiled_digest(inner, tail, B: int, reps: int, rng):
 # -- timing ------------------------------------------------------------------
 
 def reset_passes(counter):
-    """Zero a K1/K2 counter's repair passes."""
+    """Zero a K1-K3 counter's repair passes."""
     counter.sub_passes = counter.lane_passes = 0
 
 
@@ -343,7 +344,8 @@ def phase_kernels(base: bytes, corpus: np.ndarray):
     import coregex_tpu_torch as ct
     from coregex_tpu_torch.ops import count_scan as cs
     from coregex_tpu_torch.ops import (compact, compact2, compact_exp,
-                                       dfa_scan, line_scan, seq_scan)
+                                       dfa_scan, flag_scan, line_scan,
+                                       seq_scan)
 
     dev = torch.device(DEVICE)
     results = {}
@@ -392,11 +394,12 @@ def phase_kernels(base: bytes, corpus: np.ndarray):
                 r["bound_by"] = "bytes" if by_bytes >= by_ops \
                     else "operations"
 
-    def repair_kernels(kind, mode, d, data, geom, tiles, splits, label):
-        """K1's or K2's two repair passes (sub-lane and lane) against their
-        plain versions at each split in `splits`."""
+    def repair_kernels(kind, mode, d, args_of, splits, label):
+        """K1's, K2's or K3's two repair passes (sub-lane and lane) against
+        their plain versions at each split kk in `splits`, from the pass-0
+        arguments args_of(kk)."""
         for kk in splits:
-            run = repair_case(mode, d, split_args(d, data, geom, tiles, kk))
+            run = repair_case(mode, d, args_of(kk))
             for whole in (False, True):
                 compare(kind, f"{label} k={kk} "
                         f"{'lane' if whole else 'sub-lane'} pass",
@@ -404,9 +407,9 @@ def phase_kernels(base: bytes, corpus: np.ndarray):
                         lambda: run(cs.lane_repair_plain, whole))
 
     def lane_kernels(name, data, label, headline):
-        """K1 and K2 at the main path's split with their two repair passes
-        (on the sample also unsplit), and K3 (one walker a lane), on one
-        corpus under the main path's geometry."""
+        """K1, K2 and K3 at the main path's split with their two repair
+        passes (on the sample also unsplit), on one corpus under the main
+        path's geometry (K3's: reset_geometry)."""
         n = int(data.shape[0])
         L, T, W, _ = cs.plan_geometry(n)
         k = cs.lane_split(T, W)
@@ -433,15 +436,27 @@ def phase_kernels(base: bytes, corpus: np.ndarray):
                     headline=headline, in_bytes=nbytes(*args))
             # the repair passes at the main path's split, and on the
             # sample unsplit (a corpus of at most 2 MiB walks k = 1)
-            repair_kernels(kind, mode, d, data, (L, T, W), tiles,
+            repair_kernels(kind, mode, d,
+                           lambda kk: split_args(d, data, (L, T, W), tiles,
+                                                 kk),
                            [k] if headline else sorted({1, k}), label)
         fargs = flag_args(be, data)
         if fargs is None:
             return
+        packed, symt, fk = fargs[0], fargs[2], int(fargs[4].shape[0])
+        S, C = (int(x) for x in packed.shape)
+        print(f"[kernels] flag_scan   {label}: reset geometry "
+              f"L={symt.shape[1]} T={4 * symt.shape[0]}, split k={fk}, "
+              f"table [{S}, {C}], "
+              f"{cs.resident_warps(cs.MODE_FLAG, S, C)} resident warps an SM")
         compare("flag_scan", label,
                 lambda: cs.lane_walk_cuda(cs.MODE_FLAG, *fargs),
                 lambda: cs.lane_walk_plain(cs.MODE_FLAG, *fargs),
                 headline=headline, in_bytes=nbytes(*fargs))
+        del symt, fargs
+        repair_kernels("flag_scan", cs.MODE_FLAG, flag_scan.FlagWalk(packed),
+                       lambda kk: flag_args(be, data, kk),
+                       [fk] if headline else sorted({1, fk}), label)
 
     n = 4 * 1024 * 1024
     sample = base[:base.rfind(b"\n", 0, n) + 1]
@@ -458,9 +473,11 @@ def phase_kernels(base: bytes, corpus: np.ndarray):
     L, T, W, _ = cs.plan_geometry(int(data.shape[0]))
     sc = ct.compile(QUOTES, device=DEVICE).batch_engine() \
         ._count_scanner_ascii()
-    repair_kernels("count_scan", cs.MODE_COUNT, sc.dcd, data, (L, T, W),
-                   cs.make_word_tiles(data, L, T // 4),
+    qtiles = cs.make_word_tiles(data, L, T // 4)
+    repair_kernels("count_scan", cs.MODE_COUNT, sc.dcd,
+                   lambda kk: split_args(sc.dcd, data, (L, T, W), qtiles, kk),
                    [cs.lane_split(T, W)], "quote parity 16 MiB")
+    del qtiles
     del data
     for kind in ("count_scan", "span_scan", "flag_scan"):
         if kind not in results:
@@ -470,9 +487,11 @@ def phase_kernels(base: bytes, corpus: np.ndarray):
         """K5, K6 and K7 on one corpus under the main path's geometry."""
         n = int(data.shape[0])
         geom = cs.plan_geometry(n)
-        L, T = geom[:2]
+        L, T, W = geom[:3]
+        k = cs.lane_split(T, W)
         tiles = cs.make_word_tiles(data, L, T // 4)
-        print(f"[kernels] {label}: {n} bytes, geometry L={L} T={T}")
+        print(f"[kernels] {label}: {n} bytes, geometry L={L} T={T}, K6 "
+              f"split k={k}: {k * L} walkers of {T // k} bytes")
         for name in k5:
             sc = ct.compile(PATTERNS[name], device=DEVICE) \
                 .batch_engine()._line_scanner()
@@ -484,7 +503,7 @@ def phase_kernels(base: bytes, corpus: np.ndarray):
         for name in k6:
             sc = ct.compile(PATTERNS[name], device=DEVICE) \
                 .batch_engine()._hits_scanner()
-            args = (sc.tbl, sc.lens, tiles)
+            args = (sc.tbl, sc.lens, tiles, k)
             compare("hits_scan", f"{name} {label}",
                     lambda: line_scan.hits_lanes_cuda(*args),
                     lambda: line_scan.hits_lanes_plain(*args),
@@ -706,10 +725,12 @@ def phase_kernels(base: bytes, corpus: np.ndarray):
     return results
 
 
-def flag_args(be, data):
-    """K3's arguments on `data` as the bidi find_all of `be`'s pattern
-    makes them: the reverse reset tiles with a reset at each reversed
-    match end, fresh (DEAD) entries; None without a bidi route."""
+def flag_args(be, data, k=None):
+    """K3's pass-0 arguments on `data` as the bidi find_all of `be`'s
+    pattern makes them: the reverse reset tiles with a reset at each
+    reversed match end, fresh (DEAD) entries at k sub-lanes a lane (None:
+    the main path's lane_split of the reset geometry); None without a bidi
+    route."""
     import torch
     from coregex_tpu_torch.ops import flag_scan, span_chain
     from coregex_tpu_torch.ops.bytescan import _bucket
@@ -734,7 +755,10 @@ def flag_args(be, data):
                                  rsc.byte_bounds(), Lr, Tr // 4),
         rq, Lr, Tr // 4)
     lanes = torch.arange(Lr, dtype=torch.int64, device=dev)
-    entries = torch.full((1, Lr), flag_scan.DEAD, dtype=torch.int32,
+    if k is None:
+        from coregex_tpu_torch.ops.count_scan import lane_split
+        k = lane_split(Tr, Wr)
+    entries = torch.full((k, Lr), flag_scan.DEAD, dtype=torch.int32,
                          device=dev)
     offs = torch.zeros(Lr, dtype=torch.int32, device=dev)
     offs[0] = Wr
@@ -773,7 +797,7 @@ def split_args(d, data, geom, tiles, k):
 
 
 def repair_case(mode, d, args):
-    """A K1/K2 repair pass's inputs: pass 0's outputs on `args`, whose
+    """A K1-K3 repair pass's inputs: pass 0's outputs on `args`, whose
     exits are replaced by random states at a tenth of the sub-lanes, so
     their successors walk.  Returns run(fn, whole): the sub-lane
     (whole=False) or lane pass through fn (lane_repair_cuda or
@@ -786,7 +810,7 @@ def repair_case(mode, d, args):
     g = torch.Generator(device=dev).manual_seed(29)
     pick = torch.rand(exits.shape, device=dev, generator=g) < 0.1
     prev = torch.where(pick, torch.randint(
-        0, d.S, exits.shape, device=dev, generator=g,
+        0, int(d.packed.shape[0]), exits.shape, device=dev, generator=g,
         dtype=torch.int32), exits).contiguous()
     tiles, lim = args[2], args[6]
 
@@ -1090,6 +1114,7 @@ def check_find_all(name, be, arr: np.ndarray, exp) -> str:
                 int(spans[:cnt, 1].sum(dtype=torch.int64)) % M32,
                 spans[sidx_d].cpu().numpy().astype(np.int64))
 
+    from coregex_tpu_torch.ops.flag_scan import FLAG_KERNEL
     from coregex_tpu_torch.ops.span_scan import SPAN_KERNEL
     t0 = time.perf_counter()
     res = run()
@@ -1097,6 +1122,7 @@ def check_find_all(name, be, arr: np.ndarray, exp) -> str:
     fa_best = float("inf")
     for _ in range(2):
         reset_passes(SPAN_KERNEL)
+        reset_passes(FLAG_KERNEL)
         t0 = time.perf_counter()
         res = run()
         fa_best = min(fa_best, time.perf_counter() - t0)
@@ -1108,8 +1134,8 @@ def check_find_all(name, be, arr: np.ndarray, exp) -> str:
         fail(f"{name}: sampled spans differ from the oracle")
     return (f"find_all {cnt} spans digest+64 samples ok  "
             f"{n / fa_best / 1e9:7.2f} GB/s ({fa_best * 1e3:.1f} ms, "
-            f"first {fa_first:.2f} s, K2 repair passes "
-            f"{passes(SPAN_KERNEL)})")
+            f"first {fa_first:.2f} s, repair passes K2 "
+            f"{passes(SPAN_KERNEL)}, K3 {passes(FLAG_KERNEL)})")
 
 
 def timed_count(eng, arr: np.ndarray):
@@ -1128,13 +1154,23 @@ def timed_count(eng, arr: np.ndarray):
     return got, best, first
 
 
+def limit_reps(inner, tail, B: int, reps: int) -> int:
+    """The most whole tiles (at most reps) of the largest corpus the
+    general nullable path serves: n <= DEVICE_SPANS_LIMIT and a span total
+    (from the tile's tiled_spans) <= MAX_DEVICE_SPANS."""
+    from coregex_tpu_torch.meta.batch import BatchEngine
+    reps = min(reps, BatchEngine.DEVICE_SPANS_LIMIT // B)
+    while reps * len(inner) + len(tail) > BatchEngine.MAX_DEVICE_SPANS:
+        reps -= 1
+    return reps
+
+
 def phase_e2e_class_nullable(base: bytes, arr: np.ndarray,
                              cases=CLASS_NULLABLE):
     """Class-run and nullable count and find_all through the public API,
     against the Go-rule oracle of the base tile scaled by the tile count
     (the scaling checked on two tiles for the nullable patterns)."""
     import coregex_tpu_torch as ct
-    from coregex_tpu_torch.meta.batch import BatchEngine
     from coregex_tpu_torch.ops.count_scan import COUNT_KERNEL
     from coregex_tpu_torch.utils import corpus_cache
 
@@ -1153,11 +1189,7 @@ def phase_e2e_class_nullable(base: bytes, arr: np.ndarray,
                      f"oracle on two tiles")
         reps = len(arr) // B
         if size == "limit":
-            # the largest whole-tile corpus the general nullable path
-            # serves: n <= DEVICE_SPANS_LIMIT, total <= MAX_DEVICE_SPANS
-            reps = min(reps, BatchEngine.DEVICE_SPANS_LIMIT // B)
-            while reps * len(inner) + len(tail) > BatchEngine.MAX_DEVICE_SPANS:
-                reps -= 1
+            reps = limit_reps(inner, tail, B, reps)
             corpus_cache.clear()
         corpus = arr[:reps * B]
         n = len(corpus)

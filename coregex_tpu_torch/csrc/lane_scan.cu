@@ -21,14 +21,14 @@
 // bytes over 132 SMs that is about 0.5 ms of instruction issue, against
 // 0.48 ms to read the bytes once.  The card reaches that only with enough
 // walkers to cover the chain's latency: plan_geometry gives 8192 lanes, 62
-// threads an SM, and one thread a lane ran 30x above the bound.  So K1 and
-// K2 split each lane into k consecutive sub-lanes (count_scan.lane_split:
-// k = 64 at 1536 MiB, 524,288 walkers), each warming up over the W bytes
-// before it; the repair passes then fix the k-times more seams, walking
-// only the sub-lanes (or, after a few passes, whole lanes) whose entry
-// differs from their predecessor's exit.  The tables are small, so blocks
-// stay resident by registers, not shared memory.  K3 and K9 walk one
-// thread a lane (k = 1).
+// threads an SM, and one thread a lane ran 30x above the bound.  So K1, K2
+// and K3 split each lane into k consecutive sub-lanes
+// (count_scan.lane_split: k = 64 at 1536 MiB, 524,288 walkers), each
+// warming up over the W bytes before it; the repair passes then fix the
+// k-times more seams, walking only the sub-lanes (or, after a few passes,
+// whole lanes) whose entry differs from their predecessor's exit.  The
+// tables are small, so blocks stay resident by registers, not shared
+// memory.  K9 walks one thread a lane (k = 1).
 //
 // Device-memory traffic is one read of the word tiles (plus n/16 bytes of
 // flag words for K2/K3): sub-lane (j, l) reads words j*T4/k .. of lane l,
@@ -48,12 +48,14 @@
 // (j = 0: lane l-1's last W4 words, lane 0 reading lane L-1's, which its
 // offset of W skips; the offset skips warmup position p < offsets[l] for
 // j = 0 only), then its own words; `sync` is the state after warmup,
-// `exits` the state after the sub-lane.  Positions past a limit leave the
-// state frozen and emit nothing.
+// `exits` the state after the sub-lane.  W4 = 0 walks no warmup: entries
+// are the states at the sub-lanes' starts (K3's cached hint).  Positions
+// past a limit leave the state frozen and emit nothing.
 // Repair passes read `prev`, the previous pass's exits, and write `exits`
 // (a second buffer).  A sub-lane is unsettled when it is real (limit > 0)
 // and its sync differs from the previous sub-lane's exit (`first`, the
-// true start state, for sub-lane (0, 0)).  kSub: each unsettled sub-lane
+// true start state, for sub-lane (0, 0); DEAD for K3, whose reverse scan
+// holds no run before its first reset).  kSub: each unsettled sub-lane
 // walks its words from that exit, with no warmup.  kLane: each lane holding
 // an unsettled sub-lane walks whole from the previous lane's exit, writing
 // every sub-lane's sync, counts, exits and flag groups.  Settled ones, and
@@ -280,7 +282,7 @@ int launch(const int32_t* packed, int S, int nseg, const int32_t* segmap,
   return (int)cudaGetLastError();
 }
 
-// K1/K2 dispatch over the pass
+// K1-K3 dispatch over the pass
 template <int MODE>
 int launch_split(int pass, const int32_t* packed, int S, int nseg,
                  const int32_t* segmap, const int32_t* tiles, int T4, int L,
@@ -338,14 +340,18 @@ int cgx_lane_span(int pass, const int32_t* packed, int S, int nseg,
                              stream);
 }
 
-int cgx_lane_flag(const int32_t* packed, int S, int nseg, const int32_t* tiles,
-                  int T4, int L, int W4, const int32_t* entries,
-                  const int32_t* offsets, const int32_t* limits,
+// K3: as K2 over symbol tiles (no byte map), writing the flag words and
+// summing interference.
+int cgx_lane_flag(int pass, const int32_t* packed, int S, int nseg,
+                  const int32_t* tiles, int T4, int L, int W4, int k,
+                  const int32_t* entries, const int32_t* offsets,
+                  const int32_t* limits, int first, const int32_t* prev,
                   int32_t* counts, int32_t* exits, int32_t* sync,
-                  int32_t* flagw, void* stream) {
-  return launch<kFlag, kFirst>(
-      packed, S, nseg, nullptr, tiles, T4, L, W4, 1, entries, offsets, limits,
-      0, nullptr, counts, exits, sync, flagw, nullptr, nullptr, stream);
+                  int32_t* flagw, int32_t* walked, void* stream) {
+  return launch_split<kFlag>(pass, packed, S, nseg, nullptr, tiles, T4, L,
+                             W4, k, entries, offsets, limits, first, prev,
+                             counts, exits, sync, flagw, nullptr, walked,
+                             stream);
 }
 
 int cgx_lane_match(const int32_t* packed, int S, int nseg, const int32_t* segmap,
@@ -358,11 +364,12 @@ int cgx_lane_match(const int32_t* packed, int S, int nseg, const int32_t* segmap
       0, nullptr, counts, exits, sync, flagw, last, nullptr, stream);
 }
 
-// Resident blocks of kThreads threads per SM for a K1 (mode 0) or K2
-// (mode 1) pass-0 launch on an [S, nseg] table.
+// Resident blocks of kThreads threads per SM for a K1 (mode 0), K2 (mode
+// 1) or K3 (mode 2) pass-0 launch on an [S, nseg] table.
 int cgx_lane_occupancy(int mode, int S, int nseg, int* blocks) {
-  return mode == kCount ? occupancy<kCount>(S, nseg, blocks)
-                        : occupancy<kSpan>(S, nseg, blocks);
+  if (mode == kCount) return occupancy<kCount>(S, nseg, blocks);
+  if (mode == kSpan) return occupancy<kSpan>(S, nseg, blocks);
+  return occupancy<kFlag>(S, nseg, blocks);
 }
 
 const char* cgx_error_string(int e) {

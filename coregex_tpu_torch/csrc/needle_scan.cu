@@ -1,6 +1,6 @@
-// Needle kernels K5-K7: one thread per lane walks its lane's bytes in order
-// and matches up to 65 needle slots of at most 13 NUL-free bytes, each as a
-// masked compare of the 16-byte window at a position.
+// Needle kernels K5-K7: threads walk lanes' bytes in order and match up to
+// 65 needle slots of at most 13 NUL-free bytes, each as a masked compare of
+// the 16-byte window at a position.
 //
 // Replaces three Pallas kernels of the JAX package:
 //   K5 line_scan.py:_line_kernel   lines holding a needle hit (optionally
@@ -11,7 +11,10 @@
 //      the lanes exactly.
 //   K6 line_scan.py:_hits_kernel   raw hits of a literal set with exact
 //      overlap detection: cnt, ov (a hit starts inside an earlier hit's
-//      reach in the lane), fh (first hit), reach (last covered position).
+//      reach in the sub-lane), fh (first hit), reach (last covered
+//      position), each sub-lane-local; a running maximum over the
+//      sub-lanes in corpus order (line_scan.hits_verdict) finds the
+//      overlaps across their seams.
 //   K7 seq_scan.py:_seq_kernel     the sequential needle machine
 //      (MODE_MULTI: leftmost-first countdown; MODE_LINE: prev_nl, valid,
 //      seen and since-line-start bits) with K1's warmup and sync snapshot;
@@ -24,30 +27,39 @@
 // What bounds it on an H100: device-memory traffic is one read of the
 // [T4, L] word tiles (adjacent lanes read adjacent words, so a warp load is
 // one 128-byte line) plus 16 bytes of the next lane and, for K7, W bytes of
-// the previous one.  As in K1, the 8192-lane geometry leaves about 62
-// threads per SM (one warp per scheduler), so what bounds the walk is each
-// thread's instruction chain per byte, not bandwidth, and a per-position
-// step unrolled over many positions overflows the instruction caches.  So
-// the walk never steps positions one by one.  Per group of 8 words (32
-// positions) it requests the next group's words, then builds two masks with
-// straight-line code: the candidates, from a 65,536-bit filter in shared
-// memory keyed by a hash of the position's next 4 bytes, or by its next 2
-// when a needle is shorter than 4 (32 independent lookups), and the
-// newlines.  Only set bits cost more: a candidate reads its window from the
-// group's words staged in shared memory and searches the slots starting
-// with its byte (a bucket table); then the events run in position order.
+// the previous one.  Each thread's instruction chain per byte is the other
+// bound, and a per-position step unrolled over many positions overflows the
+// instruction caches, so the walk never steps positions one by one.  Per
+// group of 8 words (32 positions) it requests the next group's words, then
+// builds two masks with straight-line code: the candidates, from a
+// 65,536-bit filter in shared memory keyed by a hash of the position's next
+// 4 bytes, or by its next 2 when a needle is shorter than 4 (32 independent
+// lookups), and the newlines.  Only set bits cost more: a candidate reads
+// its window from the group's words staged in shared memory and searches
+// the slots starting with its byte (a bucket table); then the events run in
+// position order.
 // K7's state moves in closed form across the quiet bytes between events.
 // The work per byte thus grows with the share of candidate positions, not
 // with J (multi_literal32 on the bench corpus: 9.1 % of positions pass a
 // 2-byte filter, 3.4 % the 4-byte one, 2.9 % start a match).
+// The 8192-lane geometry leaves about 62 threads per SM when one thread
+// walks a lane, too few to cover that chain's latency: K5 and K7 do so.
+// K6 needs no fixpoint (its lanes carry no state), so it walks k sub-lanes
+// a lane (count_scan.lane_split: 64 at 1536 MiB, 524,288 walkers), the
+// j-th of lane l over words j*T4/k .. (j+1)*T4/k - 1 with adjacent threads
+// on adjacent lanes.  Its needle image (filter, buckets, slots) is built
+// once per call by a one-block kernel into device memory and copied into
+// each block's shared memory, not rebuilt by each of the 4096 blocks.
 //
 // Layouts (int32, little-endian bytes within a word):
 //   tbl     [J, 8]   needle slot j: mask words 0-3, value words 0-3 of its
 //                    16-byte window at phase 0; lens [J] its byte length
 //   tiles   [T4, L]  word t of lane l = bytes l*T + 4t .. l*T + 4t + 3
+//   K6 outputs [k, L]: row j = sub-lanes (j, .)
 // Stream word idx of lane l: idx < 0 reads the previous lane's word T4 + idx
 // (lane 0 reads lane L-1), idx >= T4 the next lane's word idx - T4 (zeros
-// after the last lane).
+// after the last lane).  A K6 sub-lane's 16-byte look-ahead reads its own
+// lane's next words, and the last one's the next lane's.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -121,6 +133,24 @@ __device__ void load_needles(Needles& nd, const int32_t* __restrict__ tbl,
       atomicOr(&nd.filter[key >> 5], 1u << (key & 31));
     }
   }
+  __syncthreads();
+}
+
+// K6's needle image in device memory: one block builds it once per call.
+__global__ void needles_kernel(const int32_t* __restrict__ tbl,
+                               const int32_t* __restrict__ lens, int J,
+                               Needles* __restrict__ img) {
+  load_needles(*img, tbl, lens, J, J);
+}
+
+// Copies the image into a block's shared copy, 8 bytes a thread a step.
+__device__ __forceinline__ void copy_needles(Needles& nd,
+                                             const Needles* __restrict__ img) {
+  static_assert(sizeof(Needles) % 8 == 0, "Needles copies as uint2");
+  const uint2* src = reinterpret_cast<const uint2*>(img);
+  uint2* dst = reinterpret_cast<uint2*>(&nd);
+  for (int i = threadIdx.x; i < (int)(sizeof(Needles) / 8); i += blockDim.x)
+    dst[i] = src[i];
   __syncthreads();
 }
 
@@ -301,20 +331,23 @@ __global__ void line_kernel(const int32_t* __restrict__ tbl,
   mpre_o[l] = mpre;
 }
 
-__global__ void hits_kernel(const int32_t* __restrict__ tbl,
-                            const int32_t* __restrict__ lens, int J,
+__global__ void hits_kernel(const Needles* __restrict__ img,
                             const int32_t* __restrict__ tiles, int T4, int L,
-                            int32_t* __restrict__ cnt_o, int32_t* __restrict__ ov_o,
+                            int k, int32_t* __restrict__ cnt_o,
+                            int32_t* __restrict__ ov_o,
                             int32_t* __restrict__ fh_o,
                             int32_t* __restrict__ reach_o) {
   __shared__ Needles nd;
   __shared__ uint32_t st[12 * kThreads];
-  load_needles(nd, tbl, lens, J, J);
-  const int l = blockIdx.x * blockDim.x + threadIdx.x;
-  if (l >= L) return;
+  copy_needles(nd, img);
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= k * L) return;
+  // sub-lane j of lane l: words t0 .. t0 + T4/k - 1, positions local to it
+  const int j = i / L, l = i - j * L;
+  const int t0 = j * (T4 / k);
   const Stage stage{st + threadIdx.x};
   int run = kNeg, ov = 0, cnt = 0, fh = kBig;
-  scan_groups(tiles, T4, L, l, 0, T4,
+  scan_groups(tiles, T4, L, l, t0, t0 + T4 / k,
               [&](int g, const uint32_t (&w)[12], uint32_t valid) {
     uint32_t cand, nl;
     screen(nd, w, cand, nl);
@@ -327,12 +360,12 @@ __global__ void hits_kernel(const int32_t* __restrict__ tbl,
       stage.window(q, lo, hi);
       const int b = (int)(lo & 255);
       int best = 0;
-      for (int i = nd.start[b]; i < nd.start[b + 1]; ++i) {
-        const int j = nd.bucket[i];
-        if (match(nd, j, lo, hi)) best = max(best, nd.len[j]);
+      for (int s = nd.start[b]; s < nd.start[b + 1]; ++s) {
+        const int jn = nd.bucket[s];
+        if (match(nd, jn, lo, hi)) best = max(best, nd.len[jn]);
       }
       if (best) {
-        const int p = 4 * g + q;
+        const int p = 4 * (g - t0) + q;
         ov |= (run >= p) ? 1 : 0;
         ++cnt;
         if (fh == kBig) fh = p;
@@ -340,10 +373,10 @@ __global__ void hits_kernel(const int32_t* __restrict__ tbl,
       }
     }
   });
-  cnt_o[l] = cnt;
-  ov_o[l] = ov;
-  fh_o[l] = fh;
-  reach_o[l] = run;
+  cnt_o[i] = cnt;
+  ov_o[i] = ov;
+  fh_o[i] = fh;
+  reach_o[i] = run;
 }
 
 __global__ void seq_kernel(int mode, const int32_t* __restrict__ tbl,
@@ -487,11 +520,22 @@ int cgx_line_lanes(const int32_t* tbl, const int32_t* lens, int J, int jh,
   return (int)cudaGetLastError();
 }
 
+// Bytes of K6's needle image (the img buffer of cgx_hits_lanes).
+int cgx_needles_bytes(void) { return (int)sizeof(Needles); }
+
+// K6 over k sub-lanes a lane: builds the needle image into img, then walks;
+// outputs [k, L].
 int cgx_hits_lanes(const int32_t* tbl, const int32_t* lens, int J,
-                   const int32_t* tiles, int T4, int L, int32_t* cnt,
-                   int32_t* ov, int32_t* fh, int32_t* reach, void* stream) {
-  hits_kernel<<<blocks_for(L), kThreads, 0, (cudaStream_t)stream>>>(
-      tbl, lens, J, tiles, T4, L, cnt, ov, fh, reach);
+                   const int32_t* tiles, int T4, int L, int k, void* img,
+                   int32_t* cnt, int32_t* ov, int32_t* fh, int32_t* reach,
+                   void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  Needles* nd = reinterpret_cast<Needles*>(img);
+  needles_kernel<<<1, kThreads, 0, st>>>(tbl, lens, J, nd);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  hits_kernel<<<blocks_for(k * L), kThreads, 0, st>>>(nd, tiles, T4, L, k,
+                                                      cnt, ov, fh, reach);
   return (int)cudaGetLastError();
 }
 

@@ -212,7 +212,7 @@ class BatchEngine:
         # candidate total of the line path: sizes warm find_all caps
         # without a count sync
         self._spans_cnt_cache = {}
-        self._rev_hint_cache = {}   # corpus fp -> reverse-scan lane entries
+        self._rev_hint_cache = {}   # corpus fp -> K3 sub-lane entries [k, L]
         self._core_engine = None    # lazy Engine over a nullable core
         self._chunk_sc = {}         # dense kind -> ChunkScanner; False == none
 

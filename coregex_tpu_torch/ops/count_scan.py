@@ -17,15 +17,16 @@ the previous sub-lane's exit, until none does, so the result equals the
 sequential scan's.  It runs on the host around the launches: one
 ``.item()`` sync per pass.
 
-The lane walk itself is shared with the span scan (K2), the flag scan (K3)
-and the match scan (K9, ``dfa_scan.ChunkScanner``): :func:`lane_walk`
+The lane walk itself is shared with the span scan (K2), the flag scan (K3,
+split and repaired as K1) and the match scan (K9,
+``dfa_scan.ChunkScanner``): :func:`lane_walk`
 launches ``csrc/lane_scan.cu`` for CUDA tensors and
 runs :func:`lane_walk_plain`, the reference's ``impl="gather"`` loop, for CPU
 tensors.  The TPU kernel's ``packed_rc`` row/column merge only served the
 Mosaic select tree and is left out: the CUDA kernel reads the full
 ``[S, NSEG]`` table from shared memory.  Every lane walk takes entries and
 gives counts, exits and syncs of shape [k, L], row j holding sub-lane j of
-each lane; K3 and K9 walk k = 1.
+each lane; K9 walks k = 1.
 """
 
 from __future__ import annotations
@@ -41,7 +42,7 @@ from ..dfa.dense import CTX_NL, CTX_OTHER, CTX_SOT, CTX_WORD
 from . import _build
 
 MODE_COUNT, MODE_SPAN, MODE_FLAG, MODE_MATCH = 0, 1, 2, 3
-# K1/K2 launches: pass 0 (with warmup), a pass over the unsettled
+# K1-K3 launches: pass 0 (with warmup), a pass over the unsettled
 # sub-lanes, a pass over the lanes holding one (csrc/lane_scan.cu's Pass)
 PASS_FIRST, PASS_SUB, PASS_LANE = 0, 1, 2
 THREADS = 128       # threads a block (lane_scan.cu's kThreads)
@@ -49,7 +50,7 @@ THREADS = 128       # threads a block (lane_scan.cu's kThreads)
 # a block stages the packed table (plus the 256-entry byte map) in shared
 # memory; an H100 block can hold at most this many bytes
 SMEM_LIMIT = 232448
-# most sub-lanes a lane for K1 and K2 (lane_split): 64 sub-lanes of 3 KiB
+# most sub-lanes a lane for K1-K3 and K6 (lane_split): 64 sub-lanes of 3 KiB
 # at 1536 MiB, 524,288 walkers, about two waves of resident threads; 16
 # and 32 were slower on the H100 (PERF.md)
 MAX_SPLIT = 64
@@ -167,7 +168,7 @@ def make_word_tiles(data_u8: torch.Tensor, L: int, T4: int) -> torch.Tensor:
 
 
 def lane_split(T: int, W: int) -> int:
-    """Sub-lanes per lane for K1 and K2 under a geometry of T-byte lanes
+    """Sub-lanes per lane for K1-K3 and K6 under a geometry of T-byte lanes
     and a W-byte warmup: the largest power of two k <= MAX_SPLIT that
     divides T/32, the lane's flag groups, with T/k >= 4W, so the warmup
     stays within a quarter of a sub-lane's walk.  1 below T = 8W."""
@@ -262,7 +263,8 @@ def lane_walk_plain(mode: int, packed, segmap, tiles, W4: int, entries,
                     offsets, limits):
     """Plain torch lane walk (the reference's impl="gather" scan_once), one
     torch step per byte of a sub-lane.  entries [k, L] for k sub-lanes a
-    lane (k > 1 for K1 and K2 only); offsets and limits [L].  Returns
+    lane (k > 1 for K1-K3 only); offsets and limits [L]; W4 = 0 walks no
+    warmup (entries are the sub-lanes' start states).  Returns
     (counts, exits, sync, flagw, aux), the first three [k, L]; flagw is
     [T4/8, L] int32 words (None for MODE_COUNT); aux is the first-flag
     words [T4/8, L] of MODE_SPAN, the lane-local position of each lane's
@@ -399,17 +401,16 @@ def _check_lane_args(mode, packed, segmap, tiles, W4, entries, offsets,
     if entries.dim() != 2 or int(entries.shape[1]) != L:
         raise ValueError(f"entries must have shape (k, {L})")
     k = int(entries.shape[0])
-    if k > 1 and (mode not in (MODE_COUNT, MODE_SPAN)
-                  or k & (k - 1) or (T4 // 8) % k):
+    if k > 1 and (mode == MODE_MATCH or k & (k - 1) or (T4 // 8) % k):
         raise ValueError(f"entries of shape {tuple(entries.shape)}: only "
-                         f"K1 and K2 split lanes, into a power of two that "
-                         f"divides T4/8 = {T4 // 8}")
+                         f"K1, K2 and K3 split lanes, into a power of two "
+                         f"that divides T4/8 = {T4 // 8}")
     for name, t in (("offsets", offsets), ("limits", limits)):
         if tuple(t.shape) != (L,):
             raise ValueError(f"{name} must have shape ({L},)")
     if segmap is not None and tuple(segmap.shape) != (256,):
         raise ValueError("segmap must have shape (256,)")
-    if T4 % 8 or not 0 < W4 <= T4 // k:
+    if T4 % 8 or not 0 <= W4 <= T4 // k:
         raise ValueError(f"bad tile geometry T4={T4} W4={W4} k={k}")
 
 
@@ -452,9 +453,9 @@ def lane_walk_cuda(mode: int, packed, segmap, tiles, W4: int, entries,
                 p(sync), p(flagw), p(aux), st)
         else:
             rc = lib.cgx_lane_flag(
-                p(packed), S, nseg, p(tiles), T4, L, W4, p(entries),
-                p(offsets), p(limits), p(counts), p(exits), p(sync),
-                p(flagw), st)
+                PASS_FIRST, p(packed), S, nseg, p(tiles), T4, L, W4, k,
+                p(entries), p(offsets), p(limits), 0, None, p(counts),
+                p(exits), p(sync), p(flagw), None, st)
     _build.check(rc, "lane_scan")
     return counts, exits, sync, flagw, aux
 
@@ -462,10 +463,10 @@ def lane_walk_cuda(mode: int, packed, segmap, tiles, W4: int, entries,
 def lane_repair_cuda(mode: int, whole: bool, packed, segmap, tiles,
                      first: int, limits, prev, exits, counts, sync, flagw,
                      aux, walked):
-    """Launch one repair pass of csrc/lane_scan.cu (K1 or K2); same
+    """Launch one repair pass of csrc/lane_scan.cu (K1, K2 or K3); same
     in-place outputs as lane_repair_plain."""
-    if mode not in (MODE_COUNT, MODE_SPAN):
-        raise ValueError("only K1 and K2 take repair passes")
+    if mode == MODE_MATCH:
+        raise ValueError("only K1, K2 and K3 take repair passes")
     _check_lane_args(mode, packed, segmap, tiles, 1, prev, limits, limits)
     for name, t in (("exits", exits), ("counts", counts), ("sync", sync)):
         if (t.shape != prev.shape or t.dtype != torch.int32
@@ -486,11 +487,16 @@ def lane_repair_cuda(mode: int, whole: bool, packed, segmap, tiles,
                 how, p(packed), S, nseg, p(segmap), p(tiles), T4, L, 0, k,
                 None, None, p(limits), first, p(prev), p(counts), p(exits),
                 p(sync), p(walked), st)
-        else:
+        elif mode == MODE_SPAN:
             rc = lib.cgx_lane_span(
                 how, p(packed), S, nseg, p(segmap), p(tiles), T4, L, 0, k,
                 None, None, p(limits), first, p(prev), p(counts), p(exits),
                 p(sync), p(flagw), p(aux), p(walked), st)
+        else:
+            rc = lib.cgx_lane_flag(
+                how, p(packed), S, nseg, p(tiles), T4, L, 0, k, None, None,
+                p(limits), first, p(prev), p(counts), p(exits), p(sync),
+                p(flagw), p(walked), st)
     _build.check(rc, "lane_scan")
 
 
@@ -523,8 +529,9 @@ def lane_repair(mode: int, counter: LaunchCounter, whole: bool, *args):
 
 
 def resident_warps(mode: int, S: int, nseg: int) -> int:
-    """Warps of a K1 (MODE_COUNT) or K2 (MODE_SPAN) pass 0 on an [S, nseg]
-    table that one SM holds at once (the CUDA occupancy calculator)."""
+    """Warps of a K1 (MODE_COUNT), K2 (MODE_SPAN) or K3 (MODE_FLAG) pass 0
+    on an [S, nseg] table that one SM holds at once (the CUDA occupancy
+    calculator)."""
     blocks = ctypes.c_int(0)
     _build.check(_build.lib().cgx_lane_occupancy(
         mode, S, nseg, ctypes.byref(blocks)), "lane_scan")
@@ -581,7 +588,7 @@ def repair_fixpoint(scan_once, entries0, offsets0, first_entry, real,
     """Run scan_once(entries, offsets) -> (..., exits, sync) until every
     real lane's post-warmup state equals the previous lane's exit, at most
     max_repair rescans of every lane.  Returns (outputs of the last pass,
-    converged).  The unsplit walks (K3 and K7) repair so.
+    converged).  The unsplit needle machine (K7) repairs so.
 
     A rescan enters each lane at the previous lane's exit, and lane 0 at
     the true start, so rescan k makes lanes 0..k exact: max_repair = L
@@ -605,8 +612,10 @@ def repair_fixpoint(scan_once, entries0, offsets0, first_entry, real,
 def split_fixpoint(mode: int, counter: LaunchCounter, d: "DeviceCountDFA",
                    tiles, W: int, entries0, offsets0, limits,
                    max_repair: int):
-    """K1 or K2 over the sub-lanes of entries0 [k, L], repaired until every
-    real sub-lane's sync equals the previous sub-lane's exit.  Returns
+    """K1, K2 or K3 over the sub-lanes of entries0 [k, L], repaired until
+    every real sub-lane's sync equals the previous sub-lane's exit (d.sot
+    for sub-lane (0, 0)).  d holds the walk's tables: packed, segmap (None
+    for K3) and sot.  W = 0 walks pass 0 with no warmup.  Returns
     ((counts, exits, sync, flagw, aux), converged), the first three [k, L].
 
     Pass 0 walks every sub-lane after its warmup.  Each repair pass walks

@@ -15,19 +15,25 @@ The reset bit moves into the alphabet: symbol = 2*segment + reset, and
 The lane walk packs bit 0 into flag words and sums bit 1 (interference).
 Symbols index table columns directly, so no byte map is needed.  The flag
 at position n (the first pad symbol) is EOI acceptance.
+
+Changes from the reference: K3 walks k = ``lane_split(T, W)`` sub-lanes a
+lane and repairs through ``count_scan.split_fixpoint`` (unsettled
+sub-lanes, then whole lanes, until every seam agrees) instead of at most
+four rescans of every lane, so the hint holds [k, L] sub-lane entries, and
+a hinted scan walks no warmup.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
 
 from ..dfa.dense import DEAD, DenseDFA
-from .count_scan import (MODE_FLAG, LaunchCounter, device_table,
-                         lane_walk, make_word_tiles, plan_geometry,
-                         repair_fixpoint, require_fits, settled)
+from .count_scan import (MODE_FLAG, SUB_PASSES, LaunchCounter, device_table,
+                         lane_split, make_word_tiles, plan_geometry,
+                         require_fits, settled, split_fixpoint, want_of)
 from .dfa_scan import DFATables
 from .span_scan import to_global
 
@@ -110,42 +116,39 @@ def scatter_reset_tiles(base_tiles, rq, L: int, T4: int):
     return out.reshape(base_tiles.shape)
 
 
-def flag_lanes(packed, tiles, W4, entries, offsets, limits):
-    """K3: (flagw, counts, exits, sync) of one reset-scan pass, one walker
-    a lane: entries and the last three [L]."""
-    counts, exits, sync, fw, _ = lane_walk(
-        MODE_FLAG, FLAG_KERNEL, packed, None, tiles, W4,
-        entries.reshape(1, -1), offsets, limits)
-    return fw, counts[0], exits[0], sync[0]
+class FlagWalk(NamedTuple):
+    """The tables split_fixpoint walks for K3: the packed table, no byte
+    map (symbols index columns), DEAD as the state before the first
+    sub-lane (no run precedes the first reset)."""
+    packed: torch.Tensor
+    segmap: None = None
+    sot: int = DEAD
 
 
-def flag_full(packed_full, tiles, n1: int, entries_init, L: int, T: int,
-              W: int, max_repair: int = 4):
+def flag_full(packed_full, tiles, n1: int, hint, L: int, T: int, W: int,
+              k: int, max_repair: int = 4):
     """Returns (flag words [L*T/32] position-major with bits >= n1
-    masked, interference count tensor, converged bool, lane-entry hint).
-    n1 = n + 1 (the EOI position is live).  entries_init: DEAD for a
-    fresh scan, or a previous converged scan's hint (states AT lane
-    starts: warmup is skipped and the fixpoint check passes in one
-    pass)."""
-    W4 = W // 4
+    masked, interference count tensor, converged bool, sub-lane entry
+    hint [k, L]).  n1 = n + 1 (the EOI position is live).  K3 walks k
+    sub-lanes a lane through count_scan.split_fixpoint.  hint: None for a
+    fresh scan (DEAD entries, each sub-lane warmed up over the W symbols
+    before it), or a previous converged scan's hint, the states AT the
+    sub-lanes' starts: then no sub-lane walks a warmup, and the fixpoint
+    validates the hint as any guess (one pass when it holds)."""
     dev = tiles.device
     lane_ids = torch.arange(L, dtype=torch.int64, device=dev)
-    is_hint = (entries_init != DEAD).any()
-    base = torch.zeros(L, dtype=torch.int32, device=dev)
-    base[0] = W
-    offsets0 = torch.where(is_hint, torch.full_like(base, W), base)
+    offsets0 = torch.zeros(L, dtype=torch.int32, device=dev)
+    offsets0[0] = W
     limits = (n1 - lane_ids * T).clamp(0, T).to(torch.int32)
-    real = (lane_ids * T) < n1
-    dead = torch.tensor(DEAD, dtype=torch.int32, device=dev)
-
-    def scan_once(entries, offsets):
-        return flag_lanes(packed_full, tiles, W4, entries, offsets, limits)
-
-    (fw, cnts, exits, _sync), converged = repair_fixpoint(
-        scan_once, entries_init.to(torch.int32).contiguous(), offsets0,
-        dead, real, W, max_repair)
-    hint = torch.cat([dead.reshape(1), exits[:-1]])
-    return to_global(fw, n1), cnts.sum(), converged, hint
+    if hint is None:
+        entries0 = torch.full((k, L), DEAD, dtype=torch.int32, device=dev)
+    else:
+        entries0 = hint.to(torch.int32).contiguous()
+    (cnts, exits, _sync, fw, _aux), converged = split_fixpoint(
+        MODE_FLAG, FLAG_KERNEL, FlagWalk(packed_full), tiles,
+        W if hint is None else 0, entries0, offsets0, limits, max_repair)
+    return (to_global(fw, n1), cnts.sum(), converged,
+            want_of(exits, DEAD).contiguous())
 
 
 class FlagResetScanner:
@@ -162,17 +165,18 @@ class FlagResetScanner:
         return tuple(int(b) for b in self.tables.bounds if 0 < int(b) < 256)
 
     def scan_tiles(self, tiles, n: int, entries_hint=None):
-        """Scan prebuilt symbol word tiles under reset_geometry(n).
-        `entries_hint`: [L] lane entry states from a previous converged
-        scan of the same symbols (validated by the fixpoint like any
-        guess).  Returns (flag words over the [n+1] domain, interference,
-        converged, hint for the next call); the fixpoint runs until it
-        settles, so converged is always True."""
+        """Scan prebuilt symbol word tiles under reset_geometry(n), k =
+        lane_split(T, W) sub-lanes a lane.  `entries_hint`: [k, L]
+        sub-lane entry states from a previous converged scan of the same
+        symbols (validated by the fixpoint like any guess; one of another
+        shape is dropped).  Returns (flag words over the [n+1] domain,
+        interference, converged, hint for the next call); the fixpoint
+        runs until it settles, so converged is always True."""
         L, T, W, _Lc = reset_geometry(n)
-        if entries_hint is None or int(entries_hint.shape[0]) != L:
-            entries_hint = torch.full((L,), DEAD, dtype=torch.int32,
-                                      device=tiles.device)
+        k = lane_split(T, W)
+        if entries_hint is not None and tuple(entries_hint.shape) != (k, L):
+            entries_hint = None
         out = flag_full(self.tables.packed_full, tiles, n + 1, entries_hint,
-                        L, T, W, max_repair=L)
+                        L, T, W, k, max_repair=L + SUB_PASSES)
         settled(out[2], "flag scan")
         return out

@@ -7,7 +7,9 @@ launch: K5 keeps three running maxima per lane (last newline, last valid
 line start, last qualifying hit) and counts the commits at the lane's
 newlines after its first; the host combine stitches each lane's first line
 from O(1) outputs per lane.  K6 counts raw hits and flags a hit that starts
-inside an earlier hit's reach; on an overlap the caller counts with K7.
+inside an earlier hit's reach; on an overlap the caller counts with K7.  K6
+walks k = ``lane_split(T, W)`` sub-lanes a lane, as K1 does, and its
+outputs combine on the device (``hits_verdict``): one host sync a count.
 
 The wrappers launch ``csrc/needle_scan.cu`` for CUDA tensors and run the
 plain versions for CPU tensors: the reference's running-max formulation in
@@ -17,8 +19,8 @@ lookahead and scope gates are those of ``seq_scan.py``.
 
 Changes from the reference: the anchored prefix check at the lane bases is
 one gather of plen bytes per lane instead of a Python loop over the lanes,
-the cross-lane overlap check an exclusive running max over lanes, and the
-TPU tile-row tuning variable is gone.
+the cross-lane overlap check an exclusive running max over the sub-lanes
+on the device, and the TPU tile-row tuning variable is gone.
 """
 
 from __future__ import annotations
@@ -29,7 +31,8 @@ import numpy as np
 import torch
 
 from . import _build
-from .count_scan import LaunchCounter, make_word_tiles, plan_geometry
+from .count_scan import (LaunchCounter, lane_split, make_word_tiles,
+                         plan_geometry)
 from .seq_scan import (AHEAD, _check_tables, chunk_rows, hit_plane,
                        host_needles, lane_stream_words, needle_table,
                        needles_ok, stream_bytes)
@@ -255,8 +258,9 @@ class LineScanner:
 # K6
 # ---------------------------------------------------------------------------
 
-def hits_lanes_plain(tbl, lens, tiles):
-    """Plain torch K6: (cnt, ov, fh, reach) [L] int32."""
+def _hits_plain(tbl, lens, tiles):
+    """Plain torch K6, one walker a lane of `tiles`: (cnt, ov, fh, reach)
+    [L] int32."""
     T4, L = (int(x) for x in tiles.shape)
     dev = tiles.device
     nds = host_needles(tbl, lens)
@@ -283,44 +287,96 @@ def hits_lanes_plain(tbl, lens, tiles):
     return tuple(x.to(torch.int32) for x in (cnt, ov, fh, c_r))
 
 
-def hits_lanes_cuda(tbl, lens, tiles):
-    """Launch cgx_hits_lanes of csrc/needle_scan.cu; same outputs as
-    hits_lanes_plain."""
+def hits_lanes_plain(tbl, lens, tiles, k: int):
+    """Plain torch K6 over k sub-lanes a lane: (cnt, ov, fh, reach) [k, L]
+    int32, row j = sub-lanes (j, .), positions local to the sub-lane.  The
+    tiles are re-laid as k*L lanes of T4/k words, column l*k + j, so the
+    one-walker scan runs the sub-lanes in corpus order and its next lane is
+    the next sub-lane."""
+    T4, L = (int(x) for x in tiles.shape)
+    sub = tiles.reshape(k, T4 // k, L).permute(1, 2, 0).reshape(T4 // k,
+                                                                L * k)
+    return tuple(x.reshape(L, k).t().contiguous()
+                 for x in _hits_plain(tbl, lens, sub.contiguous()))
+
+
+def _check_split(tiles, k: int):
+    T4 = int(tiles.shape[0])
+    if k < 1 or k & (k - 1) or T4 % (8 * k):
+        raise ValueError(f"k = {k} sub-lanes: a power of two whose "
+                         f"sub-lanes hold whole 8-word groups of T4 = {T4}")
+
+
+def hits_lanes_cuda(tbl, lens, tiles, k: int):
+    """Launch cgx_hits_lanes of csrc/needle_scan.cu (its needle image
+    build, then the walk); same outputs as hits_lanes_plain."""
     _check_tables(tbl, lens, tiles)
+    _check_split(tiles, k)
     T4, L = (int(x) for x in tiles.shape)
     dev = tiles.device
-    outs = [torch.empty(L, dtype=torch.int32, device=dev) for _ in range(4)]
-    p = _build.ptr
     lib = _build.lib()
+    img = torch.empty(lib.cgx_needles_bytes(), dtype=torch.uint8,
+                      device=dev)
+    outs = [torch.empty((k, L), dtype=torch.int32, device=dev)
+            for _ in range(4)]
+    p = _build.ptr
     with torch.cuda.device(dev):
         rc = lib.cgx_hits_lanes(p(tbl), p(lens), int(tbl.shape[0]),
-                                p(tiles), T4, L, *[p(o) for o in outs],
-                                _build.stream(dev))
+                                p(tiles), T4, L, k, p(img),
+                                *[p(o) for o in outs], _build.stream(dev))
     _build.check(rc, "hits_lanes")
     return tuple(outs)
 
 
-def hits_lanes(tbl, lens, tiles):
+def hits_lanes(tbl, lens, tiles, k: int):
     """K6 on the tiles' device: the kernel for CUDA tensors (counted on
     HITS_KERNEL), the plain version for CPU tensors."""
     if tiles.device.type == "cuda":
-        out = hits_lanes_cuda(tbl, lens, tiles)
+        out = hits_lanes_cuda(tbl, lens, tiles, k)
         HITS_KERNEL.launches += 1
         return out
     if tiles.device.type != "cpu":
         raise ValueError(f"unsupported device {tiles.device}")
-    return hits_lanes_plain(tbl, lens, tiles)
+    _check_split(tiles, k)
+    return hits_lanes_plain(tbl, lens, tiles, k)
 
 
 def cross_lane_overlap(T: int, fh, reach) -> bool:
     """A hit whose reach runs past its lane end covers a later lane's first
     hit: the exclusive running max of the lanes' global reaches (ref.
-    HitsScanner.count:601-610)."""
+    HitsScanner.count:601-610).  Host numpy over [L] lanes of T bytes; the
+    plain reference of hits_verdict's overlap test."""
     L = len(fh)
     bases = np.arange(L, dtype=np.int64) * T
     glob = np.where(reach > NEG // 2, bases + reach, NEG)
     run = np.concatenate([[NEG], np.maximum.accumulate(glob)[:-1]])
     return bool(((fh < BIG) & (run >= bases + fh)).any())
+
+
+def hits_verdict(T: int, cnt, ov, fh, reach):
+    """(hit count int64, overlap bool) as 0-dim tensors on the outputs'
+    device from K6's sub-lane outputs [k, L] under lanes of T bytes: an
+    overlap inside a sub-lane (ov), or a hit whose reach runs past its
+    sub-lane's end over a later sub-lane's first hit, by an exclusive
+    running max of the global reaches in corpus order, sub-lane (j, l) at
+    base l*T + j*T/k (cross_lane_overlap's test over the k*L sub-lanes).
+    The running max takes two levels, along each lane's k sub-lanes and
+    then over the L lanes' maxima: torch.cummax along one 524,288-entry
+    row took 1.4 ms on an H100, as long as K6 itself."""
+    k, L = (int(x) for x in cnt.shape)
+    dev = cnt.device
+    # [L, k]: row l holds lane l's sub-lanes, so rows read in corpus order
+    fh, reach = fh.t().to(torch.int64), reach.t().to(torch.int64)
+    base = (torch.arange(L, dtype=torch.int64, device=dev)[:, None] * T
+            + torch.arange(k, dtype=torch.int64, device=dev) * (T // k))
+    glob = torch.where(reach > NEG // 2, base + reach, NEG)
+    incl = torch.cummax(glob, 1).values
+    before = torch.cat([incl.new_full((1,), NEG),
+                        torch.cummax(incl[:, -1], 0).values[:-1]])
+    run = torch.maximum(torch.cat([before[:, None], incl[:, :-1]], 1),
+                        before[:, None])
+    over = ov.any() | ((fh < BIG) & (run >= base + fh)).any()
+    return cnt.sum(dtype=torch.int64), over
 
 
 class HitsScanner:
@@ -339,22 +395,26 @@ class HitsScanner:
     def supported(needles: Sequence[bytes]) -> bool:
         return needles_ok(needles)
 
-    def lanes(self, data_dev: torch.Tensor, geometry, tiles=None):
-        """Per-lane K6 outputs (cnt, ov, fh, reach) under `geometry`."""
+    def lanes(self, data_dev: torch.Tensor, geometry, tiles=None,
+              k: int = 1):
+        """K6 outputs (cnt, ov, fh, reach) [k, L] under `geometry`, k
+        sub-lanes a lane."""
         L, T, _W, _Lc = geometry
         if tiles is None:
             tiles = make_word_tiles(data_dev, L, T // 4)
-        return hits_lanes(self.tbl, self.lens, tiles)
+        return hits_lanes(self.tbl, self.lens, tiles, k)
 
     def count(self, data_dev: torch.Tensor,
               geometry: Optional[Tuple[int, int, int, int]] = None,
               tiles: Optional[torch.Tensor] = None) -> Optional[int]:
+        """K6 over lane_split(T, W) sub-lanes a lane, combined on the
+        tiles' device: one host sync for (count, overlap)."""
         n = int(data_dev.shape[0])
         if n == 0:
             return 0
         geometry = geometry or plan_geometry(n)
-        cnt, ov, fh, reach = (x.cpu().numpy().astype(np.int64)
-                              for x in self.lanes(data_dev, geometry, tiles))
-        if ov.any() or cross_lane_overlap(geometry[1], fh, reach):
-            return None
-        return int(cnt.sum())
+        _L, T, W, _Lc = geometry
+        total, over = hits_verdict(
+            T, *self.lanes(data_dev, geometry, tiles, lane_split(T, W)))
+        total, over = torch.stack([total, over.to(torch.int64)]).tolist()
+        return None if over else total

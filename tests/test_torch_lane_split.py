@@ -380,8 +380,9 @@ def test_state_at_end_picks_the_sub_lane_of_the_last_byte():
 # -- callers and checks ----------------------------------------------------------
 
 def test_flag_and_match_scans_keep_one_walker_a_lane(monkeypatch):
-    """K3 (the reverse flag scan of a bidi find_all) and K9 (a FULL_SCAN
-    is_match) still launch with entries [1, L], k = 1, while K2 splits."""
+    """K9 (a FULL_SCAN is_match) launches with entries [1, L], k = 1; K3
+    (the reverse flag scan of a bidi find_all) with [k, L] at lane_split's
+    k of its reset geometry, which is 1 for this 17,600-byte corpus."""
     seen = {}
 
     def spy(module):
@@ -392,7 +393,7 @@ def test_flag_and_match_scans_keep_one_walker_a_lane(monkeypatch):
             return real(mode, counter, *args)
         monkeypatch.setattr(module, "lane_walk", walk)
 
-    spy(flag_scan)
+    spy(cs)         # K3's split_fixpoint calls count_scan.lane_walk
     spy(dfa_scan)
     arr = np.frombuffer((b"ip 10.0.0.1 x 1.2.3.4 " * 800), dtype=np.uint8)
     ip = ct.compile(r"\d+\.\d+\.\d+\.\d+", device="cpu")
@@ -400,13 +401,15 @@ def test_flag_and_match_scans_keep_one_walker_a_lane(monkeypatch):
     full = ct.compile(r"\s\d\s", device="cpu")
     assert full.batch_engine().plan.strategy.name == "FULL_SCAN"
     assert full.is_match(arr) is False
+    _L, T, W, _ = flag_scan.reset_geometry(len(arr))
+    assert cs.lane_split(T, W) == 1
     assert all(len(s) == 2 and s[0] == 1
                for m in (cs.MODE_FLAG, cs.MODE_MATCH) for s in seen[m])
 
 
 @pytest.mark.parametrize("mode,shape,W4,msg", [
-    (cs.MODE_FLAG, (2, 16), 4, "only K1 and K2"),
-    (cs.MODE_MATCH, (2, 16), 4, "only K1 and K2"),
+    (cs.MODE_FLAG, (3, 16), 4, "power of two"),
+    (cs.MODE_MATCH, (2, 16), 4, "only K1, K2 and K3"),
     (cs.MODE_COUNT, (3, 16), 4, "power of two"),
     (cs.MODE_COUNT, (16, 16), 4, "divides"),
     (cs.MODE_SPAN, (8, 16), 9, "geometry"),
@@ -414,8 +417,8 @@ def test_flag_and_match_scans_keep_one_walker_a_lane(monkeypatch):
 ])
 def test_cuda_wrapper_rejects_bad_splits(mode, shape, W4, msg):
     """The wrapper refuses a split the kernel cannot walk before it builds
-    or launches anything: K3 and K9 take k = 1, k a power of two dividing
-    T4/8, a warmup within a sub-lane."""
+    or launches anything: K9 takes k = 1, k a power of two dividing T4/8,
+    a warmup within a sub-lane."""
     T4, L = 64, 16
     tiles = torch.zeros((T4, L), dtype=torch.int32)
     lanes = torch.zeros(L, dtype=torch.int32)

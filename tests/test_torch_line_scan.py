@@ -108,9 +108,9 @@ def test_hits_lanes_match_reference_interpret(needles):
     sc = ls.HitsScanner(needles)
     for data in corpora:
         exp_lanes = _ref_hits_lanes(ref, data, SMALL_GEO)
-        got = sc.lanes(_t(data), SMALL_GEO)
+        got = sc.lanes(_t(data), SMALL_GEO)     # [1, L]: one walker a lane
         for g, e in zip(got, exp_lanes):
-            np.testing.assert_array_equal(g.numpy().astype(np.int64), e)
+            np.testing.assert_array_equal(g[0].numpy().astype(np.int64), e)
         exp = ref.count(jnp.asarray(np.frombuffer(data, np.uint8)),
                         geometry=SMALL_GEO)
         assert sc.count(_t(data), SMALL_GEO) == exp

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of coregex_tpu_torch's device find_all goes, on one GPU.
 
-    python3 tools/profile_torch.py [--single] [name ...]
+    python3 tools/profile_torch.py [--single | --count] [name ...]
     python3 tools/profile_torch.py --limit
 
 Builds the JAX package's bench corpus as chip_smoke.py does (the 6 MiB
@@ -10,7 +10,9 @@ the span limits admit for the general nullable patterns), makes one warm
 find_all_spans_device call per pattern, then profiles one more with
 torch.profiler.  With --single it does the same for is_match and
 find_index on chip_smoke's late-match corpus (spaces, a newline, one base
-tile), names from chip_smoke.SINGLE_EXTRA too.  Prints the wall time, the device's busy time (the sum of
+tile), names from chip_smoke.SINGLE_EXTRA too; with --count, for one warm
+count on the corpus find_all would take.  Prints the wall time, the
+device's busy time (the sum of
 the kernels' times; one stream, so they do not overlap), its idle share,
 the call's peak device memory above what was allocated before it,
 the port's own kernels, and the eight operators whose kernels took the
@@ -34,7 +36,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 import chip_smoke  # noqa: E402
 
 
-def main(names, single=False):
+def main(names, single=False, count=False):
     import torch
 
     import coregex_tpu_torch as ct
@@ -51,8 +53,9 @@ def main(names, single=False):
                                           + chip_smoke.LITERAL_NULLABLE)}
     if single:
         late = chip_smoke.single_corpora(base, corpus)[1][1]
-    for name, what in [(nm, w) for nm in names for w in (
-            ("is_match", "find_index") if single else ("find_all",))]:
+    whats = (("is_match", "find_index") if single
+             else ("count",) if count else ("find_all",))
+    for name, what in [(nm, w) for nm in names for w in whats]:
         pattern = chip_smoke.PATTERNS[name]
         reps = len(corpus) // B
         if sizes.get(name) == "limit":
@@ -147,6 +150,7 @@ if __name__ == "__main__":
     if "--limit" in args:
         limit()
         sys.exit(0)
-    single = "--single" in args
-    names = [a for a in args if a != "--single"]
-    main(names or [nm for nm, _, _ in chip_smoke.CLASS_NULLABLE], single)
+    single, count = "--single" in args, "--count" in args
+    names = [a for a in args if a not in ("--single", "--count")]
+    main(names or [nm for nm, _, _ in chip_smoke.CLASS_NULLABLE], single,
+         count)

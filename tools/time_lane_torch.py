@@ -1,27 +1,33 @@
 #!/usr/bin/env python3
-r"""Device times of one checkout's lane walks and the walls they carry, at
-chip_smoke.py's headline shapes, so that two checkouts can be timed on one
-GPU in one run.
+r"""Device times of one checkout's lane walks and needle hit scan and the
+walls they carry, at chip_smoke.py's headline shapes, so that two
+checkouts can be timed on one GPU in one run.
 
     python3 tools/time_lane_torch.py [--root CHECKOUT]
 
 ``--root`` imports coregex_tpu_torch from another checkout (an unpacked
 earlier commit, say); the inputs are built by this checkout's
-chip_smoke.py, the same in both.  On the 1536 MiB bench corpus (ip): K1
-and K2 pass 0 as that checkout's count and span scans launch it (at its
+chip_smoke.py, the same in both.  On the 1536 MiB bench corpus: K1 and K2
+pass 0 (ip) as that checkout's count and span scans launch it (at its
 split, where it has one) and, where it has a split, also at k = 16, 32, 64
-and 128 sub-lanes a lane; K3 on the bidi path's reset tiles and K9 over
-`\s\d\s`'s fwd_all DFA, through their callers' wrappers; then the warm
-walls (best of 3, host clock, after a first call) of ip's count and
-find_all, best of 10 of find_index on early matches (K9 on a 4 MiB
-prefix, then the window kernel) and of a FULL_SCAN is_match (one K9 pass,
-no match), and quote parity (`"[^"]*"` on 16 MiB, chip_smoke.quote_parity)
-with its repair passes.  Kernel lines give the mean of REPS launches after
-a warm-up, with CUDA events; chip_smoke.py times the same shapes beside
-their bound.  Imports no jax.
+and 128 sub-lanes a lane; K3 pass 0 on ip's bidi reset tiles and K6 on
+multi_literal32, literal_error and http_methods, each at the checkout's
+split and, where it splits them, also at k = 16, 32 and 64; K9 over
+`\s\d\s`'s fwd_all DFA through its caller's wrapper; then the warm walls
+(best of 3, host clock, after a first call) of the counts of ip and the
+four literal configs (literal_error, http_methods, alt_literal,
+multi_literal32), of the find_alls of ip and version, and of ip_opt's
+find_all at the span limits' corpus (170 tiles), best of 10 of
+find_index on early matches (K9 on a 4 MiB prefix, then the window
+kernel) and of a FULL_SCAN is_match (one K9 pass, no match), and quote
+parity (`"[^"]*"` on 16 MiB, chip_smoke.quote_parity) with its repair
+passes.  Kernel lines give the mean of REPS launches after a warm-up, with
+CUDA events; chip_smoke.py times the same shapes beside their bound.
+Imports no jax.
 """
 
 import argparse
+import inspect
 import os
 import sys
 import time
@@ -41,7 +47,7 @@ def main():
 
     import coregex_tpu_torch as ct
     from coregex_tpu_torch.ops import count_scan as cs
-    from coregex_tpu_torch.ops import dfa_scan, flag_scan
+    from coregex_tpu_torch.ops import dfa_scan, flag_scan, line_scan
 
     if not torch.cuda.is_available():
         sys.exit("torch.cuda.is_available() is false: the kernels run on a "
@@ -75,14 +81,39 @@ def main():
                  + ("" if kk is None else f" k={kk}"), ms,
                  "  (lane_split's k)" if kk == k and k else "")
 
-    # K3 on the bidi path's reset tiles, K9 over a FULL_SCAN fwd_all DFA,
-    # through the wrappers their scans call (entries [L] in every checkout)
-    packed, _seg, symt, w4, entries, offs, flim = chip_smoke.flag_args(
-        be, data)
-    line(f"K3 ip {mib} MiB", chip_smoke.cuda_ms(
-        lambda: flag_scan.flag_lanes(packed, symt, w4, entries.reshape(-1),
-                                     offs, flim), REPS))
-    del symt
+    # K3 on the bidi path's reset tiles, at the checkout's split (and, where
+    # it splits K3, at 16, 32, 64); an unsplit checkout walks it through
+    # flag_lanes with entries [L]
+    k3_split = "k" in inspect.signature(flag_scan.flag_full).parameters
+    _Lr, Tr, Wr, _ = flag_scan.reset_geometry(int(data.shape[0]))
+    k = split(Tr, Wr) if k3_split else 1
+    for kk in sorted({k, 16, 32, 64}) if k3_split else [1]:
+        fa = chip_smoke.flag_args(be, data, kk)
+        if k3_split:
+            ms = chip_smoke.cuda_ms(
+                lambda: cs.lane_walk_cuda(cs.MODE_FLAG, *fa), REPS)
+        else:
+            packed, _seg, symt, w4, entries, offs, flim = fa
+            ms = chip_smoke.cuda_ms(
+                lambda: flag_scan.flag_lanes(packed, symt, w4,
+                                             entries.reshape(-1), offs,
+                                             flim), REPS)
+        line(f"K3 ip {mib} MiB" + (f" k={kk}" if k3_split else ""), ms,
+             "  (lane_split's k)" if kk == k and k3_split else "")
+        del fa
+    # K6 on the literal sets the main path counts with it
+    k6_split = "k" in inspect.signature(line_scan.hits_lanes_cuda).parameters
+    k = split(T, W) if k6_split else 1
+    for name in ("multi_literal32", "literal_error", "http_methods"):
+        sc = ct.compile(chip_smoke.PATTERNS[name], device="cuda") \
+            .batch_engine()._hits_scanner()
+        for kk in sorted({k, 16, 32, 64}) if k6_split else [1]:
+            ka = (kk,) if k6_split else ()
+            ms = chip_smoke.cuda_ms(
+                lambda: line_scan.hits_lanes_cuda(sc.tbl, sc.lens, tiles,
+                                                  *ka), REPS)
+            line(f"K6 {name} {mib} MiB" + (f" k={kk}" if k6_split else ""),
+                 ms, "  (lane_split's k)" if kk == k and k6_split else "")
     margs = chip_smoke.match_args("ws_digit_ws", "fwd_all", data, (L, T, W),
                                   tiles)
     line(f"K9 \\s\\d\\s fwd_all {mib} MiB", chip_smoke.cuda_ms(
@@ -99,9 +130,27 @@ def main():
             best = min(best, time.perf_counter() - t0)
         return best * 1e3
 
-    line(f"ip count {mib} MiB (wall)", wall(lambda: ip.count(corpus)))
-    line(f"ip find_all {mib} MiB (wall)", wall(
-        lambda: int(be.find_all_spans_device(corpus, defer_ok=True)[1])))
+    for name in ("ip", "literal_error", "http_methods", "alt_literal",
+                 "multi_literal32"):
+        eng = ct.compile(chip_smoke.PATTERNS[name], device="cuda")
+        line(f"{name} count {mib} MiB (wall)",
+             wall(lambda: eng.count(corpus)))
+    for name in ("ip", "version"):
+        fbe = ct.compile(chip_smoke.PATTERNS[name], device="cuda") \
+            .batch_engine()
+        line(f"{name} find_all {mib} MiB (wall)", wall(
+            lambda: int(fbe.find_all_spans_device(corpus,
+                                                  defer_ok=True)[1])))
+    # ip_opt's find_all (its count's route too) at the span limits' corpus
+    pattern = chip_smoke.PATTERNS["ip_opt"]
+    B = len(base)
+    inner, tail = chip_smoke.tiled_spans(
+        chip_smoke.oracle_spans(pattern, base), B, 1)
+    reps = chip_smoke.limit_reps(inner, tail, B, len(corpus) // B)
+    fbe = ct.compile(pattern, device="cuda").batch_engine()
+    line(f"ip_opt find_all {reps} tiles (wall)", wall(
+        lambda: int(fbe.find_all_spans_device(corpus[:reps * B],
+                                              defer_ok=True)[1])))
     # K9 on the single-match paths, early match (a 4 MiB prefix) and none
     for name in ("ws_digits_ws", "a_word_end", "multiline_php"):
         eng = ct.compile(chip_smoke.PATTERNS[name], device="cuda")
