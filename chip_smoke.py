@@ -12,13 +12,15 @@ Phases (any failure exits non-zero before the final line):
                the compactions, torch.nonzero on the same mask.  The lane
                walks (K1-K3) and the needle kernels (K5-K7) run on a 4 MiB
                sample (several patterns) and on the whole 1536 MiB corpus
-               (one pattern each), K1, K2, K3 and K6 at the main path's
+               (one pattern each), K1, K2, K3, K5 and K6 at the main path's
                split into sub-lanes (count_scan.lane_split; with its size,
                the table's form and the resident warps an SM printed), with
                K1's, K2's and K3's two repair passes (over unsettled
                sub-lanes, over the lanes holding one) from exits of which
                a tenth are random, at that split and, on the sample, also
-               unsplit; the single-pass compaction (K4, and
+               unsplit; K5's device combine (LineScanner.verdict) against
+               the numpy _combine on the same outputs; the single-pass
+               compaction (K4, and
                K8 through compact_positions) on ragged lengths around
                its tile and sub-tile sizes at every byte offset 0-15 of
                a buffer set outside the mask (densities 0-1, 0-4
@@ -29,8 +31,13 @@ Phases (any failure exits non-zero before the final line):
                word payloads at the 2^26-word shape of its first level;
                K8 on 2^22-entry masks and on the start mask of `\w*`
                over the 1536 MiB corpus (cap 2^30);
-               the match scan (K9) on the 4 MiB sample (break-at-match
-               DFAs) and on the whole corpus (`\s\d\s`, fwd_all); the
+               the match scan (K9) at its split on the 4 MiB sample
+               (break-at-match DFAs, with its two repair passes, at that
+               split and unsplit) and on the whole corpus (`\s\d\s`,
+               fwd_all), and the settled scan with its dead cut
+               (dfa_scan.match_full: ip's fwd_break, an early match, so
+               one pass at k = 64) against the same fixpoint over the
+               plain walk; the
                window-flag scan on 2^16 random starts at W = 256; the
                single-pass compaction (K10) on the compaction rig's mask
                (256 MiB at density 1/200, seed 11) at R = 128, at R = 256
@@ -66,8 +73,9 @@ Phases (any failure exits non-zero before the final line):
                newline then one base tile (late match) and spaces only (no
                match), each of its own length, against `re` on windows
                whose bounds no match can cross (the filler checked with re
-               to hold no match but the nullable one); and the re-tiling of
-               find_first's prefixes, timed.  Literals: device find_all
+               to hold no match but the nullable one), with K9's repair
+               passes of each call; and the re-tiling of find_first's
+               prefixes, timed.  Literals: device find_all
                (first call, then best of 2) of literal_error,
                http_methods, alt_literal, multi_literal32, `0\.0` (a
                self-overlapping literal) and `0\.0|\.0\.` (hits that
@@ -251,7 +259,7 @@ def tiled_digest(inner, tail, B: int, reps: int, rng):
 # -- timing ------------------------------------------------------------------
 
 def reset_passes(counter):
-    """Zero a K1-K3 counter's repair passes."""
+    """Zero a lane walk counter's repair passes."""
     counter.sub_passes = counter.lane_passes = 0
 
 
@@ -395,9 +403,9 @@ def phase_kernels(base: bytes, corpus: np.ndarray):
                     else "operations"
 
     def repair_kernels(kind, mode, d, args_of, splits, label):
-        """K1's, K2's or K3's two repair passes (sub-lane and lane) against
-        their plain versions at each split kk in `splits`, from the pass-0
-        arguments args_of(kk)."""
+        """K1's, K2's, K3's or K9's two repair passes (sub-lane and lane)
+        against their plain versions at each split kk in `splits`, from the
+        pass-0 arguments args_of(kk)."""
         for kk in splits:
             run = repair_case(mode, d, args_of(kk))
             for whole in (False, True):
@@ -483,23 +491,27 @@ def phase_kernels(base: bytes, corpus: np.ndarray):
         if kind not in results:
             fail(f"no {kind} comparison ran")
 
-    def needle_kernels(data, label, k5=(), k6=(), k7=(), headline=False):
-        """K5, K6 and K7 on one corpus under the main path's geometry."""
+    def needle_kernels(data, host, label, k5=(), k6=(), k7=(),
+                       headline=False):
+        """K5, K6 and K7 on one corpus (`host`: its bytes on the host)
+        under the main path's geometry."""
         n = int(data.shape[0])
         geom = cs.plan_geometry(n)
         L, T, W = geom[:3]
         k = cs.lane_split(T, W)
         tiles = cs.make_word_tiles(data, L, T // 4)
-        print(f"[kernels] {label}: {n} bytes, geometry L={L} T={T}, K6 "
+        print(f"[kernels] {label}: {n} bytes, geometry L={L} T={T}, K5/K6 "
               f"split k={k}: {k * L} walkers of {T // k} bytes")
         for name in k5:
             sc = ct.compile(PATTERNS[name], device=DEVICE) \
                 .batch_engine()._line_scanner()
-            args = sc.lane_args(data, geom, tiles)
+            args = sc.lane_args(data, geom, tiles, k)
             compare("line_scan", f"{name} {label}",
                     lambda: line_scan.line_lanes_cuda(*args),
                     lambda: line_scan.line_lanes_plain(*args),
                     headline=headline, in_bytes=nbytes(*args))
+            line_combine(sc, data, host, T, args[5],
+                         line_scan.line_lanes_cuda(*args), f"{name} {label}")
         for name in k6:
             sc = ct.compile(PATTERNS[name], device=DEVICE) \
                 .batch_engine()._hits_scanner()
@@ -522,17 +534,19 @@ def phase_kernels(base: bytes, corpus: np.ndarray):
         return seq_scan.SeqScanner(mode, needles, prefix=prefix,
                                    anchored=bool(prefix), device=dev)
 
-    sample = torch.from_numpy(np.frombuffer(sample, np.uint8).copy()).to(dev)
+    sample_host = np.frombuffer(sample, np.uint8)
+    sample = torch.from_numpy(sample_host.copy()).to(dev)
     alt32 = [w.encode() for w in ALT32.split("|")]
     needle_kernels(
-        sample, "4 MiB", k5=("inner_keyword", "multiline_php", "suffix_txt"),
+        sample, sample_host, "4 MiB",
+        k5=("inner_keyword", "multiline_php", "suffix_txt"),
         k6=("http_methods", "multi_literal32", "literal_error"),
         k7=[("multi 0.0", seq(seq_scan.MODE_MULTI, [b"0.0"])),
             ("multi alt32", seq(seq_scan.MODE_MULTI, alt32)),
             ("line keyword", seq(seq_scan.MODE_LINE, [b"keyword"])),
             ("line ^/ .php", seq(seq_scan.MODE_LINE, [b".php"], b"/"))])
     data = torch.from_numpy(corpus).to(dev)
-    needle_kernels(data, f"{CORPUS_MIB} MiB", k5=("multiline_php",),
+    needle_kernels(data, corpus, f"{CORPUS_MIB} MiB", k5=("multiline_php",),
                    k6=("multi_literal32",),
                    k7=[("multi 0.0", seq(seq_scan.MODE_MULTI, [b"0.0"]))],
                    headline=True)
@@ -650,25 +664,43 @@ def phase_kernels(base: bytes, corpus: np.ndarray):
                 library=lambda: torch.nonzero(smask))
     del smask
 
-    # K9 over break-at-match DFAs on the 4 MiB sample (the lanes after a
-    # match die: the fixpoint's dead cut), then over the fwd_all DFA of
-    # `\s\d\s` on the whole corpus, the shape of a FULL_SCAN is_match
+    # K9 at its split over break-at-match DFAs on the 4 MiB sample, with
+    # its two repair passes (there also unsplit), then over the fwd_all DFA
+    # of `\s\d\s` on the whole corpus, the shape of a FULL_SCAN is_match
+    # (its plain lane pass at k = 64 walks whole lanes for 25-55 s, so the
+    # repair passes are compared on the sample), then the settled scan of
+    # ip's fwd_break there: an early match, so the dead cut ends it after
+    # pass 0
     def match_kernel(name, kind, data, label, headline):
         n = int(data.shape[0])
         L, T, W, _ = cs.plan_geometry(n)
+        k = cs.lane_split(T, W)
         tiles = cs.make_word_tiles(data, L, T // 4)
-        args = match_args(name, kind, data, (L, T, W), tiles)
+        args = match_args(name, kind, data, (L, T, W), tiles, k)
+        mt = match_tables(name, kind)
+        print(f"[kernels] match_scan  {label}: split k={k}, {k * L} walkers "
+              f"of {T // k} bytes, table [{mt.S}, {mt.NSEG}], "
+              f"{cs.resident_warps(cs.MODE_MATCH, mt.S, mt.NSEG)} resident "
+              f"warps an SM")
         compare("match_scan", label,
                 lambda: cs.lane_walk_cuda(cs.MODE_MATCH, *args),
                 lambda: cs.lane_walk_plain(cs.MODE_MATCH, *args),
                 headline=headline, in_bytes=nbytes(*args))
+        if not headline:
+            repair_kernels("match_scan", cs.MODE_MATCH, mt,
+                           lambda kk: match_args(name, kind, data, (L, T, W),
+                                                 tiles, kk),
+                           sorted({1, k}), label)
+        return tiles
 
     for name in ("inner_keyword", "email", "ip"):
         match_kernel(name, "fwd_break", sample, f"{name} fwd_break 4 MiB",
                      False)
     data = torch.from_numpy(corpus).to(dev)
-    match_kernel("ws_digit_ws", "fwd_all", data,
-                 f"\\s\\d\\s {CORPUS_MIB} MiB", True)
+    tiles = match_kernel("ws_digit_ws", "fwd_all", data,
+                         f"\\s\\d\\s {CORPUS_MIB} MiB", True)
+    cut_case(compare, match_tables("ip", "fwd_break"), data, tiles)
+    del tiles
 
     # the window-flag scan: 2^12 starts read forwards on the sample, then
     # 2^16 starts over the whole corpus read backwards (find_first's
@@ -766,20 +798,78 @@ def flag_args(be, data, k=None):
     return (rsc.tables.packed_full, None, symt, Wr // 4, entries, offs, flim)
 
 
-def match_args(name, kind, data, geom, tiles):
-    """K9's arguments on `data` under geometry (L, T, W): pattern `name`'s
-    match tables of `kind` (fwd_all, fwd_break), first-pass entries."""
+def match_tables(name, kind):
+    """Pattern `name`'s K9 tables (dfa_scan.MatchTables) of `kind`
+    (fwd_all, fwd_break)."""
     import coregex_tpu_torch as ct
-    from coregex_tpu_torch.ops import count_scan as cs
     sc = ct.compile(PATTERNS[name], device=DEVICE).batch_engine() \
         ._chunk_scanner(kind)
     if sc is None:
         fail(f"{name}: no {kind} match tables")
-    mt = sc.mt
+    return sc.mt
+
+
+def match_args(name, kind, data, geom, tiles, k):
+    """K9's pass-0 arguments on `data` under geometry (L, T, W) at k
+    sub-lanes a lane: pattern `name`'s match tables of `kind`, first-pass
+    entries."""
+    from coregex_tpu_torch.ops import count_scan as cs
+    mt = match_tables(name, kind)
     L, T, W = geom
     e0, o0, lim = cs.first_pass_inputs(mt.starts, data, int(data.shape[0]),
-                                       L, T, W)
+                                       L, T, W, k)
     return (mt.packed, mt.segmap, tiles, W // 4, e0, o0, lim)
+
+
+def line_combine(sc, data, host, T: int, pnl, outs, label: str) -> None:
+    """K5's device combine (LineScanner.verdict) against the numpy
+    _combine over the same sub-lane outputs, read as k*L lanes of T/k
+    bytes in corpus order; fails if they differ."""
+    k, L = (int(x) for x in pnl.shape)
+    got = int(sc.verdict(data, T, pnl, *outs))
+    flat = [x.t().reshape(-1).cpu().numpy().astype(np.int64) for x in outs]
+    want = sc._combine(int(data.shape[0]), k * L, T // k, *flat, host)
+    if got != want:
+        fail(f"line_scan combine on {label}: device {got} != numpy {want}")
+    ms = cuda_ms(lambda: sc.verdict(data, T, pnl, *outs), 5)
+    print(f"[kernels] line_scan   combine {label}: device {got} == numpy "
+          f"_combine over {k * L} sub-lanes (tolerance 0), {ms:.3f} ms",
+          flush=True)
+
+
+def cut_case(compare, mt, data, tiles) -> None:
+    """The settled K9 scan (dfa_scan.match_full) of `data` at the main
+    path's split, kernel against the same fixpoint over the plain walk and
+    repair, for a break-at-match DFA whose first match is early: the dead
+    cut must end the kernel's scan after pass 0."""
+    from coregex_tpu_torch.ops import count_scan as cs
+    from coregex_tpu_torch.ops import dfa_scan
+    n = int(data.shape[0])
+    L, T, W, _ = cs.plan_geometry(n)
+    k = cs.lane_split(T, W)
+    args = (mt, data, tiles, n, L, T, W, k)
+
+    def plain():
+        walk, repair = cs.lane_walk, cs.lane_repair
+        cs.lane_walk = lambda mode, _c, *a: cs.lane_walk_plain(mode, *a)
+        cs.lane_repair = lambda mode, _c, whole, *a: cs.lane_repair_plain(
+            mode, whole, *a)
+        try:
+            return dfa_scan.match_full(*args)
+        finally:
+            cs.lane_walk, cs.lane_repair = walk, repair
+
+    c = dfa_scan.MATCH_KERNEL
+    before = c.launches
+    reset_passes(c)
+    dfa_scan.match_full(*args)
+    launches, subs, lanes = c.launches - before, c.sub_passes, c.lane_passes
+    print(f"[kernels] match_scan  ip fwd_break cut k={k}: {launches} launch, "
+          f"repair passes {subs}+{lanes}", flush=True)
+    if (launches, subs, lanes) != (1, 0, 0):
+        fail("the dead cut did not end ip's fwd_break scan after pass 0")
+    compare("match_scan", f"ip fwd_break cut k={k} {n / 2 ** 20:.0f} MiB",
+            lambda: dfa_scan.match_full(*args), plain)
 
 
 def split_args(d, data, geom, tiles, k):
@@ -797,7 +887,7 @@ def split_args(d, data, geom, tiles, k):
 
 
 def repair_case(mode, d, args):
-    """A K1-K3 repair pass's inputs: pass 0's outputs on `args`, whose
+    """A lane walk repair pass's inputs: pass 0's outputs on `args`, whose
     exits are replaced by random states at a tenth of the sub-lanes, so
     their successors walk.  Returns run(fn, whole): the sub-lane
     (whole=False) or lane pass through fn (lane_repair_cuda or
@@ -1322,6 +1412,7 @@ def phase_e2e_single_match(base: bytes, corpus: np.ndarray):
     import coregex_tpu_torch as ct
     from coregex_tpu_torch.ops.count_scan import (make_word_tiles,
                                                   plan_geometry)
+    from coregex_tpu_torch.ops.dfa_scan import MATCH_KERNEL
     from coregex_tpu_torch.utils.corpus_cache import device_corpus
 
     # 4 KiB: re backtracks quadratically on `.*lit` over a newline-free
@@ -1348,6 +1439,7 @@ def phase_e2e_single_match(base: bytes, corpus: np.ndarray):
                 first = time.perf_counter() - t0
                 best = float("inf")
                 for _ in range(2):
+                    reset_passes(MATCH_KERNEL)
                     t0 = time.perf_counter()
                     again = fn(arr)
                     best = min(best, time.perf_counter() - t0)
@@ -1357,7 +1449,8 @@ def phase_e2e_single_match(base: bytes, corpus: np.ndarray):
                     fail(f"{name} {which}: {what} {got} != oracle {want}")
                 calls += 3 if what == "find_index" else 0
                 line += (f" | {what} {str(got):26} {best * 1e3:9.3f} ms "
-                         f"(first {first:.2f} s)")
+                         f"(first {first:.2f} s, K9 repair passes "
+                         f"{passes(MATCH_KERNEL)})")
             print(line, flush=True)
         # the nullable find_index is the reference's FALLBACK: the host
         # answers it, by design

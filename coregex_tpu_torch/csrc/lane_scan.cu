@@ -21,14 +21,14 @@
 // bytes over 132 SMs that is about 0.5 ms of instruction issue, against
 // 0.48 ms to read the bytes once.  The card reaches that only with enough
 // walkers to cover the chain's latency: plan_geometry gives 8192 lanes, 62
-// threads an SM, and one thread a lane ran 30x above the bound.  So K1, K2
-// and K3 split each lane into k consecutive sub-lanes
+// threads an SM, and one thread a lane ran 30x above the bound.  So every
+// mode splits each lane into k consecutive sub-lanes
 // (count_scan.lane_split: k = 64 at 1536 MiB, 524,288 walkers), each
 // warming up over the W bytes before it; the repair passes then fix the
 // k-times more seams, walking only the sub-lanes (or, after a few passes,
 // whole lanes) whose entry differs from their predecessor's exit.  The
 // tables are small, so blocks stay resident by registers, not shared
-// memory.  K9 walks one thread a lane (k = 1).
+// memory.
 //
 // Device-memory traffic is one read of the word tiles (plus n/16 bytes of
 // flag words for K2/K3): sub-lane (j, l) reads words j*T4/k .. of lane l,
@@ -42,8 +42,9 @@
 //                       sub-lane j owns groups j*T4/(8k) .. (j+1)*T4/(8k) - 1
 //   counts, exits, sync, entries  [k, L]: row j = sub-lanes (j, .)
 //   offsets, limits  [L]; sub-lane j's limit = clamp(limits[l] - j*T/k, 0, T/k)
-//   K9: counts = set flags of the lane, aux [L] = the lane-local position of
-//   its last set flag (-1 if none), so callers need no pass over the words
+//   K9: counts = set flags of the sub-lane, aux [k, L] = the sub-lane-local
+//   position of its last set flag (-1 if none), so callers need no pass
+//   over the words
 // First pass: sub-lane (j, l) steps the W4 words before its own first word
 // (j = 0: lane l-1's last W4 words, lane 0 reading lane L-1's, which its
 // offset of W skips; the offset skips warmup position p < offsets[l] for
@@ -212,6 +213,7 @@ __global__ void __launch_bounds__(kThreads) lane_walk_kernel(
                      last, flagw, firstw);
       counts[i] = cnt;
       exits[i] = s;
+      if (MODE == kMatch) aux[i] = last;
     }
     return;
   }
@@ -282,7 +284,7 @@ int launch(const int32_t* packed, int S, int nseg, const int32_t* segmap,
   return (int)cudaGetLastError();
 }
 
-// K1-K3 dispatch over the pass
+// K1-K3 and K9 dispatch over the pass
 template <int MODE>
 int launch_split(int pass, const int32_t* packed, int S, int nseg,
                  const int32_t* segmap, const int32_t* tiles, int T4, int L,
@@ -354,22 +356,28 @@ int cgx_lane_flag(int pass, const int32_t* packed, int S, int nseg,
                              stream);
 }
 
-int cgx_lane_match(const int32_t* packed, int S, int nseg, const int32_t* segmap,
-                   const int32_t* tiles, int T4, int L, int W4,
-                   const int32_t* entries, const int32_t* offsets,
-                   const int32_t* limits, int32_t* counts, int32_t* exits,
-                   int32_t* sync, int32_t* flagw, int32_t* last, void* stream) {
-  return launch<kMatch, kFirst>(
-      packed, S, nseg, segmap, tiles, T4, L, W4, 1, entries, offsets, limits,
-      0, nullptr, counts, exits, sync, flagw, last, nullptr, stream);
+// K9: as K2, writing the match flag words and each sub-lane's last flag
+// position (`last`, [k, L]).
+int cgx_lane_match(int pass, const int32_t* packed, int S, int nseg,
+                   const int32_t* segmap, const int32_t* tiles, int T4, int L,
+                   int W4, int k, const int32_t* entries,
+                   const int32_t* offsets, const int32_t* limits, int first,
+                   const int32_t* prev, int32_t* counts, int32_t* exits,
+                   int32_t* sync, int32_t* flagw, int32_t* last,
+                   int32_t* walked, void* stream) {
+  return launch_split<kMatch>(pass, packed, S, nseg, segmap, tiles, T4, L,
+                              W4, k, entries, offsets, limits, first, prev,
+                              counts, exits, sync, flagw, last, walked,
+                              stream);
 }
 
 // Resident blocks of kThreads threads per SM for a K1 (mode 0), K2 (mode
-// 1) or K3 (mode 2) pass-0 launch on an [S, nseg] table.
+// 1), K3 (mode 2) or K9 (mode 3) pass-0 launch on an [S, nseg] table.
 int cgx_lane_occupancy(int mode, int S, int nseg, int* blocks) {
   if (mode == kCount) return occupancy<kCount>(S, nseg, blocks);
   if (mode == kSpan) return occupancy<kSpan>(S, nseg, blocks);
-  return occupancy<kFlag>(S, nseg, blocks);
+  if (mode == kFlag) return occupancy<kFlag>(S, nseg, blocks);
+  return occupancy<kMatch>(S, nseg, blocks);
 }
 
 const char* cgx_error_string(int e) {

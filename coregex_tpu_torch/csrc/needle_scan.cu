@@ -4,11 +4,12 @@
 //
 // Replaces three Pallas kernels of the JAX package:
 //   K5 line_scan.py:_line_kernel   lines holding a needle hit (optionally
-//      behind a (?m)^prefix): per-lane count of the commits at the lane's
-//      newlines after its first, and the lane-local maxima lnl (last
-//      newline), lp (last valid line start), lh (last qualifying hit) and
-//      mpre (last hit before the first newline); a host combine stitches
-//      the lanes exactly.
+//      behind a (?m)^prefix): per-sub-lane count of the commits at the
+//      sub-lane's newlines after its first, and the sub-lane-local maxima
+//      lnl (last newline), lp (last valid line start), lh (last qualifying
+//      hit) and mpre (last hit before the first newline); a running
+//      maximum over the sub-lanes in corpus order (line_scan.line_verdict)
+//      stitches each one's first line exactly.
 //   K6 line_scan.py:_hits_kernel   raw hits of a literal set with exact
 //      overlap detection: cnt, ov (a hit starts inside an earlier hit's
 //      reach in the sub-lane), fh (first hit), reach (last covered
@@ -43,23 +44,25 @@
 // with J (multi_literal32 on the bench corpus: 9.1 % of positions pass a
 // 2-byte filter, 3.4 % the 4-byte one, 2.9 % start a match).
 // The 8192-lane geometry leaves about 62 threads per SM when one thread
-// walks a lane, too few to cover that chain's latency: K5 and K7 do so.
-// K6 needs no fixpoint (its lanes carry no state), so it walks k sub-lanes
-// a lane (count_scan.lane_split: 64 at 1536 MiB, 524,288 walkers), the
-// j-th of lane l over words j*T4/k .. (j+1)*T4/k - 1 with adjacent threads
-// on adjacent lanes.  Its needle image (filter, buckets, slots) is built
-// once per call by a one-block kernel into device memory and copied into
-// each block's shared memory, not rebuilt by each of the 4096 blocks.
+// walks a lane, too few to cover that chain's latency: K7 does so.  K5 and
+// K6 need no fixpoint (their lanes carry no state, only running maxima of
+// positions), so they walk k sub-lanes a lane (count_scan.lane_split: 64
+// at 1536 MiB, 524,288 walkers), the j-th of lane l over words
+// j*T4/k .. (j+1)*T4/k - 1 with adjacent threads on adjacent lanes.  Their
+// needle image (filter, buckets, slots) is built once per call by a
+// one-block kernel into device memory and copied into each block's shared
+// memory, not rebuilt by each of the 4096 blocks.
 //
 // Layouts (int32, little-endian bytes within a word):
 //   tbl     [J, 8]   needle slot j: mask words 0-3, value words 0-3 of its
 //                    16-byte window at phase 0; lens [J] its byte length
 //   tiles   [T4, L]  word t of lane l = bytes l*T + 4t .. l*T + 4t + 3
-//   K6 outputs [k, L]: row j = sub-lanes (j, .)
+//   K5 pnl and outputs, K6 outputs [k, L]: row j = sub-lanes (j, .); K5's
+//   pnl: the byte before sub-lane (j, l) is a newline (set for (0, 0))
 // Stream word idx of lane l: idx < 0 reads the previous lane's word T4 + idx
 // (lane 0 reads lane L-1), idx >= T4 the next lane's word idx - T4 (zeros
-// after the last lane).  A K6 sub-lane's 16-byte look-ahead reads its own
-// lane's next words, and the last one's the next lane's.
+// after the last lane).  A K5 or K6 sub-lane's 16-byte look-ahead reads its
+// own lane's next words, and the last one's the next lane's.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -136,11 +139,13 @@ __device__ void load_needles(Needles& nd, const int32_t* __restrict__ tbl,
   __syncthreads();
 }
 
-// K6's needle image in device memory: one block builds it once per call.
+// K5's or K6's needle image in device memory: one block builds it once per
+// call, the filter and buckets over slots [0, nbucket) (K5: the needles,
+// not the anchored prefix slot jh, which is matched by its slot alone).
 __global__ void needles_kernel(const int32_t* __restrict__ tbl,
                                const int32_t* __restrict__ lens, int J,
-                               Needles* __restrict__ img) {
-  load_needles(*img, tbl, lens, J, J);
+                               int nbucket, Needles* __restrict__ img) {
+  load_needles(*img, tbl, lens, J, nbucket);
 }
 
 // Copies the image into a block's shared copy, 8 bytes a thread a step.
@@ -267,24 +272,28 @@ __device__ __forceinline__ int first_hit(const Needles& nd, uint64_t lo,
   return -1;
 }
 
-__global__ void line_kernel(const int32_t* __restrict__ tbl,
-                            const int32_t* __restrict__ lens, int J, int jh,
+__global__ void line_kernel(const Needles* __restrict__ img, int jh,
                             int anchored, int plen,
                             const int32_t* __restrict__ pnl,
                             const int32_t* __restrict__ tiles, int T4, int L,
-                            int32_t* __restrict__ cnt_o, int32_t* __restrict__ lnl_o,
-                            int32_t* __restrict__ lp_o, int32_t* __restrict__ lh_o,
+                            int k, int32_t* __restrict__ cnt_o,
+                            int32_t* __restrict__ lnl_o,
+                            int32_t* __restrict__ lp_o,
+                            int32_t* __restrict__ lh_o,
                             int32_t* __restrict__ mpre_o) {
   __shared__ Needles nd;
   __shared__ uint32_t st[12 * kThreads];
-  load_needles(nd, tbl, lens, J, jh);
-  const int l = blockIdx.x * blockDim.x + threadIdx.x;
-  if (l >= L) return;
+  copy_needles(nd, img);
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= k * L) return;
+  // sub-lane j of lane l: words t0 .. t0 + T4/k - 1, positions local to it
+  const int j = i / L, l = i - j * L;
+  const int t0 = j * (T4 / k);
   const Stage stage{st + threadIdx.x};
   // bit 0 of the next group's line starts: the byte before it is a newline
-  uint32_t carry = pnl[l] != 0;
+  uint32_t carry = pnl[i] != 0;
   int ln = kNeg, lh = kNeg, lp = kNeg, mpre = -1, cnt = 0;
-  scan_groups(tiles, T4, L, l, 0, T4,
+  scan_groups(tiles, T4, L, l, t0, t0 + T4 / k,
               [&](int g, const uint32_t (&w)[12], uint32_t valid) {
     uint32_t cand, nl;
     screen(nd, w, cand, nl);
@@ -311,7 +320,7 @@ __global__ void line_kernel(const int32_t* __restrict__ tbl,
     // the events in position order; a newline is never a hit or a start
     for (uint32_t e = hits | nl | lps; e; e &= e - 1) {
       const int q = __ffs(e) - 1;
-      const int p = 4 * g + q;
+      const int p = 4 * (g - t0) + q;
       if ((nl >> q) & 1) {
         cnt += (lh > ln && ln >= 0 && (!anchored || lp > ln)) ? 1 : 0;
         ln = p;
@@ -324,11 +333,11 @@ __global__ void line_kernel(const int32_t* __restrict__ tbl,
       if ((lps >> q) & 1) lp = p;
     }
   });
-  cnt_o[l] = cnt;
-  lnl_o[l] = ln;
-  lp_o[l] = lp;
-  lh_o[l] = lh;
-  mpre_o[l] = mpre;
+  cnt_o[i] = cnt;
+  lnl_o[i] = ln;
+  lp_o[i] = lp;
+  lh_o[i] = lh;
+  mpre_o[i] = mpre;
 }
 
 __global__ void hits_kernel(const Needles* __restrict__ img,
@@ -509,18 +518,26 @@ inline int blocks_for(int L) { return (L + kThreads - 1) / kThreads; }
 
 extern "C" {
 
+// K5 over k sub-lanes a lane: builds the needle image into img (the
+// filter and buckets over the jh needles), then walks; pnl and outputs
+// [k, L].
 int cgx_line_lanes(const int32_t* tbl, const int32_t* lens, int J, int jh,
                    int anchored, int plen, const int32_t* pnl,
-                   const int32_t* tiles, int T4, int L, int32_t* cnt,
-                   int32_t* lnl, int32_t* lp, int32_t* lh, int32_t* mpre,
-                   void* stream) {
-  line_kernel<<<blocks_for(L), kThreads, 0, (cudaStream_t)stream>>>(
-      tbl, lens, J, jh, anchored, plen, pnl, tiles, T4, L, cnt, lnl, lp, lh,
-      mpre);
+                   const int32_t* tiles, int T4, int L, int k, void* img,
+                   int32_t* cnt, int32_t* lnl, int32_t* lp, int32_t* lh,
+                   int32_t* mpre, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  Needles* nd = reinterpret_cast<Needles*>(img);
+  needles_kernel<<<1, kThreads, 0, st>>>(tbl, lens, J, jh, nd);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  line_kernel<<<blocks_for(k * L), kThreads, 0, st>>>(
+      nd, jh, anchored, plen, pnl, tiles, T4, L, k, cnt, lnl, lp, lh, mpre);
   return (int)cudaGetLastError();
 }
 
-// Bytes of K6's needle image (the img buffer of cgx_hits_lanes).
+// Bytes of K5's and K6's needle image (the img buffer of
+// cgx_line_lanes and cgx_hits_lanes).
 int cgx_needles_bytes(void) { return (int)sizeof(Needles); }
 
 // K6 over k sub-lanes a lane: builds the needle image into img, then walks;
@@ -531,7 +548,7 @@ int cgx_hits_lanes(const int32_t* tbl, const int32_t* lens, int J,
                    void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   Needles* nd = reinterpret_cast<Needles*>(img);
-  needles_kernel<<<1, kThreads, 0, st>>>(tbl, lens, J, nd);
+  needles_kernel<<<1, kThreads, 0, st>>>(tbl, lens, J, J, nd);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   hits_kernel<<<blocks_for(k * L), kThreads, 0, st>>>(nd, tiles, T4, L, k,

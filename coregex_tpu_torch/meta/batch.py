@@ -419,8 +419,6 @@ class BatchEngine:
             geom = plan_geometry(len(data))
             dev = device_corpus(data, self.device)
             tiles = self._word_tiles(data, *geom[:2])
-            if kind == "line":
-                return sc.count(dev, data, geom, tiles)
             if kind == "hits":
                 c = sc.count(dev, geom, tiles)
                 if c is None:

@@ -45,16 +45,16 @@ _SIGNATURES = {
     "cgx_lane_occupancy": [_I, _I, _I, ctypes.POINTER(ctypes.c_int)],
     "cgx_lane_flag": [_I, _P, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P, _I,
                       _P, _P, _P, _P, _P, _P, _P],
-    "cgx_lane_match": [_P, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
-                       _P, _P, _P, _P],
+    "cgx_lane_match": [_I, _P, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P,
+                       _I, _P, _P, _P, _P, _P, _P, _P, _P],
     "cgx_window_flags": [_P, _I, _I, _P, _P, _P, _P, ctypes.c_longlong, _I,
                          _P, _P, _I, _I, _P, _P, _P],
     "cgx_compact": [_P, ctypes.c_int64, _I, ctypes.c_int64, _I, _I, _P, _P,
                     _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P],
     "cgx_compact_exp": [_P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P,
                         _P, _I, _I, _I, _I, _P, _P, _P],
-    "cgx_line_lanes": [_P, _P, _I, _I, _I, _I, _P, _P, _I, _I, _P, _P, _P,
-                       _P, _P, _P],
+    "cgx_line_lanes": [_P, _P, _I, _I, _I, _I, _P, _P, _I, _I, _I, _P, _P,
+                       _P, _P, _P, _P, _P],
     "cgx_needles_bytes": [],
     "cgx_hits_lanes": [_P, _P, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "cgx_seq_lanes": [_I, _P, _P, _I, _I, _I, _I, _P, _I, _I, _I, _P, _P,

@@ -17,16 +17,16 @@ the previous sub-lane's exit, until none does, so the result equals the
 sequential scan's.  It runs on the host around the launches: one
 ``.item()`` sync per pass.
 
-The lane walk itself is shared with the span scan (K2), the flag scan (K3,
-split and repaired as K1) and the match scan (K9,
-``dfa_scan.ChunkScanner``): :func:`lane_walk`
+The lane walk itself is shared with the span scan (K2), the flag scan (K3)
+and the match scan (K9, ``dfa_scan.ChunkScanner``), each split and repaired
+as K1 (K9 with a dead cut, see :func:`split_fixpoint`): :func:`lane_walk`
 launches ``csrc/lane_scan.cu`` for CUDA tensors and
 runs :func:`lane_walk_plain`, the reference's ``impl="gather"`` loop, for CPU
 tensors.  The TPU kernel's ``packed_rc`` row/column merge only served the
 Mosaic select tree and is left out: the CUDA kernel reads the full
 ``[S, NSEG]`` table from shared memory.  Every lane walk takes entries and
 gives counts, exits and syncs of shape [k, L], row j holding sub-lane j of
-each lane; K9 walks k = 1.
+each lane.
 """
 
 from __future__ import annotations
@@ -36,13 +36,14 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..dfa.countdfa import CountDFA
 from ..dfa.dense import CTX_NL, CTX_OTHER, CTX_SOT, CTX_WORD
 from . import _build
 
 MODE_COUNT, MODE_SPAN, MODE_FLAG, MODE_MATCH = 0, 1, 2, 3
-# K1-K3 launches: pass 0 (with warmup), a pass over the unsettled
+# K1-K3 and K9 launches: pass 0 (with warmup), a pass over the unsettled
 # sub-lanes, a pass over the lanes holding one (csrc/lane_scan.cu's Pass)
 PASS_FIRST, PASS_SUB, PASS_LANE = 0, 1, 2
 THREADS = 128       # threads a block (lane_scan.cu's kThreads)
@@ -50,7 +51,8 @@ THREADS = 128       # threads a block (lane_scan.cu's kThreads)
 # a block stages the packed table (plus the 256-entry byte map) in shared
 # memory; an H100 block can hold at most this many bytes
 SMEM_LIMIT = 232448
-# most sub-lanes a lane for K1-K3 and K6 (lane_split): 64 sub-lanes of 3 KiB
+# most sub-lanes a lane for K1-K3, K5, K6 and K9 (lane_split): 64 sub-lanes
+# of 3 KiB
 # at 1536 MiB, 524,288 walkers, about two waves of resident threads; 16
 # and 32 were slower on the H100 (PERF.md)
 MAX_SPLIT = 64
@@ -168,7 +170,8 @@ def make_word_tiles(data_u8: torch.Tensor, L: int, T4: int) -> torch.Tensor:
 
 
 def lane_split(T: int, W: int) -> int:
-    """Sub-lanes per lane for K1-K3 and K6 under a geometry of T-byte lanes
+    """Sub-lanes per lane for the lane walks and the needle scans K5 and K6
+    under a geometry of T-byte lanes
     and a W-byte warmup: the largest power of two k <= MAX_SPLIT that
     divides T/32, the lane's flag groups, with T/k >= 4W, so the warmup
     stays within a quarter of a sub-lane's walk.  1 below T = 8W."""
@@ -263,13 +266,12 @@ def lane_walk_plain(mode: int, packed, segmap, tiles, W4: int, entries,
                     offsets, limits):
     """Plain torch lane walk (the reference's impl="gather" scan_once), one
     torch step per byte of a sub-lane.  entries [k, L] for k sub-lanes a
-    lane (k > 1 for K1-K3 only); offsets and limits [L]; W4 = 0 walks no
-    warmup (entries are the sub-lanes' start states).  Returns
-    (counts, exits, sync, flagw, aux), the first three [k, L]; flagw is
-    [T4/8, L] int32 words (None for MODE_COUNT); aux is the first-flag
-    words [T4/8, L] of MODE_SPAN, the lane-local position of each lane's
-    last set flag [L] (-1 if none) of MODE_MATCH, else None.  MODE_MATCH
-    counts set flags."""
+    lane; offsets and limits [L]; W4 = 0 walks no warmup (entries are the
+    sub-lanes' start states).  Returns (counts, exits, sync, flagw, aux),
+    the first three [k, L]; flagw is [T4/8, L] int32 words (None for
+    MODE_COUNT); aux is the first-flag words [T4/8, L] of MODE_SPAN, the
+    sub-lane-local position of each sub-lane's last set flag [k, L] (-1 if
+    none) of MODE_MATCH, else None.  MODE_MATCH counts set flags."""
     T4, L = (int(x) for x in tiles.shape)
     k = int(entries.shape[0])
     T4k = T4 // k
@@ -301,6 +303,8 @@ def lane_walk_plain(mode: int, packed, segmap, tiles, W4: int, entries,
         flagw = _lane_words(flagw, k, L)
     if mode == MODE_SPAN:
         aux = _lane_words(aux, k, L)
+    elif mode == MODE_MATCH:
+        aux = aux.reshape(k, L)
     return (cnt.to(torch.int32).reshape(k, L),
             s.to(torch.int32).reshape(k, L), sync.reshape(k, L), flagw, aux)
 
@@ -329,10 +333,10 @@ def lane_repair_plain(mode: int, whole: bool, packed, segmap, tiles,
     """One repair pass of the plain version, in place: every unsettled
     sub-lane (whole=False), or every lane holding one (whole=True), walks
     again from the previous exit in `prev` [k, L], with no warmup; the
-    walkers rewrite their sync, counts and flag groups, `exits` gets every
-    sub-lane's exit (the settled ones, and the ones past the corpus, which
-    nothing reads, copy theirs from prev), and walked[0] the number of
-    walkers."""
+    walkers rewrite their sync, counts, flag groups and (MODE_MATCH) last
+    flag, `exits` gets every sub-lane's exit (the settled ones, and the
+    ones past the corpus, which nothing reads, copy theirs from prev), and
+    walked[0] the number of walkers."""
     T4, L = (int(x) for x in tiles.shape)
     k = int(prev.shape[0])
     T4k, G = T4 // k, T4 // k // 8
@@ -343,11 +347,13 @@ def lane_repair_plain(mode: int, whole: bool, packed, segmap, tiles,
     want = want_of(prev, first)
     bad = (lim > 0) & (sync != want)
 
-    def commit(rows, sel, c, s_in, s_out, fw, gw):
+    def commit(rows, sel, c, s_in, s_out, fw, a):
         sync[rows] = torch.where(sel, s_in.to(torch.int32), sync[rows])
         counts[rows] = torch.where(sel, c.to(torch.int32), counts[rows])
         exits[rows] = torch.where(sel, s_out.to(torch.int32), prev[rows])
-        for out, w in ((flagw, fw), (aux, gw)):
+        if mode == MODE_MATCH:
+            aux[rows] = torch.where(sel, a.reshape(sel.shape), aux[rows])
+        for out, w in ((flagw, fw), (aux, a if mode == MODE_SPAN else None)):
             if w is not None:
                 lw = _lane_words(w, int(sel.numel()) // L, L).reshape(
                     -1, G, L)
@@ -360,20 +366,20 @@ def lane_repair_plain(mode: int, whole: bool, packed, segmap, tiles,
         lanes = bad.any(dim=0)
         s = want[0].long()
         for j in range(k):
-            c, s2, fw, gw = _walk_plain(
+            c, s2, fw, a = _walk_plain(
                 mode, tbl, seg, nseg, lambda t: tiles[j * T4k + t], T4k, s,
                 lim[j])
-            commit(j, lanes, c, s, s2, fw, gw if mode == MODE_SPAN else None)
+            commit(j, lanes, c, s, s2, fw, a)
             s = s2
         walked.fill_(int(lanes.sum()))
     else:
         tv = tiles.view(k, T4k, L)
         s = want.reshape(-1).long()
-        c, s2, fw, gw = _walk_plain(
+        c, s2, fw, a = _walk_plain(
             mode, tbl, seg, nseg, lambda t: tv[:, t].reshape(-1), T4k, s,
             lim.reshape(-1))
         commit(slice(None), bad, c.reshape(k, L), s.reshape(k, L),
-               s2.reshape(k, L), fw, gw if mode == MODE_SPAN else None)
+               s2.reshape(k, L), fw, a)
         walked.fill_(int(bad.sum()))
 
 
@@ -401,10 +407,10 @@ def _check_lane_args(mode, packed, segmap, tiles, W4, entries, offsets,
     if entries.dim() != 2 or int(entries.shape[1]) != L:
         raise ValueError(f"entries must have shape (k, {L})")
     k = int(entries.shape[0])
-    if k > 1 and (mode == MODE_MATCH or k & (k - 1) or (T4 // 8) % k):
-        raise ValueError(f"entries of shape {tuple(entries.shape)}: only "
-                         f"K1, K2 and K3 split lanes, into a power of two "
-                         f"that divides T4/8 = {T4 // 8}")
+    if k & (k - 1) or (T4 // 8) % k:
+        raise ValueError(f"entries of shape {tuple(entries.shape)}: lanes "
+                         f"split into a power of two that divides T4/8 = "
+                         f"{T4 // 8}")
     for name, t in (("offsets", offsets), ("limits", limits)):
         if tuple(t.shape) != (L,):
             raise ValueError(f"{name} must have shape ({L},)")
@@ -431,7 +437,7 @@ def lane_walk_cuda(mode: int, packed, segmap, tiles, W4: int, entries,
     if mode == MODE_SPAN:
         aux = torch.empty_like(flagw)
     elif mode == MODE_MATCH:
-        aux = torch.empty(L, dtype=torch.int32, device=dev)
+        aux = torch.empty(entries.shape, dtype=torch.int32, device=dev)
     lib = _build.lib()
     p = _build.ptr
     with torch.cuda.device(dev):
@@ -448,9 +454,9 @@ def lane_walk_cuda(mode: int, packed, segmap, tiles, W4: int, entries,
                 p(exits), p(sync), p(flagw), p(aux), None, st)
         elif mode == MODE_MATCH:
             rc = lib.cgx_lane_match(
-                p(packed), S, nseg, p(segmap), p(tiles), T4, L, W4,
-                p(entries), p(offsets), p(limits), p(counts), p(exits),
-                p(sync), p(flagw), p(aux), st)
+                PASS_FIRST, p(packed), S, nseg, p(segmap), p(tiles), T4, L,
+                W4, k, p(entries), p(offsets), p(limits), 0, None, p(counts),
+                p(exits), p(sync), p(flagw), p(aux), None, st)
         else:
             rc = lib.cgx_lane_flag(
                 PASS_FIRST, p(packed), S, nseg, p(tiles), T4, L, W4, k,
@@ -463,10 +469,8 @@ def lane_walk_cuda(mode: int, packed, segmap, tiles, W4: int, entries,
 def lane_repair_cuda(mode: int, whole: bool, packed, segmap, tiles,
                      first: int, limits, prev, exits, counts, sync, flagw,
                      aux, walked):
-    """Launch one repair pass of csrc/lane_scan.cu (K1, K2 or K3); same
+    """Launch one repair pass of csrc/lane_scan.cu (K1, K2, K3 or K9); same
     in-place outputs as lane_repair_plain."""
-    if mode == MODE_MATCH:
-        raise ValueError("only K1, K2 and K3 take repair passes")
     _check_lane_args(mode, packed, segmap, tiles, 1, prev, limits, limits)
     for name, t in (("exits", exits), ("counts", counts), ("sync", sync)):
         if (t.shape != prev.shape or t.dtype != torch.int32
@@ -489,6 +493,11 @@ def lane_repair_cuda(mode: int, whole: bool, packed, segmap, tiles,
                 p(sync), p(walked), st)
         elif mode == MODE_SPAN:
             rc = lib.cgx_lane_span(
+                how, p(packed), S, nseg, p(segmap), p(tiles), T4, L, 0, k,
+                None, None, p(limits), first, p(prev), p(counts), p(exits),
+                p(sync), p(flagw), p(aux), p(walked), st)
+        elif mode == MODE_MATCH:
+            rc = lib.cgx_lane_match(
                 how, p(packed), S, nseg, p(segmap), p(tiles), T4, L, 0, k,
                 None, None, p(limits), first, p(prev), p(counts), p(exits),
                 p(sync), p(flagw), p(aux), p(walked), st)
@@ -529,9 +538,9 @@ def lane_repair(mode: int, counter: LaunchCounter, whole: bool, *args):
 
 
 def resident_warps(mode: int, S: int, nseg: int) -> int:
-    """Warps of a K1 (MODE_COUNT), K2 (MODE_SPAN) or K3 (MODE_FLAG) pass 0
-    on an [S, nseg] table that one SM holds at once (the CUDA occupancy
-    calculator)."""
+    """Warps of a K1 (MODE_COUNT), K2 (MODE_SPAN), K3 (MODE_FLAG) or K9
+    (MODE_MATCH) pass 0 on an [S, nseg] table that one SM holds at once
+    (the CUDA occupancy calculator)."""
     blocks = ctypes.c_int(0)
     _build.check(_build.lib().cgx_lane_occupancy(
         mode, S, nseg, ctypes.byref(blocks)), "lane_scan")
@@ -611,11 +620,11 @@ def repair_fixpoint(scan_once, entries0, offsets0, first_entry, real,
 
 def split_fixpoint(mode: int, counter: LaunchCounter, d: "DeviceCountDFA",
                    tiles, W: int, entries0, offsets0, limits,
-                   max_repair: int):
-    """K1, K2 or K3 over the sub-lanes of entries0 [k, L], repaired until
-    every real sub-lane's sync equals the previous sub-lane's exit (d.sot
-    for sub-lane (0, 0)).  d holds the walk's tables: packed, segmap (None
-    for K3) and sot.  W = 0 walks pass 0 with no warmup.  Returns
+                   max_repair: int, dead: Optional[int] = None):
+    """K1, K2, K3 or K9 over the sub-lanes of entries0 [k, L], repaired
+    until every real sub-lane's sync equals the previous sub-lane's exit
+    (d.sot for sub-lane (0, 0)).  d holds the walk's tables: packed, segmap
+    (None for K3) and sot.  W = 0 walks pass 0 with no warmup.  Returns
     ((counts, exits, sync, flagw, aux), converged), the first three [k, L].
 
     Pass 0 walks every sub-lane after its warmup.  Each repair pass walks
@@ -631,19 +640,33 @@ def split_fixpoint(mode: int, counter: LaunchCounter, d: "DeviceCountDFA",
     lane at an exact state, so it makes at least one more lane exact: at
     most L lane passes settle any input, as the unsplit repair's L
     rescans, and each walks only the lanes that need it.  At most
-    max_repair passes walk; converged says whether the last one settled."""
+    max_repair passes walk; converged says whether the last one settled.
+
+    dead (K9): a state that is absorbing and raises no flag.  Then every
+    pass, pass 0 included, ends in the host sync of _finished, which also
+    cuts the scan at an exact dead sub-lane; a repair pass runs only when
+    a sub-lane is unsettled, so it always walks and its walkers' count is
+    not read.  Without the cut a break-at-match DFA that dies early takes
+    SUB_PASSES passes, then up to L lane passes that each carry the dead
+    state one lane further."""
     counts, exits, sync, flagw, aux = lane_walk(
         mode, counter, d.packed, d.segmap, tiles, W // 4, entries0, offsets0,
         limits)
     spare = torch.empty_like(exits)
     walked = torch.zeros(1, dtype=torch.int32, device=tiles.device)
     whole = int(entries0.shape[0]) == 1
+    T = int(tiles.shape[0]) * 4
     passes = subs = 0
-    while passes < max_repair:
+    while True:
+        if dead is not None and _finished(counts, exits, sync, flagw, aux,
+                                          limits, d.sot, T, dead):
+            return (counts, exits, sync, flagw, aux), True
+        if passes >= max_repair:
+            break
         lane_repair(mode, counter, whole, d.packed, d.segmap, tiles, d.sot,
                     limits, exits, spare, counts, sync, flagw, aux, walked)
         exits, spare = spare, exits
-        if int(walked[0]) == 0:
+        if dead is None and int(walked[0]) == 0:
             return (counts, exits, sync, flagw, aux), True
         passes += 1
         if whole:
@@ -652,9 +675,35 @@ def split_fixpoint(mode: int, counter: LaunchCounter, d: "DeviceCountDFA",
             counter.sub_passes += 1
             subs += 1
             whole = subs >= SUB_PASSES
-    T = int(tiles.shape[0]) * 4
     settled_now = not bool(unsettled(exits, sync, limits, d.sot, T).any())
     return (counts, exits, sync, flagw, aux), settled_now
+
+
+def _finished(counts, exits, sync, flagw, last, limits, first: int, T: int,
+              dead: int) -> bool:
+    """Whether a K9 scan is done, from one host sync: every real sub-lane
+    is settled, or the first real sub-lane (in corpus order, q = l*k + j)
+    that exits `dead` comes before the first unsettled one.  Its exit is
+    then exact, so every later sub-lane is set, in place, to what the
+    absorbing state gives: no flag words, count 0, last -1, exit `dead`
+    (the cut).  The limits are first_pass_inputs': they sum to n, and the
+    real sub-lanes are those with q*T/k < n."""
+    k, L = (int(x) for x in exits.shape)
+    q = torch.arange(k * L, device=exits.device)
+    real = q * (T // k) < limits.sum()
+    ex = exits.t().reshape(-1)
+    want = F.pad(ex[:-1], (1, 0), value=first)
+    bad = torch.where(real & (sync.t().reshape(-1) != want), q, k * L)
+    died = torch.where(real & (ex == dead), q, k * L)
+    fb, fd = torch.stack([bad.min(), died.min()]).tolist()
+    if fd < fb:
+        after = (q > fd).view(L, k).t()
+        counts.masked_fill_(after, 0)
+        last.masked_fill_(after, -1)
+        exits.masked_fill_(after, dead)
+        flagw.view(k, -1, L).masked_fill_(after[:, None, :], 0)
+        return True
+    return fb == k * L
 
 
 def settled(converged: bool, what: str) -> None:

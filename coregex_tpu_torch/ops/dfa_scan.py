@@ -16,16 +16,18 @@ Ports from ``coregex_tpu/ops/dfa_scan.py``:
   (``pallas_call`` at :101), a select tree over a 4-byte class stream, or
   as the XLA ``_chunk_scan_full``; here it is K1's lane walk in
   ``MODE_MATCH`` (``csrc/lane_scan.cu`` ``cgx_lane_match``) over the
-  corpus word tiles: the match flag of every position below the lane's
-  limit as bit words, the lane's flag count and last flag position, exits
-  and sync.  K9's ``offsets`` are the walk's warmup offsets and its
-  ``true_steps`` the per-lane limits.  Lanes follow ``plan_geometry`` (at
-  most 8192, where the reference's ``_plan_geometry`` takes up to 65536);
-  settled results do not depend on the geometry.  The reference splits
-  scans past ``SEG_LIMIT`` = 2^29 bytes only for its remote compiler; the
-  port scans any corpus in one pass.
+  corpus word tiles, split as K1 into k = ``lane_split(T, W)`` sub-lanes a
+  lane and repaired by ``count_scan.split_fixpoint``: the match flag of
+  every position below the lane's limit as bit words, each sub-lane's
+  flag count and last flag position, exits and sync.  K9's ``offsets``
+  are the walk's warmup offsets and its ``true_steps`` the per-lane
+  limits.  Lanes follow ``plan_geometry`` (at most 8192, where the
+  reference's ``_plan_geometry`` takes up to 65536); settled results do
+  not depend on the geometry.  The reference splits scans past
+  ``SEG_LIMIT`` = 2^29 bytes only for its remote compiler; the port scans
+  any corpus in one pass.
 * ``flags_count_upto`` (:432-442) and ``flags_last`` (:445-451), from the
-  per-lane counts and last positions.
+  sub-lanes' counts and last positions.
 * ``_window_scan_flags`` (:626-674), a ``lax.scan`` loop with no Pallas
   kernel, as ``window_flags``: ``csrc/window_scan.cu``
   ``cgx_window_flags``, one thread per anchored run.
@@ -50,10 +52,11 @@ from ..dfa.dense import CTX_SOT, DEAD, DenseDFA
 from . import _build
 from .bytescan import _bucket
 from .compact2 import pack_words
-from .count_scan import (MODE_MATCH, LaunchCounter, _byte_ctx,
-                         device_table, first_pass_inputs, lane_walk,
+from .count_scan import (MODE_MATCH, SUB_PASSES, LaunchCounter, _byte_ctx,
+                         device_table, first_pass_inputs, lane_split,
                          make_word_tiles, plan_geometry, require_fits,
-                         segment_map, state_at_end, table_fits)
+                         segment_map, settled, split_fixpoint, state_at_end,
+                         table_fits)
 from .span_scan import to_global
 
 MATCH_KERNEL = LaunchCounter("match_scan")
@@ -97,10 +100,10 @@ class DFATables:
 
 
 class MatchTables:
-    """The packed match table, byte map, EOI flags [S, 4] and start states
-    [4] of a DFATables on a torch device: the inputs of K9 and of the
-    window scan.  Raises ValueError on CUDA when the table is too large
-    for the kernels."""
+    """The packed match table, byte map, EOI flags [S, 4], start states
+    [4] and true start state (sot) of a DFATables on a torch device: the
+    inputs of K9 and of the window scan.  Raises ValueError on CUDA when
+    the table is too large for the kernels."""
 
     def __init__(self, t: DFATables, device):
         self.device = torch.device(device)
@@ -110,68 +113,40 @@ class MatchTables:
         self.segmap = device_table(t.segmap, self.device)
         self.eoi = device_table(t.match_eoi.astype(np.int32), self.device)
         self.starts = device_table(t.host_starts, self.device)
+        self.sot = int(t.host_starts[CTX_SOT])
 
 
 # ---------------------------------------------------------------------------
 # The chunked match scan (K9)
 # ---------------------------------------------------------------------------
 
-def match_lanes(packed, segmap, tiles, W4, entries, offsets, limits):
-    """K9: (flagw, counts, last, exits, sync) of one match-scan pass, one
-    walker a lane; flagw [T4/8, L] time-major words, counts the lanes' set
-    flags, last the lane-local position of each lane's last set flag (-1
-    if none); entries and the last four [L]."""
-    counts, exits, sync, fw, last = lane_walk(
-        MODE_MATCH, MATCH_KERNEL, packed, segmap, tiles, W4,
-        entries.reshape(1, -1), offsets, limits)
-    return fw, counts[0], last, exits[0], sync[0]
-
-
 def match_full(mt: MatchTables, data_u8, tiles, n: int, L: int, T: int,
-               W: int):
-    """One settled match scan: (flagw, counts, last, exits) with every lane
-    exact.  The repair fixpoint of ``count_scan.repair_fixpoint`` rescans
-    until each real lane's post-warmup state equals the previous lane's
-    exit, with one cut: a lane that ends DEAD on the exact chain ends the
-    scan, since DEAD is absorbing and raises no flag, so the lanes after it
-    are DEAD with no flags and are set so.  Without the cut a break-at-match
-    DFA that dies in an early lane needs one rescan per later lane to carry
-    DEAD along (the reference gives up after 4 and scans on its host).
-    Each pass makes at least one more lane exact, so the loop ends within
-    L passes; it syncs once per pass."""
-    dev = tiles.device
-    W4 = W // 4
+               W: int, k: int):
+    """One settled match scan over k sub-lanes a lane: (flagw, counts,
+    last, exits) with every sub-lane exact, the last three [k, L].  The
+    fixpoint (``count_scan.split_fixpoint``) walks again only unsettled
+    sub-lanes, then lanes, with one cut: a sub-lane that ends DEAD on the
+    exact chain ends the scan, since DEAD is absorbing and raises no flag,
+    so the sub-lanes after it are DEAD with no flags and are set so.  The
+    cut is tested with the settling in each pass's one host sync, pass 0
+    included, so an early match ends a break-at-match scan after pass 0
+    (the reference gives up after 4 rescans and scans on its host)."""
     entries, offsets, limits = first_pass_inputs(mt.starts, data_u8, n, L,
-                                                 T, W)
-    lane_ids = torch.arange(L, dtype=torch.int64, device=dev)
-    real = (lane_ids * T) < n
-    sot = mt.starts[CTX_SOT].reshape(1)
-    while True:
-        fw, counts, last, exits, sync = match_lanes(
-            mt.packed, mt.segmap, tiles, W4, entries, offsets, limits)
-        want = torch.cat([sot, exits[:-1]])
-        first_bad = torch.where(real & (want != sync), lane_ids, L).min()
-        first_dead = torch.where(real & (exits == DEAD), lane_ids, L).min()
-        fb, fd = torch.stack([first_bad, first_dead]).tolist()
-        if fd < fb:
-            if fd + 1 < L:
-                counts[fd + 1:] = 0
-                last[fd + 1:] = -1
-                exits[fd + 1:] = DEAD
-                fw[:, fd + 1:] = 0
-            return fw, counts, last, exits
-        if fb >= L:
-            return fw, counts, last, exits
-        entries = want.contiguous()
-        offsets = torch.full_like(offsets, W)
+                                                 T, W, k)
+    (counts, exits, _sync, fw, last), conv = split_fixpoint(
+        MODE_MATCH, MATCH_KERNEL, mt, tiles, W, entries, offsets, limits,
+        L + SUB_PASSES, dead=DEAD)
+    settled(conv, "match scan")
+    return fw, counts, last, exits
 
 
 class MatchScan(NamedTuple):
-    """A settled match scan of n bytes under geometry (L, T)."""
+    """A settled match scan of n bytes under geometry (L, T), k sub-lanes
+    a lane (row j of the [k, L] outputs: sub-lanes (j, .))."""
     flagw: torch.Tensor     # [T4/8, L] time-major flag words
-    counts: torch.Tensor    # [L] set flags per lane
-    last: torch.Tensor      # [L] lane-local last flag position or -1
-    exits: torch.Tensor     # [L] lane exit states
+    counts: torch.Tensor    # [k, L] set flags per sub-lane
+    last: torch.Tensor      # [k, L] sub-lane-local last flag position or -1
+    exits: torch.Tensor     # [k, L] sub-lane exit states
     n: int
     L: int
     T: int
@@ -185,18 +160,21 @@ def flags_count_upto(scan: MatchScan) -> torch.Tensor:
 
 
 def flags_last(scan: MatchScan) -> torch.Tensor:
-    """Largest set flag offset < n, or -1, as a 0-dim int64 device
-    tensor."""
-    lanes = torch.arange(scan.L, dtype=torch.int64, device=scan.last.device)
-    pos = torch.where(scan.last >= 0, lanes * scan.T + scan.last, -1)
-    return pos.max()
+    """Largest set flag offset < n, or -1, as a 0-dim int64 device tensor:
+    sub-lane (j, l) starts at l*T + j*T/k."""
+    k = int(scan.last.shape[0])
+    dev = scan.last.device
+    base = (torch.arange(scan.L, dtype=torch.int64, device=dev)[None, :]
+            * scan.T + torch.arange(k, dtype=torch.int64,
+                                    device=dev)[:, None] * (scan.T // k))
+    return torch.where(scan.last >= 0, base + scan.last, -1).max()
 
 
 def exit_at_end(scan: MatchScan) -> torch.Tensor:
     """The exact state at offset n (0-dim device tensor): the exit of the
-    lane holding byte n-1.  The reference replays that lane's tail on its
-    host (:378-396); the lanes here freeze at their limits."""
-    return state_at_end(scan.exits[None], scan.n, scan.L, scan.T)
+    sub-lane holding byte n-1.  The reference replays that lane's tail on
+    its host (:378-396); the lanes here freeze at their limits."""
+    return state_at_end(scan.exits, scan.n, scan.L, scan.T)
 
 
 class ChunkScanner:
@@ -211,14 +189,15 @@ class ChunkScanner:
     def scan_device(self, data_dev: torch.Tensor,
                     geometry: Optional[Tuple[int, int, int, int]] = None,
                     tiles: Optional[torch.Tensor] = None) -> MatchScan:
-        """The settled scan of a non-empty device corpus; `tiles` are its
-        word tiles under the geometry (built when None)."""
+        """The settled scan of a non-empty device corpus over
+        lane_split(T, W) sub-lanes a lane; `tiles` are its word tiles under
+        the geometry (built when None)."""
         n = int(data_dev.shape[0])
         L, T, W, _Lc = geometry or plan_geometry(n)
         if tiles is None:
             tiles = make_word_tiles(data_dev, L, T // 4)
         fw, counts, last, exits = match_full(self.mt, data_dev, tiles, n, L,
-                                             T, W)
+                                             T, W, lane_split(T, W))
         return MatchScan(fw, counts, last, exits, n, L, T)
 
     def scan(self, data_dev: torch.Tensor) -> Tuple[np.ndarray, int]:

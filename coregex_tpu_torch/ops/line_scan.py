@@ -3,13 +3,14 @@ literal set with exact overlap detection (K6).
 
 Ports ``coregex_tpu/ops/line_scan.py``: ``LineScanner`` with ``_combine``
 (:268-400) and ``HitsScanner`` (:536-611).  Both kernels are exact in one
-launch: K5 keeps three running maxima per lane (last newline, last valid
-line start, last qualifying hit) and counts the commits at the lane's
-newlines after its first; the host combine stitches each lane's first line
-from O(1) outputs per lane.  K6 counts raw hits and flags a hit that starts
-inside an earlier hit's reach; on an overlap the caller counts with K7.  K6
-walks k = ``lane_split(T, W)`` sub-lanes a lane, as K1 does, and its
-outputs combine on the device (``hits_verdict``): one host sync a count.
+launch: K5 keeps three running maxima per sub-lane (last newline, last
+valid line start, last qualifying hit) and counts the commits at the
+sub-lane's newlines after its first; the combine stitches each sub-lane's
+first line from O(1) outputs per sub-lane.  K6 counts raw hits and flags a
+hit that starts inside an earlier hit's reach; on an overlap the caller
+counts with K7.  Both walk k = ``lane_split(T, W)`` sub-lanes a lane, as K1
+does, and their outputs combine on the device (``LineScanner.verdict``,
+``hits_verdict``): one host sync a count.
 
 The wrappers launch ``csrc/needle_scan.cu`` for CUDA tensors and run the
 plain versions for CPU tensors: the reference's running-max formulation in
@@ -17,10 +18,11 @@ torch (``torch.cummax`` along the time axis of [positions, L] planes), in row
 chunks whose maxima carry from one chunk to the next.  Needle tables,
 lookahead and scope gates are those of ``seq_scan.py``.
 
-Changes from the reference: the anchored prefix check at the lane bases is
-one gather of plen bytes per lane instead of a Python loop over the lanes,
-the cross-lane overlap check an exclusive running max over the sub-lanes
-on the device, and the TPU tile-row tuning variable is gone.
+Changes from the reference: the combines run over the sub-lanes on the
+device, with the anchored prefix check at the sub-lane bases one gather of
+plen bytes per sub-lane instead of a Python loop over the lanes (the host
+``_combine`` stays as the plain reference), and the TPU tile-row tuning
+variable is gone.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from . import _build
 from .count_scan import (LaunchCounter, lane_split, make_word_tiles,
@@ -56,13 +59,54 @@ def _chunks(T4: int, L: int):
         yield r0, min(r0 + step, T4)
 
 
+def _sub_lane_tiles(tiles, k: int):
+    """The tiles [T4, L] re-laid as k*L lanes of T4/k words, column l*k + j
+    holding sub-lane (j, l): the one-walker plain scans then walk the
+    sub-lanes in corpus order, and a lane's next lane is the next
+    sub-lane."""
+    T4, L = (int(x) for x in tiles.shape)
+    return tiles.reshape(k, T4 // k, L).permute(1, 2, 0).reshape(
+        T4 // k, L * k).contiguous()
+
+
+def _from_sub_lanes(x, k: int):
+    """[k*L] outputs of the re-laid sub-lanes -> [k, L], row j = sub-lanes
+    (j, .)."""
+    return x.reshape(-1, k).t().contiguous()
+
+
+def _running_max(x, lo: int):
+    """Inclusive running max of x [..., L, k] in corpus order (row by row,
+    each leading index on its own).  It takes two levels, along each row
+    and then over the rows' maxima: torch.cummax along one 524,288-entry
+    row took 1.4 ms on an H100, as long as K6 itself."""
+    incl = torch.cummax(x, -1).values
+    rows = torch.cummax(incl[..., -1], -1).values
+    before = F.pad(rows[..., :-1], (1, 0), value=lo)
+    return torch.maximum(incl, before[..., None])
+
+
+def _exclusive(incl, lo: int):
+    """The exclusive running max [..., L, k] from an inclusive one."""
+    flat = incl.flatten(-2)
+    return F.pad(flat[..., :-1], (1, 0), value=lo).view(incl.shape)
+
+
+def _sub_lane_bases(L: int, T: int, k: int, device):
+    """[L, k] int64: sub-lane (j, l) starts at byte l*T + j*T/k, the
+    (l*k + j)-th sub-lane in corpus order."""
+    return torch.arange(k * L, dtype=torch.int64, device=device).view(
+        L, k) * (T // k)
+
+
 # ---------------------------------------------------------------------------
 # K5
 # ---------------------------------------------------------------------------
 
-def line_lanes_plain(tbl, lens, jh: int, anchored: bool, plen: int, pnl,
-                     tiles):
-    """Plain torch K5: (cnt, lnl, lp, lh, mpre) [L] int32."""
+def _line_plain(tbl, lens, jh: int, anchored: bool, plen: int, pnl,
+                tiles):
+    """Plain torch K5, one walker a lane of `tiles`: (cnt, lnl, lp, lh,
+    mpre) [L] int32."""
     T4, L = (int(x) for x in tiles.shape)
     dev = tiles.device
     nds = host_needles(tbl, lens)
@@ -99,33 +143,53 @@ def line_lanes_plain(tbl, lens, jh: int, anchored: bool, plen: int, pnl,
     return tuple(x.to(torch.int32) for x in (cnt, c_ln, c_lp, c_lh, mpre))
 
 
+def line_lanes_plain(tbl, lens, jh: int, anchored: bool, plen: int, pnl,
+                     tiles):
+    """Plain torch K5 over k = pnl.shape[0] sub-lanes a lane: (cnt, lnl,
+    lp, lh, mpre) [k, L] int32, row j = sub-lanes (j, .), positions local
+    to the sub-lane; pnl [k, L]: the byte before the sub-lane is a newline.
+    The one-walker scan runs over the tiles re-laid as k*L lanes."""
+    k = int(pnl.shape[0])
+    return tuple(_from_sub_lanes(x, k) for x in _line_plain(
+        tbl, lens, jh, anchored, plen, pnl.t().reshape(-1),
+        _sub_lane_tiles(tiles, k)))
+
+
 def line_lanes_cuda(tbl, lens, jh: int, anchored: bool, plen: int, pnl,
                     tiles):
-    """Launch cgx_line_lanes of csrc/needle_scan.cu; same outputs as
-    line_lanes_plain."""
+    """Launch cgx_line_lanes of csrc/needle_scan.cu (its needle image
+    build, then the walk over k = pnl.shape[0] sub-lanes a lane); same
+    outputs as line_lanes_plain."""
     _check_tables(tbl, lens, tiles)
     T4, L = (int(x) for x in tiles.shape)
+    k = int(pnl.shape[0]) if pnl.dim() == 2 else 0
     if (pnl.device != tiles.device or pnl.dtype != torch.int32
-            or tuple(pnl.shape) != (L,) or not pnl.is_contiguous()):
-        raise ValueError(f"pnl must be contiguous int32 [{L}] on the tiles' "
-                         f"device")
+            or tuple(pnl.shape) != (k, L) or not pnl.is_contiguous()):
+        raise ValueError(f"pnl must be contiguous int32 [k, {L}] on the "
+                         f"tiles' device")
+    _check_split(tiles, k)
     if int(tbl.shape[0]) != jh + int(anchored):
         raise ValueError("the table holds jh needles plus the prefix")
     dev = tiles.device
-    outs = [torch.empty(L, dtype=torch.int32, device=dev) for _ in range(5)]
-    p = _build.ptr
     lib = _build.lib()
+    img = torch.empty(lib.cgx_needles_bytes(), dtype=torch.uint8,
+                      device=dev)
+    outs = [torch.empty((k, L), dtype=torch.int32, device=dev)
+            for _ in range(5)]
+    p = _build.ptr
     with torch.cuda.device(dev):
         rc = lib.cgx_line_lanes(p(tbl), p(lens), int(tbl.shape[0]), jh,
                                 int(anchored), plen, p(pnl), p(tiles), T4, L,
-                                *[p(o) for o in outs], _build.stream(dev))
+                                k, p(img), *[p(o) for o in outs],
+                                _build.stream(dev))
     _build.check(rc, "line_lanes")
     return tuple(outs)
 
 
 def line_lanes(tbl, lens, jh: int, anchored: bool, plen: int, pnl, tiles):
-    """K5 on the tiles' device: the kernel for CUDA tensors (counted on
-    LINE_KERNEL), the plain version for CPU tensors."""
+    """K5 on the tiles' device over k = pnl.shape[0] sub-lanes a lane: the
+    kernel for CUDA tensors (counted on LINE_KERNEL), the plain version for
+    CPU tensors."""
     args = (tbl, lens, jh, anchored, plen, pnl, tiles)
     if tiles.device.type == "cuda":
         out = line_lanes_cuda(*args)
@@ -133,6 +197,7 @@ def line_lanes(tbl, lens, jh: int, anchored: bool, plen: int, pnl, tiles):
         return out
     if tiles.device.type != "cpu":
         raise ValueError(f"unsupported device {tiles.device}")
+    _check_split(tiles, int(pnl.shape[0]))
     return line_lanes_plain(*args)
 
 
@@ -152,6 +217,8 @@ class LineScanner:
             raise ValueError("needle set outside the kernel's scope")
         self.jh = len(self.needles)
         self.tbl, self.lens = needle_table(items, device)
+        self.prefix_t = torch.tensor(list(self.prefix), dtype=torch.uint8,
+                                     device=device)
 
     @staticmethod
     def supported(needles: Sequence[bytes], prefix: bytes = b"") -> bool:
@@ -159,45 +226,87 @@ class LineScanner:
         return needles_ok(items, line_mode=True)
 
     @staticmethod
-    def lane_starts(data_dev: torch.Tensor, L: int, T: int):
-        """[L] int32: the byte before the lane is a newline (lane 0: the
-        start of text)."""
+    def lane_starts(data_dev: torch.Tensor, L: int, T: int, k: int = 1):
+        """[k, L] int32: the byte before sub-lane (j, l), at l*T + j*T/k,
+        is a newline (sub-lane (0, 0): the start of text)."""
         n = int(data_dev.shape[0])
-        lanes = torch.arange(L, dtype=torch.int64, device=data_dev.device)
-        prev_b = data_dev[(lanes * T - 1).clamp(0, n - 1)]
-        pnl = (prev_b == 10).to(torch.int32)
-        pnl[0] = 1
-        return pnl
+        base = _sub_lane_bases(L, T, k, data_dev.device).t().contiguous()
+        pnl = (data_dev[(base - 1).clamp(0, n - 1)] == 10).to(torch.int32)
+        pnl[0, 0] = 1
+        return pnl.contiguous()
 
-    def lane_args(self, data_dev: torch.Tensor, geometry, tiles):
-        """The arguments of line_lanes for this scanner and corpus."""
-        L, T = geometry[:2]
-        return (self.tbl, self.lens, self.jh, self.anchored, self.plen,
-                self.lane_starts(data_dev, L, T), tiles)
-
-    def lanes(self, data_dev: torch.Tensor, geometry, tiles=None):
-        """Per-lane K5 outputs (cnt, lnl, lp, lh, mpre) under `geometry`."""
+    def lane_args(self, data_dev: torch.Tensor, geometry, tiles=None,
+                  k: int = 1):
+        """The arguments of line_lanes for this scanner and corpus at k
+        sub-lanes a lane (the tiles built when None)."""
         L, T = geometry[:2]
         if tiles is None:
             tiles = make_word_tiles(data_dev, L, T // 4)
-        return line_lanes(*self.lane_args(data_dev, geometry, tiles))
+        return (self.tbl, self.lens, self.jh, self.anchored, self.plen,
+                self.lane_starts(data_dev, L, T, k), tiles)
 
-    def count(self, data_dev: torch.Tensor, data_host: np.ndarray,
+    def count(self, data_dev: torch.Tensor,
               geometry: Optional[Tuple[int, int, int, int]] = None,
               tiles: Optional[torch.Tensor] = None) -> int:
+        """K5 over lane_split(T, W) sub-lanes a lane, combined on the
+        tiles' device: one host sync a count."""
         n = int(data_dev.shape[0])
         if n == 0:
             return 0
         geometry = geometry or plan_geometry(n)
-        outs = self.lanes(data_dev, geometry, tiles)
-        cnt, lnl, lpe, lhe, mpre = (
-            x.cpu().numpy().astype(np.int64) for x in outs)
-        return self._combine(n, geometry[0], geometry[1], cnt, lnl, lpe,
-                             lhe, mpre, data_host)
+        _L, T, W, _Lc = geometry
+        args = self.lane_args(data_dev, geometry, tiles, lane_split(T, W))
+        return int(self.verdict(data_dev, T, args[5], *line_lanes(*args)))
+
+    def verdict(self, data_dev: torch.Tensor, T: int, pnl, cnt, lnl, lpe,
+                lhe, mpre):
+        """The line count as a 0-dim int64 tensor on the outputs' device,
+        from K5's sub-lane outputs [k, L] under lanes of T bytes and their
+        pnl [k, L]: _combine's stitching over the k*L sub-lanes in corpus
+        order, sub-lane (j, l) at base l*T + j*T/k, its running maxima in
+        two levels (_running_max).  Each sub-lane's entry state affects
+        only its first line, committed at its first newline (which the
+        kernel left out), plus the final unterminated line."""
+        NEGH = -(1 << 62)
+        k, L = (int(x) for x in cnt.shape)
+        base = _sub_lane_bases(L, T, k, cnt.device)
+        # [4, L, k]: the outputs in corpus order, then as global positions
+        o = torch.stack([lnl, lpe, lhe, mpre]).transpose(1, 2).to(
+            torch.int64)
+        g = torch.where(o > NEG // 2, o + base, NEGH)
+        # the last newline and the last valid line start (anchored)
+        incl = _running_max(g[:2], NEGH)
+        entry = _exclusive(incl, NEGH)
+        entry_ln = entry[0].clamp(min=-1)
+        # a hit before the first newline qualifies against the entry line
+        pre = (o[3] >= 0) & (g[3] >= entry_ln + (1 + self.plen))
+        incl_lh = _running_max(
+            torch.maximum(g[2], torch.where(pre, g[3], NEGH)), NEGH)
+        final_ln = incl[0, -1, -1].clamp(min=-1)
+        final = incl_lh[-1, -1] > final_ln
+        qual = (o[0] > NEG // 2) & (
+            (_exclusive(incl_lh, NEGH) > entry_ln) | pre)
+        if self.anchored:
+            # the entry line may start at this sub-lane's byte 0: that
+            # event is in its own lpe, not in the entry's
+            lp0 = torch.where(self._prefix_at(data_dev, base, pnl.t()),
+                              base, NEGH)
+            qual &= torch.maximum(entry[1], lp0) > entry_ln
+            final &= incl[1, -1, -1] > final_ln
+        return cnt.sum(dtype=torch.int64) + qual.sum() + final
+
+    def _prefix_at(self, data_dev, base, pnl):
+        """[L, k] bool: a line starts at the sub-lane base (pnl [L, k]) and
+        begins with the prefix (one gather of plen bytes per sub-lane)."""
+        n = int(data_dev.shape[0])
+        idx = (base[..., None] + torch.arange(
+            self.plen, device=base.device)).clamp(max=n - 1)
+        return ((base + self.plen <= n) & (pnl != 0)
+                & (data_dev[idx] == self.prefix_t).all(-1))
 
     def _prefix_at_bases(self, n: int, bases, data_host) -> np.ndarray:
         """[L] bool: a line starts at the lane base and begins with the
-        prefix (one gather of plen bytes per lane)."""
+        prefix (one gather of plen bytes per lane); _combine's."""
         pb = np.asarray(data_host, dtype=np.uint8)
         L = len(bases)
         pnl = np.zeros(L, dtype=bool)
@@ -209,10 +318,12 @@ class LineScanner:
         return fits & pnl & (pb[idx] == P[None, :]).all(axis=1)
 
     def _combine(self, n, L, T, cnt, lnl, lpe, lhe, mpre, data_host):
-        """O(L) host stitching: each lane's entry state affects only its
-        first line (committed at the lane's first newline, which the kernel
-        left out), plus the final unterminated line.  Carries are running
-        maxima of global positions (ref. _combine)."""
+        """O(L) host stitching of [L] lanes' outputs (ref. _combine): each
+        lane's entry state affects only its first line (committed at the
+        lane's first newline, which the kernel left out), plus the final
+        unterminated line.  Carries are running maxima of global positions.
+        The plain reference of verdict, whose k*L sub-lanes in corpus order
+        are its lanes of T/k bytes."""
         NEGH = np.int64(-(1 << 62))
         total = int(cnt.sum())
         bases = np.arange(L, dtype=np.int64) * T
@@ -290,14 +401,9 @@ def _hits_plain(tbl, lens, tiles):
 def hits_lanes_plain(tbl, lens, tiles, k: int):
     """Plain torch K6 over k sub-lanes a lane: (cnt, ov, fh, reach) [k, L]
     int32, row j = sub-lanes (j, .), positions local to the sub-lane.  The
-    tiles are re-laid as k*L lanes of T4/k words, column l*k + j, so the
-    one-walker scan runs the sub-lanes in corpus order and its next lane is
-    the next sub-lane."""
-    T4, L = (int(x) for x in tiles.shape)
-    sub = tiles.reshape(k, T4 // k, L).permute(1, 2, 0).reshape(T4 // k,
-                                                                L * k)
-    return tuple(x.reshape(L, k).t().contiguous()
-                 for x in _hits_plain(tbl, lens, sub.contiguous()))
+    one-walker scan runs over the tiles re-laid as k*L lanes."""
+    return tuple(_from_sub_lanes(x, k)
+                 for x in _hits_plain(tbl, lens, _sub_lane_tiles(tiles, k)))
 
 
 def _check_split(tiles, k: int):
@@ -359,22 +465,14 @@ def hits_verdict(T: int, cnt, ov, fh, reach):
     overlap inside a sub-lane (ov), or a hit whose reach runs past its
     sub-lane's end over a later sub-lane's first hit, by an exclusive
     running max of the global reaches in corpus order, sub-lane (j, l) at
-    base l*T + j*T/k (cross_lane_overlap's test over the k*L sub-lanes).
-    The running max takes two levels, along each lane's k sub-lanes and
-    then over the L lanes' maxima: torch.cummax along one 524,288-entry
-    row took 1.4 ms on an H100, as long as K6 itself."""
+    base l*T + j*T/k (cross_lane_overlap's test over the k*L sub-lanes, in
+    two levels: _running_max)."""
     k, L = (int(x) for x in cnt.shape)
-    dev = cnt.device
     # [L, k]: row l holds lane l's sub-lanes, so rows read in corpus order
     fh, reach = fh.t().to(torch.int64), reach.t().to(torch.int64)
-    base = (torch.arange(L, dtype=torch.int64, device=dev)[:, None] * T
-            + torch.arange(k, dtype=torch.int64, device=dev) * (T // k))
+    base = _sub_lane_bases(L, T, k, cnt.device)
     glob = torch.where(reach > NEG // 2, base + reach, NEG)
-    incl = torch.cummax(glob, 1).values
-    before = torch.cat([incl.new_full((1,), NEG),
-                        torch.cummax(incl[:, -1], 0).values[:-1]])
-    run = torch.maximum(torch.cat([before[:, None], incl[:, :-1]], 1),
-                        before[:, None])
+    run = _exclusive(_running_max(glob, NEG), NEG)
     over = ov.any() | ((fh < BIG) & (run >= base + fh)).any()
     return cnt.sum(dtype=torch.int64), over
 

@@ -25,7 +25,7 @@ from coregex_tpu.ops import span_scan as ref_ss
 from coregex_tpu.syntax.parser import parse
 import coregex_tpu_torch as ct
 from coregex_tpu_torch.ops import count_scan as cs
-from coregex_tpu_torch.ops import dfa_scan, flag_scan
+from coregex_tpu_torch.ops import flag_scan
 from coregex_tpu_torch.ops import span_scan as ss
 
 torch.set_num_threads(1)
@@ -380,36 +380,37 @@ def test_state_at_end_picks_the_sub_lane_of_the_last_byte():
 # -- callers and checks ----------------------------------------------------------
 
 def test_flag_and_match_scans_keep_one_walker_a_lane(monkeypatch):
-    """K9 (a FULL_SCAN is_match) launches with entries [1, L], k = 1; K3
-    (the reverse flag scan of a bidi find_all) with [k, L] at lane_split's
-    k of its reset geometry, which is 1 for this 17,600-byte corpus."""
+    """K9 (a FULL_SCAN is_match) launches with entries [k, L] at
+    lane_split's k of the corpus geometry, 2 for this 4 MiB corpus; K3
+    (the reverse flag scan of a bidi find_all) at lane_split's k of its
+    reset geometry, which is 1 for this 17,600-byte corpus."""
     seen = {}
+    real = cs.lane_walk
 
-    def spy(module):
-        real = module.lane_walk
+    def walk(mode, counter, *args):
+        seen.setdefault(mode, set()).add(tuple(args[4].shape))
+        return real(mode, counter, *args)
 
-        def walk(mode, counter, *args):
-            seen.setdefault(mode, set()).add(tuple(args[4].shape))
-            return real(mode, counter, *args)
-        monkeypatch.setattr(module, "lane_walk", walk)
-
-    spy(cs)         # K3's split_fixpoint calls count_scan.lane_walk
-    spy(dfa_scan)
+    # K3's and K9's split_fixpoint call count_scan.lane_walk
+    monkeypatch.setattr(cs, "lane_walk", walk)
     arr = np.frombuffer((b"ip 10.0.0.1 x 1.2.3.4 " * 800), dtype=np.uint8)
     ip = ct.compile(r"\d+\.\d+\.\d+\.\d+", device="cpu")
     assert ip.find_all_index(arr)[:2] == [(3, 11), (14, 21)]
+    big = np.frombuffer(b"ip 10.0.0.1 x " * ((4 << 20) // 14),
+                        dtype=np.uint8)
     full = ct.compile(r"\s\d\s", device="cpu")
     assert full.batch_engine().plan.strategy.name == "FULL_SCAN"
-    assert full.is_match(arr) is False
+    assert full.is_match(big) is False
     _L, T, W, _ = flag_scan.reset_geometry(len(arr))
     assert cs.lane_split(T, W) == 1
-    assert all(len(s) == 2 and s[0] == 1
-               for m in (cs.MODE_FLAG, cs.MODE_MATCH) for s in seen[m])
+    assert all(len(s) == 2 and s[0] == 1 for s in seen[cs.MODE_FLAG])
+    L, T, W, _ = cs.plan_geometry(len(big))
+    assert seen[cs.MODE_MATCH] == {(cs.lane_split(T, W), L)} == {(2, 8192)}
 
 
 @pytest.mark.parametrize("mode,shape,W4,msg", [
     (cs.MODE_FLAG, (3, 16), 4, "power of two"),
-    (cs.MODE_MATCH, (2, 16), 4, "only K1, K2 and K3"),
+    (cs.MODE_MATCH, (3, 16), 4, "power of two"),
     (cs.MODE_COUNT, (3, 16), 4, "power of two"),
     (cs.MODE_COUNT, (16, 16), 4, "divides"),
     (cs.MODE_SPAN, (8, 16), 9, "geometry"),
@@ -417,8 +418,8 @@ def test_flag_and_match_scans_keep_one_walker_a_lane(monkeypatch):
 ])
 def test_cuda_wrapper_rejects_bad_splits(mode, shape, W4, msg):
     """The wrapper refuses a split the kernel cannot walk before it builds
-    or launches anything: K9 takes k = 1, k a power of two dividing T4/8,
-    a warmup within a sub-lane."""
+    or launches anything: k a power of two dividing T4/8 (for K9 too), a
+    warmup within a sub-lane."""
     T4, L = 64, 16
     tiles = torch.zeros((T4, L), dtype=torch.int32)
     lanes = torch.zeros(L, dtype=torch.int32)

@@ -73,11 +73,12 @@ def test_line_lanes_match_reference_interpret(anchored):
     for data in _lane_corpora(anchored):
         arr = np.frombuffer(data, dtype=np.uint8)
         exp = ref.count(jnp.asarray(arr), data_host=arr, geometry=SMALL_GEO)
-        outs = sc.lanes(_t(data), SMALL_GEO)
+        # [1, L]: one walker a lane
+        outs = ls.line_lanes(*sc.lane_args(_t(data), SMALL_GEO))
         for g, e in zip(outs, got_lanes["ref"]):
-            np.testing.assert_array_equal(g.numpy().astype(np.int64), e)
+            np.testing.assert_array_equal(g[0].numpy().astype(np.int64), e)
         assert sc._combine(len(data), 8, 64, *got_lanes["ref"], arr) == exp
-        assert sc.count(_t(data), arr, SMALL_GEO) == exp == \
+        assert sc.count(_t(data), SMALL_GEO) == exp == \
             line_count_host(data, needles, prefix, anchored)
 
 
@@ -133,7 +134,7 @@ def test_line_count_matches_host_oracle(geo, case):
         data = _text(rng, alphabet, rng.randrange(
             1, geo[0] * geo[1] if geo else 2000))
         g = geo or plan_geometry(len(data))
-        assert sc.count(_t(data), np.frombuffer(data, np.uint8), g) == \
+        assert sc.count(_t(data), g) == \
             line_count_host(data, needles, prefix, anchored), data
 
 

@@ -59,9 +59,11 @@ def test_match_walk_matches_pallas_interpret(pattern):
     offsets = torch.zeros(L, dtype=torch.int32)
     offsets[0] = 5
     limits = torch.full((L,), T - 3, dtype=torch.int32)
-    fw, counts, last, exits, sync = dfa_scan.match_lanes(
+    counts, exits, sync, fw, last = cs.lane_walk(
+        cs.MODE_MATCH, dfa_scan.MATCH_KERNEL,
         cs.device_table(t.packed, "cpu"), cs.device_table(t.segmap, "cpu"),
-        tiles, W // 4, entries, offsets, limits)
+        tiles, W // 4, entries.reshape(1, L), offsets, limits)
+    counts, exits, last = counts[0], exits[0], last[0]
 
     chunks = text.reshape(L, T)
     xs = np.concatenate([np.roll(chunks, 1, axis=0)[:, T - W:], chunks], 1)
@@ -113,17 +115,20 @@ def test_chunk_scanner_matches_reference(pattern, brk):
 
 def test_dead_lane_ends_the_fixpoint(monkeypatch):
     """A break-at-match DFA that dies in lane 0 leaves every later lane
-    DEAD; the fixpoint stops at the dead lane after one pass instead of
+    DEAD; the fixpoint (count_scan.split_fixpoint, which match_full runs)
+    stops at the dead lane after pass 0, with no repair pass, instead of
     carrying DEAD one lane per rescan."""
     d = _dfa(r"ab", True)
     sc = dfa_scan.ChunkScanner(dfa_scan.DFATables.from_dense(d), "cpu")
     arr = np.frombuffer(b"xxab" + b"a" * 9000, dtype=np.uint8)
     passes = []
-    walk = dfa_scan.match_lanes
-    monkeypatch.setattr(dfa_scan, "match_lanes",
-                        lambda *a: passes.append(1) or walk(*a))
+    walk, repair = cs.lane_walk, cs.lane_repair
+    monkeypatch.setattr(cs, "lane_walk",
+                        lambda *a: passes.append("walk") or walk(*a))
+    monkeypatch.setattr(cs, "lane_repair",
+                        lambda *a: passes.append("repair") or repair(*a))
     scan = sc.scan_device(torch.from_numpy(arr.copy()))
-    assert len(passes) == 1
+    assert passes == ["walk"]
     assert int(dfa_scan.flags_last(scan)) == 4
     assert int(dfa_scan.flags_count_upto(scan)) == 1
     assert int(dfa_scan.exit_at_end(scan)) == 0

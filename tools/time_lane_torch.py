@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-r"""Device times of one checkout's lane walks and needle hit scan and the
+r"""Device times of one checkout's lane walks and needle scans and the
 walls they carry, at chip_smoke.py's headline shapes, so that two
 checkouts can be timed on one GPU in one run.
 
@@ -12,16 +12,22 @@ pass 0 (ip) as that checkout's count and span scans launch it (at its
 split, where it has one) and, where it has a split, also at k = 16, 32, 64
 and 128 sub-lanes a lane; K3 pass 0 on ip's bidi reset tiles and K6 on
 multi_literal32, literal_error and http_methods, each at the checkout's
-split and, where it splits them, also at k = 16, 32 and 64; K9 over
-`\s\d\s`'s fwd_all DFA through its caller's wrapper; then the warm walls
-(best of 3, host clock, after a first call) of the counts of ip and the
-four literal configs (literal_error, http_methods, alt_literal,
-multi_literal32), of the find_alls of ip and version, and of ip_opt's
-find_all at the span limits' corpus (170 tiles), best of 10 of
-find_index on early matches (K9 on a 4 MiB prefix, then the window
-kernel) and of a FULL_SCAN is_match (one K9 pass, no match), and quote
-parity (`"[^"]*"` on 16 MiB, chip_smoke.quote_parity) with its repair
-passes.  Kernel lines give the mean of REPS launches after a warm-up, with
+split and, where it splits them, also at k = 16, 32 and 64; K5 on
+multiline_php, inner_keyword and suffix_txt and K9 pass 0 over
+`\s\d\s`'s fwd_all DFA, each at the checkout's split and, where it
+splits them, also at k = 16, 32 and 64 (an unsplit K5 or K9 through its
+own wrapper); then the warm walls (best of 3, host clock, after a first
+call) of the counts of ip, the four literal configs (literal_error,
+http_methods, alt_literal, multi_literal32) and the three line shapes
+(K5), of the find_alls of ip and version, and of ip_opt's find_all at the
+span limits' corpus (170 tiles), best of 10 of find_index on early matches
+(K9 on a 4 MiB prefix, then the window kernel) and of the FULL_SCAN
+is_match of `\s\d\s` and `(a|b)+c` (one K9 scan) on the bench corpus and
+on spaces, best of 3 of is_match and find_index of the seven DFA-route
+patterns on the late- and no-match corpora (chip_smoke.single_corpora:
+K9 on prefixes of 4 MiB x8 to the whole), with K9's repair passes of the
+last call, and quote parity (`"[^"]*"` on 16 MiB,
+chip_smoke.quote_parity) with its repair passes.  Kernel lines give the mean of REPS launches after a warm-up, with
 CUDA events; chip_smoke.py times the same shapes beside their bound.
 Imports no jax.
 """
@@ -114,11 +120,34 @@ def main():
                                                   *ka), REPS)
             line(f"K6 {name} {mib} MiB" + (f" k={kk}" if k6_split else ""),
                  ms, "  (lane_split's k)" if kk == k and k6_split else "")
-    margs = chip_smoke.match_args("ws_digit_ws", "fwd_all", data, (L, T, W),
-                                  tiles)
-    line(f"K9 \\s\\d\\s fwd_all {mib} MiB", chip_smoke.cuda_ms(
-        lambda: dfa_scan.match_lanes(*margs), REPS))
-    del data, tiles, margs
+    # K5 on the line shapes, K9 on `\s\d\s`'s fwd_all DFA, at the
+    # checkout's split (and 16, 32, 64 where it splits them)
+    k5_split = "k" in inspect.signature(
+        line_scan.LineScanner.lane_args).parameters
+    geom = (L, T, W, 0)
+    k = split(T, W) if k5_split else 1
+    for name in ("multiline_php", "inner_keyword", "suffix_txt"):
+        sc = ct.compile(chip_smoke.PATTERNS[name], device="cuda") \
+            .batch_engine()._line_scanner()
+        for kk in sorted({k, 16, 32, 64}) if k5_split else [1]:
+            la = sc.lane_args(data, geom, tiles, *((kk,) if k5_split else ()))
+            ms = chip_smoke.cuda_ms(lambda: line_scan.line_lanes_cuda(*la),
+                                    REPS)
+            line(f"K5 {name} {mib} MiB" + (f" k={kk}" if k5_split else ""),
+                 ms, "  (lane_split's k)" if kk == k and k5_split else "")
+            del la
+    k9_split = "dead" in inspect.signature(cs.split_fixpoint).parameters
+    k = split(T, W) if k9_split else 1
+    for kk in sorted({k, 16, 32, 64}) if k9_split else [1]:
+        margs = chip_smoke.match_args("ws_digit_ws", "fwd_all", data,
+                                      (L, T, W), tiles, kk)
+        ms = chip_smoke.cuda_ms(
+            lambda: cs.lane_walk_cuda(cs.MODE_MATCH, *margs), REPS)
+        line(f"K9 \\s\\d\\s fwd_all {mib} MiB"
+             + (f" k={kk}" if k9_split else ""), ms,
+             "  (lane_split's k)" if kk == k and k9_split else "")
+        del margs
+    del data, tiles
     torch.cuda.empty_cache()
 
     def wall(fn, reps=3):
@@ -131,7 +160,8 @@ def main():
         return best * 1e3
 
     for name in ("ip", "literal_error", "http_methods", "alt_literal",
-                 "multi_literal32"):
+                 "multi_literal32", "inner_keyword", "multiline_php",
+                 "suffix_txt"):
         eng = ct.compile(chip_smoke.PATTERNS[name], device="cuda")
         line(f"{name} count {mib} MiB (wall)",
              wall(lambda: eng.count(corpus)))
@@ -156,9 +186,31 @@ def main():
         eng = ct.compile(chip_smoke.PATTERNS[name], device="cuda")
         line(f"{name} find_index early {mib} MiB (wall)",
              wall(lambda: eng.find_index(corpus), 10))
-    eng = ct.compile(chip_smoke.PATTERNS["ws_digit_ws"], device="cuda")
-    line(f"ws_digit_ws is_match {mib} MiB (wall)",
-         wall(lambda: eng.is_match(corpus), 10))
+    match = dfa_scan.MATCH_KERNEL
+    corpora = chip_smoke.single_corpora(base, corpus)
+
+    def k9_passes():
+        return (f"  K9 repair passes {match.sub_passes}+"
+                f"{match.lane_passes}")
+
+    for name in ("ws_digit_ws", "ab_plus_c"):
+        eng = ct.compile(chip_smoke.PATTERNS[name], device="cuda")
+        for which, arr in (corpora[0], corpora[2]):
+            ms = wall(lambda: chip_smoke.reset_passes(match)
+                      or eng.is_match(arr), 10)
+            line(f"{name} is_match {which} {mib} MiB (wall)", ms,
+                 k9_passes())
+    for name in ("inner_keyword", "ip", "email", "url", "multiline_php",
+                 "version", "suffix_txt"):
+        eng = ct.compile(chip_smoke.PATTERNS[name], device="cuda")
+        for which, arr in corpora[1:]:
+            for what, fn in (("is_match", eng.is_match),
+                             ("find_index", eng.find_index)):
+                ms = wall(lambda: chip_smoke.reset_passes(match)
+                          or fn(arr))
+                line(f"{name} {what} {which} {mib} MiB (wall)", ms,
+                     k9_passes())
+    del corpora
     eng = ct.compile(chip_smoke.QUOTES, device="cuda")
     got, want, ms, subs, lanes, launches = chip_smoke.quote_parity(eng)
     if got != want:
