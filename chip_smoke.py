@@ -12,13 +12,16 @@ Phases (any failure exits non-zero before the final line):
                the compactions, torch.nonzero on the same mask.  The lane
                walks (K1-K3) and the needle kernels (K5-K7) run on a 4 MiB
                sample (several patterns) and on the whole 1536 MiB corpus
-               (one pattern each), K1, K2, K3, K5 and K6 at the main path's
-               split into sub-lanes (count_scan.lane_split; with its size,
-               the table's form and the resident warps an SM printed), with
-               K1's, K2's and K3's two repair passes (over unsettled
-               sub-lanes, over the lanes holding one) from exits of which
-               a tenth are random, at that split and, on the sample, also
-               unsplit; K5's device combine (LineScanner.verdict) against
+               (one pattern each), K1, K2, K3, K5, K6 and K7 at the main
+               path's split into sub-lanes (count_scan.lane_split; with
+               its size, the table's form and the resident warps an SM
+               printed), with K1's, K2's and K3's two repair passes (over
+               unsettled sub-lanes, over the lanes holding one) from exits
+               of which a tenth are random, at that split and, on the
+               sample, also unsplit; K7's two repair passes likewise on
+               the sample at k = 2 and 1, and from pass 0's own exits on
+               its parity chain (`aa` over 16 MiB of b + a's) at k = 8;
+               K5's device combine (LineScanner.verdict) against
                the numpy _combine on the same outputs; the single-pass
                compaction (K4, and
                K8 through compact_positions) on ragged lengths around
@@ -47,8 +50,9 @@ Phases (any failure exits non-zero before the final line):
                bench corpus), in four runs, each with the launch counts set
                to 0 before it and read after it.  Earlier slices: count for
                the 13 bench patterns and for `0\.0` (whose hits overlap,
-               so K6 hands over to K7), device find_all for the 4
-               bidirectional patterns and the 3 line shapes, checked
+               so K6 hands over to K7, with K7's repair passes printed),
+               device find_all for the 4 bidirectional patterns and the 3
+               line shapes, checked
                against a Python `re` oracle on the 6 MiB base tile scaled
                by the tile count; find_all_index on a 64 MiB slice compared
                span by span.  The 7 patterns that count through K5 or K6
@@ -492,9 +496,9 @@ def phase_kernels(base: bytes, corpus: np.ndarray):
             fail(f"no {kind} comparison ran")
 
     def needle_kernels(data, host, label, k5=(), k6=(), k7=(),
-                       headline=False):
+                       headline=False, k7_repairs=()):
         """K5, K6 and K7 on one corpus (`host`: its bytes on the host)
-        under the main path's geometry."""
+        under the main path's geometry, K7 also through `k7_repairs`."""
         n = int(data.shape[0])
         geom = cs.plan_geometry(n)
         L, T, W = geom[:3]
@@ -521,14 +525,8 @@ def phase_kernels(base: bytes, corpus: np.ndarray):
                     lambda: line_scan.hits_lanes_plain(*args),
                     headline=headline, in_bytes=nbytes(*args))
         for what, sc in k7:
-            L, T, W, _ = seq_scan.seq_geometry(n, sc.M)
-            e0, o0, lim, _e = sc.first_pass(data, n, L, T, W)
-            args = (sc.mode, sc.tbl, sc.lens, sc.jh, sc.anchored, sc.plen,
-                    tiles, W // 4, e0, o0, lim)
-            compare("seq_scan", f"{what} {label}",
-                    lambda: seq_scan.seq_lanes_cuda(*args),
-                    lambda: seq_scan.seq_lanes_plain(*args),
-                    headline=headline, in_bytes=nbytes(*args))
+            seq_kernels(compare, sc, data, tiles, f"{what} {label}",
+                        headline, repairs=k7_repairs)
 
     def seq(mode, needles, prefix=b""):
         return seq_scan.SeqScanner(mode, needles, prefix=prefix,
@@ -537,20 +535,45 @@ def phase_kernels(base: bytes, corpus: np.ndarray):
     sample_host = np.frombuffer(sample, np.uint8)
     sample = torch.from_numpy(sample_host.copy()).to(dev)
     alt32 = [w.encode() for w in ALT32.split("|")]
+    k7_sample = [("multi 0.0", seq(seq_scan.MODE_MULTI, [b"0.0"])),
+                 ("multi alt32", seq(seq_scan.MODE_MULTI, alt32)),
+                 ("line keyword", seq(seq_scan.MODE_LINE, [b"keyword"])),
+                 ("line ^/ .php", seq(seq_scan.MODE_LINE, [b".php"], b"/"))]
     needle_kernels(
         sample, sample_host, "4 MiB",
         k5=("inner_keyword", "multiline_php", "suffix_txt"),
         k6=("http_methods", "multi_literal32", "literal_error"),
-        k7=[("multi 0.0", seq(seq_scan.MODE_MULTI, [b"0.0"])),
-            ("multi alt32", seq(seq_scan.MODE_MULTI, alt32)),
-            ("line keyword", seq(seq_scan.MODE_LINE, [b"keyword"])),
-            ("line ^/ .php", seq(seq_scan.MODE_LINE, [b".php"], b"/"))])
+        k7=k7_sample)
+    # K7's repair passes on the sample at k = 2 and unsplit (its split
+    # there is 1), from exits of which a tenth are random
+    L, T, W, _ = seq_scan.seq_geometry(int(sample.shape[0]), 4)
+    stiles = cs.make_word_tiles(sample, L, T // 4)
+    for what, sc in k7_sample:
+        for kk in (2, 1):
+            seq_kernels(compare, sc, sample, stiles, f"{what} 4 MiB", False,
+                        k=kk, repairs=("sub", "lane"))
+    del stiles
+    # on the whole corpus K7's sub-lane repair pass runs at the main path's
+    # split too (k = 64: the second of a `0\.0` count's two launches); its
+    # plain lane pass, which walks whole lanes, runs on the small corpora
     data = torch.from_numpy(corpus).to(dev)
     needle_kernels(data, corpus, f"{CORPUS_MIB} MiB", k5=("multiline_php",),
                    k6=("multi_literal32",),
                    k7=[("multi 0.0", seq(seq_scan.MODE_MULTI, [b"0.0"]))],
-                   headline=True)
+                   headline=True, k7_repairs=("sub",))
     del data
+    # K7's parity chain (`aa` over b + a's: every sub-lane's match parity
+    # lies beyond its warmup), pass 0 and both repair passes from pass 0's
+    # own exits, at the main path's split (4) and at k = 8
+    data = torch.from_numpy(parity_corpus()).to(dev)
+    n = int(data.shape[0])
+    sc = seq(seq_scan.MODE_MULTI, [b"aa"])
+    L, T, W, _ = seq_scan.seq_geometry(n, sc.M)
+    ptiles = cs.make_word_tiles(data, L, T // 4)
+    for kk in (None, 8):
+        seq_kernels(compare, sc, data, ptiles, "parity chain 16 MiB", False,
+                    k=kk, repairs=("sub", "lane"), pick=0.0)
+    del ptiles, data
     for kind in ("line_scan", "hits_scan", "seq_scan"):
         if kind not in results:
             fail(f"no {kind} comparison ran")
@@ -914,6 +937,61 @@ def repair_case(mode, d, args):
     return run
 
 
+def seq_kernels(compare, sc, data, tiles, label, headline, k=None,
+                repairs=(), pick=0.1):
+    """K7 (SeqScanner `sc`) on `data` under its geometry with word tiles
+    `tiles`: pass 0 at k sub-lanes a lane (lane_split's when None) against
+    its plain version, then the repair passes named in `repairs` ("sub",
+    "lane") from pass 0's exits, of which a share `pick` are random."""
+    import torch
+    from coregex_tpu_torch.ops import count_scan as cs
+    from coregex_tpu_torch.ops import seq_scan
+    n = int(data.shape[0])
+    L, T, W, _ = seq_scan.seq_geometry(n, sc.M)
+    W = min(max(W, 4 * sc.M + 4), T)
+    k = cs.lane_split(T, W) if k is None else k
+    e0, o0, lim, entry0 = sc.first_pass(data, n, L, T, W, k)
+    args = (sc.mode, sc.tbl, sc.lens, sc.jh, sc.anchored, sc.plen, tiles,
+            W // 4, e0, o0, lim)
+    img = seq_scan.needle_image(data.device)
+    compare("seq_scan", f"{label} k={k}",
+            lambda: seq_scan.seq_lanes_cuda(*args, img=img),
+            lambda: seq_scan.seq_lanes_plain(*args),
+            headline=headline, in_bytes=nbytes(*args))
+    if not repairs:
+        return
+    counts, exits, sync, clean = seq_scan.seq_lanes_plain(*args)
+    dev = exits.device
+    g = torch.Generator(device=dev).manual_seed(31)
+    top = 13 if sc.mode == seq_scan.MODE_MULTI else 256
+    prev = torch.where(
+        torch.rand(exits.shape, device=dev, generator=g) < pick,
+        torch.randint(0, top, exits.shape, device=dev, generator=g,
+                      dtype=torch.int32), exits).contiguous()
+
+    def run(fn, whole):
+        out = [torch.empty_like(prev), counts.clone(), sync.clone(),
+               clean.clone(), torch.zeros(1, dtype=torch.int32, device=dev)]
+        fn(sc.mode, whole, sc.tbl, sc.lens, sc.jh, sc.anchored, sc.plen,
+           tiles, entry0, lim, prev, *out, img)
+        return out
+
+    for kind in repairs:
+        whole = kind == "lane"
+        compare("seq_scan", f"{label} k={k} "
+                f"{'lane' if whole else 'sub-lane'} pass",
+                lambda: run(seq_scan.seq_repair_cuda, whole),
+                lambda: run(seq_scan.seq_repair_plain, whole), reps=2)
+
+
+def parity_corpus() -> np.ndarray:
+    """16 MiB of b then a's: `aa`'s match parity at each lane start lies
+    beyond any warmup."""
+    arr = np.full(16 << 20, ord("a"), dtype=np.uint8)
+    arr[0] = ord("b")
+    return arr
+
+
 QUOTES = r'"[^"]*"'
 
 
@@ -1108,7 +1186,7 @@ def phase_e2e(base: bytes, arr: np.ndarray):
     """Counts and find_all at corpus scale through the public API."""
     import torch
     import coregex_tpu_torch as ct
-    from coregex_tpu_torch.ops import count_scan
+    from coregex_tpu_torch.ops import count_scan, seq_scan
     from coregex_tpu_torch.ops.count_scan import plan_geometry
     from coregex_tpu_torch.utils.corpus_cache import device_corpus
 
@@ -1132,7 +1210,9 @@ def phase_e2e(base: bytes, arr: np.ndarray):
         line = (f"[e2e] {name:16} {eng.strategy:13} count {got:>10} ok  "
                 f"{n / best / 1e9:7.2f} GB/s ({best * 1e3:.1f} ms via "
                 f"{route}, first {first:.2f} s, K1 repair passes "
-                f"{passes(count_scan.COUNT_KERNEL)})")
+                f"{passes(count_scan.COUNT_KERNEL)}"
+                + (f", K7 repair passes {passes(seq_scan.SEQ_KERNEL)}"
+                   if route == "hits" else "") + ")")
         if name in REROUTED:
             # the same count through K1, the count transducer; these
             # launches are a comparison, not the main path's
@@ -1229,15 +1309,17 @@ def check_find_all(name, be, arr: np.ndarray, exp) -> str:
 
 
 def timed_count(eng, arr: np.ndarray):
-    """(count, best of 2 seconds, first call seconds); the K1 counter's
-    repair passes are those of the last call."""
+    """(count, best of 2 seconds, first call seconds); the K1 and K7
+    counters' repair passes are those of the last call."""
     from coregex_tpu_torch.ops.count_scan import COUNT_KERNEL
+    from coregex_tpu_torch.ops.seq_scan import SEQ_KERNEL
     t0 = time.perf_counter()
     got = eng.count(arr)
     first = time.perf_counter() - t0
     best = float("inf")
     for _ in range(2):
         reset_passes(COUNT_KERNEL)
+        reset_passes(SEQ_KERNEL)
         t0 = time.perf_counter()
         eng.count(arr)
         best = min(best, time.perf_counter() - t0)

@@ -66,7 +66,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "split_common.cuh"
+
 namespace {
+
+using cgx::count_walker;
+using cgx::sub_limit;
 
 enum Mode { kCount = 0, kSpan = 1, kFlag = 2, kMatch = 3 };
 enum Pass { kFirst = 0, kSub = 1, kLane = 2 };
@@ -154,16 +159,6 @@ __device__ __forceinline__ int walk(const Table<MODE>& t,
     if (MODE == kSpan) firstw[(size_t)(g0 + g) * L + l] = (int32_t)gw;
   }
   return s;
-}
-
-__device__ __forceinline__ int sub_limit(int lim, int j, int Tk) {
-  return min(max(lim - j * Tk, 0), Tk);
-}
-
-// Adds this warp's walking threads to *walked, one atomic per warp.
-__device__ __forceinline__ void count_walker(int32_t* walked) {
-  const unsigned m = __activemask();
-  if ((int)(threadIdx.x & 31) == __ffs(m) - 1) atomicAdd(walked, __popc(m));
 }
 
 template <int MODE, int PASS>

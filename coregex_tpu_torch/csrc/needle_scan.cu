@@ -18,8 +18,8 @@
 //      overlaps across their seams.
 //   K7 seq_scan.py:_seq_kernel     the sequential needle machine
 //      (MODE_MULTI: leftmost-first countdown; MODE_LINE: prev_nl, valid,
-//      seen and since-line-start bits) with K1's warmup and sync snapshot;
-//      the host repair fixpoint supplies the entries.
+//      seen and since-line-start bits) with K1's warmup and sync snapshot,
+//      repaired by the passes of lane_scan.cu (count_scan.split_passes).
 // The TPU kernels find hits with masked word compares over 4 byte phases x M
 // words and turn K5/K6 into log-depth cummax trees over [Q, 8, Lc] planes,
 // because a TPU core steps vectors, not lanes.  On Hopper the running maxima
@@ -44,36 +44,53 @@
 // with J (multi_literal32 on the bench corpus: 9.1 % of positions pass a
 // 2-byte filter, 3.4 % the 4-byte one, 2.9 % start a match).
 // The 8192-lane geometry leaves about 62 threads per SM when one thread
-// walks a lane, too few to cover that chain's latency: K7 does so.  K5 and
-// K6 need no fixpoint (their lanes carry no state, only running maxima of
-// positions), so they walk k sub-lanes a lane (count_scan.lane_split: 64
-// at 1536 MiB, 524,288 walkers), the j-th of lane l over words
-// j*T4/k .. (j+1)*T4/k - 1 with adjacent threads on adjacent lanes.  Their
-// needle image (filter, buckets, slots) is built once per call by a
-// one-block kernel into device memory and copied into each block's shared
-// memory, not rebuilt by each of the 4096 blocks.
+// walks a lane, too few to cover that chain's latency.  So all three walk
+// k sub-lanes a lane (count_scan.lane_split: 64 at 1536 MiB, 524,288
+// walkers), the j-th of lane l over words j*T4/k .. (j+1)*T4/k - 1 with
+// adjacent threads on adjacent lanes.  Their needle image (filter,
+// buckets, slots) is built once per call by a one-block kernel into device
+// memory and copied into each block's shared memory, not rebuilt by each
+// of the 4096 blocks (K7: by its pass 0, and read by its repair passes).
+// K5 and K6 need no fixpoint (their lanes carry no state, only running
+// maxima of positions).  K7's sub-lanes warm up over the W bytes before
+// them, and its repair passes walk only the unsettled sub-lanes, then the
+// lanes holding one; a block none of whose threads walks returns before
+// it copies the image.  In MODE_LINE a sub-lane whose live warmup bytes
+// hold a newline is exact whatever its entry (the machine restarts at a
+// line), so pass 0 marks it clean and no repair walks it again.
 //
 // Layouts (int32, little-endian bytes within a word):
 //   tbl     [J, 8]   needle slot j: mask words 0-3, value words 0-3 of its
 //                    16-byte window at phase 0; lens [J] its byte length
 //   tiles   [T4, L]  word t of lane l = bytes l*T + 4t .. l*T + 4t + 3
-//   K5 pnl and outputs, K6 outputs [k, L]: row j = sub-lanes (j, .); K5's
-//   pnl: the byte before sub-lane (j, l) is a newline (set for (0, 0))
+//   K5 pnl and outputs, K6 outputs, K7 entries, prev and outputs [k, L]:
+//   row j = sub-lanes (j, .); K5's pnl: the byte before sub-lane (j, l) is
+//   a newline (set for (0, 0)); K7's offsets and limits [L], sub-lane j's
+//   limit clamp(limits[l] - j*T/k, 0, T/k), its offset offsets[l] for j = 0
+//   and 0 else
 // Stream word idx of lane l: idx < 0 reads the previous lane's word T4 + idx
 // (lane 0 reads lane L-1), idx >= T4 the next lane's word idx - T4 (zeros
-// after the last lane).  A K5 or K6 sub-lane's 16-byte look-ahead reads its
-// own lane's next words, and the last one's the next lane's.
+// after the last lane).  A sub-lane's 16-byte look-ahead reads its own
+// lane's next words, and the last one's the next lane's; K7's warmup reads
+// the W/4 words before it, for j = 0 the previous lane's last ones (lane 0
+// reads lane L-1's, which its offset of W skips).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "split_common.cuh"
+
 namespace {
+
+using cgx::count_walker;
+using cgx::sub_limit;
 
 constexpr int kMaxSlots = 65;
 constexpr int kNeg = -(1 << 30);
 constexpr int kBig = 1 << 30;
 constexpr int kThreads = 128;
 constexpr int kMulti = 0;
+enum Pass { kFirst = 0, kSub = 1, kLane = 2 };  // count_scan.PASS_*
 
 struct Needles {
   uint64_t mlo[kMaxSlots], vlo[kMaxSlots], mhi[kMaxSlots], vhi[kMaxSlots];
@@ -139,9 +156,10 @@ __device__ void load_needles(Needles& nd, const int32_t* __restrict__ tbl,
   __syncthreads();
 }
 
-// K5's or K6's needle image in device memory: one block builds it once per
-// call, the filter and buckets over slots [0, nbucket) (K5: the needles,
-// not the anchored prefix slot jh, which is matched by its slot alone).
+// K5's, K6's or K7's needle image in device memory: one block builds it
+// once per call, the filter and buckets over slots [0, nbucket) (K5 and
+// K7's MODE_LINE: the needles, not the anchored prefix slot jh, which is
+// matched by its slot alone).
 __global__ void needles_kernel(const int32_t* __restrict__ tbl,
                                const int32_t* __restrict__ lens, int J,
                                int nbucket, Needles* __restrict__ img) {
@@ -388,35 +406,32 @@ __global__ void hits_kernel(const Needles* __restrict__ img,
   reach_o[i] = run;
 }
 
-__global__ void seq_kernel(int mode, const int32_t* __restrict__ tbl,
-                           const int32_t* __restrict__ lens, int J, int jh,
-                           int anchored, int plen,
-                           const int32_t* __restrict__ tiles, int T4, int L,
-                           int W4, const int32_t* __restrict__ entries,
-                           const int32_t* __restrict__ offsets,
-                           const int32_t* __restrict__ limits,
-                           int32_t* __restrict__ counts, int32_t* __restrict__ exits,
-                           int32_t* __restrict__ sync) {
-  __shared__ Needles nd;
-  __shared__ uint32_t st[12 * kThreads];
-  load_needles(nd, tbl, lens, J, mode == kMulti ? J : jh);
-  const int l = blockIdx.x * blockDim.x + threadIdx.x;
-  if (l >= L) return;
-  const Stage stage{st + threadIdx.x};
-  int s = entries[l];
-  int sy = s;
-  // positions cb < live0 leave the state alone (the warmup an offset skips)
-  const int live0 = offsets[l] - 4 * W4;
-  const int lim = limits[l];
+inline int blocks_for(long long n) {
+  return (int)((n + kThreads - 1) / kThreads);
+}
+
+// K7's machine over one sub-lane of lane l: stream words b0 - w4 .. of the
+// lane, from state s.  Positions count from the sub-lane's first byte (word
+// b0), the w4 warmup words before it are negative; positions below live0
+// or at or above lim leave the state alone.  Returns the exit state; cnt
+// gets the commits at positions >= 0, sy the state at position 0, and nlw
+// whether a live warmup position holds a newline (MODE_LINE: the sub-lane
+// is then exact whatever s).
+__device__ __forceinline__ int seq_walk(const Needles& nd, const Stage& stage,
+                                        int mode, int jh, int anchored,
+                                        int plen,
+                                        const int32_t* __restrict__ tiles,
+                                        int T4, int L, int l, int b0, int w4,
+                                        int live0, int lim, int s, int& cnt,
+                                        int& sy, bool& nlw) {
   const bool simple = mode != kMulti && !anchored && plen == 0;
-  const int t0 = live0 >= 0 ? 0 : -W4;
-  const int t1 = lim > 0 ? min(T4, (lim + 3) / 4) : 0;
-  int cnt = 0;
+  const int t1 = b0 + (lim > 0 ? (lim + 3) / 4 : 0);
+  sy = s;
   // s is the state after the positions below `at`.  Between events the
   // state moves in closed form: a quiet live byte (no hit, no newline, not
   // a line start) counts MODE_MULTI's countdown down and the since-line-
   // start counter up, and leaves every other bit alone.
-  int at = 4 * t0;
+  int at = -4 * w4;
   auto quiet = [&](int p) {  // the quiet positions at .. p - 1
     const int n = min(p, lim) - max(at, live0);
     if (n > 0) {
@@ -477,17 +492,24 @@ __global__ void seq_kernel(int mode, const int32_t* __restrict__ tbl,
     at = cb + 1;
   };
   uint32_t carry = 0;  // the last byte of the previous group is a newline
-  scan_groups(tiles, T4, L, l, t0, t1,
+  scan_groups(tiles, T4, L, l, b0 - w4, t1,
               [&](int g, const uint32_t (&w)[12], uint32_t in_range) {
     uint32_t cand, nls;
     screen(nd, w, cand, nls);
+    const int pb = 4 * (g - b0);  // the position of the group's first byte
+    if (mode != kMulti && pb < 0) {
+      // the live warmup positions max(live0, pb) .. -1 of the group
+      const int lo = max(live0 - pb, 0), hi = min(-pb, 32);
+      if (lo < hi)
+        nlw |= (nls & (uint32_t)((1ull << hi) - (1ull << lo))) != 0;
+    }
     // events: candidates, and in line mode newlines, the positions after
     // them and the first live position (whose prev_nl is the entry's)
     uint32_t ev = cand;
     if (mode != kMulti) {
       ev |= nls | (nls << 1) | carry;
       carry = nls >> 31;
-      const int f = live0 - 4 * g;
+      const int f = live0 - pb;
       if (f >= 0 && f < 32) ev |= 1u << f;
     }
     ev &= in_range;
@@ -495,6 +517,10 @@ __global__ void seq_kernel(int mode, const int32_t* __restrict__ tbl,
     stage.put(w);
     for (; ev; ev &= ev - 1) {
       const int q = __ffs(ev) - 1;
+      // MODE_MULTI: a candidate inside a match is a quiet byte, so the
+      // state comes first and the needle search only when it is 0
+      advance(pb + q);
+      if (mode == kMulti && s != 0) continue;
       int j = -1;
       if ((cand >> q) & 1) {
         uint64_t lo, hi;
@@ -502,17 +528,117 @@ __global__ void seq_kernel(int mode, const int32_t* __restrict__ tbl,
         j = first_hit(nd, lo, hi);
       }
       if (mode == kMulti && j < 0) continue;
-      advance(4 * g + q);
-      step(4 * g + q, q, j, (nls >> q) & 1);
+      step(pb + q, q, j, (nls >> q) & 1);
     }
   });
-  advance(4 * t1);
-  counts[l] = cnt;
-  exits[l] = s;
-  sync[l] = sy;
+  advance(4 * (t1 - b0));
+  return s;
 }
 
-inline int blocks_for(int L) { return (L + kThreads - 1) / kThreads; }
+// K7 over k sub-lanes a lane, one pass of the split fixpoint (the passes
+// of lane_scan.cu).  kFirst: sub-lane (j, l) warms up over the W4 words
+// before it from entries, then walks its own; clean = the sub-lane is
+// exact whatever its entry ((0, 0), and in line mode a newline among its
+// live warmup bytes).  kSub: each unsettled sub-lane (real, not clean, its
+// sync unlike the previous sub-lane's exit in prev) walks from that exit
+// with no warmup.  kLane: each lane holding one walks whole from the
+// previous lane's exit (a clean sub-lane 0 from its own sync).  Settled
+// threads copy their exit; a block whose threads are all settled returns
+// before it copies the needle image.
+template <int PASS>
+__global__ void __launch_bounds__(kThreads) seq_kernel(
+    int mode, const Needles* __restrict__ img, int jh, int anchored,
+    int plen, const int32_t* __restrict__ tiles, int T4, int L, int W4,
+    int k, const int32_t* __restrict__ entries,
+    const int32_t* __restrict__ offsets, const int32_t* __restrict__ limits,
+    int first, const int32_t* __restrict__ prev, int32_t* __restrict__ counts,
+    int32_t* __restrict__ exits, int32_t* __restrict__ sync,
+    int32_t* __restrict__ clean, int32_t* __restrict__ walked) {
+  __shared__ Needles nd;
+  __shared__ uint32_t st[12 * kThreads];
+  const int T4k = T4 / k, Tk = 4 * T4k;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  bool go = i < (PASS == kLane ? L : k * L);
+  int s = 0;
+  if (go && PASS == kSub) {
+    const int j = i / L, l = i - j * L;
+    const int want =
+        j > 0 ? prev[i - L] : (l > 0 ? prev[(size_t)(k - 1) * L + l - 1] : first);
+    go = sub_limit(limits[l], j, Tk) > 0 && !clean[i] && sync[i] != want;
+    if (!go) exits[i] = prev[i];
+    s = want;
+  } else if (go && PASS == kLane) {
+    const int l = i;
+    const int enter = l > 0 ? prev[(size_t)(k - 1) * L + l - 1] : first;
+    bool bad = false;
+    for (int j = 0; j < k; ++j) {
+      const size_t ij = (size_t)j * L + l;
+      const int want = j > 0 ? prev[ij - L] : enter;
+      bad |= sub_limit(limits[l], j, Tk) > 0 && !clean[ij] && sync[ij] != want;
+    }
+    go = bad;
+    if (!go) {
+      for (int j = 0; j < k; ++j) exits[(size_t)j * L + l] = prev[(size_t)j * L + l];
+    }
+    s = clean[l] ? sync[l] : enter;
+  }
+  if (!__syncthreads_or(go)) return;
+  copy_needles(nd, img);
+  if (!go) return;
+  if (PASS != kFirst) count_walker(walked);
+  const Stage stage{st + threadIdx.x};
+  int sy;
+  bool nlw = false;
+  if (PASS == kLane) {
+    const int l = i;
+    for (int j = 0; j < k; ++j) {
+      const size_t ij = (size_t)j * L + l;
+      int cnt = 0;
+      sync[ij] = s;
+      s = seq_walk(nd, stage, mode, jh, anchored, plen, tiles, T4, L, l,
+                   j * T4k, 0, 0, sub_limit(limits[l], j, Tk), s, cnt, sy,
+                   nlw);
+      counts[ij] = cnt;
+      exits[ij] = s;
+    }
+    return;
+  }
+  const int j = i / L, l = i - j * L;
+  const int lim = sub_limit(limits[l], j, Tk);
+  int cnt = 0;
+  if (PASS == kSub) {
+    s = seq_walk(nd, stage, mode, jh, anchored, plen, tiles, T4, L, l,
+                 j * T4k, 0, 0, lim, s, cnt, sy, nlw);
+  } else {
+    // positions below live0 leave the state alone: the warmup an offset
+    // skips (sub-lane (0, l) only); all of it skips no word
+    const int live0 = (j == 0 ? offsets[l] : 0) - 4 * W4;
+    s = seq_walk(nd, stage, mode, jh, anchored, plen, tiles, T4, L, l,
+                 j * T4k, live0 >= 0 ? 0 : W4, live0, lim, entries[i], cnt,
+                 sy, nlw);
+    clean[i] = i == 0 || (mode != kMulti && nlw);
+  }
+  counts[i] = cnt;
+  exits[i] = s;
+  sync[i] = sy;
+}
+
+template <int PASS>
+int seq_launch(int mode, const Needles* img, int jh, int anchored, int plen,
+               const int32_t* tiles, int T4, int L, int W4, int k,
+               const int32_t* entries, const int32_t* offsets,
+               const int32_t* limits, int first, const int32_t* prev,
+               int32_t* counts, int32_t* exits, int32_t* sync, int32_t* clean,
+               int32_t* walked, cudaStream_t st) {
+  if (PASS != kFirst) {
+    const cudaError_t e = cudaMemsetAsync(walked, 0, sizeof(int32_t), st);
+    if (e != cudaSuccess) return (int)e;
+  }
+  seq_kernel<PASS><<<blocks_for(PASS == kLane ? L : k * L), kThreads, 0, st>>>(
+      mode, img, jh, anchored, plen, tiles, T4, L, W4, k, entries, offsets,
+      limits, first, prev, counts, exits, sync, clean, walked);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
@@ -536,8 +662,8 @@ int cgx_line_lanes(const int32_t* tbl, const int32_t* lens, int J, int jh,
   return (int)cudaGetLastError();
 }
 
-// Bytes of K5's and K6's needle image (the img buffer of
-// cgx_line_lanes and cgx_hits_lanes).
+// Bytes of the needle image (the img buffer of cgx_line_lanes,
+// cgx_hits_lanes and cgx_seq_lanes).
 int cgx_needles_bytes(void) { return (int)sizeof(Needles); }
 
 // K6 over k sub-lanes a lane: builds the needle image into img, then walks;
@@ -556,15 +682,34 @@ int cgx_hits_lanes(const int32_t* tbl, const int32_t* lens, int J,
   return (int)cudaGetLastError();
 }
 
-int cgx_seq_lanes(int mode, const int32_t* tbl, const int32_t* lens, int J,
-                  int jh, int anchored, int plen, const int32_t* tiles, int T4,
-                  int L, int W4, const int32_t* entries, const int32_t* offsets,
-                  const int32_t* limits, int32_t* counts, int32_t* exits,
-                  int32_t* sync, void* stream) {
-  seq_kernel<<<blocks_for(L), kThreads, 0, (cudaStream_t)stream>>>(
-      mode, tbl, lens, J, jh, anchored, plen, tiles, T4, L, W4, entries,
-      offsets, limits, counts, exits, sync);
-  return (int)cudaGetLastError();
+// K7, one pass over k sub-lanes a lane: kFirst (0) builds the needle image
+// into img (the filter and buckets over the J needles in MODE_MULTI, the
+// jh needles in MODE_LINE), then walks with warmup and writes clean; kSub
+// (1) and kLane (2) read img, clean and prev, write exits, and zero then
+// count *walked.  Entries, prev and outputs [k, L].
+int cgx_seq_lanes(int pass, int mode, const int32_t* tbl, const int32_t* lens,
+                  int J, int jh, int anchored, int plen, const int32_t* tiles,
+                  int T4, int L, int W4, int k, const int32_t* entries,
+                  const int32_t* offsets, const int32_t* limits, int first,
+                  const int32_t* prev, void* img, int32_t* counts,
+                  int32_t* exits, int32_t* sync, int32_t* clean,
+                  int32_t* walked, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  Needles* nd = reinterpret_cast<Needles*>(img);
+  if (pass == kFirst) {
+    needles_kernel<<<1, kThreads, 0, st>>>(tbl, lens, J,
+                                           mode == kMulti ? J : jh, nd);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+#define CGX_SEQ(P)                                                          \
+  return seq_launch<P>(mode, nd, jh, anchored, plen, tiles, T4, L, W4, k,   \
+                       entries, offsets, limits, first, prev, counts, exits, \
+                       sync, clean, walked, st)
+  if (pass == kFirst) CGX_SEQ(kFirst);
+  if (pass == kSub) CGX_SEQ(kSub);
+  CGX_SEQ(kLane);
+#undef CGX_SEQ
 }
 
 }  // extern "C"

@@ -31,7 +31,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("lane_scan.cu", "compact.cu", "needle_scan.cu",
            "window_scan.cu", "compact_exp.cu")
-HEADERS = ("compact_common.cuh",)   # included by the sources; hashed too
+HEADERS = ("compact_common.cuh", "split_common.cuh")  # included; hashed too
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
@@ -57,8 +57,8 @@ _SIGNATURES = {
                        _P, _P, _P, _P, _P],
     "cgx_needles_bytes": [],
     "cgx_hits_lanes": [_P, _P, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
-    "cgx_seq_lanes": [_I, _P, _P, _I, _I, _I, _I, _P, _I, _I, _I, _P, _P,
-                      _P, _P, _P, _P, _P],
+    "cgx_seq_lanes": [_I, _I, _P, _P, _I, _I, _I, _I, _P, _I, _I, _I, _I,
+                      _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P],
 }
 
 _lock = threading.Lock()

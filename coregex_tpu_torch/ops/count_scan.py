@@ -592,32 +592,6 @@ def first_pass_inputs(starts, data_u8, n: int, L: int, T: int, W: int,
     return entries0.contiguous(), offsets0, limits.contiguous()
 
 
-def repair_fixpoint(scan_once, entries0, offsets0, first_entry, real,
-                    W: int, max_repair: int):
-    """Run scan_once(entries, offsets) -> (..., exits, sync) until every
-    real lane's post-warmup state equals the previous lane's exit, at most
-    max_repair rescans of every lane.  Returns (outputs of the last pass,
-    converged).  The unsplit needle machine (K7) repairs so.
-
-    A rescan enters each lane at the previous lane's exit, and lane 0 at
-    the true start, so rescan k makes lanes 0..k exact: max_repair = L
-    always converges."""
-    def want_of(exits):
-        return torch.cat([first_entry.reshape(1).to(torch.int32),
-                          exits[:-1]])
-
-    out = scan_once(entries0, offsets0)
-    full_w = torch.full_like(offsets0, W)
-    k = 0
-    while True:
-        exits, sync = out[-2], out[-1]
-        bad = bool((real & (want_of(exits) != sync)).any())
-        if not bad or k >= max_repair:
-            return out, not bad
-        out = scan_once(want_of(exits).contiguous(), full_w)
-        k += 1
-
-
 def split_fixpoint(mode: int, counter: LaunchCounter, d: "DeviceCountDFA",
                    tiles, W: int, entries0, offsets0, limits,
                    max_repair: int, dead: Optional[int] = None):
@@ -638,8 +612,9 @@ def split_fixpoint(mode: int, counter: LaunchCounter, d: "DeviceCountDFA",
     one, each lane walking whole from the previous lane's exit, so its own
     seams agree by construction.  A lane pass enters the first unsettled
     lane at an exact state, so it makes at least one more lane exact: at
-    most L lane passes settle any input, as the unsplit repair's L
-    rescans, and each walks only the lanes that need it.  At most
+    most L lane passes settle any input, as L rescans of every lane would,
+    and each walks only the lanes that need it.  The loop is
+    split_passes, which K7 (seq_scan.SeqScanner) runs too.  At most
     max_repair passes walk; converged says whether the last one settled.
 
     dead (K9): a state that is absorbing and raises no flag.  Then every
@@ -652,22 +627,47 @@ def split_fixpoint(mode: int, counter: LaunchCounter, d: "DeviceCountDFA",
     counts, exits, sync, flagw, aux = lane_walk(
         mode, counter, d.packed, d.segmap, tiles, W // 4, entries0, offsets0,
         limits)
-    spare = torch.empty_like(exits)
-    walked = torch.zeros(1, dtype=torch.int32, device=tiles.device)
-    whole = int(entries0.shape[0]) == 1
     T = int(tiles.shape[0]) * 4
+
+    def repair(whole, prev, out, walked):
+        lane_repair(mode, counter, whole, d.packed, d.segmap, tiles, d.sot,
+                    limits, prev, out, counts, sync, flagw, aux, walked)
+
+    finished = None if dead is None else (
+        lambda ex: _finished(counts, ex, sync, flagw, aux, limits, d.sot, T,
+                             dead))
+    exits, conv = split_passes(counter, exits, repair, max_repair, finished)
+    if conv is None:
+        conv = not bool(unsettled(exits, sync, limits, d.sot, T).any())
+    return (counts, exits, sync, flagw, aux), conv
+
+
+def split_passes(counter: LaunchCounter, exits, repair, max_repair: int,
+                 finished=None):
+    """The repair passes of a split walk (split_fixpoint's schedule), after
+    its pass 0 gave exits [k, L].  repair(whole, prev, out, walked) runs
+    one pass: the unsettled sub-lanes (whole=False) or the lanes holding
+    one walk from the exits in prev, every sub-lane's exit goes to out, and
+    walked [1] gets the walkers; each pass that walks is counted on
+    `counter`.  Up to SUB_PASSES sub-lane passes (none when k = 1), then
+    lane passes, at most max_repair in all.  finished(exits), when given,
+    is tested before each pass (one host sync), else walked after it: a
+    pass that walks nothing ends the loop.  Returns (exits, converged):
+    True when settled, None when max_repair passes ran first (the caller
+    tests its own outputs)."""
+    spare = torch.empty_like(exits)
+    walked = torch.zeros(1, dtype=torch.int32, device=exits.device)
+    whole = int(exits.shape[0]) == 1
     passes = subs = 0
     while True:
-        if dead is not None and _finished(counts, exits, sync, flagw, aux,
-                                          limits, d.sot, T, dead):
-            return (counts, exits, sync, flagw, aux), True
+        if finished is not None and finished(exits):
+            return exits, True
         if passes >= max_repair:
-            break
-        lane_repair(mode, counter, whole, d.packed, d.segmap, tiles, d.sot,
-                    limits, exits, spare, counts, sync, flagw, aux, walked)
+            return exits, None
+        repair(whole, exits, spare, walked)
         exits, spare = spare, exits
-        if dead is None and int(walked[0]) == 0:
-            return (counts, exits, sync, flagw, aux), True
+        if finished is None and int(walked[0]) == 0:
+            return exits, True
         passes += 1
         if whole:
             counter.lane_passes += 1
@@ -675,8 +675,6 @@ def split_fixpoint(mode: int, counter: LaunchCounter, d: "DeviceCountDFA",
             counter.sub_passes += 1
             subs += 1
             whole = subs >= SUB_PASSES
-    settled_now = not bool(unsettled(exits, sync, limits, d.sot, T).any())
-    return (counts, exits, sync, flagw, aux), settled_now
 
 
 def _finished(counts, exits, sync, flagw, last, limits, first: int, T: int,
@@ -707,8 +705,8 @@ def _finished(counts, exits, sync, flagw, last, limits, first: int, T: int,
 
 
 def settled(converged: bool, what: str) -> None:
-    """Raise if a fixpoint run with max_repair = L did not converge (it
-    cannot: see repair_fixpoint and split_fixpoint)."""
+    """Raise if a fixpoint run with max_repair = L + SUB_PASSES did not
+    converge (it cannot: see split_fixpoint)."""
     if not converged:
         raise RuntimeError(f"{what}: repair fixpoint did not settle")
 

@@ -36,9 +36,10 @@ import torch.nn.functional as F
 from . import _build
 from .count_scan import (LaunchCounter, lane_split, make_word_tiles,
                          plan_geometry)
-from .seq_scan import (AHEAD, _check_tables, chunk_rows, hit_plane,
-                       host_needles, lane_stream_words, needle_table,
-                       needles_ok, stream_bytes)
+from .seq_scan import (AHEAD, _check_tables, chunk_rows, from_sub_lanes,
+                       hit_plane, host_needles, lane_stream_words,
+                       needle_table, needles_ok, stream_bytes,
+                       sub_lane_tiles)
 
 NEG = -(1 << 30)
 BIG = 1 << 30
@@ -57,22 +58,6 @@ def _chunks(T4: int, L: int):
     step = chunk_rows(L)
     for r0 in range(0, T4, step):
         yield r0, min(r0 + step, T4)
-
-
-def _sub_lane_tiles(tiles, k: int):
-    """The tiles [T4, L] re-laid as k*L lanes of T4/k words, column l*k + j
-    holding sub-lane (j, l): the one-walker plain scans then walk the
-    sub-lanes in corpus order, and a lane's next lane is the next
-    sub-lane."""
-    T4, L = (int(x) for x in tiles.shape)
-    return tiles.reshape(k, T4 // k, L).permute(1, 2, 0).reshape(
-        T4 // k, L * k).contiguous()
-
-
-def _from_sub_lanes(x, k: int):
-    """[k*L] outputs of the re-laid sub-lanes -> [k, L], row j = sub-lanes
-    (j, .)."""
-    return x.reshape(-1, k).t().contiguous()
 
 
 def _running_max(x, lo: int):
@@ -150,9 +135,9 @@ def line_lanes_plain(tbl, lens, jh: int, anchored: bool, plen: int, pnl,
     to the sub-lane; pnl [k, L]: the byte before the sub-lane is a newline.
     The one-walker scan runs over the tiles re-laid as k*L lanes."""
     k = int(pnl.shape[0])
-    return tuple(_from_sub_lanes(x, k) for x in _line_plain(
+    return tuple(from_sub_lanes(x, k) for x in _line_plain(
         tbl, lens, jh, anchored, plen, pnl.t().reshape(-1),
-        _sub_lane_tiles(tiles, k)))
+        sub_lane_tiles(tiles, k)))
 
 
 def line_lanes_cuda(tbl, lens, jh: int, anchored: bool, plen: int, pnl,
@@ -402,8 +387,8 @@ def hits_lanes_plain(tbl, lens, tiles, k: int):
     """Plain torch K6 over k sub-lanes a lane: (cnt, ov, fh, reach) [k, L]
     int32, row j = sub-lanes (j, .), positions local to the sub-lane.  The
     one-walker scan runs over the tiles re-laid as k*L lanes."""
-    return tuple(_from_sub_lanes(x, k)
-                 for x in _hits_plain(tbl, lens, _sub_lane_tiles(tiles, k)))
+    return tuple(from_sub_lanes(x, k)
+                 for x in _hits_plain(tbl, lens, sub_lane_tiles(tiles, k)))
 
 
 def _check_split(tiles, k: int):

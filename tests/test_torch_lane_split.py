@@ -299,11 +299,34 @@ def _assert_real_equal(got, want, lim, T):
             assert torch.equal(a, b)
 
 
+def _rescan_every_lane(scan_once, entries0, offsets0, first_entry, real,
+                       W: int, max_repair: int):
+    """The unsplit repair (the reference's _count_full loop): run
+    scan_once(entries, offsets) -> (..., exits, sync) until every real
+    lane's post-warmup state equals the previous lane's exit, at most
+    max_repair rescans of every lane, each entering lane l at lane l-1's
+    exit with full warmup.  Returns (outputs of the last pass,
+    converged)."""
+    def want_of(exits):
+        return torch.cat([first_entry.reshape(1).to(torch.int32),
+                          exits[:-1]])
+
+    out = scan_once(entries0, offsets0)
+    full_w = torch.full_like(offsets0, W)
+    k = 0
+    while True:
+        exits, sync = out[-2], out[-1]
+        bad = bool((real & (want_of(exits) != sync)).any())
+        if not bad or k >= max_repair:
+            return out, not bad
+        out = scan_once(want_of(exits).contiguous(), full_w)
+        k += 1
+
+
 def test_unsplit_repair_equals_rescans_of_every_lane():
-    """At k = 1 the selective passes give the outputs of
-    repair_fixpoint's rescans of every lane, pass for pass (in the lanes
-    that hold corpus bytes): here with the reference's bound of 4
-    rescans, which quote parity exceeds."""
+    """At k = 1 the selective passes give the outputs of rescans of every
+    lane, pass for pass (in the lanes that hold corpus bytes): here with
+    the reference's bound of 4 rescans, which quote parity exceeds."""
     cd = _cd(r'"[^"]*"')
     d = cs.DeviceCountDFA.from_host(cd, "cpu")
     arr = _quotes(12000)
@@ -319,7 +342,7 @@ def test_unsplit_repair_equals_rescans_of_every_lane():
             d.packed, d.segmap, tiles, W // 4, entries[None], offsets, lim)]
 
     for max_repair in (0, 4, L):
-        want, wconv = cs.repair_fixpoint(scan_once, e0[0], o0,
+        want, wconv = _rescan_every_lane(scan_once, e0[0], o0,
                                          d.starts[cs.CTX_SOT],
                                          real, W, max_repair)
         got, conv = cs.split_fixpoint(cs.MODE_COUNT, cs.COUNT_KERNEL, d,
@@ -430,3 +453,24 @@ def test_cuda_wrapper_rejects_bad_splits(mode, shape, W4, msg):
         cs.lane_walk_cuda(mode, packed, seg, tiles, W4, entries, lanes,
                           lanes)
 
+
+
+def test_split_helpers_live_in_one_hashed_header(tmp_path, monkeypatch):
+    """The split walks' seam limit and walker count are defined once, in
+    split_common.cuh, which both split sources include and the library's
+    name hashes."""
+    from coregex_tpu_torch.ops import _build
+    for name in _build.SOURCES + _build.HEADERS:
+        (tmp_path / name).write_bytes(
+            open(f"{_build.CSRC}/{name}", "rb").read())
+    monkeypatch.setattr(_build, "CSRC", str(tmp_path))
+    before = _build.library_path()
+    with open(tmp_path / "split_common.cuh", "a") as f:
+        f.write("// edited\n")
+    assert _build.library_path() != before
+    for src in ("lane_scan.cu", "needle_scan.cu"):
+        text = open(tmp_path / src).read()
+        assert '#include "split_common.cuh"' in text
+        assert "int sub_limit(" not in text
+        assert "void count_walker(" not in text
+    assert "int sub_limit(" in open(tmp_path / "split_common.cuh").read()

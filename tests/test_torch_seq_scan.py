@@ -31,15 +31,23 @@ def _t(data):
 
 
 def _passes(monkeypatch):
-    """Counts K7 passes (the first pass plus repairs)."""
+    """Counts the K7 passes that walk: pass 0 plus each repair pass with
+    a walker (the split fixpoint ends on a pass that walks nothing)."""
     calls = []
-    plain = ss.seq_lanes_plain
+    plain, repair = ss.seq_lanes_plain, ss.seq_repair_plain
 
     def counted(*a):
         calls.append(1)
         return plain(*a)
 
+    def counted_repair(*a):
+        repair(*a)
+        walked = a[15]
+        if int(walked[0]):
+            calls.append(1)
+
     monkeypatch.setattr(ss, "seq_lanes_plain", counted)
+    monkeypatch.setattr(ss, "seq_repair_plain", counted_repair)
     return calls
 
 
@@ -79,8 +87,9 @@ def test_seq_full_matches_reference_interpret(monkeypatch, mode, needles,
 
 
 def test_repair_settles_past_the_reference_bound(monkeypatch):
-    """A parity chain across every lane needs L - 1 rescans; the reference
-    stops after 4 and reports non-convergence, the port settles."""
+    """A parity chain across every lane needs L - 1 repair passes (here
+    lane passes: GEO's lanes are too short to split); the reference stops
+    after 4 rescans and reports non-convergence, the port settles."""
     data = b"b" + b"a" * 500
     calls = _passes(monkeypatch)
     sc = ss.SeqScanner(ss.MODE_MULTI, [b"aa"])

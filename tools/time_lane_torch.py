@@ -3,7 +3,7 @@ r"""Device times of one checkout's lane walks and needle scans and the
 walls they carry, at chip_smoke.py's headline shapes, so that two
 checkouts can be timed on one GPU in one run.
 
-    python3 tools/time_lane_torch.py [--root CHECKOUT]
+    python3 tools/time_lane_torch.py [--root CHECKOUT] [--quote N]
 
 ``--root`` imports coregex_tpu_torch from another checkout (an unpacked
 earlier commit, say); the inputs are built by this checkout's
@@ -27,8 +27,15 @@ on spaces, best of 3 of is_match and find_index of the seven DFA-route
 patterns on the late- and no-match corpora (chip_smoke.single_corpora:
 K9 on prefixes of 4 MiB x8 to the whole), with K9's repair passes of the
 last call, and quote parity (`"[^"]*"` on 16 MiB,
-chip_smoke.quote_parity) with its repair passes.  Kernel lines give the mean of REPS launches after a warm-up, with
+chip_smoke.quote_parity) with its repair passes.  K7: pass 0 on `0\.0`
+(MODE_MULTI) at the checkout's split and, where it splits K7, at k = 16,
+32 and 64 (an unsplit K7 through its own wrapper), the warm wall of the
+`0\.0` count (K6, then K7) and, best of 2, of K7's parity chain (`aa`
+over chip_smoke.parity_corpus, whose parity settles one lane a pass),
+each with K7's launches and repair passes of the last call.  Kernel lines give the mean of REPS launches after a warm-up, with
 CUDA events; chip_smoke.py times the same shapes beside their bound.
+``--quote N`` times quote parity alone, N readings of its best-of-2
+wall, so that runs of two checkouts can alternate in one call.
 Imports no jax.
 """
 
@@ -45,6 +52,8 @@ REPS = 10
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=REPO)
+    ap.add_argument("--quote", type=int, default=0,
+                    help="time only quote parity, this many readings")
     args = ap.parse_args()
     sys.path.insert(0, REPO)
     import chip_smoke
@@ -66,6 +75,9 @@ def main():
     def line(label, ms, extra=""):
         print(f"[time] {label:44} {ms:9.3f} ms{extra}  ({card})", flush=True)
 
+    if args.quote:
+        quote_parity(ct, args.quote, line)
+        return
     base = chip_smoke.build_base()
     corpus = chip_smoke.bench_corpus(base)
     mib = chip_smoke.CORPUS_MIB
@@ -147,6 +159,25 @@ def main():
              + (f" k={kk}" if k9_split else ""), ms,
              "  (lane_split's k)" if kk == k and k9_split else "")
         del margs
+    # K7 on `0\.0` (MODE_MULTI), pass 0 at the checkout's split and, where
+    # it splits K7, at 16, 32, 64; an unsplit K7 through its own wrapper
+    from coregex_tpu_torch.ops import seq_scan
+    k7_split = "k" in inspect.signature(
+        seq_scan.SeqScanner.first_pass).parameters
+    sq = seq_scan.SeqScanner(seq_scan.MODE_MULTI, [b"0.0"], device="cuda")
+    n = int(data.shape[0])
+    _L, Ts, Ws, _ = seq_scan.seq_geometry(n, sq.M)
+    Ws = min(max(Ws, 4 * sq.M + 4), Ts)
+    k = split(Ts, Ws) if k7_split else 1
+    for kk in sorted({k, 16, 32, 64}) if k7_split else [1]:
+        e0, o0, lim = sq.first_pass(data, n, L, Ts, Ws,
+                                    *((kk,) if k7_split else ()))[:3]
+        sa = (sq.mode, sq.tbl, sq.lens, sq.jh, sq.anchored, sq.plen, tiles,
+              Ws // 4, e0, o0, lim)
+        ms = chip_smoke.cuda_ms(lambda: seq_scan.seq_lanes_cuda(*sa), REPS)
+        line(f"K7 0\\.0 {mib} MiB" + (f" k={kk}" if k7_split else ""), ms,
+             "  (lane_split's k)" if kk == k and k7_split else "")
+        del sa, e0
     del data, tiles
     torch.cuda.empty_cache()
 
@@ -165,6 +196,32 @@ def main():
         eng = ct.compile(chip_smoke.PATTERNS[name], device="cuda")
         line(f"{name} count {mib} MiB (wall)",
              wall(lambda: eng.count(corpus)))
+    # `0\.0`'s count (K6, then K7 on its overlaps) and K7's parity chain
+    # (`aa` over 16 MiB of b + a's), each with K7's launches and repair
+    # passes of the last call
+    seq = seq_scan.SEQ_KERNEL
+
+    def k7_count(fn):
+        chip_smoke.reset_passes(seq)
+        seq.launches = 0
+        return fn()
+
+    def k7_passes():
+        return (f"  K7 launches {seq.launches}, repair passes "
+                f"{seq.sub_passes}+{seq.lane_passes}")
+
+    eng = ct.compile(chip_smoke.PATTERNS["overlap_0.0"], device="cuda")
+    line(f"0\\.0 count {mib} MiB (wall)",
+         wall(lambda: k7_count(lambda: eng.count(corpus))), k7_passes())
+    parity = torch.from_numpy(chip_smoke.parity_corpus()).to(dev)
+    aa = seq_scan.SeqScanner(seq_scan.MODE_MULTI, [b"aa"], device="cuda")
+    want = (int(parity.shape[0]) - 1) // 2
+    got = aa.count(parity)
+    if got != want:
+        sys.exit(f"parity chain: count {got} != {want}")
+    line("K7 parity chain aa 16 MiB count (wall)",
+         wall(lambda: k7_count(lambda: aa.count(parity)), 2), k7_passes())
+    del parity
     for name in ("ip", "version"):
         fbe = ct.compile(chip_smoke.PATTERNS[name], device="cuda") \
             .batch_engine()
@@ -211,12 +268,20 @@ def main():
                 line(f"{name} {what} {which} {mib} MiB (wall)", ms,
                      k9_passes())
     del corpora
+    quote_parity(ct, 1, line)
+
+
+def quote_parity(ct, readings: int, line):
+    """Quote parity's count wall (chip_smoke.quote_parity), `readings`
+    times on one engine, each with its repair passes and K1 launches."""
+    import chip_smoke
     eng = ct.compile(chip_smoke.QUOTES, device="cuda")
-    got, want, ms, subs, lanes, launches = chip_smoke.quote_parity(eng)
-    if got != want:
-        sys.exit(f"quote parity: count {got} != {want}")
-    line("quote parity 16 MiB count (wall)", ms,
-         f"  repair passes {subs}+{lanes}, {launches} K1 launches")
+    for _ in range(readings):
+        got, want, ms, subs, lanes, launches = chip_smoke.quote_parity(eng)
+        if got != want:
+            sys.exit(f"quote parity: count {got} != {want}")
+        line("quote parity 16 MiB count (wall)", ms,
+             f"  repair passes {subs}+{lanes}, {launches} K1 launches")
 
 
 if __name__ == "__main__":
