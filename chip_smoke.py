@@ -42,12 +42,16 @@ Phases (any failure exits non-zero before the final line):
                one pass at k = 64) against the same fixpoint over the
                plain walk; the
                window-flag scan on 2^16 random starts at W = 256; the
+               general find_all's shapes (`\b\d+\b` on the whole
+               corpus): K9 over the unanchored reverse DFA on the flipped
+               corpus, K4's chain over its flag words and the window scan
+               forward from every match start (about 55M) at W = 64; the
                single-pass compaction (K10) on the compaction rig's mask
                (256 MiB at density 1/200, seed 11) at R = 128, at R = 256
                with two payloads under cond_dma + skip_empty, and at
                R = 512
   4. e2e     - the public API on a 1536 MiB log corpus (the JAX package's
-               bench corpus), in four runs, each with the launch counts set
+               bench corpus), in five runs, each with the launch counts set
                to 0 before it and read after it.  Earlier slices: count for
                the 13 bench patterns and for `0\.0` (whose hits overlap,
                so K6 hands over to K7, with K7's repair passes printed),
@@ -87,12 +91,23 @@ Phases (any failure exits non-zero before the final line):
                `(error)?` at the span limits' corpus as the nullable
                patterns above, then the compaction rig
                (tools/profile_compact_torch.py): its check, its 15
-               variants and its production compactions, timed
+               variants and its production compactions, timed.  General
+               find_all: count and device find_all of `\b\d+\b`,
+               `\berror\b` and `\w+@\w+\.com\b` (the general fallback:
+               match starts and window rounds printed) and of `\d{3}` and
+               `[a-z]{2,5}` (the class split) at 1536 MiB, of `(\bfoo)?`
+               and `a{0,3}` at the span limits' corpus and of `x*?`
+               (ALL_EMPTY) on a SLICE_MIB slice, against the tiled oracle
+               (Python's `\b` is Go's on ASCII), with find_all_index on
+               one or two tiles; the launches of each kernel in one warm
+               find_all of each; find_all_index(t, 3) and (t, 2^20) of one
+               pattern of each route against the oracle's first spans
   5. routes  - every kernel K1-K7 was launched in the first run, K1-K4 and
                K8 in the second, K9 and the window scan in the third, K4
-               and K10 in the fourth, and no call was declined to the host
-               loop but the nullable find_index (the reference's FALLBACK,
-               by design)
+               and K10 in the fourth, K9, the window scan, K4 and K8 in
+               the fifth, and no call was declined to the host loop but
+               the nullable find_index (the reference's FALLBACK, by
+               design)
 
 The line before the last is a JSON object of per-kernel results; the last
 line is {"ok": true, "device": {...}}.  Imports no jax.
@@ -193,6 +208,20 @@ LITERAL_EXTRA = [("overlap_set", r"0\.0|\.0\.")]
 LITERAL_FIND_ALL = ("literal_error", "http_methods", "alt_literal",
                     "multi_literal32", "overlap_0.0", "overlap_set")
 LITERAL_NULLABLE = [("error_opt", r"(error)?", "limit")]
+# the general find_all slice: patterns with a look (the general fallback),
+# {m,k} class runs (the class split) at 1536 MiB, nullable patterns whose
+# cores take those routes at the span limits' corpus, and ALL_EMPTY on a
+# SLICE_MIB slice (at 1536 MiB it would have n + 1 > 2^30 spans); find_all
+# limits for one pattern of each route
+GENERAL = [("word_digits", r"\b\d+\b", "full"),
+           ("word_error", r"\berror\b", "full"),
+           ("word_email", r"\w+@\w+\.com\b", "full"),
+           ("digits3", r"\d{3}", "full"),
+           ("lower2_5", r"[a-z]{2,5}", "full"),
+           ("foo_opt", r"(\bfoo)?", "limit"),
+           ("a0_3", r"a{0,3}", "limit"),
+           ("empty_lazy", r"x*?", "slice")]
+GENERAL_LIMITS = ("word_digits", "lower2_5", "a0_3", "empty_lazy")
 # the single-match slice: the bench patterns and these
 SINGLE_EXTRA = [("ws_digit_ws", r"\s\d\s"), ("ab_plus_c", r"(a|b)+c"),
                 ("ws_digits_ws", r"\s\d+\s"), ("a_word_end", r"a\b"),
@@ -202,7 +231,8 @@ SINGLE_EXTRA = [("ws_digit_ws", r"\s\d\s"), ("ab_plus_c", r"(a|b)+c"),
 ORACLE_RE = {r"\d+$": rb"\d+\Z"}
 FILLER = 0x20       # the late and no-match corpora's filler byte
 PATTERNS = dict(CONFIGS + EXTRA_COUNTS + SINGLE_EXTRA + LITERAL_EXTRA
-                + [(nm, p) for nm, p, _ in CLASS_NULLABLE + LITERAL_NULLABLE])
+                + [(nm, p) for nm, p, _ in CLASS_NULLABLE + LITERAL_NULLABLE
+                   + GENERAL])
 DEVICE = "cuda"
 CORPUS_MIB = 1536
 SLICE_MIB = 64
@@ -214,15 +244,23 @@ M32 = 1 << 32
 
 
 def oracle_spans(pattern: str, base: bytes):
-    """Go's FindAll from re.finditer: Go drops an empty match that abuts
-    the previous match, re keeps it (no pattern without empty matches is
-    affected)."""
-    out, prev_end = [], -1
-    for m in re.finditer(pattern.encode("ascii"), base):
-        s, e = m.span()
-        if not (s == e == prev_end):
-            out.append((s, e))
-        prev_end = e
+    """Go's FindAll from re.finditer on an ASCII text: Go drops an empty
+    match that abuts the previous match, re keeps it; after an empty match
+    at p Go searches on from p + 1, where re first tries a non-empty match
+    at p (only a lazy pattern such as `x*?` has one), so the scan restarts
+    at p + 1 there.  No pattern without empty matches is affected."""
+    rx = re.compile(pattern.encode("ascii"))
+    out, prev, pos = [], (-1, -1), 0
+    while pos is not None:
+        start, pos = pos, None
+        for m in rx.finditer(base, start):
+            s, e = m.span()
+            if prev[0] == prev[1] == s < e:
+                pos = s + 1
+                break
+            if not (s == e == prev[1]):
+                out.append((s, e))
+            prev = (s, e)
     return out
 
 
@@ -732,8 +770,8 @@ def phase_kernels(base: bytes, corpus: np.ndarray):
     rev = ct.compile(PATTERNS["inner_keyword"], device=DEVICE) \
         .batch_engine()._chunk_scanner("rev_anch")
     g = torch.Generator(device=dev).manual_seed(11)
-    for d, B, Ww, reverse, headline in ((sample, 1 << 12, 64, False, False),
-                                        (data, 1 << 16, 256, True, True)):
+    for d, B, Ww, reverse in ((sample, 1 << 12, 64, False),
+                              (data, 1 << 16, 256, True)):
         n = int(d.shape[0])
         starts = torch.randint(0, n + 1, (B,), generator=g, device=dev,
                                dtype=torch.int32)
@@ -748,8 +786,9 @@ def phase_kernels(base: bytes, corpus: np.ndarray):
                 f"{'reverse' if reverse else 'forward'} {n / 2 ** 20:.0f} MiB",
                 lambda: dfa_scan.window_flags_cuda(*wargs),
                 lambda: dfa_scan.window_flags_plain(*wargs),
-                headline=headline,
                 in_bytes=reads + nbytes(starts, edge, *wargs[:4]))
+    # the general find_all's shapes, the window scan's headline among them
+    general_kernels(compare, data, corpus)
     del data
 
     # K10 on the compaction rig's mask (256 MiB at density 1/200, seed 11)
@@ -893,6 +932,70 @@ def cut_case(compare, mt, data, tiles) -> None:
         fail("the dead cut did not end ip's fwd_break scan after pass 0")
     compare("match_scan", f"ip fwd_break cut k={k} {n / 2 ** 20:.0f} MiB",
             lambda: dfa_scan.match_full(*args), plain)
+
+
+def general_kernels(compare, data, corpus: np.ndarray) -> None:
+    r"""The general find_all of `\b\d+\b` on the whole corpus (`data` on
+    the card, `corpus` on the host), each kernel at the path's shape
+    against its plain version: K9 over the unanchored reverse DFA on the
+    flipped corpus (pass 0 at the main path's split), K4's chain over its
+    flag words (three compactions), then the window scan forward from
+    every match start, W = 64 (the path's first round, one lane a start,
+    no cap), with the bytes its lanes must read counted by window_reads."""
+    import torch
+    import coregex_tpu_torch as ct
+    from coregex_tpu_torch.ops import compact2, dfa_scan
+    from coregex_tpu_torch.ops import count_scan as cs
+    from coregex_tpu_torch.ops.bytescan import _bucket
+    from coregex_tpu_torch.ops.span_scan import to_global
+    be = ct.compile(PATTERNS["word_digits"], device=DEVICE).batch_engine()
+    route = be._full_scan_route()
+    if route is None:
+        fail("word_digits: no general find_all route")
+    rev, fwd_mt = route
+    flipped = torch.flip(data, [0])
+    n = int(data.shape[0])
+    geom = cs.plan_geometry(n)
+    L, T, W, _ = geom
+    k = cs.lane_split(T, W)
+    tiles = cs.make_word_tiles(flipped, L, T // 4)
+    e0, o0, lim = cs.first_pass_inputs(rev.mt.starts, flipped, n, L, T, W,
+                                       k)
+    args = (rev.mt.packed, rev.mt.segmap, tiles, W // 4, e0, o0, lim)
+    label = f"\\b\\d+\\b rev_all {CORPUS_MIB} MiB"
+    compare("match_scan", f"{label} flipped k={k}",
+            lambda: cs.lane_walk_cuda(cs.MODE_MATCH, *args),
+            lambda: cs.lane_walk_plain(cs.MODE_MATCH, *args),
+            in_bytes=nbytes(*args))
+    del args, e0, o0, lim
+    scan = rev.scan_device(flipped, geom, tiles)
+    del tiles, flipped
+    cnt = int(dfa_scan.flags_count_upto(scan))
+    words = to_global(scan.flagw, n)
+    del scan
+    cap = _bucket(cnt, 16)
+    compare("compact_pay", f"{label} flag words ({cnt} set)",
+            lambda: compact2.sparse_positions_words(words, n, cap),
+            lambda: chain_plain(words, [], n, cap), reps=3,
+            in_bytes=nbytes(words))
+    del words
+    starts, m, ok = be._all_starts(rev, corpus)
+    if not bool(ok) or m != cnt + int(starts[0] == 0):
+        fail("word_digits: the match starts' compaction failed")
+    st = starts[:m].contiguous()
+    del starts
+    edge = torch.full((m,), n, dtype=torch.int32, device=data.device)
+    wargs = dfa_scan.window_args(fwd_mt, data, st, edge, be.END_WINDOW)
+    reads = window_reads(*wargs)
+    print(f"[kernels] window_scan {m} starts of \\b\\d+\\b: {reads} "
+          f"corpus bytes read at W={be.END_WINDOW}", flush=True)
+    compare("window_scan",
+            f"{m} starts W={be.END_WINDOW} forward {CORPUS_MIB} MiB",
+            lambda: dfa_scan.window_flags_cuda(*wargs),
+            lambda: dfa_scan.window_flags_plain(*wargs), headline=True,
+            in_bytes=reads + nbytes(st, edge, *wargs[:4]))
+    del wargs, st, edge
+    torch.cuda.empty_cache()
 
 
 def split_args(d, data, geom, tiles, k):
@@ -1284,6 +1387,7 @@ def check_find_all(name, be, arr: np.ndarray, exp) -> str:
                 int(spans[:cnt, 1].sum(dtype=torch.int64)) % M32,
                 spans[sidx_d].cpu().numpy().astype(np.int64))
 
+    from coregex_tpu_torch.ops.dfa_scan import MATCH_KERNEL
     from coregex_tpu_torch.ops.flag_scan import FLAG_KERNEL
     from coregex_tpu_torch.ops.span_scan import SPAN_KERNEL
     t0 = time.perf_counter()
@@ -1293,6 +1397,7 @@ def check_find_all(name, be, arr: np.ndarray, exp) -> str:
     for _ in range(2):
         reset_passes(SPAN_KERNEL)
         reset_passes(FLAG_KERNEL)
+        reset_passes(MATCH_KERNEL)
         t0 = time.perf_counter()
         res = run()
         fa_best = min(fa_best, time.perf_counter() - t0)
@@ -1337,6 +1442,28 @@ def limit_reps(inner, tail, B: int, reps: int) -> int:
     return reps
 
 
+def sized_reps(size: str, inner, tail, B: int, arr: np.ndarray) -> int:
+    """Whole tiles of a case's corpus: all of arr ("full"), the largest
+    corpus the span limits admit ("limit") or SLICE_MIB ("slice")."""
+    reps = len(arr) // B
+    if size == "limit":
+        return limit_reps(inner, tail, B, reps)
+    if size == "slice":
+        return min(reps, (SLICE_MIB << 20) // B)
+    return reps
+
+
+def route_stats(be, route) -> str:
+    """The general find_all's match starts and window rounds of the last
+    call (a nullable pattern's: its core's), where that route ran."""
+    if route[0] == "nullable":
+        be = route[1][0]
+    if be.full_scan_stats is None:
+        return ""
+    m, rounds = be.full_scan_stats
+    return f", {m} starts, {rounds} window rounds"
+
+
 def phase_e2e_class_nullable(base: bytes, arr: np.ndarray,
                              cases=CLASS_NULLABLE):
     """Class-run and nullable count and find_all through the public API,
@@ -1344,6 +1471,7 @@ def phase_e2e_class_nullable(base: bytes, arr: np.ndarray,
     (the scaling checked on two tiles for the nullable patterns)."""
     import coregex_tpu_torch as ct
     from coregex_tpu_torch.ops.count_scan import COUNT_KERNEL
+    from coregex_tpu_torch.ops.dfa_scan import MATCH_KERNEL
     from coregex_tpu_torch.utils import corpus_cache
 
     B = len(base)
@@ -1359,9 +1487,8 @@ def phase_e2e_class_nullable(base: bytes, arr: np.ndarray,
                                    B, 2):
                 fail(f"{name}: the tiled oracle differs from the Go-rule "
                      f"oracle on two tiles")
-        reps = len(arr) // B
+        reps = sized_reps(size, inner, tail, B, arr)
         if size == "limit":
-            reps = limit_reps(inner, tail, B, reps)
             corpus_cache.clear()
         corpus = arr[:reps * B]
         n = len(corpus)
@@ -1380,7 +1507,10 @@ def phase_e2e_class_nullable(base: bytes, arr: np.ndarray,
                 f"{got:>10} ok {n / best / 1e9:7.2f} GB/s "
                 f"({best * 1e3:.1f} ms, first {first:.2f} s, K1 repair "
                 f"passes {passes(COUNT_KERNEL)}) | "
-                + check_find_all(name, be, corpus, exp))
+                + check_find_all(name, be, corpus, exp)
+                + route_stats(be, route)
+                + (f", K9 repair passes {passes(MATCH_KERNEL)}"
+                   if route_stats(be, route) else ""))
         print(line, flush=True)
         # exact spans through the public API on one tile (nullable) or two
         sreps = 1 if nullable else 2
@@ -1393,6 +1523,63 @@ def phase_e2e_class_nullable(base: bytes, arr: np.ndarray,
               f"{len(got)} spans equal the oracle", flush=True)
         del got
         routes[f"{name} find_all"] = be.host_routes
+    return routes
+
+
+def first_spans(inner, tail, B: int, reps: int, k: int):
+    """The first k spans of the tiled span list, built only that far."""
+    out, t = [], 0
+    while len(out) < k and t < reps:
+        out.extend((s + t * B, e + t * B) for s, e in inner)
+        t += 1
+    if t == reps:
+        out.extend(tail)
+    return out[:k]
+
+
+def phase_e2e_general(base: bytes, arr: np.ndarray):
+    """The general find_all slice through the public API: count and find_all
+    of the GENERAL patterns against the tiled oracle (as the class-run and
+    nullable phase), the launches of each kernel in one warm find_all, and
+    find_all_index with limits 3 and 2^20 for one pattern of each route
+    (general, class split, nullable, ALL_EMPTY) against the oracle's first
+    spans."""
+    import coregex_tpu_torch as ct
+    from coregex_tpu_torch.ops import compact, compact2, dfa_scan
+
+    routes = phase_e2e_class_nullable(base, arr, GENERAL)
+    B = len(base)
+    kernels = (dfa_scan.MATCH_KERNEL, dfa_scan.WINDOW_KERNEL,
+               compact2.COMPACT_KERNEL, compact.COMPACT_POS_KERNEL)
+    for name, pattern, size in GENERAL:
+        spans0 = oracle_spans(pattern, base)
+        inner, tail = tiled_spans(spans0, B, 1)
+        reps = sized_reps(size, inner, tail, B, arr)
+        corpus = arr[:reps * B]
+        inner, tail = tiled_spans(spans0, B, reps)
+        eng = ct.compile(pattern, device=DEVICE)
+        be = eng.batch_engine()
+        route = be._spans_route(corpus)
+        be.find_all_spans_device(corpus)
+        before = [c.launches for c in kernels]
+        cnt = be.find_all_spans_device(corpus)[1]
+        launched = ", ".join(f"{c.name} {c.launches - b}"
+                             for c, b in zip(kernels, before))
+        print(f"[e2e] {name:12} one warm find_all ({cnt} spans, route "
+              f"{route[0]}{route_stats(be, route)}): launches {launched}",
+              flush=True)
+        if name in GENERAL_LIMITS:
+            for k in (3, 1 << 20):
+                t0 = time.perf_counter()
+                got = eng.find_all_index(corpus, k)
+                wall = time.perf_counter() - t0
+                if got != first_spans(inner, tail, B, reps, k):
+                    fail(f"{name}: find_all_index(t, {k}) differs from "
+                         f"the oracle's first spans")
+                print(f"[e2e] {name:12} find_all_index(t, {k}) on "
+                      f"{len(corpus)} bytes: {len(got)} spans equal the "
+                      f"oracle ({wall * 1e3:.1f} ms)", flush=True)
+        routes[f"{name} launches and limits"] = be.host_routes
     return routes
 
 
@@ -1582,7 +1769,10 @@ def main():
     # then the class-run and nullable path (K1 for the `\w*` count, K2/K3
     # for the ip core, K4 for class runs and chains, K8 for `\w*`), then
     # the single-match path (K9 and the window scan), then the literal
-    # path and the compaction rig (K4 for the literal chains, K10)
+    # path and the compaction rig (K4 for the literal chains, K10), then
+    # the general find_all (K9 over the reverse DFA, the window scan for
+    # the ends, K4 for the starts, the alive lanes and the chain, K8 for
+    # ALL_EMPTY)
     paths = [("earlier slices", phase_e2e,
               [c for c, _, _ in counters[:7]]),
              ("class runs and nullable", phase_e2e_class_nullable,
@@ -1590,7 +1780,9 @@ def main():
              ("single match", phase_e2e_single_match,
               [counters[i][0] for i in (8, 9)]),
              ("literal find_all and compaction rig", phase_e2e_literal,
-              [counters[i][0] for i in (3, 10)])]
+              [counters[i][0] for i in (3, 10)]),
+             ("general find_all", phase_e2e_general,
+              [counters[i][0] for i in (8, 9, 3, 7)])]
     build_s = phase_build()
     base = build_base()
     corpus = bench_corpus(base)

@@ -15,8 +15,12 @@ one method here), the nullable paths (``_core``
 ``_nullable_general_spans_dev`` :635-676), ``find_all_spans_device``
 (:523-587), ``find_all_spans``, ``_end_anchored_spans`` (:1402-1413),
 ``is_match`` (:1415-1450), ``find_first`` (:1803-1863),
-``_charclass_first`` (:1865-1881), ``_find_first_dfa`` (:1883-1917) and
-``_rev_start_flags`` (:2252-2307, kind="rev_anch") as ``_rev_start``.  The
+``_charclass_first`` (:1865-1881), ``_find_first_dfa`` (:1883-1917),
+``_rev_start_flags`` (:2252-2307, kind="rev_anch") as ``_rev_start``, the
+general find_all (``_all_starts`` :2584-2600, ``_full_scan_spans``
+:2602-2610, its ``go_select`` :122-144 on the device), the ``{m,k}`` class
+split of ``_charclass_spans`` (:2028-2075) and ALL_EMPTY's spans
+(``meta/nullable.py:all_empty_spans``).  The
 port builds on its own copy of the host pipeline (``..dfa``, ``..nfa``,
 ``.strategy``, ``.literal``) and imports nothing of ``coregex_tpu``.
 
@@ -37,19 +41,26 @@ Routes:
     take the same needle sets, so the port does not route it.
   * find_all: the bidirectional span path for PREFIX_RUN, PREFIX_SET,
     FULL_SCAN and INNER plans whose count transducer is spans_simple with
-    no EOI_COMPLEX state; the candidate chain for LINE_SHAPE plans with
-    newline-free, non-empty literals and no ``(?s)`` part; class runs for
-    CHARCLASS plans that are ``[class]+`` or ``([class]{m,k})+`` (two
-    sparse chains, or K4 over the unpacked masks when runs are dense); for
+    no EOI_COMPLEX state and that have no look; the general fallback for
+    the other plans of those four families (``_full_scan_spans_dev``: K9
+    over the unanchored reverse DFA for every match start, the forward
+    window scan for their ends, Go's chain on the device), unless its
+    DFAs overflow or do not fit the kernels; the candidate chain for
+    LINE_SHAPE plans with newline-free, non-empty literals and no ``(?s)``
+    part; class runs for CHARCLASS plans (two sparse chains, or K4 over
+    the unpacked masks when runs are dense; ``([class]{m,k})+`` chops a
+    run to its match, ``[class]{m,k}`` splits it into its matches); for
     LITERAL and MULTI_LITERAL plans the hit words and their chains (K4 over
     the unpacked masks when hits are dense), with Go's leftmost-first
     selection on the device when hits overlap; for NULLABLE_CORE plans
     two K8 compactions when the core is ``[class]+`` and the corpus ASCII,
     else the core's own route plus the empty fill when that route serves
-    the corpus and the corpus is below DEVICE_SPANS_LIMIT; the host
-    reverse scan for END_ANCHORED plans (any limit).  Leftmost-longest
-    plans decline, but END_ANCHORED, whose one match does not depend on
-    the rule.  A limit (find_all_index(t, k)) declines otherwise.
+    the corpus and the corpus is below DEVICE_SPANS_LIMIT; for ALL_EMPTY
+    plans one K8 compaction of the rune boundaries below that limit; the
+    host reverse scan for END_ANCHORED plans.  Leftmost-longest plans
+    decline, but END_ANCHORED, whose one match does not depend on the
+    rule; so do BITSET_NFA plans.  A limit (find_all_index(t, k)) takes
+    the same routes and keeps the first k spans.
   * is_match: True for nullable plans; the host reverse scan for
     END_ANCHORED; one K9 scan over ``fwd_all`` for FULL_SCAN; for the
     other strategies ``find_first(...) is not None`` (the reference asks
@@ -95,22 +106,23 @@ from ..ops.compact import compact_positions
 from ..ops.compact2 import _bucket_up, sparse_positions_words
 from ..ops.count_scan import CountScanner, make_word_tiles, plan_geometry
 from ..ops.dfa_scan import (ChunkScanner, DFATables, exit_at_end,
-                            flags_count_upto, flags_last, window_flags,
-                            window_words)
+                            flags_count_upto, flags_last, window_ends,
+                            window_flags, window_last)
 from ..ops.flag_scan import (FlagResetScanner, ResetFlagTables,
                              reset_geometry, scatter_reset_tiles,
                              sym_base_tiles)
 from ..ops.line_scan import HitsScanner, LineScanner
 from ..ops.seq_scan import MODE_MULTI, SeqScanner, seq_geometry
-from ..ops.span_chain import (MULTI_FUSED_LIMIT, SPARSE_OK, _floor_log2,
-                              bidi_assemble, bidi_ends, class_run_words,
+from ..ops.span_chain import (MULTI_FUSED_LIMIT, SPARSE_OK, _rune_boundaries,
+                              bidi_assemble, bidi_ends, chain_select,
+                              class_run_words, expand_class_runs,
                               leftmost_first_spans, line_event_words,
                               line_spans_candidates, literal_spans_sparse,
                               literal_words, multi_literal_words,
                               multi_literal_words_big, nullable_class_masks,
                               nullable_fill_words, nullable_merge,
                               pair_spans_sparse, word_positions)
-from ..ops.span_scan import SpanScanner
+from ..ops.span_scan import SpanScanner, to_global
 from ..syntax.ast import Node, Op
 from ..syntax.parser import Parsed
 from ..utils.artifact_cache import load_dense, save_dense
@@ -176,6 +188,11 @@ class BatchEngine:
     #    once, span_chain.leftmost_first_spans): 30 GiB at 2^30 slots,
     #    beside the corpus (1 byte per corpus byte; 2^30 hits need n >
     #    2^30).  tools/profile_torch.py --limit measures it at the limit.
+    #  * The general find_all (full_scan) holds per start the int32 start,
+    #    the window scan's end, index and alive words and its flags (at
+    #    most WINDOW_LAUNCH_BYTES a launch), then the chain's ~30 bytes
+    #    per cap slot as above, beside the corpus, its flipped copy and
+    #    the flipped word tiles (about 3 bytes per corpus byte).
     SPARSE_SPANS_LIMIT = 1600 * 1024 * 1024
     MAX_DEVICE_SPANS = 2 ** 30
     DEVICE_SPANS_LIMIT = 2 ** 30 - 1
@@ -215,6 +232,9 @@ class BatchEngine:
         self._rev_hint_cache = {}   # corpus fp -> K3 sub-lane entries [k, L]
         self._core_engine = None    # lazy Engine over a nullable core
         self._chunk_sc = {}         # dense kind -> ChunkScanner; False == none
+        # (match starts, window rounds) of the last general find_all, None
+        # before the first
+        self.full_scan_stats = None
 
     def _decline(self, result=None):
         self.host_routes += 1
@@ -229,10 +249,13 @@ class BatchEngine:
     # -- artifact builders (lazy) ---------------------------------------
     def _dense(self, kind: str):
         """Host DenseDFA of the given kind (ref. :351-419): the anchored
-        reverse DFAs, the unanchored forward DFA (``fwd_all``) and its
-        break-at-match form (``fwd_break``: it dies right after the
-        leftmost match is complete, so its last flag is the leftmost-first
-        end).  Raises DFAOverflow past the state limit."""
+        reverse DFAs, the unanchored reverse DFA (``rev_all``: every match
+        start, read on the flipped corpus), the unanchored forward DFA
+        (``fwd_all``) and its break-at-match form (``fwd_break``: it dies
+        right after the leftmost match is complete, so its last flag is the
+        leftmost-first end), and that form anchored (``fwd_anch_break``,
+        the reference's leftmost-first ``_verify_kind``).  Raises
+        DFAOverflow past the state limit."""
         if kind in self._host_dense:
             return self._host_dense[kind]
         d = load_dense(self.parsed.pattern, kind)
@@ -242,10 +265,14 @@ class BatchEngine:
                                   ascii_only=(kind == "rev_anch_ascii"))
                 d = determinize(nfa, anchored=True, break_at_match=False,
                                 reverse=True)
-            elif kind in ("fwd_all", "fwd_break"):
+            elif kind == "rev_all":
+                nfa = compile_nfa(self.parsed, reverse=True)
+                d = determinize(nfa, anchored=False, break_at_match=False,
+                                reverse=True)
+            elif kind in ("fwd_all", "fwd_break", "fwd_anch_break"):
                 nfa = compile_nfa(self.parsed, with_captures=False)
-                d = determinize(nfa, anchored=False,
-                                break_at_match=(kind == "fwd_break"))
+                d = determinize(nfa, anchored=(kind == "fwd_anch_break"),
+                                break_at_match=(kind != "fwd_all"))
             else:
                 raise KeyError(kind)
             save_dense(self.parsed.pattern, kind, d)
@@ -655,10 +682,7 @@ class BatchEngine:
             Wc = min(W, n + 1)
             flagw, alive = window_flags(rev.mt, dev, starts, edge, Wc,
                                         reverse=True)
-            w = flagw[:, 0]
-            base = torch.arange(window_words(Wc), dtype=torch.int32,
-                                device=w.device) * 32
-            top = torch.where(w != 0, base + _floor_log2(w), -1).max()
+            top = window_last(flagw[:, :1])[0]
             t_max, live = torch.stack([top, alive[0]]).tolist()
             if not live:
                 break
@@ -675,25 +699,32 @@ class BatchEngine:
     def find_all_spans(self, data: np.ndarray, limit: int = -1
                        ) -> Optional[np.ndarray]:
         """All non-overlapping spans with Go semantics as an [m, 2] int64
-        host array, or None (declined)."""
+        host array, at most `limit` of them when limit >= 0, or None
+        (declined).  A limit takes the corpus's device route and keeps the
+        first `limit` spans (class runs extract only the runs those need);
+        limit 0 returns none and uploads nothing."""
+        if limit == 0:
+            return np.empty((0, 2), dtype=np.int64)
         if self.plan.strategy == Strategy.END_ANCHORED:
             sp = self._end_anchored_spans(data)
             return sp if sp is None or limit < 0 else sp[:limit]
-        if limit >= 0:
-            return self._decline(None)
-        r = self.find_all_spans_device(data)
+        r = self.find_all_spans_device(data, limit=limit)
         if r is None:
             return None
         spans, cnt = r
+        if limit >= 0:
+            cnt = min(cnt, limit)
         return spans[:cnt].cpu().numpy().astype(np.int64)
 
     def find_all_spans_device(self, data: np.ndarray,
-                              defer_ok: bool = False):
+                              defer_ok: bool = False, limit: int = -1):
         """(spans [cap, 2] int32 on the device, count) or None (declined).
         With defer_ok=True returns (spans, count, ok): ok a device bool or
         None (validated here), and on a warm call of a family with a
         count cache (a corpus with a cached fingerprint) the count is a
-        device scalar and no sync is paid for the caps."""
+        device scalar and no sync is paid for the caps.  A limit >= 0 lets
+        the class-run route stop after the runs that hold the first
+        `limit` matches; the other routes return every span."""
         n = len(data)
         if n == 0 or n > self.SPARSE_SPANS_LIMIT:
             return self._decline(None)
@@ -711,9 +742,13 @@ class BatchEngine:
             elif kind == "bidi":
                 spans, cnt, ok = self._bidi_spans_dev(*args, data, known,
                                                       fp)
+            elif kind == "full_scan":
+                spans, cnt, ok = self._full_scan_spans_dev(*args, data)
             elif kind == "charclass":
                 spans, cnt, ok = self._charclass_spans_dev(args, data,
-                                                           known, fp)
+                                                           known, fp, limit)
+            elif kind == "all_empty":
+                spans, cnt, ok = self._all_empty_spans_dev(data)
             elif kind == "literal":
                 spans, cnt, ok = self._literal_spans_dev(args, data, known,
                                                          fp)
@@ -748,17 +783,21 @@ class BatchEngine:
             return None if route is None else ("line", route)
         if strat in self._BIDI_FAMILIES:
             route = self._bidi_route(corpus_is_ascii(data, self.device))
-            return None if route is None else ("bidi", route)
+            if route is not None:
+                return "bidi", route
+            route = self._full_scan_route()
+            return None if route is None else ("full_scan", route)
         if strat == Strategy.CHARCLASS:
-            cc = self.plan.charclass
-            plain = cc.min == 1 and cc.max == -1 and not cc.plus
-            # general {m,k} chopping: host (ref. batch.py:721-722)
-            return ("charclass", cc) if plain or cc.plus else None
+            return "charclass", self.plan.charclass
         if strat in (Strategy.LITERAL, Strategy.MULTI_LITERAL):
             lits = [bytes(x) for x in self.plan.literals]
             return ("literal", lits) if all(lits) else None
         if strat == Strategy.NULLABLE_CORE:
             return self._nullable_route(data)
+        if strat == Strategy.ALL_EMPTY:
+            n = len(data)
+            ok = 4 <= n <= self.DEVICE_SPANS_LIMIT
+            return ("all_empty", None) if ok else None
         return None
 
     # -- line-shape span path -------------------------------------------------
@@ -919,21 +958,133 @@ class BatchEngine:
             return spans, total, None
         return spans, cnt_d, ok
 
+    # -- the general fallback: all starts, their ends, Go's chain -----------
+    # first window of the end search (ref. WindowScanner init_window)
+    END_WINDOW = 64
+
+    def _full_scan_route(self):
+        """(rev_all ChunkScanner, fwd_anch_break MatchTables) of the
+        general find_all, or None (declined: leftmost-longest, a nullable
+        plan, a DFA that overflows or a table too large for the kernels);
+        host work only."""
+        if self.longest or self.plan.nullable:
+            return None
+        rev = self._chunk_scanner("rev_all")
+        fwd = self._chunk_scanner("fwd_anch_break") if rev else None
+        return None if fwd is None else (rev, fwd.mt)
+
+    def _all_starts(self, rev, data: np.ndarray):
+        """(starts [cap] int32 ascending with n past the count, count, ok)
+        of every match start (ref. ``_all_starts``, batch.py:2584-2600,
+        without its multi-device hook): K9 over the unanchored reverse DFA
+        on the flipped corpus, whose flag at flipped offset j is a match
+        start at n - j; its flag words compacted by K4
+        (``sparse_positions_words``) and read backwards, so the starts
+        come out ascending; the EOI flag at the flipped corpus's end is a
+        start at 0.  One sync for the flag count and the exit state."""
+        n = len(data)
+        fdev = device_corpus_flipped(data, self.device)
+        geom = plan_geometry(n)
+        L, T = geom[:2]
+        tiles = corpus_tiles(data, self.device, ("flipped words", L, T),
+                             lambda: make_word_tiles(fdev, L, T // 4))
+        scan = rev.scan_device(fdev, geom, tiles)
+        cnt, exit_n = torch.stack([flags_count_upto(scan),
+                                   exit_at_end(scan)]).tolist()
+        at0 = int(bool(rev.tables.match_eoi[exit_n, CTX_SOT]))
+        m = cnt + at0
+        if m > self.MAX_DEVICE_SPANS:
+            raise ValueError(f"{m} match starts exceed the device span "
+                             f"limit ({self.MAX_DEVICE_SPANS})")
+        cap = _bucket(m, 16)
+        if cnt == 0:
+            jpos = torch.zeros(0, dtype=torch.int32, device=self.device)
+            ok = torch.ones((), dtype=torch.bool, device=self.device)
+        else:
+            jpos, c, ok = sparse_positions_words(to_global(scan.flagw, n),
+                                                 n, _bucket(cnt, 16))
+            ok = ok & (c == cnt)
+            jpos = jpos[:cnt]
+        del scan
+        starts = torch.full((cap,), n, dtype=torch.int32,
+                            device=self.device)
+        starts[at0:m] = n - jpos.flip(0)
+        if at0:
+            starts[0] = 0
+        return starts, m, ok
+
+    def _full_scan_spans_dev(self, rev, fwd_mt, data):
+        """(spans, count, None) of the general find_all (ref.
+        ``_full_scan_spans``, batch.py:2602-2610): every match start
+        (``_all_starts``), each start's leftmost-first end by the forward
+        window scan over ``fwd_anch_break`` (dfa_scan.window_ends), then
+        Go's selection: every match when none overlaps the next start,
+        else the chain walk on the device (span_chain.chain_select), since
+        a non-nullable plan never matches empty.  Syncs: the start count,
+        one alive count a window round, the checks.  ``full_scan_stats``
+        keeps the last call's start count and window rounds."""
+        n = len(data)
+        starts, m, ok = self._all_starts(rev, data)
+        self.full_scan_stats = (m, 0)
+        if m == 0:
+            return _empty_spans(self.device), 0, None
+        cap = int(starts.shape[0])
+        dev = device_corpus(data, self.device)
+        ends = torch.full((cap,), n, dtype=torch.int32, device=self.device)
+        ends[:m], rounds = window_ends(fwd_mt, dev, starts[:m],
+                                       self.END_WINDOW)
+        self.full_scan_stats = (m, rounds)
+        ok = ok & (ends[:m] > starts[:m]).all()
+        disjoint = (ends[:m - 1] <= starts[1:m]).all()
+        ok, disjoint = torch.stack([ok, disjoint]).tolist()
+        if not ok:
+            raise RuntimeError("general find_all: a match start without a "
+                               "match end, or a start compaction fault")
+        if disjoint:
+            # no match overlaps the next start: Go keeps them all (the
+            # bulk fast path of the reference's go_select)
+            return torch.stack([starts, ends], dim=1), m, None
+        spans, total, ok_c = chain_select(starts, ends, m, n, cap)
+        del starts, ends
+        if not bool(ok_c):
+            raise RuntimeError("general find_all: the chain compaction "
+                               "failed its check")
+        return spans, int(total), None
+
+    # -- every match empty (ALL_EMPTY) ----------------------------------------
+    def _all_empty_spans_dev(self, data):
+        """(spans, count, None) of a pattern whose every match is empty
+        (ref. meta/nullable.py:all_empty_spans): an empty match at each
+        rune boundary, one K8 compaction of the boundary mask."""
+        n = len(data)
+        bound = _rune_boundaries(device_corpus(data, self.device), n)
+        total = int(mask_count(bound))
+        if total > self.MAX_DEVICE_SPANS:
+            raise ValueError(f"{total} matches exceed the device span "
+                             f"limit ({self.MAX_DEVICE_SPANS})")
+        pos, _c = compact_positions(bound, _bucket(total, 16))
+        return torch.stack([pos, pos], dim=1), total, None
+
     # -- class runs (CHARCLASS) ----------------------------------------------
-    def _charclass_spans_dev(self, cc, data, known_cnt, fp):
-        """(spans, count, ok) of a [class]+ or ([class]{m,k})+ plan (ref.
-        batch.py:710-742): run masks packed to words, one sync for the run
-        count, then two sparse chains when runs are sparse, else one K4
-        compaction per unpacked mask (the reference's _charclass_dense_pair,
-        :744-758, rebuilds the masks from the corpus instead); the {m,k}+
-        chopping is hit-sized torch.  Warm: the cached count sizes the
-        caps, count and ok stay on the device."""
+    def _charclass_spans_dev(self, cc, data, known_cnt, fp, limit=-1):
+        """(spans, count, ok) of a CHARCLASS plan (ref. batch.py:710-742
+        and :2028-2075): the maximal class runs of length >= min packed to
+        words, one sync for the run count, then two sparse chains when runs
+        are sparse, else one K4 compaction per unpacked mask (the
+        reference's _charclass_dense_pair, :744-758, rebuilds the masks
+        from the corpus instead).  [class]+ takes the runs;
+        ([class]{m,k})+ chops each run to its one match (``_chop_runs``);
+        [class]{m,k} splits each run into its matches on the device
+        (span_chain.expand_class_runs), validated here.  Every run counted
+        holds a match, so a limit >= 0 extracts only the first `limit` runs
+        (the reference's bounded take, :2039-2043, which it keeps to min
+        <= 1 because it counts shorter runs too).  Warm: the cached count
+        sizes the caps, count and ok stay on the device."""
         n = len(data)
         dev = device_corpus(data, self.device)
         plain = cc.min == 1 and cc.max == -1 and not cc.plus
-        mmin = cc.min if (cc.plus and cc.min > 1) else 1
         ranges = table_to_ranges(np.array(cc.table, dtype=bool))
-        ws, we, cs_d, _ce = class_run_words(dev, ranges, mmin)
+        ws, we, cs_d, _ce = class_run_words(dev, ranges, cc.min)
         if known_cnt is None:
             cnt = int(cs_d)
             self._spans_cnt_cache[fp] = cnt
@@ -944,11 +1095,25 @@ class BatchEngine:
         if cnt > self.MAX_DEVICE_SPANS:
             raise ValueError(f"{cnt} runs exceed the device span limit "
                              f"({self.MAX_DEVICE_SPANS})")
-        cap = _bucket(cnt, 16)
-        spans, _c, ok = pair_spans_sparse(ws, we, n, n, cap, end_adjust=1,
-                                          dense=cnt / n >= SPARSE_OK)
+        take = cnt if limit < 0 else min(cnt, limit)
+        spans, _c, ok = pair_spans_sparse(
+            ws, we, n, n, _bucket(take, 16), end_adjust=1,
+            dense=cnt / n >= SPARSE_OK, take=-1 if take == cnt else take)
+        if not (plain or cc.plus):
+            if not bool(ok):
+                raise RuntimeError("class-run span assembly failed its "
+                                   "consistency check")
+            spans, total = expand_class_runs(spans[:take], cc.min, cc.max,
+                                             n, limit)
+            if total > self.MAX_DEVICE_SPANS:
+                raise ValueError(f"{total} matches exceed the device span "
+                                 f"limit ({self.MAX_DEVICE_SPANS})")
+            return spans, total, None
         if not plain:
             spans = _chop_runs(spans, cc.min, cc.max)
+        if take < cnt:
+            cnt = take
+            known_cnt = None
         if known_cnt is None:
             if not bool(ok):
                 raise RuntimeError("class-run span assembly failed its "
@@ -1042,8 +1207,9 @@ class BatchEngine:
         """("nullable_k8", class shape) for a [class]+ core on an ASCII
         corpus; ("nullable", (core BatchEngine, ASCII verdict)) when the
         core's own find_all route serves the corpus (a literal core such as
-        `(error)?` or `(GET|POST)?` among them); else None: a {m,k} class
-        core, or a core whose plan declines find_all, declines."""
+        `(error)?`, a {m,k} class core such as `a{0,3}`'s, a core with a
+        look such as `(\bfoo)?`'s on the general route among them); else
+        None: a core whose plan declines find_all declines."""
         core_be = self._core().batch_engine()
         cc = core_be.plan.charclass
         ascii_ok = corpus_is_ascii(data, self.device)

@@ -31,6 +31,11 @@ Ports from ``coregex_tpu/ops/dfa_scan.py``:
 * ``_window_scan_flags`` (:626-674), a ``lax.scan`` loop with no Pallas
   kernel, as ``window_flags``: ``csrc/window_scan.cu``
   ``cgx_window_flags``, one thread per anchored run.
+* ``WindowScanner.ends_for_starts_device`` (:591-622) as ``window_ends``:
+  the forward window-flag scan from every start, the lanes still alive
+  compacted by K4 and rerun at four times the window until none lives.
+  The reference's ``_window_scan`` (last flag and alive only) is the flags
+  form read through ``window_last``.
 
 The lanes freeze at their limit, so every flag lies below n.  The
 reference also counts the flag at n, which the first NUL pad byte raises;
@@ -50,13 +55,14 @@ import torch
 
 from ..dfa.dense import CTX_SOT, DEAD, DenseDFA
 from . import _build
+from .compact2 import compact_pay, pack_words
 from .bytescan import _bucket
-from .compact2 import pack_words
 from .count_scan import (MODE_MATCH, SUB_PASSES, LaunchCounter, _byte_ctx,
                          device_table, first_pass_inputs, lane_split,
                          make_word_tiles, plan_geometry, require_fits,
                          segment_map, settled, split_fixpoint, state_at_end,
                          table_fits)
+from .span_chain import _floor_log2
 from .span_scan import to_global
 
 MATCH_KERNEL = LaunchCounter("match_scan")
@@ -338,3 +344,67 @@ def window_flags(mt: MatchTables, data, starts, edge, W: int,
     if data.device.type != "cpu":
         raise ValueError(f"unsupported device {data.device}")
     return window_flags_plain(*args)
+
+
+def window_last(flagw):
+    """Last set column of each lane of a window-flag bitmap [NW, B], or -1:
+    the length of the longest anchored match from the lane's start that
+    the run flagged."""
+    base = torch.arange(int(flagw.shape[0]), dtype=torch.int32,
+                        device=flagw.device)[:, None] * 32
+    return torch.where(flagw != 0, base + _floor_log2(flagw),
+                       -1).amax(dim=0)
+
+
+# flag-word bytes of one window launch: a round's lanes go in launches of
+# at most this many bytes of flags (12 bytes a lane at W = 64, so about 22M
+# lanes), whose last-column reduction holds about four times that
+WINDOW_LAUNCH_BYTES = 1 << 28
+
+
+def window_ends(mt: MatchTables, data, starts, W: int = 64):
+    """The leftmost-first end of the anchored match from each of the m
+    `starts` ([m] int32, ascending or not) under the break-at-match
+    anchored DFA `mt` (ref. ``WindowScanner.ends_for_starts_device``,
+    :591-622): the forward window-flag scan, one lane per start, W bytes;
+    the last flag of a run that ended is its end.  The lanes still alive
+    are compacted on the device (K4, carrying their index and start) and
+    rerun at 4W, one sync a round for the alive count, until no lane lives.
+    A window of n + 1 columns ends every run, so the result stays exact
+    where the reference stops at its 2^22-byte cap.  Returns (ends [m]
+    int32, -1 where no match, rounds)."""
+    n = int(data.shape[0])
+    dev = data.device
+    m = int(starts.shape[0])
+    ends = torch.full((m,), -1, dtype=torch.int32, device=dev)
+    todo, cur = None, starts
+    rounds = 0
+    while True:
+        Wc = min(W, n + 1)
+        B = int(cur.shape[0])
+        per = max(1, WINDOW_LAUNCH_BYTES // (4 * window_words(Wc)))
+        alive = torch.empty(B, dtype=torch.int32, device=dev)
+        for lo in range(0, B, per):
+            hi = min(B, lo + per)
+            st = cur[lo:hi]
+            edge = torch.full((hi - lo,), n, dtype=torch.int32, device=dev)
+            flagw, alive[lo:hi] = window_flags(mt, data, st, edge, Wc)
+            top = window_last(flagw)
+            del flagw
+            e = torch.where(top >= 0, st + top, -1)
+            if todo is None:
+                ends[lo:hi] = e
+            else:
+                ends.index_copy_(0, todo[lo:hi].long(), e)
+        rounds += 1
+        n_alive = int(alive.sum(dtype=torch.int64))
+        if n_alive == 0:
+            return ends, rounds
+        if Wc > n:
+            raise RuntimeError("window scan: a run outlived the corpus")
+        idx = (torch.arange(B, dtype=torch.int32, device=dev)
+               if todo is None else todo)
+        _pos, todo, cur, _c, _ok = compact_pay(alive != 0, [idx, cur],
+                                               _bucket(n_alive, 16))
+        todo, cur = todo[:n_alive], cur[:n_alive]
+        W *= 4

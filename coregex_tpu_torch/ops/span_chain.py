@@ -15,6 +15,10 @@ fill ``_rune_boundaries`` (:835), ``nullable_fill_words`` (:866) and
 ``_ml_counts`` (:200), ``multi_literal_words_big`` (:206) and
 ``literal_spans_sparse`` (:933-961).  ``leftmost_first_spans`` has no
 counterpart: the reference hands overlapping literal hits to its host loop.
+Its tail, ``chain_select``, is the chain walk of the reference's host
+``go_select`` (meta/batch.py:122-144) on the device, which the general
+find_all also runs; ``expand_class_runs`` is the reference's host split of
+``{m,k}`` class runs (meta/batch.py:2060-2072) on the device.
 The JAX package computes these in XLA outside any Pallas kernel; here they
 are plain torch tensor code around the K4 compactions of
 ``sparse_chain_payloads``.  ``cumsum_i32_fast`` (:819) is an
@@ -43,8 +47,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .bytescan import _class_mask_from_table, _memmem_mask, _range_mask, \
-    mask_count
+from .bytescan import _bucket, _class_mask_from_table, _memmem_mask, \
+    _range_mask, mask_count
 from .compact2 import _bucket_up, compact_pay, pack_words, \
     sparse_chain_payloads, sparse_positions_words
 from .span_scan import LOW_MASK
@@ -374,25 +378,32 @@ def class_run_words(dev, ranges, mmin: int):
 
 
 def pair_spans_sparse(words_s, words_e, ns: int, ne: int, cap: int,
-                      end_adjust: int = 0, dense: bool = False):
+                      end_adjust: int = 0, dense: bool = False,
+                      take: int = -1):
     """Two chains zipped into spans: (spans [cap, 2], count, ok).  ns / ne
     are the mask domains (their positions' sentinels); end_adjust is added
     to live ends (a class run's end words mark its LAST member).  ok
     checks both chains, equal counts, start < end and end <= next
     start.  dense=True compacts the unpacked masks with K4 instead of the
-    chains (word_positions)."""
+    chains (word_positions).  With take >= 0 only the first take pairs are
+    wanted (cap >= take): the truncated compactions keep the first cap
+    positions and count at least min(total, cap) of them, so ok then
+    checks those pairs and that both counts reach take, and the count
+    returned is only a lower bound of the total."""
     starts, cs, ok1 = word_positions(words_s, ns, cap, dense)
     ends, ce, ok2 = word_positions(words_e, ne, cap, dense)
     idx = torch.arange(cap, dtype=torch.int32, device=starts.device)
-    live = idx < cs
+    n_live = cs if take < 0 else cs.clamp(max=take)
+    live = idx < n_live
     if end_adjust:
         ends = torch.where(live, ends + end_adjust, ends)
-    ok = ok1 & ok2 & (cs == ce) & torch.where(live, starts < ends,
-                                              True).all()
+    ok = (ok1 & ok2 & (cs == ce) if take < 0
+          else (cs >= take) & (ce >= take))
+    ok = ok & torch.where(live, starts < ends, True).all()
     nxt = torch.cat([starts[1:], torch.full((1,), _POS_BIG,
                                             dtype=torch.int32,
                                             device=starts.device)])
-    ok = ok & torch.where(idx < cs - 1, ends <= nxt, True).all()
+    ok = ok & torch.where(idx < n_live - 1, ends <= nxt, True).all()
     ends = torch.where(live, ends, starts)
     return torch.stack([starts, ends], dim=1), cs, ok
 
@@ -540,17 +551,12 @@ def leftmost_first_spans(dev, starts, cnt, lits, cap: int):
     overlapping or not: (spans [cap, 2] with [n, n] past the count, count,
     ok).  `starts` [cap] are the hit positions ascending (n past `cnt`).
     The first-listed literal that matches at a start wins (one gather per
-    literal byte); a match [s, e) hands over to the first hit at or after
-    e (`searchsorted`); the matches are the chain of those links from hit
-    0, marked by pointer doubling in bit_length(cap) rounds of a scatter
-    and a gather; one K4 compaction collects them.  Every array is int32
-    or bool of cap (+ 1) entries, about 30 bytes per cap slot live at
-    once with `starts` (BatchEngine's span-limit note)."""
+    literal byte), and ``chain_select`` keeps Go's matches among the hits.
+    Every array is int32 or bool of cap (+ 1) entries, about 30 bytes per
+    cap slot live at once with `starts` (BatchEngine's span-limit note)."""
     n = int(dev.shape[0])
-    d = dev.device
-    own = torch.arange(cap + 1, dtype=torch.int32, device=d)
-    live = own[:cap] < cnt
-    length = torch.zeros(cap, dtype=torch.int32, device=d)
+    live = torch.arange(cap, dtype=torch.int32, device=dev.device) < cnt
+    length = torch.zeros(cap, dtype=torch.int32, device=dev.device)
     for lit in reversed(lits):      # earlier literals overwrite later ones
         hit = live & (starts <= n - len(lit))
         for i, byte in enumerate(lit):
@@ -559,11 +565,28 @@ def leftmost_first_spans(dev, starts, cnt, lits, cap: int):
         length = torch.where(hit, len(lit), length)
     del at, hit
     ok = torch.where(live, length > 0, True).all()
-    ends = starts + length
-    del length
+    del live
+    # a dead hit (start n, length 0) ends at n
+    spans, total, ok_c = chain_select(starts, starts + length, cnt, n, cap)
+    return spans, total, ok & ok_c
+
+
+def chain_select(starts, ends, cnt, n: int, cap: int):
+    """Go's leftmost-first selection over candidate matches that are never
+    empty (the chain walk of the reference's ``go_select``,
+    meta/batch.py:122-144): `starts` [cap] ascending and distinct, n past
+    `cnt`; `ends` [cap] the match end of each start, n past `cnt`.  A match
+    [s, e) hands over to the first start at or after e (`searchsorted`);
+    the matches are the chain of those links from start 0, marked by
+    pointer doubling in bit_length(cap) rounds of a scatter and a gather;
+    one K4 compaction collects them.  Returns (spans [cap, 2] with [n, n]
+    past the count, count, ok): ok is K4's."""
+    d = starts.device
+    own = torch.arange(cap + 1, dtype=torch.int32, device=d)
+    live = own[:cap] < cnt
     ext = torch.cat([starts, own.new_full((1,), n)])
-    # a link from the last match, or from a dead hit (start n, length 0),
-    # leads to a node at or past cnt; node cap loops on itself
+    # a link from the last match, or from a dead start (end n), leads to a
+    # node at or past cnt; node cap loops on itself
     jump = torch.cat([torch.searchsorted(ext, ends, out_int32=True),
                       own[cap:]])
     del ext
@@ -571,7 +594,7 @@ def leftmost_first_spans(dev, starts, cnt, lits, cap: int):
     mark[0] = 1
     for _ in range(cap.bit_length()):
         # marked: next^t(0) for t < 2^r, and jump = next^(2^r).  A link
-        # past the last hit pushes its node onto itself, so the marked
+        # past the last start pushes its node onto itself, so the marked
         # nodes' pushes meet at no common target (no atomic contention)
         tgt = torch.where(jump < cnt, jump, own)
         mark |= torch.zeros_like(mark).index_add_(0, tgt, mark)
@@ -580,11 +603,48 @@ def leftmost_first_spans(dev, starts, cnt, lits, cap: int):
     keep = live & (mark[:cap] != 0)
     del mark, live
     s_c, e_c, total, ok_c = compact_pay(keep, [starts, ends], cap)[1:]
-    del keep, ends
+    del keep
     dead = own[:cap] >= total
     s_c.masked_fill_(dead, n)
     e_c.masked_fill_(dead, n)
-    return torch.stack([s_c, e_c], dim=1), total, ok & ok_c
+    return torch.stack([s_c, e_c], dim=1), total, ok_c
+
+
+def expand_class_runs(runs, mn: int, mx: int, n: int, limit: int = -1):
+    """The matches of [class]{mn,mx} (mx = -1: no upper bound) in the
+    maximal class runs `runs` [r, 2] (each of length >= mn): a run of length
+    L holds L // mx + (L % mx >= mn) matches, greedy mx-chunks from its
+    start and the remainder when it reaches mn, or one match of the whole
+    run when mx = -1 (the reference's host split,
+    meta/batch.py:2060-2072).  Expanded on the device with
+    repeat_interleave and position arithmetic; one sync for the total.
+    Returns (spans [cap, 2] with [n, n] past the count, count), at most
+    `limit` matches when limit >= 0."""
+    d = runs.device
+    s, e = runs[:, 0], runs[:, 1]
+    if mx < 0:
+        per = torch.ones_like(s)
+    else:
+        L = e - s
+        per = L // mx + (L % mx >= mn).to(torch.int32)
+    every = int(per.sum(dtype=torch.int64))
+    total = every if limit < 0 else min(every, limit)
+    cap = _bucket(total, 16)
+    out = torch.full((cap, 2), n, dtype=torch.int32, device=d)
+    if total == 0:
+        return out, 0
+    run = torch.repeat_interleave(
+        torch.arange(int(runs.shape[0]), device=d), per.long(),
+        output_size=every)[:total]
+    if mx < 0:
+        out[:total] = runs[run]
+        return out, total
+    first = torch.cumsum(per, 0, dtype=torch.int32) - per
+    q = torch.arange(total, dtype=torch.int32, device=d) - first[run]
+    st = s[run] + q * mx
+    out[:total, 0] = st
+    out[:total, 1] = torch.minimum(st + mx, e[run])
+    return out, total
 
 
 # ---------------------------------------------------------------------------

@@ -149,12 +149,21 @@ def test_warm_defer_path():
 @pytest.mark.parametrize("pattern,longest", [
     (r"[a-z]{2,5}", False), (r"\w{3,}", False), (r"[\w]+", True)])
 def test_declines_are_counted_before_upload(pattern, longest):
+    """Leftmost-longest class plans decline before the upload and are
+    counted; the leftmost-first {m,k} splits are served on the device."""
     t = _log_corpus(14, 20000)
-    eng = ct.compile(pattern, device="cpu", longest=longest)
-    ref = ref_ct.compile(pattern, longest=longest)
+    corpus_cache.clear()
+    eng = ct.compile(pattern, device="cpu", longest=True)
+    ref = ref_ct.compile(pattern, longest=True)
     assert eng.find_all_index(t) == ref.find_all_index(t)
     assert eng.batch_engine().host_routes == 1
     assert corpus_cache._entry(_arr(t), "cpu").buf is None
+    if not longest:
+        eng = ct.compile(pattern, device="cpu")
+        ref = ref_ct.compile(pattern)
+        ref.batch_threshold = 1 << 30
+        assert eng.find_all_index(t) == ref.find_all_index(t)
+        assert eng.batch_engine().host_routes == 0
 
 
 def test_span_limit_raises():

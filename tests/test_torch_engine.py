@@ -183,13 +183,19 @@ def test_declines_are_counted_and_served_by_host():
     exp = [m.span() for m in re.finditer(rb"error", t)]
     assert eng.find_all_index(t) == exp           # literal chain: served
     assert be.host_routes == 0
-    assert eng.find_all_index(t, 3) == exp[:3]    # limit: host loop
-    assert be.host_routes == 1
+    assert eng.find_all_index(t, 3) == exp[:3]    # limit: the same route
+    assert be.host_routes == 0
     assert eng.find_index(t) == exp[0]            # find_first: no decline
     assert eng.is_match(t) is True                # is_match: no decline
-    assert be.host_routes == 1
+    assert be.host_routes == 0
     assert eng.count(t) == len(exp)               # K6: no decline
-    assert be.host_routes == 1
+    assert be.host_routes == 0
+    pattern = rb"[a-q][^u-z]{13}x"                # BITSET_NFA: host loop
+    eng = ct.compile(pattern.decode(), device="cpu")
+    exp = [m.span() for m in re.finditer(pattern, t)]
+    assert eng.find_all_index(t) == (exp or None)
+    assert eng.find_all_index(t, 3) == (exp[:3] or None)
+    assert eng.batch_engine().host_routes == 2
 
 
 def test_nullable_count_utf8_gate():
@@ -232,12 +238,14 @@ def test_repair_settles_instead_of_declining():
 
 def test_declines_are_decided_before_upload():
     t = _log_corpus(10, 20000)
-    eng = ct.compile(r"[a-z]{2,5}", device="cpu")  # {m,k} class: host
-    assert eng.find_all_index(t) == [m.span() for m in
-                                     re.finditer(rb"[a-z]{2,5}", t)]
+    pattern = r"[a-q][^u-z]{13}x"
+    eng = ct.compile(pattern, device="cpu")      # BITSET_NFA: host
+    assert eng.batch_engine().plan.strategy.name == "BITSET_NFA"
+    assert eng.find_all_index(t) == ([m.span() for m in re.finditer(
+        pattern.encode(), t)] or None)
     assert eng.batch_engine().host_routes == 1
     assert corpus_cache._entry(_arr(t), "cpu").buf is None
-    eng.count(t)                                  # served: uploads
+    ct.compile(r"[a-z]{2,5}", device="cpu").count(t)  # served: uploads
     assert corpus_cache._entry(_arr(t), "cpu").buf is not None
 
 

@@ -3,7 +3,8 @@ package's results: the same strategy plan (strategy, reason and every
 field of the plan, ASTs included) and the same count-transducer and dense
 DFA tables, for the bench patterns, the nullable routes of
 tests/test_nullable_spans.py and the bidirectional patterns of
-tests/test_torch_engine.py.  Every field is compared exactly.  Also pins
+tests/test_torch_engine.py, and the general find_all's automata for its
+patterns.  Every field is compared exactly.  Also pins
 that the copy builds its own native library and keeps its own artifact
 cache keys."""
 
@@ -101,6 +102,28 @@ def test_tables_match_reference(pattern):
     assert len(got) == len(exp) >= 3 or got[-1] is exp[-1] is None
     for g, e in zip(got, exp):
         _same(g, e, pattern)
+
+
+# the general find_all's patterns: looks, {m,k} class runs, ALL_EMPTY, the
+# nullable patterns whose cores take those routes, BITSET_NFA
+FULL_SCAN = [r"\b\d+\b", r"a\b", r"\s\d+\s", r"(\w+\s+){3}\d",
+             r"\berror\b", r"\w+@\w+\.com\b", r"\d{3}", r"[a-z]{2,5}",
+             r"x*?", r"(|a)", r"(\bfoo)?", r"a{0,3}", r"[a-q][^u-z]{13}x"]
+
+
+@pytest.mark.parametrize("pattern", FULL_SCAN)
+def test_full_scan_tables_match_reference(pattern):
+    """The general find_all's two automata, the unanchored reverse DFA
+    (``rev_all``) and the anchored break-at-match forward DFA
+    (``fwd_anch_break``), equal the reference BatchEngine's tables of the
+    same kinds."""
+    import coregex_tpu as ref_ct
+    import coregex_tpu_torch as ct
+    be = ct.compile(pattern, device="cpu").batch_engine()
+    ref_be = ref_ct.compile(pattern).batch_engine()
+    for kind in ("rev_all", "fwd_anch_break"):
+        ref_be._dense(kind)
+        _same(be._dense(kind), ref_be._host_dense[kind], f"{pattern} {kind}")
 
 
 def test_native_library_is_the_ports_own():

@@ -3,10 +3,10 @@ JAX package on the CPU: the rune-boundary mask, the empty fill and the
 merge as functions on the same inputs, then find_all_spans_device and
 find_all_index through the public API on seeded ASCII, UTF-8 and byte-soup
 corpora of at least 16 KiB, and the routing contract (served patterns
-never reach the host loop; a core with a look, a {m,k} class core and
-leftmost-longest decline and are counted), and chip_smoke.py's scaling of
-that oracle from one tile to many.  All outputs are integers: exact
-equality.
+never reach the host loop, cores with a look or of a {m,k} class among
+them; leftmost-longest declines and is counted), and chip_smoke.py's
+scaling of that oracle from one tile to many.  All outputs are integers:
+exact equality.
 
 Python's re is no oracle for nullable patterns as it stands: it admits an
 empty match right after a non-empty one, Go does not.  `go_spans` drops
@@ -151,12 +151,16 @@ def test_k8_route_matches_reference_device_path(pattern):
 
 @pytest.mark.parametrize("pattern", [r"(\bfoo)?", r"a{0,3}"])
 def test_unserved_cores_decline_before_upload(pattern):
+    """The cores with a look (`\bfoo`, the general find_all) and of a
+    {m,k} class (`a{1,3}`, the class split) have device routes, so the
+    nullable path serves both: nothing reaches the host loop."""
     t = _log_corpus(23, 17000)
     eng = ct.compile(pattern, device="cpu")
-    assert eng.batch_engine().plan.strategy.value == "nullable_core"
+    be = eng.batch_engine()
+    assert be.plan.strategy.value == "nullable_core"
+    assert be._spans_route(_arr(t))[0] == "nullable"
     assert eng.find_all_index(t) == ref_spans(pattern, t)
-    assert eng.batch_engine().host_routes == 1
-    assert corpus_cache._entry(_arr(t), "cpu").buf is None
+    assert be.host_routes == 0
 
 
 def test_leftmost_longest_stays_on_host():

@@ -17,9 +17,10 @@ the kernels' times; one stream, so they do not overlap), its idle share,
 the call's peak device memory above what was allocated before it,
 the port's own kernels, and the eight operators whose kernels took the
 most device time.  Names
-come from chip_smoke.PATTERNS (the bench, class-run, nullable and literal
-patterns); default: the class-run and nullable patterns.  With --limit
-it profiles the literal route's leftmost-first selection at the span
+come from chip_smoke.PATTERNS (the bench, class-run, nullable, literal
+and general find_all patterns; the general slice's sizes as chip_smoke's
+GENERAL gives them); default: the class-run and nullable patterns.  With
+--limit it profiles the literal route's leftmost-first selection at the span
 limit instead: `aa` on MAX_DEVICE_SPANS + 1 bytes of `a`, whose
 MAX_DEVICE_SPANS hits all overlap.  Needs a CUDA card; imports no jax.
 """
@@ -50,7 +51,8 @@ def main(names, single=False, count=False):
     corpus = chip_smoke.bench_corpus(base)
     B = len(base)
     sizes = {nm: size for nm, _, size in (chip_smoke.CLASS_NULLABLE
-                                          + chip_smoke.LITERAL_NULLABLE)}
+                                          + chip_smoke.LITERAL_NULLABLE
+                                          + chip_smoke.GENERAL)}
     if single:
         late = chip_smoke.single_corpora(base, corpus)[1][1]
     whats = (("is_match", "find_index") if single
@@ -60,6 +62,8 @@ def main(names, single=False, count=False):
         reps = len(corpus) // B
         if sizes.get(name) == "limit":
             reps = min(reps, BatchEngine.DEVICE_SPANS_LIMIT // B)
+        elif sizes.get(name) == "slice":
+            reps = min(reps, (chip_smoke.SLICE_MIB << 20) // B)
         arr = late if single else corpus[:reps * B]
         corpus_cache.clear()
         eng = ct.compile(pattern, device="cuda")
