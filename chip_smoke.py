@@ -8,7 +8,9 @@ Phases (any failure exits non-zero before the final line):
   2. build   - builds coregex_tpu_torch/csrc/*.cu with nvcc for sm_90a
   3. kernels - each CUDA kernel against its plain torch version on the card,
                on the same inputs at main-path shapes, bit-equal per lane;
-               times both, the bound (bytes moved over 3.35 TB/s) and, for
+               times both (the kernel's launches queued behind a device
+               sleep, so that host overhead is not timed), the bound
+               (bytes moved over 3.35 TB/s) and, for
                the compactions, torch.nonzero on the same mask.  The lane
                walks (K1-K3) and the needle kernels (K5-K7) run on a 4 MiB
                sample (several patterns) and on the whole 1536 MiB corpus
@@ -41,15 +43,23 @@ Phases (any failure exits non-zero before the final line):
                (dfa_scan.match_full: ip's fwd_break, an early match, so
                one pass at k = 64) against the same fixpoint over the
                plain walk; the
-               window-flag scan on 2^16 random starts at W = 256; the
+               window scan, flags form and ends form, on 2^12 forward
+               starts of the sample and 2^16 random reverse starts at
+               W = 256, the ends form also on a corpus of n % 16 != 0
+               bytes at byte offset 3 with starts at 0, 1, n - 1 and n
+               (no edge, and an idx scatter) and on one live lane of 16
+               at W = 64 x 4^k; the
                general find_all's shapes (`\b\d+\b` on the whole
                corpus): K9 over the unanchored reverse DFA on the flipped
                corpus, K4's chain over its flag words and the window scan
-               forward from every match start (about 55M) at W = 64; the
+               forward from every match start (about 55M) at W = 64 in
+               both forms (with the sector floor of the bytes the lanes
+               read); the
                single-pass compaction (K10) on the compaction rig's mask
                (256 MiB at density 1/200, seed 11) at R = 128, at R = 256
                with two payloads under cond_dma + skip_empty, and at
-               R = 512
+               R = 512, and on masks of all-zero, all-one and random tiles,
+               more tiles than its persistent grid has blocks
   4. e2e     - the public API on a 1536 MiB log corpus (the JAX package's
                bench corpus), in five runs, each with the launch counts set
                to 0 before it and read after it.  Earlier slices: count for
@@ -103,9 +113,9 @@ Phases (any failure exits non-zero before the final line):
                find_all of each; find_all_index(t, 3) and (t, 2^20) of one
                pattern of each route against the oracle's first spans
   5. routes  - every kernel K1-K7 was launched in the first run, K1-K4 and
-               K8 in the second, K9 and the window scan in the third, K4
-               and K10 in the fourth, K9, the window scan, K4 and K8 in
-               the fifth, and no call was declined to the host loop but
+               K8 in the second, K9 and the window scan's ends form in the
+               third, K4 and K10 in the fourth, K9, the ends form, K4 and
+               K8 in the fifth, and no call was declined to the host loop but
                the nullable find_index (the reference's FALLBACK, by
                design)
 
@@ -309,12 +319,24 @@ def passes(counter) -> str:
     return f"{counter.sub_passes}+{counter.lane_passes}"
 
 
+SLEEP_CYCLES_PER_S = 2e9   # about the H100's SM clock under load
+
+
 def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of fn() over reps launches, after one warmup."""
+    """Mean device time of fn() over reps launches, after one warmup.  The
+    launches queue behind a device sleep as long as the host takes to issue
+    them (measured on a second warm call, at most 0.2 s), so a launch whose
+    host work outlasts its kernel is timed on the device, not the host."""
     import torch
     fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host = time.perf_counter() - t0
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(1.5 * reps * host, 0.2) * SLEEP_CYCLES_PER_S))
     a.record()
     for _ in range(reps):
         fn()
@@ -763,9 +785,9 @@ def phase_kernels(base: bytes, corpus: np.ndarray):
     cut_case(compare, match_tables("ip", "fwd_break"), data, tiles)
     del tiles
 
-    # the window-flag scan: 2^12 starts read forwards on the sample, then
-    # 2^16 starts over the whole corpus read backwards (find_first's
-    # reverse start search) under the anchored reverse DFA of
+    # the window scan, flags form and ends form: 2^12 starts read forwards
+    # on the sample, then 2^16 starts over the whole corpus read backwards
+    # (find_first's reverse start search) under the anchored reverse DFA of
     # `.*keyword.*`, half of them with random edge limits
     rev = ct.compile(PATTERNS["inner_keyword"], device=DEVICE) \
         .batch_engine()._chunk_scanner("rev_anch")
@@ -781,12 +803,17 @@ def phase_kernels(base: bytes, corpus: np.ndarray):
                 max=n).to(torch.int32)
         wargs = dfa_scan.window_args(rev.mt, d, starts, edge, Ww, reverse)
         reads = window_reads(*wargs)
-        compare("window_scan",
-                f"2^{B.bit_length() - 1} starts W={Ww} "
-                f"{'reverse' if reverse else 'forward'} {n / 2 ** 20:.0f} MiB",
+        label = (f"2^{B.bit_length() - 1} starts W={Ww} "
+                 f"{'reverse' if reverse else 'forward'} {n / 2 ** 20:.0f} MiB")
+        compare("window_scan", label,
                 lambda: dfa_scan.window_flags_cuda(*wargs),
                 lambda: dfa_scan.window_flags_plain(*wargs),
                 in_bytes=reads + nbytes(starts, edge, *wargs[:4]))
+        compare("window_ends", label,
+                lambda: dfa_scan.window_ends_cuda(*wargs),
+                lambda: dfa_scan.window_ends_plain(*wargs),
+                in_bytes=reads + nbytes(starts, edge, *wargs[:4]))
+    window_edge_cases(compare, rev.mt, data, g)
     # the general find_all's shapes, the window scan's headline among them
     general_kernels(compare, data, corpus)
     del data
@@ -795,7 +822,9 @@ def phase_kernels(base: bytes, corpus: np.ndarray):
     # at its three row counts: R = 128 with no payload, R = 256 with two
     # payloads under cond_dma + skip_empty, R = 512; 50 launches each (0.3
     # ms ones), since 5 after the mask's host-side build left the first
-    # configuration timed at three times its steady time
+    # configuration timed at three times its steady time; then tiles all
+    # zero, all one and random in a seeded mix, more tiles than the
+    # persistent grid has blocks
     from tools import profile_compact_torch as rig
     mask, nset, cap = rig.rig_mask(256, 1 / 200, DEVICE)
     g = torch.Generator(device=dev).manual_seed(13)
@@ -814,6 +843,19 @@ def phase_kernels(base: bytes, corpus: np.ndarray):
                 reps=50, headline=R == 128,
                 in_bytes=mask.numel() + 4 * nset * npay,
                 library=lambda: torch.nonzero(mask))
+    for R, nc in ((128, 1200), (512, 300)):
+        tiles = mixed_tiles(R, nc, g)
+        nh = int(tiles.sum())
+        tpay = [rpays[0][:tiles.numel()]]
+        for kw in ({}, dict(cond_dma=True, skip_empty=True)):
+            compare("compact_exp",
+                    f"{nc} mixed tiles R={R} p=1" + (" cond+skip" if kw
+                                                      else ""),
+                    lambda: compact_exp.compact_exp_cuda(
+                        tiles, tpay, nh + 16, R, **kw),
+                    lambda: compact_exp.compact_exp_plain(tiles, tpay,
+                                                          nh + 16), reps=3)
+        del tiles, tpay
     del mask, m8, rpays
     torch.cuda.empty_cache()
     return results
@@ -986,15 +1028,26 @@ def general_kernels(compare, data, corpus: np.ndarray) -> None:
     del starts
     edge = torch.full((m,), n, dtype=torch.int32, device=data.device)
     wargs = dfa_scan.window_args(fwd_mt, data, st, edge, be.END_WINDOW)
-    reads = window_reads(*wargs)
-    print(f"[kernels] window_scan {m} starts of \\b\\d+\\b: {reads} "
-          f"corpus bytes read at W={be.END_WINDOW}", flush=True)
-    compare("window_scan",
-            f"{m} starts W={be.END_WINDOW} forward {CORPUS_MIB} MiB",
+    steps = window_steps(*wargs)
+    reads = int(steps.sum())
+    sectors = window_sectors(data, st, steps)
+    floor_ms = (32 * sectors + nbytes(st) + 5 * m) / HBM_BYTES_PER_MS
+    print(f"[kernels] window_ends {m} starts of \\b\\d+\\b: {reads} "
+          f"corpus bytes read at W={be.END_WINDOW}, in {sectors} 32-byte "
+          f"sectors; sector floor (those sectors, the starts, the ends and "
+          f"alive bytes at 3.35 TB/s) {floor_ms:.3f} ms", flush=True)
+    del steps
+    label = f"{m} starts W={be.END_WINDOW} forward {CORPUS_MIB} MiB"
+    compare("window_scan", label,
             lambda: dfa_scan.window_flags_cuda(*wargs),
             lambda: dfa_scan.window_flags_plain(*wargs), headline=True,
             in_bytes=reads + nbytes(st, edge, *wargs[:4]))
-    del wargs, st, edge
+    eargs = dfa_scan.window_args(fwd_mt, data, st, None, be.END_WINDOW)
+    compare("window_ends", label,
+            lambda: dfa_scan.window_ends_cuda(*eargs, alive_u8=True),
+            lambda: dfa_scan.window_ends_plain(*eargs, alive_u8=True),
+            headline=True, in_bytes=reads + nbytes(st, *eargs[:4]))
+    del wargs, eargs, st, edge
     torch.cuda.empty_cache()
 
 
@@ -1184,10 +1237,10 @@ def compact_sweep(dev) -> int:
     return cases
 
 
-def window_reads(packed, segmap, eoi, starts_tbl, data, reverse, starts,
-                 edge, W) -> int:
-    """Corpus bytes a window-flag scan must read: one for each step a lane
-    takes while it lives inside its window (the walk of
+def window_steps(packed, segmap, eoi, starts_tbl, data, reverse, starts,
+                 edge, W):
+    """[B] int64: the corpus bytes each lane of a window scan must read, one
+    for each step it takes while it lives inside its window (the walk of
     dfa_scan.window_flags_plain, counting steps)."""
     import torch
     from coregex_tpu_torch.ops.count_scan import _byte_ctx
@@ -1200,16 +1253,92 @@ def window_reads(packed, segmap, eoi, starts_tbl, data, reverse, starts,
         return data[n - 1 - j if reverse else j].long()
 
     st0 = starts.long()
-    cut = edge.long().clamp(max=n)
+    cut = n if edge is None else edge.long().clamp(max=n)
     s = starts_tbl.long()[torch.where(st0 == 0, 0,
                                       _byte_ctx(byte_at(st0 - 1)))]
-    reads = torch.zeros((), dtype=torch.int64, device=data.device)
+    steps = torch.zeros_like(st0)
     for t in range(W):
         pos = st0 + t
         step = (pos < cut) & (s != 0)         # DEAD is state 0
-        reads += step.sum()
+        steps += step
         s = torch.where(step, tbl[s * nseg + seg[byte_at(pos)]] >> 5, 0)
-    return int(reads)
+    return steps
+
+
+def window_reads(*args) -> int:
+    """Corpus bytes a window scan must read (window_steps summed)."""
+    return int(window_steps(*args).sum())
+
+
+def window_sectors(data, starts, steps) -> int:
+    """Distinct 32-byte device-memory sectors holding the bytes that
+    forward lanes from ascending `starts` read: each lane's context byte
+    and its `steps` bytes."""
+    import torch
+    off = data.data_ptr() % 32
+    st = starts.long()
+    first = st - (st > 0).long() + off
+    last = torch.where(steps > 0, st + steps - 1, st - 1).clamp(min=0) + off
+    lo, hi = first // 32, torch.maximum(last // 32, first // 32)
+    reach = torch.cummax(hi, 0).values
+    prev = torch.cat([reach.new_full((1,), -1), reach[:-1]])
+    return int((hi - torch.maximum(lo, prev + 1) + 1).clamp(min=0).sum())
+
+
+def window_edge_cases(compare, mt, data, g) -> None:
+    """The ends form on a corpus of n % 16 != 0 bytes at byte offset 3 of
+    the corpus (so not 16-byte aligned) with starts at 0, 1, n - 1 and n,
+    forward and reverse, with no edge and with an idx scatter into a wider
+    out; then one live lane of 16, the others parked at n, reverse from
+    corpus byte 12345 at W = 64 * 4^k, as find_first's reverse start
+    search launches it."""
+    import torch
+    from coregex_tpu_torch.ops import dfa_scan
+    dev = data.device
+    odd = data[3:3 + (1 << 20) + 5]
+    n = int(odd.shape[0])
+    B = 4096
+    st = torch.randint(0, n + 1, (B,), generator=g, device=dev,
+                       dtype=torch.int32)
+    st[:4] = torch.tensor([0, 1, n - 1, n], dtype=torch.int32)
+    idx = torch.randperm(B + 100, generator=g, device=dev)[:B].to(
+        torch.int32)
+    for reverse in (False, True):
+        for W in (16, 64):
+            a = dfa_scan.window_args(mt, odd, st, None, W, reverse)
+            label = (f"n={n} at offset 3 W={W} "
+                     f"{'reverse' if reverse else 'forward'}")
+            compare("window_ends", label,
+                    lambda: dfa_scan.window_ends_cuda(*a),
+                    lambda: dfa_scan.window_ends_plain(*a))
+
+            def scatter(fn):
+                out = torch.full((B + 100,), -7, dtype=torch.int32,
+                                 device=dev)
+                return fn(*a, idx=idx, out=out)
+            compare("window_ends", label + " idx",
+                    lambda: scatter(dfa_scan.window_ends_cuda),
+                    lambda: scatter(dfa_scan.window_ends_plain))
+    n = int(data.shape[0])
+    one = torch.full((16,), n, dtype=torch.int32, device=dev)
+    one[0] = n - 12345
+    for k in range(4):
+        a = dfa_scan.window_args(mt, data, one, None, 64 * 4 ** k, True)
+        compare("window_ends", f"one live lane of 16 W={64 * 4 ** k}",
+                lambda: dfa_scan.window_ends_cuda(*a),
+                lambda: dfa_scan.window_ends_plain(*a))
+
+
+def mixed_tiles(R: int, nc: int, g):
+    """A uint8 mask of nc tiles of R * 128 entries on the card, each all
+    zero, all one or random at density 1/100, drawn from generator g."""
+    import torch
+    ch = R * 128
+    dev = g.device
+    kind = torch.randint(0, 3, (nc,), generator=g, device=dev)
+    rnd = torch.rand((nc, ch), generator=g, device=dev) < 0.01
+    tiles = torch.where((kind == 2)[:, None], rnd, (kind == 1)[:, None])
+    return tiles.to(torch.uint8).reshape(-1)
 
 
 def chain_plain(evw, wpays, n: int, cap: int):
@@ -1549,7 +1678,7 @@ def phase_e2e_general(base: bytes, arr: np.ndarray):
 
     routes = phase_e2e_class_nullable(base, arr, GENERAL)
     B = len(base)
-    kernels = (dfa_scan.MATCH_KERNEL, dfa_scan.WINDOW_KERNEL,
+    kernels = (dfa_scan.MATCH_KERNEL, dfa_scan.WINDOW_ENDS_KERNEL,
                compact2.COMPACT_KERNEL, compact.COMPACT_POS_KERNEL)
     for name, pattern, size in GENERAL:
         spans0 = oracle_spans(pattern, base)
@@ -1764,25 +1893,30 @@ def main():
         (dfa_scan.WINDOW_KERNEL, "window_scan.cu", ops + "dfa_scan.py:626"),
         (compact_exp.COMPACT_EXP_KERNEL, "compact_exp.cu",
          "tools/_compact_exp.py:67"),
+        # the window scan's ends form: the reference's _window_scan, the
+        # lax.scan its WindowScanner rounds run
+        (dfa_scan.WINDOW_ENDS_KERNEL, "window_scan.cu",
+         ops + "dfa_scan.py:495"),
     ]
     # kernels each run of phase 4 must launch: the earlier slices' path,
     # then the class-run and nullable path (K1 for the `\w*` count, K2/K3
     # for the ip core, K4 for class runs and chains, K8 for `\w*`), then
-    # the single-match path (K9 and the window scan), then the literal
-    # path and the compaction rig (K4 for the literal chains, K10), then
-    # the general find_all (K9 over the reverse DFA, the window scan for
+    # the single-match path (K9 and the window scan's ends form), then the
+    # literal path and the compaction rig (K4 for the literal chains, K10),
+    # then the general find_all (K9 over the reverse DFA, the ends form for
     # the ends, K4 for the starts, the alive lanes and the chain, K8 for
-    # ALL_EMPTY)
+    # ALL_EMPTY); the flags form has no caller on a user path (its
+    # checks are phase 3's)
     paths = [("earlier slices", phase_e2e,
               [c for c, _, _ in counters[:7]]),
              ("class runs and nullable", phase_e2e_class_nullable,
               [counters[i][0] for i in (0, 1, 2, 3, 7)]),
              ("single match", phase_e2e_single_match,
-              [counters[i][0] for i in (8, 9)]),
+              [counters[i][0] for i in (8, 11)]),
              ("literal find_all and compaction rig", phase_e2e_literal,
               [counters[i][0] for i in (3, 10)]),
              ("general find_all", phase_e2e_general,
-              [counters[i][0] for i in (8, 9, 3, 7)])]
+              [counters[i][0] for i in (8, 11, 3, 7)])]
     build_s = phase_build()
     base = build_base()
     corpus = bench_corpus(base)

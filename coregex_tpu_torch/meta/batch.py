@@ -107,7 +107,7 @@ from ..ops.compact2 import _bucket_up, sparse_positions_words
 from ..ops.count_scan import CountScanner, make_word_tiles, plan_geometry
 from ..ops.dfa_scan import (ChunkScanner, DFATables, exit_at_end,
                             flags_count_upto, flags_last, window_ends,
-                            window_flags, window_last)
+                            window_ends_round)
 from ..ops.flag_scan import (FlagResetScanner, ResetFlagTables,
                              reset_geometry, scatter_reset_tiles,
                              sym_base_tiles)
@@ -189,8 +189,8 @@ class BatchEngine:
     #    beside the corpus (1 byte per corpus byte; 2^30 hits need n >
     #    2^30).  tools/profile_torch.py --limit measures it at the limit.
     #  * The general find_all (full_scan) holds per start the int32 start,
-    #    the window scan's end, index and alive words and its flags (at
-    #    most WINDOW_LAUNCH_BYTES a launch), then the chain's ~30 bytes
+    #    the window scan's end, index and alive (no flag bitmap: the ends
+    #    form keeps each lane's last flag), then the chain's ~30 bytes
     #    per cap slot as above, beside the corpus, its flipped copy and
     #    the flipped word tiles (about 3 bytes per corpus byte).
     SPARSE_SPANS_LIMIT = 1600 * 1024 * 1024
@@ -472,9 +472,8 @@ class BatchEngine:
     FIRST_PREFIX = 1 << 22
     # chunk of the literal find_first scans (ref. :1827)
     FIRST_CHUNK = 1 << 24
-    # the reverse start search: lanes per launch (one live) and first window
-    # (ref. _rev_start_flags :2266-2274)
-    REV_LANES = 16
+    # the reverse start search's first window (ref. _rev_start_flags
+    # :2266-2274)
     REV_WINDOW = 64
 
     def _chunk_scanner(self, kind: str):
@@ -665,35 +664,33 @@ class BatchEngine:
     def _rev_start(self, rev, dev, e: int) -> int:
         """The earliest start of a match ending at e (ref.
         ``_rev_start_flags`` :2252-2307 with kind="rev_anch", for one end):
-        the window kernel runs the anchored reverse DFA from e backwards,
-        W = REV_WINDOW bytes, x4 while the run lives; the last flag of the
-        finished run is the longest reverse match.  In reverse coordinates
-        the run starts at j0 = n - e and its context byte is forward byte
-        e; the kernel reads the forward corpus backwards, so no flipped
-        copy is made.  REV_LANES lanes per launch, the spares parked at n
-        (dead after one step)."""
+        the window scan's ends form runs the anchored reverse DFA from e
+        backwards in one lane, W = REV_WINDOW bytes, x4 while the run
+        lives; the last flag of the finished run is the longest reverse
+        match.  In reverse coordinates the run starts at j0 = n - e and its
+        context byte is forward byte e; the kernel reads the forward corpus
+        backwards, so no flipped copy is made.  The lane's end j0 + t_max
+        in reverse coordinates is forward position n - (j0 + t_max) = e -
+        t_max, the start."""
         n = int(dev.shape[0])
-        B = self.REV_LANES
-        starts = torch.full((B,), n, dtype=torch.int32, device=dev.device)
-        starts[0] = n - e
-        edge = torch.full((B,), n, dtype=torch.int32, device=dev.device)
+        starts = torch.full((1,), n - e, dtype=torch.int32,
+                            device=dev.device)
         W = self.REV_WINDOW
         while True:
             Wc = min(W, n + 1)
-            flagw, alive = window_flags(rev.mt, dev, starts, edge, Wc,
-                                        reverse=True)
-            top = window_last(flagw[:, :1])[0]
-            t_max, live = torch.stack([top, alive[0]]).tolist()
+            end, alive = window_ends_round(rev.mt, dev, starts, Wc,
+                                           reverse=True)
+            end, live = torch.cat([end, alive]).tolist()
             if not live:
                 break
             W *= 4
             if W > 4 * (n + 1):
                 raise RuntimeError("reverse window scan: the run outlived "
                                    "the corpus")
-        if t_max < 0:
+        if end < 0:
             raise RuntimeError("reverse window scan found no start for a "
                                "forward match end")
-        return e - t_max
+        return n - end
 
     # -- find_all -----------------------------------------------------------
     def find_all_spans(self, data: np.ndarray, limit: int = -1
@@ -1031,8 +1028,8 @@ class BatchEngine:
         cap = int(starts.shape[0])
         dev = device_corpus(data, self.device)
         ends = torch.full((cap,), n, dtype=torch.int32, device=self.device)
-        ends[:m], rounds = window_ends(fwd_mt, dev, starts[:m],
-                                       self.END_WINDOW)
+        _e, rounds = window_ends(fwd_mt, dev, starts[:m], self.END_WINDOW,
+                                 out=ends[:m])
         self.full_scan_stats = (m, rounds)
         ok = ok & (ends[:m] > starts[:m]).all()
         disjoint = (ends[:m - 1] <= starts[1:m]).all()

@@ -49,6 +49,8 @@ _SIGNATURES = {
                        _I, _P, _P, _P, _P, _P, _P, _P, _P],
     "cgx_window_flags": [_P, _I, _I, _P, _P, _P, _P, ctypes.c_longlong, _I,
                          _P, _P, _I, _I, _P, _P, _P],
+    "cgx_window_ends": [_P, _I, _I, _P, _P, _P, _P, ctypes.c_longlong, _I,
+                        _P, _P, _P, _I, _I, _P, _P, _I, _P],
     "cgx_compact": [_P, ctypes.c_int64, _I, ctypes.c_int64, _I, _I, _P, _P,
                     _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P],
     "cgx_compact_exp": [_P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P,

@@ -4,13 +4,15 @@ Ports the rig ``tools/_compact_exp.py``: ``compact_exp`` (:231-272) and its
 Pallas kernel ``make_kernel(R, npay, do_route, do_dma, skip_empty,
 cond_dma)`` (:67, launched at :243), the experiment that measured where
 K4's time went on the TPU.  For CUDA tensors ``compact_exp`` launches
-``csrc/compact_exp.cu`` (``cgx_compact_exp``): one pass in which each block
-counts its CH = R*128 entries, finds its offset by a chained scan with
-decoupled look-back and stores its positions and payloads in order, so the
-mask is read from device memory once (K4 takes three passes).  What bounds
-it on an H100 is device-memory bytes: the mask once, the payloads at the
-set entries, the outputs once.  For CPU tensors it runs the plain
-cumsum-and-scatter version, which has K4's contract.
+``csrc/compact_exp.cu`` (``cgx_compact_exp``): one pass of persistent
+blocks, each taking tiles of CH = R*128 entries by ticket from a ring of
+two shared-memory buffers fed by bulk copies, ranking a tile's entries in
+one block scan, finding its offset by a chained scan with decoupled
+look-back while the next tile's bytes fly, and storing its positions and
+payloads in order, so the mask is read from device memory once (K4 takes
+three passes).  What bounds it on an H100 is device-memory bytes: the mask
+once, the payloads at the set entries, the outputs once.  For CPU tensors
+it runs the plain cumsum-and-scatter version, which has K4's contract.
 
 Contract (the rig's): ``n = nc * CH`` entries; returns (pos int32[cap],
 *payloads int32[cap], cnt int32) with pos padded with n past cnt and, here,
@@ -68,7 +70,9 @@ def compact_exp_cuda(mask8, pays, cap: int, R: int = 128,
     pos = torch.empty(out_len, dtype=torch.int32, device=dev)
     outs = [torch.empty(out_len, dtype=torch.int32, device=dev)
             for _ in pays]
-    scratch = torch.empty(nc + 1, dtype=torch.int64, device=dev)
+    # status words, the ticket counter, a group accumulator per 32 tiles
+    scratch = torch.empty(nc + 1 + -(-nc // 32), dtype=torch.int64,
+                          device=dev)
     cnt = torch.empty((), dtype=torch.int32, device=dev)
     p = _build.ptr
     ins = [p(t) for t in pays] + [0] * (MAX_PAYLOADS - len(pays))

@@ -30,12 +30,14 @@ Ports from ``coregex_tpu/ops/dfa_scan.py``:
   sub-lanes' counts and last positions.
 * ``_window_scan_flags`` (:626-674), a ``lax.scan`` loop with no Pallas
   kernel, as ``window_flags``: ``csrc/window_scan.cu``
-  ``cgx_window_flags``, one thread per anchored run.
+  ``cgx_window_flags``, one thread per anchored run, walking the corpus
+  in 16-byte chunks; and its composition with the last flag as the ends
+  form ``window_ends_round`` (``cgx_window_ends``, the same walk): each
+  run's last flagged column kept in a register, no bitmap.
 * ``WindowScanner.ends_for_starts_device`` (:591-622) as ``window_ends``:
-  the forward window-flag scan from every start, the lanes still alive
-  compacted by K4 and rerun at four times the window until none lives.
-  The reference's ``_window_scan`` (last flag and alive only) is the flags
-  form read through ``window_last``.
+  the ends form forward from every start, one launch a round, the lanes
+  still alive compacted by K4 and rerun at four times the window until
+  none lives.
 
 The lanes freeze at their limit, so every flag lies below n.  The
 reference also counts the flag at n, which the first NUL pad byte raises;
@@ -67,6 +69,7 @@ from .span_scan import to_global
 
 MATCH_KERNEL = LaunchCounter("match_scan")
 WINDOW_KERNEL = LaunchCounter("window_scan")
+WINDOW_ENDS_KERNEL = LaunchCounter("window_ends")
 
 
 @dataclass
@@ -223,8 +226,10 @@ class ChunkScanner:
         return out, exit_state
 
 
+
+
 # ---------------------------------------------------------------------------
-# The window-flag scan
+# The window scan: flags form and ends form
 # ---------------------------------------------------------------------------
 
 def window_words(W: int) -> int:
@@ -238,8 +243,8 @@ def window_flags_plain(packed, segmap, eoi, starts_tbl, data, reverse: bool,
     _window_scan_flags): B anchored runs of at most W steps.  Returns
     (flagw [NW, B] int32, bit t%32 of word t/32 = column t of a lane,
     alive [B] int32).  With `reverse` the scan reads data backwards
-    (scanned position j = byte n-1-j).  See csrc/window_scan.cu for the
-    semantics."""
+    (scanned position j = byte n-1-j).  `edge` None means n for every
+    lane.  See csrc/window_scan.cu for the semantics."""
     dev = data.device
     n = int(data.shape[0])
     B = int(starts.shape[0])
@@ -253,7 +258,8 @@ def window_flags_plain(packed, segmap, eoi, starts_tbl, data, reverse: bool,
         return data[n - 1 - j if reverse else j].long()
 
     st0 = starts.long()
-    cut = edge.long().clamp(max=n)
+    cut = (torch.full_like(st0, n) if edge is None
+           else edge.long().clamp(max=n))
     s = starts_tbl.long()[torch.where(st0 == 0, CTX_SOT,
                                       _byte_ctx(byte_at(st0 - 1)))]
     cut_ctx = torch.where(cut >= n, CTX_SOT, _byte_ctx(byte_at(cut)))
@@ -275,11 +281,44 @@ def window_flags_plain(packed, segmap, eoi, starts_tbl, data, reverse: bool,
     return flagw.reshape(B, NW).t().contiguous(), alive
 
 
+def window_last(flagw):
+    """Last set column of each lane of a window-flag bitmap [NW, B], or -1:
+    the length of the longest anchored match from the lane's start that
+    the run flagged."""
+    base = torch.arange(int(flagw.shape[0]), dtype=torch.int32,
+                        device=flagw.device)[:, None] * 32
+    return torch.where(flagw != 0, base + _floor_log2(flagw),
+                       -1).amax(dim=0)
+
+
+def window_ends_plain(packed, segmap, eoi, starts_tbl, data, reverse: bool,
+                      starts, edge, W: int, idx=None, out=None,
+                      alive_u8: bool = False):
+    """Plain torch ends form: window_flags_plain followed by each lane's
+    last flag (the reference's composition).  Lane b's end, start + its
+    last flagged column or -1, goes to out[idx[b]] (out[b] without idx;
+    `out` is allocated when None, and required with idx).  Returns (out,
+    alive [B], uint8 with alive_u8, else int32)."""
+    flagw, alive = window_flags_plain(packed, segmap, eoi, starts_tbl, data,
+                                      reverse, starts, edge, W)
+    top = window_last(flagw)
+    e = torch.where(top >= 0, starts + top, -1).to(torch.int32)
+    if idx is not None:
+        out.index_copy_(0, idx.long(), e)
+    elif out is None:
+        out = e
+    else:
+        out.copy_(e)
+    return out, alive.to(torch.uint8) if alive_u8 else alive
+
+
 def _check_window_args(packed, segmap, eoi, starts_tbl, data, starts, edge,
-                       W):
+                       W, idx=None, out=None):
     dev = data.device
     named = [("packed", packed), ("segmap", segmap), ("eoi", eoi),
-             ("starts_tbl", starts_tbl), ("starts", starts), ("edge", edge)]
+             ("starts_tbl", starts_tbl), ("starts", starts), ("edge", edge),
+             ("idx", idx), ("out", out)]
+    named = [(name, t) for name, t in named if t is not None]
     for name, t in named + [("data", data)]:
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, data on {dev}")
@@ -293,9 +332,15 @@ def _check_window_args(packed, segmap, eoi, starts_tbl, data, starts, edge,
     S, nseg = (int(x) for x in packed.shape)
     B = int(starts.shape[0])
     if (tuple(segmap.shape) != (256,) or tuple(eoi.shape) != (S, 4)
-            or tuple(starts_tbl.shape) != (4,)
-            or tuple(edge.shape) != (B,) or starts.dim() != 1):
+            or tuple(starts_tbl.shape) != (4,) or starts.dim() != 1
+            or (edge is not None and tuple(edge.shape) != (B,))
+            or (idx is not None and tuple(idx.shape) != (B,))
+            or (out is not None and out.dim() != 1)
+            or (out is not None and idx is None
+                and tuple(out.shape) != (B,))):
         raise ValueError("bad window-scan table or lane shapes")
+    if idx is not None and out is None:
+        raise ValueError("an idx scatter needs its out array")
     if not 0 < W < 2 ** 31 - 32:
         raise ValueError(f"bad window width {W}")
     if not table_fits(S, nseg):
@@ -305,13 +350,14 @@ def _check_window_args(packed, segmap, eoi, starts_tbl, data, starts, edge,
 
 def window_flags_cuda(packed, segmap, eoi, starts_tbl, data, reverse: bool,
                       starts, edge, W: int):
-    """Launch csrc/window_scan.cu; same outputs as window_flags_plain."""
+    """Launch csrc/window_scan.cu's flags form; same outputs as
+    window_flags_plain (the kernel writes every flag word)."""
     _check_window_args(packed, segmap, eoi, starts_tbl, data, starts, edge,
                        W)
     dev = data.device
     S, nseg = (int(x) for x in packed.shape)
     B = int(starts.shape[0])
-    flagw = torch.zeros((window_words(W), B), dtype=torch.int32, device=dev)
+    flagw = torch.empty((window_words(W), B), dtype=torch.int32, device=dev)
     alive = torch.empty(B, dtype=torch.int32, device=dev)
     lib = _build.lib()
     p = _build.ptr
@@ -324,11 +370,50 @@ def window_flags_cuda(packed, segmap, eoi, starts_tbl, data, reverse: bool,
     return flagw, alive
 
 
+def window_ends_cuda(packed, segmap, eoi, starts_tbl, data, reverse: bool,
+                     starts, edge, W: int, idx=None, out=None,
+                     alive_u8: bool = False):
+    """Launch csrc/window_scan.cu's ends form (cgx_window_ends); same
+    arguments and outputs as window_ends_plain.  idx must hold distinct
+    slots of out."""
+    _check_window_args(packed, segmap, eoi, starts_tbl, data, starts, edge,
+                       W, idx, out)
+    dev = data.device
+    S, nseg = (int(x) for x in packed.shape)
+    B = int(starts.shape[0])
+    if out is None:
+        out = torch.empty(B, dtype=torch.int32, device=dev)
+    alive = torch.empty(B, dtype=torch.uint8 if alive_u8 else torch.int32,
+                        device=dev)
+    lib = _build.lib()
+    p = _build.ptr
+    with torch.cuda.device(dev):
+        rc = lib.cgx_window_ends(
+            p(packed), S, nseg, p(segmap), p(eoi), p(starts_tbl), p(data),
+            int(data.shape[0]), int(bool(reverse)), p(starts), p(edge),
+            p(idx), B, W, p(out), p(alive), int(bool(alive_u8)),
+            _build.stream(dev))
+    _build.check(rc, "window_ends")
+    return out, alive
+
+
 def window_args(mt: MatchTables, data, starts, edge, W: int,
                 reverse: bool = False):
-    """The argument tuple of window_flags_plain / window_flags_cuda."""
+    """The argument tuple of the window scans' plain and CUDA versions
+    (the ends form takes idx, out and alive_u8 after it)."""
     return (mt.packed, mt.segmap, mt.eoi, mt.starts, data, reverse, starts,
             edge, W)
+
+
+def _on_device(data, cuda, plain, counter, args, kw=None):
+    kw = kw or {}
+    if data.device.type == "cuda":
+        out = cuda(*args, **kw)
+        counter.launches += 1
+        return out
+    if data.device.type != "cpu":
+        raise ValueError(f"unsupported device {data.device}")
+    return plain(*args, **kw)
 
 
 def window_flags(mt: MatchTables, data, starts, edge, W: int,
@@ -336,75 +421,56 @@ def window_flags(mt: MatchTables, data, starts, edge, W: int,
     """The window-flag scan on the data's device: the kernel for CUDA
     tensors (counted on WINDOW_KERNEL), the plain version for CPU
     tensors.  starts, edge: [B] int32 with 0 <= start <= n."""
-    args = window_args(mt, data, starts, edge, W, reverse)
-    if data.device.type == "cuda":
-        out = window_flags_cuda(*args)
-        WINDOW_KERNEL.launches += 1
-        return out
-    if data.device.type != "cpu":
-        raise ValueError(f"unsupported device {data.device}")
-    return window_flags_plain(*args)
+    return _on_device(data, window_flags_cuda, window_flags_plain,
+                      WINDOW_KERNEL,
+                      window_args(mt, data, starts, edge, W, reverse))
 
 
-def window_last(flagw):
-    """Last set column of each lane of a window-flag bitmap [NW, B], or -1:
-    the length of the longest anchored match from the lane's start that
-    the run flagged."""
-    base = torch.arange(int(flagw.shape[0]), dtype=torch.int32,
-                        device=flagw.device)[:, None] * 32
-    return torch.where(flagw != 0, base + _floor_log2(flagw),
-                       -1).amax(dim=0)
+def window_ends_round(mt: MatchTables, data, starts, W: int, edge=None,
+                      reverse: bool = False, idx=None, out=None,
+                      alive_u8: bool = False):
+    """One launch of the ends form on the data's device: the kernel for
+    CUDA tensors (counted on WINDOW_ENDS_KERNEL), the plain version for
+    CPU tensors.  Returns (out, alive) as window_ends_plain."""
+    return _on_device(data, window_ends_cuda, window_ends_plain,
+                      WINDOW_ENDS_KERNEL,
+                      window_args(mt, data, starts, edge, W, reverse),
+                      dict(idx=idx, out=out, alive_u8=alive_u8))
 
 
-# flag-word bytes of one window launch: a round's lanes go in launches of
-# at most this many bytes of flags (12 bytes a lane at W = 64, so about 22M
-# lanes), whose last-column reduction holds about four times that
-WINDOW_LAUNCH_BYTES = 1 << 28
-
-
-def window_ends(mt: MatchTables, data, starts, W: int = 64):
+def window_ends(mt: MatchTables, data, starts, W: int = 64, out=None):
     """The leftmost-first end of the anchored match from each of the m
     `starts` ([m] int32, ascending or not) under the break-at-match
     anchored DFA `mt` (ref. ``WindowScanner.ends_for_starts_device``,
-    :591-622): the forward window-flag scan, one lane per start, W bytes;
-    the last flag of a run that ended is its end.  The lanes still alive
-    are compacted on the device (K4, carrying their index and start) and
-    rerun at 4W, one sync a round for the alive count, until no lane lives.
-    A window of n + 1 columns ends every run, so the result stays exact
-    where the reference stops at its 2^22-byte cap.  Returns (ends [m]
-    int32, -1 where no match, rounds)."""
+    :591-622): the ends form forward, one lane per start, W bytes, one
+    launch a round; the last flag of a run that ended is its end.  The
+    lanes still alive are compacted on the device (K4, carrying their
+    index and start) and rerun from their starts at 4W, writing their
+    ends in place, one sync a round for the alive count, until no lane
+    lives.  A window of n + 1 columns ends every run, so the result stays
+    exact where the reference stops at its 2^22-byte cap.  Returns (ends
+    [m] int32 (`out` when given), -1 where no match, rounds)."""
     n = int(data.shape[0])
-    dev = data.device
     m = int(starts.shape[0])
-    ends = torch.full((m,), -1, dtype=torch.int32, device=dev)
+    ends = (torch.empty(m, dtype=torch.int32, device=data.device)
+            if out is None else out)
     todo, cur = None, starts
     rounds = 0
     while True:
         Wc = min(W, n + 1)
-        B = int(cur.shape[0])
-        per = max(1, WINDOW_LAUNCH_BYTES // (4 * window_words(Wc)))
-        alive = torch.empty(B, dtype=torch.int32, device=dev)
-        for lo in range(0, B, per):
-            hi = min(B, lo + per)
-            st = cur[lo:hi]
-            edge = torch.full((hi - lo,), n, dtype=torch.int32, device=dev)
-            flagw, alive[lo:hi] = window_flags(mt, data, st, edge, Wc)
-            top = window_last(flagw)
-            del flagw
-            e = torch.where(top >= 0, st + top, -1)
-            if todo is None:
-                ends[lo:hi] = e
-            else:
-                ends.index_copy_(0, todo[lo:hi].long(), e)
+        _e, alive = window_ends_round(mt, data, cur, Wc, idx=todo, out=ends,
+                                      alive_u8=True)
         rounds += 1
         n_alive = int(alive.sum(dtype=torch.int64))
         if n_alive == 0:
             return ends, rounds
         if Wc > n:
             raise RuntimeError("window scan: a run outlived the corpus")
-        idx = (torch.arange(B, dtype=torch.int32, device=dev)
+        B = int(cur.shape[0])
+        idx = (torch.arange(B, dtype=torch.int32, device=data.device)
                if todo is None else todo)
-        _pos, todo, cur, _c, _ok = compact_pay(alive != 0, [idx, cur],
+        _pos, todo, cur, _c, _ok = compact_pay(alive.view(torch.bool),
+                                               [idx, cur],
                                                _bucket(n_alive, 16))
         todo, cur = todo[:n_alive], cur[:n_alive]
         W *= 4

@@ -88,6 +88,69 @@ def test_plain_matches_rig_kernel(R, nc, dens, kw):
     _check(got, mask, pays, cap)
 
 
+def _tiled_mask(seed, R, nc, kinds):
+    """nc tiles of CH = R*128 entries, each all zero, all one or random at
+    density 0.02, drawn from `kinds` with numpy from `seed`."""
+    rng = np.random.default_rng(seed)
+    ch = R * 128
+    pick = rng.integers(0, len(kinds), nc)
+    mask = np.zeros((nc, ch), dtype=np.int8)
+    for i, kd in enumerate(kinds):
+        rows = pick == i
+        if kd == "one":
+            mask[rows] = 1
+        elif kd == "random":
+            mask[rows] = rng.random((int(rows.sum()), ch)) < 0.02
+    return mask.reshape(-1)
+
+
+# tiles in mixed kinds, the first four of each case named; at R = 128 the
+# persistent grid has 132 SMs x 4 blocks (R = 256: x 2, R = 512: x 1) on an
+# H100, so these hold more tiles than blocks
+@pytest.mark.parametrize("R,nc", [(128, 600), (256, 300), (512, 150)])
+def test_plain_many_tiles(R, nc):
+    """More tiles than a persistent grid has blocks, mixing all-zero,
+    all-one and random tiles, one payload, caps over and under the
+    count, plain and with cond_dma + skip_empty."""
+    mask = _tiled_mask(R + nc, R, nc, ["zero", "one", "random"])
+    mask[:3 * R * 128] = np.repeat(np.int8([0, 1, 0]), R * 128)
+    rng = np.random.default_rng(nc)
+    pays = [rng.integers(-2 ** 31, 2 ** 31 - 1, len(mask), dtype=np.int32)]
+    nh = int(mask.sum())
+    for cap in (nh + 16, nh // 3):
+        for kw in ({}, dict(cond_dma=True, skip_empty=True)):
+            out = ce.compact_exp(torch.from_numpy(mask),
+                                 torch.from_numpy(pays[0]), cap=cap, R=R,
+                                 npay=1, **kw)
+            _check(out, mask, pays, cap)
+
+
+@pytest.mark.parametrize("kw", [{}, dict(cond_dma=True, skip_empty=True)])
+def test_plain_matches_rig_kernel_zero_one_tiles(kw):
+    """All-zero and all-one tiles between random ones against the rig's
+    Pallas kernel in interpret mode, with one payload."""
+    R = 128
+    mask = _tiled_mask(3, R, 4, ["random"])
+    ch = R * 128
+    mask[:ch] = 0
+    mask[ch:2 * ch] = 1
+    mask[3 * ch:] = 0
+    pay = np.random.default_rng(4).integers(-2 ** 31, 2 ** 31 - 1, len(mask),
+                                            dtype=np.int32)
+    nh = int(mask.sum())
+    cap = -(-nh // 16) * 16 + 16
+    rpos, rpay, rcnt = (np.asarray(o) for o in ref_rig.compact_exp(
+        jnp.asarray(mask), jnp.asarray(pay), cap=cap, R=R, npay=1,
+        interpret=True, **kw))
+    got = ce.compact_exp(torch.from_numpy(mask), torch.from_numpy(pay),
+                         cap=cap, R=R, npay=1, **kw)
+    pos, gpay, cnt = (o.numpy() for o in got)
+    assert int(cnt) == int(rcnt) == nh
+    np.testing.assert_array_equal(pos, rpos)
+    np.testing.assert_array_equal(gpay[:nh], rpay[:nh])
+    _check(got, mask, [pay], cap)
+
+
 @pytest.mark.parametrize("npay", [0, 1, 2])
 @pytest.mark.parametrize("R", [128, 256, 512])
 @pytest.mark.parametrize("kind", ["random", "ones", "zeros"])
