@@ -59,9 +59,18 @@ Phases (any failure exits non-zero before the final line):
                (256 MiB at density 1/200, seed 11) at R = 128, at R = 256
                with two payloads under cond_dma + skip_empty, and at
                R = 512, and on masks of all-zero, all-one and random tiles,
-               more tiles than its persistent grid has blocks
+               more tiles than its persistent grid has blocks; the
+               bitset-NFA scan (cgx_bitset_scan) of the BITSET patterns,
+               forward and reverse (on the flipped corpus): pass 0 with
+               both its repair passes from exits of which a tenth are
+               random sets, unsplit on the sample and at the main path's
+               shape (the whole corpus's T, W and k = 64) on its first 16
+               lanes (the lane pass there for one scan), then pass 0
+               and the settled scan of each on the whole corpus, timed,
+               the reverse scan of `[a-q][^u-z]{13}x` also held to the
+               plain version there
   4. e2e     - the public API on a 1536 MiB log corpus (the JAX package's
-               bench corpus), in five runs, each with the launch counts set
+               bench corpus), in six runs, each with the launch counts set
                to 0 before it and read after it.  Earlier slices: count for
                the 13 bench patterns and for `0\.0` (whose hits overlap,
                so K6 hands over to K7, with K7's repair passes printed),
@@ -111,11 +120,23 @@ Phases (any failure exits non-zero before the final line):
                (Python's `\b` is Go's on ASCII), with find_all_index on
                one or two tiles; the launches of each kernel in one warm
                find_all of each; find_all_index(t, 3) and (t, 2^20) of one
-               pattern of each route against the oracle's first spans
+               pattern of each route against the oracle's first spans.
+               BITSET_NFA (forward DFAs past the state limit): count and
+               device find_all of `[a-q][^u-z]{13}x`,
+               `[A-Za-z]\w{0,30}\d{2}\b` and `[A-Za-z]\w{0,30}\d{2}` at
+               1536 MiB against the tiled oracle (the tiling checked on two
+               tiles), find_all_index on two tiles, is_match and
+               find_index on the three single-match corpora, each with the
+               bitset scan's repair passes; `(a|b)*a(a|b){15}`, whose
+               anchored DFA overflows too (ends from the host search at
+               the device's starts), the same on the bench corpus (no
+               match) and all four calls on a 1 MiB corpus of 128 matches
+               against `re`
   5. routes  - every kernel K1-K7 was launched in the first run, K1-K4 and
                K8 in the second, K9 and the window scan's ends form in the
                third, K4 and K10 in the fourth, K9, the ends form, K4 and
-               K8 in the fifth, and no call was declined to the host loop but
+               K8 in the fifth, the bitset scan, the ends form and K4 in
+               the sixth, and no call was declined to the host loop but
                the nullable find_index (the reference's FALLBACK, by
                design)
 
@@ -232,6 +253,14 @@ GENERAL = [("word_digits", r"\b\d+\b", "full"),
            ("a0_3", r"a{0,3}", "limit"),
            ("empty_lazy", r"x*?", "slice")]
 GENERAL_LIMITS = ("word_digits", "lower2_5", "a0_3", "empty_lazy")
+# the BITSET_NFA slice (DFAs past the 20,000-state limit): the bitset scan,
+# its ends by the window scan over fwd_anch_break; the second pattern has
+# looks (two closure groups); the last one's anchored DFA overflows too, so
+# the host search finds its ends
+BITSET = [("nfa_u_z", r"[a-q][^u-z]{13}x"),
+          ("nfa_word_digits_b", r"[A-Za-z]\w{0,30}\d{2}\b"),
+          ("nfa_word_digits", r"[A-Za-z]\w{0,30}\d{2}")]
+BITSET_HOST_ENDS = ("nfa_ab_host", r"(a|b)*a(a|b){15}")
 # the single-match slice: the bench patterns and these
 SINGLE_EXTRA = [("ws_digit_ws", r"\s\d\s"), ("ab_plus_c", r"(a|b)+c"),
                 ("ws_digits_ws", r"\s\d+\s"), ("a_word_end", r"a\b"),
@@ -241,6 +270,7 @@ SINGLE_EXTRA = [("ws_digit_ws", r"\s\d\s"), ("ab_plus_c", r"(a|b)+c"),
 ORACLE_RE = {r"\d+$": rb"\d+\Z"}
 FILLER = 0x20       # the late and no-match corpora's filler byte
 PATTERNS = dict(CONFIGS + EXTRA_COUNTS + SINGLE_EXTRA + LITERAL_EXTRA
+                + BITSET + [BITSET_HOST_ENDS]
                 + [(nm, p) for nm, p, _ in CLASS_NULLABLE + LITERAL_NULLABLE
                    + GENERAL])
 DEVICE = "cuda"
@@ -300,11 +330,11 @@ def tiled_digest(inner, tail, B: int, reps: int, rng):
           + sum(s for s, _ in tail)) % M32
     es = (reps * sum(e for _, e in inner) + tri
           + sum(e for _, e in tail)) % M32
-    sidx = np.sort(rng.integers(0, cnt, 64))
+    sidx = np.sort(rng.integers(0, cnt, 64 if cnt else 0))
     samp = np.array([tail[int(g) - reps * m0] if g >= reps * m0 else
                      (inner[int(g) % m0][0] + (int(g) // m0) * B,
                       inner[int(g) % m0][1] + (int(g) // m0) * B)
-                     for g in sidx])
+                     for g in sidx]).reshape(-1, 2)
     return cnt, ss, es, sidx, samp
 
 
@@ -816,6 +846,8 @@ def phase_kernels(base: bytes, corpus: np.ndarray):
     window_edge_cases(compare, rev.mt, data, g)
     # the general find_all's shapes, the window scan's headline among them
     general_kernels(compare, data, corpus)
+    # the bitset-NFA scan on the sample, then timed on the whole corpus
+    bitset_kernels(compare, results, sample, data)
     del data
 
     # K10 on the compaction rig's mask (256 MiB at density 1/200, seed 11)
@@ -1049,6 +1081,159 @@ def general_kernels(compare, data, corpus: np.ndarray) -> None:
             headline=True, in_bytes=reads + nbytes(st, *eargs[:4]))
     del wargs, eargs, st, edge
     torch.cuda.empty_cache()
+
+
+def bitset_args(d, data, geom, tiles, k):
+    """The bitset scan's pass-0 arguments on `data` under geometry (L, T, W)
+    at k sub-lanes a lane, as nfa_scan.bitset_full makes them, and the
+    exact entry of sub-lane (0, 0)."""
+    from coregex_tpu_torch.ops import nfa_scan as ns
+    L, T, W = geom
+    n = int(data.shape[0])
+    e0, o0, lim, first = ns.first_inputs(d, data, n, L, T, W, k)
+    return (d, tiles, W // 4, e0, o0, lim, n), first
+
+
+def bitset_repair_case(d, args, first):
+    """A bitset repair pass's inputs: pass 0's plain outputs on `args`, with
+    random sets (of the NFA's S states) as the exits of a tenth of the
+    sub-lanes.  Returns run(fn, whole): the sub-lane (whole=False) or lane
+    pass through fn on fresh copies, giving (exits, counts, sync, flagw,
+    last, walked)."""
+    import torch
+    from coregex_tpu_torch.ops import nfa_scan as ns
+    counts, exits, sync, fw, last = ns.bitset_walk_plain(*args)
+    dev = exits.device
+    k, L, NW = (int(x) for x in exits.shape)
+    g = torch.Generator(device=dev).manual_seed(31)
+    pick = torch.rand((k, L), device=dev, generator=g) < 0.1
+    rnd = torch.randint(-2 ** 62, 2 ** 62, (k * L, NW), device=dev,
+                        generator=g)
+    rnd = ns.pack_sets(ns.unpack_sets(rnd, d.S)).view(k, L, NW)
+    prev = torch.where(pick[..., None], rnd, exits).contiguous()
+    _d, tiles, _w4, _e0, _o0, lim, n = args
+
+    def run(fn, whole):
+        out = [torch.empty_like(prev), counts.clone(), sync.clone(),
+               fw.clone(), last.clone(),
+               torch.zeros(1, dtype=torch.int32, device=dev)]
+        fn(d, whole, tiles, n, lim, first, prev, *out)
+        return out
+    return run
+
+
+# the bitset scan whose lane pass (one thread walking a lane's k
+# sub-lanes) is also held at the main path's k: find_all's scan, with the
+# widest sets (NW = 7).  Its plain version steps one byte a torch step
+# over the whole lane of 196,608 bytes, tens of seconds a scan on an H100,
+# so the other scans' lane passes are held unsplit on the sample only
+BITSET_MAIN_LANE_PASS = (("nfa_u_z", "rev"),)
+BITSET_SLICE_LANES = 16
+
+
+def bitset_kernels(compare, results, small, data) -> None:
+    r"""cgx_bitset_scan against its plain version (nfa_scan's
+    bitset_walk_plain, bitset_repair_plain), bit-equal (flag words,
+    counts, last flags, exit and warmup sets), for the forward scan and
+    the reverse scan over the flipped corpus of each BITSET pattern: pass
+    0 and both repair passes from exits of which a tenth are random,
+    unsplit on the 4 MiB sample (`small`, on the card) and at the main
+    path's shape (the whole corpus's T, W and k = lane_split) on its first
+    BITSET_SLICE_LANES lanes (the lane pass there for the scan of
+    BITSET_MAIN_LANE_PASS).  Then on the whole corpus (`data` on the
+    card) pass 0, timed, and the settled scan with its repair passes and
+    launches.  The reverse scan of the first pattern (find_all's and
+    find_index's scan) is also held to the plain version on the whole
+    corpus: the line of the kernels takes its ms, plain ms and bound from
+    that one input."""
+    import torch
+    import coregex_tpu_torch as ct
+    from coregex_tpu_torch.ops import count_scan as cs
+    from coregex_tpu_torch.ops import nfa_scan as ns
+    for name, pattern in BITSET:
+        be = ct.compile(pattern, device=DEVICE).batch_engine()
+        for kind in ("fwd", "rev"):
+            sc = be._bitset_scanner(kind)
+            if not sc:
+                fail(f"{name}: no {kind} bitset scanner")
+            d = sc.d
+            for big in (False, True):
+                x = data if big else small
+                x = x if kind == "fwd" else torch.flip(x, [0])
+                n = int(x.shape[0])
+                L, T, W, _ = cs.plan_geometry(n)
+                k = cs.lane_split(T, W)
+                label = f"{name} {kind} {n / 2 ** 20:.0f} MiB"
+                if big:
+                    Ls = BITSET_SLICE_LANES
+                    y, case = x[:Ls * T], (f"{label} lanes 0-{Ls - 1} "
+                                           f"k={k}", Ls, k)
+                else:
+                    print(f"[kernels] bitset_scan {label}: S={d.S} "
+                          f"NW={d.NW} G={d.G} Gs={d.Gs}, shared memory "
+                          f"{ns.smem_bytes(d.S, d.NW, d.G, d.Gs)} B, "
+                          f"{ns.resident_warps(d)} resident warps an SM",
+                          flush=True)
+                    y, case = x, (f"{label} k=1", L, 1)
+                lab, Ly, kk = case
+                ty = cs.make_word_tiles(y, Ly, T // 4)
+                args, first = bitset_args(d, y, (Ly, T, W), ty, kk)
+                compare("bitset_scan", lab,
+                        lambda: ns.bitset_walk_cuda(*args),
+                        lambda: ns.bitset_walk_plain(*args), reps=3,
+                        in_bytes=nbytes(y))
+                run = bitset_repair_case(d, args, first)
+                for whole in (False, True):
+                    if whole and big and (name, kind) \
+                            not in BITSET_MAIN_LANE_PASS:
+                        continue
+                    t0 = time.perf_counter()
+                    compare("bitset_scan", f"{lab} "
+                            f"{'lane' if whole else 'sub-lane'} pass",
+                            lambda: run(ns.bitset_repair_cuda, whole),
+                            lambda: run(ns.bitset_repair_plain, whole))
+                    if big:
+                        print(f"[kernels] bitset_scan {lab} "
+                              f"{'lane' if whole else 'sub-lane'} pass "
+                              f"checked in "
+                              f"{time.perf_counter() - t0:.1f} s",
+                              flush=True)
+                del args, ty, y, run
+                if not big:
+                    continue
+                tiles = cs.make_word_tiles(x, L, T // 4)
+                args, _first = bitset_args(d, x, (L, T, W), tiles, k)
+                if name == BITSET[0][0] and kind == "rev":
+                    t0 = time.perf_counter()
+                    compare("bitset_scan", f"{label} k={k}",
+                            lambda: ns.bitset_walk_cuda(*args),
+                            lambda: ns.bitset_walk_plain(*args), reps=3,
+                            headline=True, in_bytes=n)
+                    ms = results["bitset_scan"]["ms"]
+                    print(f"[kernels] bitset_scan {label} k={k}: checked "
+                          f"in {time.perf_counter() - t0:.1f} s",
+                          flush=True)
+                else:
+                    ms = cuda_ms(lambda: ns.bitset_walk_cuda(*args), 3)
+                bound = (n + nbytes(*ns.bitset_walk_cuda(*args))) \
+                    / HBM_BYTES_PER_MS
+                c = ns.BITSET_KERNEL
+                before = c.launches
+                reset_passes(c)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                scan = sc.scan_device(x, (L, T, W), tiles, k)
+                flags = int(scan.counts.sum())
+                settled_ms = (time.perf_counter() - t0) * 1e3
+                print(f"[kernels] bitset_scan {label} k={k} (L={L} T={T} "
+                      f"W={W}): pass 0 {ms:.3f} ms (bound {bound:.3f} ms, "
+                      f"{ms / bound:.0f}x); settled scan "
+                      f"{settled_ms:.1f} ms, {c.launches - before} "
+                      f"launches, repair passes {passes(c)}, {flags} flags",
+                      flush=True)
+                del args, scan, tiles
+            del x
+            torch.cuda.empty_cache()
 
 
 def split_args(d, data, geom, tiles, k):
@@ -1496,9 +1681,11 @@ def phase_e2e(base: bytes, arr: np.ndarray):
     return routes
 
 
-def check_find_all(name, be, arr: np.ndarray, exp) -> str:
+def check_find_all(name, be, arr: np.ndarray, exp, kernels=None) -> str:
     """Device find_all of arr (first call, then best of 2) against an
-    expected tiled_digest; returns the report."""
+    expected tiled_digest; returns the report, with the repair passes of
+    the last call of `kernels` ((label, counter) pairs; K2's and K3's when
+    None)."""
     import torch
     n = len(arr)
     cnt_e, ss_e, es_e, sidx, samp_e = exp
@@ -1519,14 +1706,16 @@ def check_find_all(name, be, arr: np.ndarray, exp) -> str:
     from coregex_tpu_torch.ops.dfa_scan import MATCH_KERNEL
     from coregex_tpu_torch.ops.flag_scan import FLAG_KERNEL
     from coregex_tpu_torch.ops.span_scan import SPAN_KERNEL
+    if kernels is None:
+        kernels = [("K2", SPAN_KERNEL), ("K3", FLAG_KERNEL)]
     t0 = time.perf_counter()
     res = run()
     fa_first = time.perf_counter() - t0
     fa_best = float("inf")
     for _ in range(2):
-        reset_passes(SPAN_KERNEL)
-        reset_passes(FLAG_KERNEL)
-        reset_passes(MATCH_KERNEL)
+        for c in (SPAN_KERNEL, FLAG_KERNEL, MATCH_KERNEL) + tuple(
+                c for _, c in kernels):
+            reset_passes(c)
         t0 = time.perf_counter()
         res = run()
         fa_best = min(fa_best, time.perf_counter() - t0)
@@ -1538,13 +1727,14 @@ def check_find_all(name, be, arr: np.ndarray, exp) -> str:
         fail(f"{name}: sampled spans differ from the oracle")
     return (f"find_all {cnt} spans digest+64 samples ok  "
             f"{n / fa_best / 1e9:7.2f} GB/s ({fa_best * 1e3:.1f} ms, "
-            f"first {fa_first:.2f} s, repair passes K2 "
-            f"{passes(SPAN_KERNEL)}, K3 {passes(FLAG_KERNEL)})")
+            f"first {fa_first:.2f} s, repair passes "
+            + ", ".join(f"{lb} {passes(c)}" for lb, c in kernels) + ")")
 
 
-def timed_count(eng, arr: np.ndarray):
+def timed_count(eng, arr: np.ndarray, counters=()):
     """(count, best of 2 seconds, first call seconds); the K1 and K7
-    counters' repair passes are those of the last call."""
+    counters' repair passes, and those of `counters`, are those of the
+    last call."""
     from coregex_tpu_torch.ops.count_scan import COUNT_KERNEL
     from coregex_tpu_torch.ops.seq_scan import SEQ_KERNEL
     t0 = time.perf_counter()
@@ -1552,8 +1742,8 @@ def timed_count(eng, arr: np.ndarray):
     first = time.perf_counter() - t0
     best = float("inf")
     for _ in range(2):
-        reset_passes(COUNT_KERNEL)
-        reset_passes(SEQ_KERNEL)
+        for c in (COUNT_KERNEL, SEQ_KERNEL) + tuple(counters):
+            reset_passes(c)
         t0 = time.perf_counter()
         eng.count(arr)
         best = min(best, time.perf_counter() - t0)
@@ -1868,6 +2058,110 @@ def phase_e2e_single_match(base: bytes, corpus: np.ndarray):
     return routes
 
 
+def host_ends_corpus(base: bytes) -> bytes:
+    """About 1 MiB of the base tile with 128 matches of
+    BITSET_HOST_ENDS[1] inserted, one every 8000 bytes."""
+    parts = []
+    for i in range(128):
+        parts.append(base[i * 8000:(i + 1) * 8000])
+        parts.append(b" " + b"ab" * (i % 7) + b"a" * 16 + b" ")
+    return b"".join(parts)
+
+
+def phase_e2e_bitset(base: bytes, arr: np.ndarray):
+    """The BITSET_NFA slice through the public API: count and device
+    find_all (first call, then best of 2) of the BITSET patterns on the
+    1536 MiB corpus against the tiled oracle (the tiling checked on two
+    tiles), find_all_index on two tiles, is_match and find_index on the
+    three single-match corpora against oracle_first, each with the bitset
+    scan's repair passes; then the host-ends route (BITSET_HOST_ENDS) on
+    the bench corpus, which holds no match, and on host_ends_corpus
+    against `re`."""
+    import coregex_tpu_torch as ct
+    from coregex_tpu_torch.ops.nfa_scan import BITSET_KERNEL
+
+    B = len(base)
+    reps = len(arr) // B
+    n = len(arr)
+    rng = np.random.default_rng(77)
+    fill = bytes([FILLER]) * 4096
+    corpora = single_corpora(base, arr)
+    routes = {}
+    for name, pattern in BITSET + [BITSET_HOST_ENDS]:
+        if re.search(pattern.encode(), fill) is not None:
+            fail(f"{name}: the filler byte {FILLER:#x} does not suit it")
+        spans0 = oracle_spans(pattern, base)
+        if oracle_spans(pattern, base + base) != expand_tiles(spans0, [], B,
+                                                              2):
+            fail(f"{name}: the tiled oracle differs from re on two tiles")
+        eng = ct.compile(pattern, device=DEVICE)
+        be = eng.batch_engine()
+        route = be._spans_route(arr)
+        host_ends = name == BITSET_HOST_ENDS[0]
+        if (eng.strategy != "bitset_nfa" or route is None
+                or route[0] != "bitset" or (route[1][1] is None)
+                != host_ends):
+            fail(f"{name}: plan {eng.strategy}, find_all route {route}")
+        exp = tiled_digest(spans0, [], B, reps, rng)
+        got, best, first = timed_count(eng, arr, (BITSET_KERNEL,))
+        if got != exp[0]:
+            fail(f"{name}: count {got} != oracle {exp[0]}")
+        line = (f"[bitset] {name:17} count {got:>9} ok {n / best / 1e9:6.2f}"
+                f" GB/s ({best * 1e3:.1f} ms, first {first:.2f} s, bitset "
+                f"repair passes {passes(BITSET_KERNEL)}) | "
+                + check_find_all(name, be, arr, exp,
+                                 [("bitset", BITSET_KERNEL)]))
+        if be.full_scan_stats is not None and not host_ends:
+            line += (f", {be.full_scan_stats[0]} starts, "
+                     f"{be.full_scan_stats[1]} window rounds")
+        print(line, flush=True)
+        got = eng.find_all_index(arr[:2 * B])
+        if (got or []) != expand_tiles(spans0, [], B, 2):
+            fail(f"{name}: find_all_index on two tiles differs from the "
+                 f"oracle")
+        for which, carr in corpora:
+            want = oracle_first(pattern, which, carr, base)
+            line = f"[bitset] {name:17} {which:5}"
+            for what, fn, w in (("is_match", eng.is_match,
+                                 want is not None),
+                                ("find_index", eng.find_index, want)):
+                t0 = time.perf_counter()
+                got = fn(carr)
+                first = time.perf_counter() - t0
+                best = float("inf")
+                for _ in range(2):
+                    reset_passes(BITSET_KERNEL)
+                    t0 = time.perf_counter()
+                    again = fn(carr)
+                    best = min(best, time.perf_counter() - t0)
+                    if again != got:
+                        fail(f"{name} {which}: {what} changed on a rerun")
+                if got != w:
+                    fail(f"{name} {which}: {what} {got} != oracle {w}")
+                line += (f" | {what} {str(got):20} {best * 1e3:9.3f} ms "
+                         f"(first {first:.2f} s, bitset repair passes "
+                         f"{passes(BITSET_KERNEL)})")
+            print(line, flush=True)
+        if host_ends:
+            t = host_ends_corpus(base)
+            want = [m.span() for m in re.finditer(pattern.encode(), t)]
+            if not want:
+                fail(f"{name}: the host-ends corpus holds no match")
+            t0 = time.perf_counter()
+            ok = (eng.find_all_index(t) == want and eng.count(t) == len(want)
+                  and eng.is_match(t) is True
+                  and eng.find_index(t) == want[0])
+            if not ok:
+                fail(f"{name}: the host-ends route differs from re on "
+                     f"{len(t)} bytes")
+            print(f"[bitset] {name:17} host ends on {len(t)} bytes: "
+                  f"find_all_index, count, is_match and find_index equal "
+                  f"re ({len(want)} matches, "
+                  f"{(time.perf_counter() - t0) * 1e3:.1f} ms)", flush=True)
+        routes[f"{name} bitset"] = be.host_routes
+    return routes
+
+
 def main():
     card = phase_device()
     import torch
@@ -1877,7 +2171,8 @@ def main():
         fail(f"cannot import coregex_tpu_torch: {ex}")
     from coregex_tpu_torch.ops import (compact, compact2, compact_exp,
                                        count_scan, dfa_scan, flag_scan,
-                                       line_scan, seq_scan, span_scan)
+                                       line_scan, nfa_scan, seq_scan,
+                                       span_scan)
     ops = "coregex_tpu/ops/"
     counters = [
         (count_scan.COUNT_KERNEL, "lane_scan.cu", ops + "count_scan.py:211"),
@@ -1897,6 +2192,9 @@ def main():
         # lax.scan its WindowScanner rounds run
         (dfa_scan.WINDOW_ENDS_KERNEL, "window_scan.cu",
          ops + "dfa_scan.py:495"),
+        # the BITSET_NFA scan: a lax.scan with an MXU step and a while_loop
+        # repair, no Pallas kernel
+        (nfa_scan.BITSET_KERNEL, "nfa_scan.cu", ops + "nfa_scan.py:237"),
     ]
     # kernels each run of phase 4 must launch: the earlier slices' path,
     # then the class-run and nullable path (K1 for the `\w*` count, K2/K3
@@ -1905,8 +2203,9 @@ def main():
     # literal path and the compaction rig (K4 for the literal chains, K10),
     # then the general find_all (K9 over the reverse DFA, the ends form for
     # the ends, K4 for the starts, the alive lanes and the chain, K8 for
-    # ALL_EMPTY); the flags form has no caller on a user path (its
-    # checks are phase 3's)
+    # ALL_EMPTY), then BITSET_NFA (the bitset scan for the starts and
+    # is_match, the ends form, K4 for the starts and the chain); the flags
+    # form has no caller on a user path (its checks are phase 3's)
     paths = [("earlier slices", phase_e2e,
               [c for c, _, _ in counters[:7]]),
              ("class runs and nullable", phase_e2e_class_nullable,
@@ -1916,7 +2215,9 @@ def main():
              ("literal find_all and compaction rig", phase_e2e_literal,
               [counters[i][0] for i in (3, 10)]),
              ("general find_all", phase_e2e_general,
-              [counters[i][0] for i in (8, 11, 3, 7)])]
+              [counters[i][0] for i in (8, 11, 3, 7)]),
+             ("BITSET_NFA", phase_e2e_bitset,
+              [counters[i][0] for i in (12, 11, 3)])]
     build_s = phase_build()
     base = build_base()
     corpus = bench_corpus(base)

@@ -19,8 +19,12 @@ one method here), the nullable paths (``_core``
 ``_rev_start_flags`` (:2252-2307, kind="rev_anch") as ``_rev_start``, the
 general find_all (``_all_starts`` :2584-2600, ``_full_scan_spans``
 :2602-2610, its ``go_select`` :122-144 on the device), the ``{m,k}`` class
-split of ``_charclass_spans`` (:2028-2075) and ALL_EMPTY's spans
-(``meta/nullable.py:all_empty_spans``).  The
+split of ``_charclass_spans`` (:2028-2075), ALL_EMPTY's spans
+(``meta/nullable.py:all_empty_spans``) and the BITSET_NFA tier
+(``_bitset_scanner``, ``_bitset_starts`` as ``_bitset_rev_scan`` with
+``_compact_starts``, ``_bitset_is_match``, ``_bitset_spans``,
+``_bitset_nfa_spans_dev`` and ``_spans_from_starts_host``, :2385-2522 and
+:1308-1335).  The
 port builds on its own copy of the host pipeline (``..dfa``, ``..nfa``,
 ``.strategy``, ``.literal``) and imports nothing of ``coregex_tpu``.
 
@@ -31,10 +35,11 @@ Routes:
     (HitsScanner) for LITERAL and MULTI_LITERAL plans, and K7 (SeqScanner,
     MODE_MULTI) when K6 finds two hits overlapping; otherwise the count
     transducer (the nullable transducer, behind its UTF-8 gate, for
-    nullable plans).  A nullable plan outside that gate counts its device
-    find_all, as the reference counts its span list.  The reference's
-    class-run, memmem and multi-literal XLA counts are not ported; the
-    transducer gives the same counts.  Unlike the reference, these routes
+    nullable plans).  A nullable plan outside that gate, and a BITSET_NFA
+    plan (whose transducer overflows), counts its device find_all, as the
+    reference counts its span list.  The reference's class-run, memmem
+    and multi-literal XLA counts are not ported; the transducer gives the
+    same counts.  Unlike the reference, these routes
     run on every device (its scanners run only on a TPU backend) and a
     failing scanner raises instead of being retired.  The reference
     reaches K7 in MODE_LINE only after retiring a LineScanner, since both
@@ -57,19 +62,30 @@ Routes:
     else the core's own route plus the empty fill when that route serves
     the corpus and the corpus is below DEVICE_SPANS_LIMIT; for ALL_EMPTY
     plans one K8 compaction of the rune boundaries below that limit; the
-    host reverse scan for END_ANCHORED plans.  Leftmost-longest plans
-    decline, but END_ANCHORED, whose one match does not depend on the
-    rule; so do BITSET_NFA plans.  A limit (find_all_index(t, k)) takes
-    the same routes and keeps the first k spans.
+    host reverse scan for END_ANCHORED plans; for BITSET_NFA plans every
+    match start from the bitset-NFA scan of the reverse NFA over the
+    flipped corpus (``ops/nfa_scan.py``), then the general fallback's ends
+    and chain, or, when ``fwd_anch_break`` overflows or does not fit the
+    kernels, Go's restart walk over the starts with the Engine's host
+    search for the ends (the reference's route for that case); a reverse
+    NFA out of the scan's scope (more than 512 range states, more than 4
+    closure groups) declines.  Leftmost-longest plans decline, but
+    END_ANCHORED, whose one match does not depend on the rule.  A limit
+    (find_all_index(t, k)) takes the same routes and keeps the first k
+    spans (the host walk stops after k).
   * is_match: True for nullable plans; the host reverse scan for
-    END_ANCHORED; one K9 scan over ``fwd_all`` for FULL_SCAN; for the
-    other strategies ``find_first(...) is not None`` (the reference asks
-    its find_all pipelines with limit 1, not ported).  Any match rule.
+    END_ANCHORED; one K9 scan over ``fwd_all`` for FULL_SCAN; one forward
+    bitset scan for BITSET_NFA when the forward NFA is in the scan's
+    scope; for the other strategies ``find_first(...) is not None`` (the
+    reference asks its find_all pipelines with limit 1, not ported).  Any
+    match rule.
   * find_first: chunked literal scans for LITERAL and MULTI_LITERAL; the
     first qualifying class run for CHARCLASS; the host reverse scan for
-    END_ANCHORED; K9 over ``fwd_break`` on growing prefixes, then the
-    window kernel from the end backwards, for the others.  Nullable plans
-    and BITSET_NFA decline, as in the reference.
+    END_ANCHORED; for BITSET_NFA the first start of find_all's reverse
+    bitset scan and its end (window scan or host search); K9 over
+    ``fwd_break`` on growing prefixes, then the window kernel from the end
+    backwards, for the others.  Nullable plans decline, as in the
+    reference.
 A call outside these routes returns None (find_first returns FALLBACK) and
 the Engine's host loop serves it; each such decline adds one to
 ``host_routes``.  The route is decided on the host, from the plan, its
@@ -112,6 +128,7 @@ from ..ops.flag_scan import (FlagResetScanner, ResetFlagTables,
                              reset_geometry, scatter_reset_tiles,
                              sym_base_tiles)
 from ..ops.line_scan import HitsScanner, LineScanner
+from ..ops.nfa_scan import BitsetNFAScanner, LookUnsupported
 from ..ops.seq_scan import MODE_MULTI, SeqScanner, seq_geometry
 from ..ops.span_chain import (MULTI_FUSED_LIMIT, SPARSE_OK, _rune_boundaries,
                               bidi_assemble, bidi_ends, chain_select,
@@ -204,10 +221,14 @@ class BatchEngine:
                       Strategy.FULL_SCAN, Strategy.INNER)
 
     def __init__(self, parsed: Parsed, ast: Node, dfas_ok: bool, device,
-                 longest: bool = False):
+                 longest: bool = False, host_find=None):
         self.parsed = parsed
         self.ast = ast
         self.longest = longest
+        # (corpus, pos) -> the leftmost-first span at or after pos, or None:
+        # the Engine's host search, for BITSET_NFA ends when the anchored
+        # DFA overflows (ref. :302)
+        self.host_find = host_find
         self.device = torch.device(device)
         self.plan: Plan = select(ast, dfas_ok)
         if longest and self.plan.strategy in (Strategy.NULLABLE_CORE,
@@ -232,6 +253,7 @@ class BatchEngine:
         self._rev_hint_cache = {}   # corpus fp -> K3 sub-lane entries [k, L]
         self._core_engine = None    # lazy Engine over a nullable core
         self._chunk_sc = {}         # dense kind -> ChunkScanner; False == none
+        self._bitset_sc = {}        # "fwd"/"rev" -> BitsetNFAScanner or False
         # (match starts, window rounds) of the last general find_all, None
         # before the first
         self.full_scan_stats = None
@@ -456,11 +478,13 @@ class BatchEngine:
             return sc.count(dev, geom, tiles)
 
     def _count_by_spans(self, data: np.ndarray) -> Optional[int]:
-        """A nullable plan outside the transducer's gate counts its device
-        find_all when a find_all route serves the corpus (the reference
-        counts it from the span list of its device find_all, ref.
-        engine.py:337); else None (declined)."""
-        if (self.plan.strategy != Strategy.NULLABLE_CORE
+        """A nullable plan outside the transducer's gate, or a BITSET_NFA
+        plan (whose transducer overflows), counts its device find_all when
+        a find_all route serves the corpus (the reference counts the span
+        list of its device find_all, ref. engine.py:337 and batch.py
+        :1798-1799); else None (declined)."""
+        if (self.plan.strategy not in (Strategy.NULLABLE_CORE,
+                                       Strategy.BITSET_NFA)
                 or len(data) > self.SPARSE_SPANS_LIMIT
                 or self._spans_route(data) is None):
             return self._decline()
@@ -518,9 +542,11 @@ class BatchEngine:
         flag at the exact state at n); the other strategies answer
         ``find_first(...) is not None`` where the reference asks its
         ``find_all_spans(limit=1)``, whose limit pipelines are not ported
-        (ROADMAP M7): the same answer.  BITSET_NFA declines.  Whether a
-        match exists does not depend on the match rule, so a
-        leftmost-longest engine takes the same routes."""
+        (ROADMAP M7): the same answer.  BITSET_NFA runs one forward bitset
+        scan (``_bitset_is_match``) when the forward NFA is in the scan's
+        scope, else asks find_first.  Whether a match exists does not
+        depend on the match rule, so a leftmost-longest engine takes the
+        same routes."""
         n = len(data)
         strat = self.plan.strategy
         if strat in (Strategy.NULLABLE_CORE, Strategy.ALL_EMPTY):
@@ -528,6 +554,8 @@ class BatchEngine:
         if strat == Strategy.END_ANCHORED:
             sp = self._end_anchored_spans(data)
             return None if sp is None else len(sp) > 0
+        if strat == Strategy.BITSET_NFA and self._bitset_scanner("fwd"):
+            return self._bitset_is_match(data)
         if strat != Strategy.FULL_SCAN:
             m = self.find_first(data)
             return None if m is FALLBACK else m is not None
@@ -548,18 +576,26 @@ class BatchEngine:
         (declined: the Engine's host loop answers), by strategy (ref.
         :1803-1863): LITERAL and MULTI_LITERAL scan 16 MiB chunks for the
         first hit; CHARCLASS finds the first qualifying class run;
-        END_ANCHORED scans back from the end on the host; nullable plans
-        and BITSET_NFA decline (the reference's FALLBACK; a nullable
-        plan's leftmost match is O(match length) on the host); the others
-        take ``_find_first_dfa``.  The route is decided before the corpus
-        is uploaded.  The Engine asks only leftmost-first engines (ref.
+        END_ANCHORED scans back from the end on the host; BITSET_NFA takes
+        ``_bitset_first`` on find_all's route (declining where find_all
+        does); nullable plans decline (the reference's FALLBACK; a
+        nullable plan's leftmost match is O(match length) on the host); the
+        others take ``_find_first_dfa``.  The route is decided before the
+        corpus is uploaded.  The Engine asks only leftmost-first engines (ref.
         engine.py:238); ``is_match`` asks for any, and reads only whether
         a span came back."""
         n = len(data)
         strat = self.plan.strategy
-        if n == 0 or strat in (Strategy.BITSET_NFA, Strategy.NULLABLE_CORE,
-                               Strategy.ALL_EMPTY, Strategy.HOST):
+        if n == 0 or strat in (Strategy.NULLABLE_CORE, Strategy.ALL_EMPTY,
+                               Strategy.HOST):
             return self._decline(FALLBACK)
+        if strat == Strategy.BITSET_NFA:
+            route = self._bitset_route()
+            if route is None:
+                return self._decline(FALLBACK)
+            self._check_size(n)
+            with self._lock:
+                return self._bitset_first(*route, data)
         if strat == Strategy.END_ANCHORED:
             sp = self._end_anchored_spans(data)
             if sp is None:
@@ -741,6 +777,8 @@ class BatchEngine:
                                                       fp)
             elif kind == "full_scan":
                 spans, cnt, ok = self._full_scan_spans_dev(*args, data)
+            elif kind == "bitset":
+                spans, cnt, ok = self._bitset_spans_dev(*args, data, limit)
             elif kind == "charclass":
                 spans, cnt, ok = self._charclass_spans_dev(args, data,
                                                            known, fp, limit)
@@ -775,6 +813,9 @@ class BatchEngine:
             return "end_anchored", None
         if self.longest:
             return None
+        if strat == Strategy.BITSET_NFA:
+            route = self._bitset_route()
+            return None if route is None else ("bitset", route)
         if strat == Strategy.LINE_SHAPE:
             route = self._line_spans_route()
             return None if route is None else ("line", route)
@@ -970,25 +1011,40 @@ class BatchEngine:
         fwd = self._chunk_scanner("fwd_anch_break") if rev else None
         return None if fwd is None else (rev, fwd.mt)
 
+    def _flipped_tiles(self, data: np.ndarray, geom):
+        """The flipped corpus's word tiles under geom, cached with it."""
+        L, T = geom[:2]
+        return corpus_tiles(
+            data, self.device, ("flipped words", L, T),
+            lambda: make_word_tiles(device_corpus_flipped(data, self.device),
+                                    L, T // 4))
+
     def _all_starts(self, rev, data: np.ndarray):
         """(starts [cap] int32 ascending with n past the count, count, ok)
         of every match start (ref. ``_all_starts``, batch.py:2584-2600,
         without its multi-device hook): K9 over the unanchored reverse DFA
         on the flipped corpus, whose flag at flipped offset j is a match
-        start at n - j; its flag words compacted by K4
-        (``sparse_positions_words``) and read backwards, so the starts
-        come out ascending; the EOI flag at the flipped corpus's end is a
-        start at 0.  One sync for the flag count and the exit state."""
+        start at n - j, compacted by ``_compact_starts``; the EOI flag at
+        the flipped corpus's end is a start at 0.  One sync for the flag
+        count and the exit state."""
         n = len(data)
-        fdev = device_corpus_flipped(data, self.device)
         geom = plan_geometry(n)
-        L, T = geom[:2]
-        tiles = corpus_tiles(data, self.device, ("flipped words", L, T),
-                             lambda: make_word_tiles(fdev, L, T // 4))
-        scan = rev.scan_device(fdev, geom, tiles)
+        scan = rev.scan_device(device_corpus_flipped(data, self.device),
+                               geom, self._flipped_tiles(data, geom))
         cnt, exit_n = torch.stack([flags_count_upto(scan),
                                    exit_at_end(scan)]).tolist()
         at0 = int(bool(rev.tables.match_eoi[exit_n, CTX_SOT]))
+        return self._compact_starts(scan, cnt, at0, 0)
+
+    def _compact_starts(self, scan, cnt: int, at0: int, delay: int):
+        """(starts, count, ok) as _all_starts gives them, from a settled
+        scan of the flipped corpus with cnt flags, each at a flipped offset
+        j that is a match start at n - delay - j (K9's flags: delay 0; the
+        bitset scan's, whose flag at j is an end at boundary j + 1: delay
+        1), plus a start at 0 when at0: the flag words compacted by K4
+        (``sparse_positions_words``) and read backwards, so the starts come
+        out ascending."""
+        n = scan.n
         m = cnt + at0
         if m > self.MAX_DEVICE_SPANS:
             raise ValueError(f"{m} match starts exceed the device span "
@@ -1002,10 +1058,9 @@ class BatchEngine:
                                                  n, _bucket(cnt, 16))
             ok = ok & (c == cnt)
             jpos = jpos[:cnt]
-        del scan
         starts = torch.full((cap,), n, dtype=torch.int32,
                             device=self.device)
-        starts[at0:m] = n - jpos.flip(0)
+        starts[at0:m] = n - delay - jpos.flip(0)
         if at0:
             starts[0] = 0
         return starts, m, ok
@@ -1013,15 +1068,21 @@ class BatchEngine:
     def _full_scan_spans_dev(self, rev, fwd_mt, data):
         """(spans, count, None) of the general find_all (ref.
         ``_full_scan_spans``, batch.py:2602-2610): every match start
-        (``_all_starts``), each start's leftmost-first end by the forward
-        window scan over ``fwd_anch_break`` (dfa_scan.window_ends), then
-        Go's selection: every match when none overlaps the next start,
-        else the chain walk on the device (span_chain.chain_select), since
-        a non-nullable plan never matches empty.  Syncs: the start count,
-        one alive count a window round, the checks.  ``full_scan_stats``
-        keeps the last call's start count and window rounds."""
-        n = len(data)
+        (``_all_starts``), then ``_starts_spans_dev``."""
         starts, m, ok = self._all_starts(rev, data)
+        return self._starts_spans_dev(starts, m, ok, fwd_mt, data)
+
+    def _starts_spans_dev(self, starts, m: int, ok, fwd_mt, data):
+        """(spans, count, None) from every match start (ascending, n past
+        the count m, ok their device check): each start's leftmost-first end
+        by the forward window scan over ``fwd_anch_break``
+        (dfa_scan.window_ends), then Go's selection: every match when none
+        overlaps the next start, else the chain walk on the device
+        (span_chain.chain_select), since a non-nullable plan never matches
+        empty.  Syncs: one alive count a window round, the checks.
+        ``full_scan_stats`` keeps the last call's start count and window
+        rounds."""
+        n = len(data)
         self.full_scan_stats = (m, 0)
         if m == 0:
             return _empty_spans(self.device), 0, None
@@ -1035,8 +1096,8 @@ class BatchEngine:
         disjoint = (ends[:m - 1] <= starts[1:m]).all()
         ok, disjoint = torch.stack([ok, disjoint]).tolist()
         if not ok:
-            raise RuntimeError("general find_all: a match start without a "
-                               "match end, or a start compaction fault")
+            raise RuntimeError("find_all: a match start without a match "
+                               "end, or a start compaction fault")
         if disjoint:
             # no match overlaps the next start: Go keeps them all (the
             # bulk fast path of the reference's go_select)
@@ -1044,9 +1105,135 @@ class BatchEngine:
         spans, total, ok_c = chain_select(starts, ends, m, n, cap)
         del starts, ends
         if not bool(ok_c):
-            raise RuntimeError("general find_all: the chain compaction "
-                               "failed its check")
+            raise RuntimeError("find_all: the chain compaction failed its "
+                               "check")
         return spans, int(total), None
+
+    # -- the bitset-NFA tier (BITSET_NFA) -------------------------------------
+    def _bitset_scanner(self, kind: str):
+        """Lazy BitsetNFAScanner over the forward NFA ("fwd": match ends) or
+        the reverse one ("rev": match starts, read on the flipped corpus),
+        or False when out of the scan's scope: more than 512 range states,
+        more than 4 closure groups, an empty match in some context (ref.
+        :2385-2400).  Host work only: decides a route before the corpus is
+        uploaded."""
+        sc = self._bitset_sc.get(kind)
+        if sc is None:
+            try:
+                sc = BitsetNFAScanner(
+                    compile_nfa(self.parsed, reverse=(kind == "rev"),
+                                with_captures=False), self.device)
+            except LookUnsupported:
+                sc = False
+            self._bitset_sc[kind] = sc
+        return sc
+
+    def _bitset_route(self):
+        """(reverse BitsetNFAScanner, fwd_anch_break MatchTables or None)
+        serving a BITSET_NFA plan's find_all and find_first, or None
+        (declined: the reverse NFA is out of the scan's scope).  Tables
+        None: the anchored DFA overflows or does not fit the kernels, and
+        the Engine's host search gives the ends (ref. _bitset_spans,
+        :2484-2500).  Host work only."""
+        rev = self._bitset_scanner("rev")
+        if not rev:
+            return None
+        fwd = self._chunk_scanner("fwd_anch_break")
+        if fwd is None and self.host_find is None:
+            return None
+        return rev, (None if fwd is None else fwd.mt)
+
+    def _bitset_rev_scan(self, rev, data: np.ndarray):
+        """The settled reverse bitset scan of the flipped corpus: its flag
+        at flipped offset j is a match start at n - 1 - j."""
+        geom = plan_geometry(len(data))
+        return rev.scan_device(device_corpus_flipped(data, self.device),
+                               geom, self._flipped_tiles(data, geom))
+
+    def _bitset_spans_dev(self, rev, fwd_mt, data, limit: int = -1):
+        """(spans, count, None) of a BITSET_NFA plan (ref. _bitset_spans,
+        :2484-2500, and _bitset_nfa_spans_dev, :1308-1335): every match
+        start from the reverse bitset scan (``_compact_starts``), then the
+        general find_all's tail (``_starts_spans_dev``); with no anchored
+        tables, Go's restart walk over the starts with the host search's
+        ends (``_spans_from_starts_host``), which stops after `limit`
+        spans.  Syncs: the start count, then the tail's."""
+        scan = self._bitset_rev_scan(rev, data)
+        starts, m, ok = self._compact_starts(
+            scan, int(flags_count_upto(scan)), 0, 1)
+        del scan
+        if fwd_mt is not None:
+            return self._starts_spans_dev(starts, m, ok, fwd_mt, data)
+        if not bool(ok):
+            raise RuntimeError("bitset find_all: the start compaction "
+                               "failed its check")
+        sp = self._spans_from_starts_host(data, starts[:m].cpu().numpy(),
+                                          limit)
+        spans = torch.zeros((_bucket(len(sp), 16), 2), dtype=torch.int32,
+                            device=self.device)
+        spans[:len(sp)] = torch.from_numpy(sp.astype(np.int32))
+        return spans, len(sp), None
+
+    def _host_span_at(self, data: np.ndarray, s: int):
+        """The host search's match at a device-found start s."""
+        sp = self.host_find(data, s)
+        if sp is None or sp[0] != s:
+            raise RuntimeError(f"the host search finds {sp} at the match "
+                               f"start {s} of the bitset scan")
+        return int(sp[0]), int(sp[1])
+
+    def _spans_from_starts_host(self, data: np.ndarray, starts: np.ndarray,
+                                limit: int) -> np.ndarray:
+        """Go's FindAll restart walk over the ascending match starts with
+        the host search's ends (ref. :2502-2522): the next match begins at
+        the first start at or after the previous match's end (every match
+        is non-empty).  Host work is O(matched bytes); at most `limit`
+        spans when limit >= 0."""
+        out = []
+        pos = 0
+        while limit < 0 or len(out) < limit:
+            i = int(np.searchsorted(starts, pos, side="left"))
+            if i >= len(starts):
+                break
+            out.append(self._host_span_at(data, int(starts[i])))
+            pos = out[-1][1]
+        return np.array(out, dtype=np.int64).reshape(-1, 2)
+
+    def _bitset_first(self, rev, fwd_mt, data: np.ndarray):
+        """The leftmost-first match of a BITSET_NFA plan: Go's match begins
+        at the leftmost start, the last flag of the reverse scan, and ends
+        at that start's window end over ``fwd_anch_break`` (the host
+        search's with no tables): the span the reference's
+        _bitset_spans(limit=1) gives."""
+        n = len(data)
+        j = int(flags_last(self._bitset_rev_scan(rev, data)))
+        if j < 0:
+            return None
+        s = n - 1 - j
+        if fwd_mt is None:
+            return self._host_span_at(data, s)
+        st = torch.full((1,), s, dtype=torch.int32, device=self.device)
+        e = int(window_ends(fwd_mt, device_corpus(data, self.device), st,
+                            self.END_WINDOW)[0][0])
+        if e <= s:
+            raise RuntimeError("bitset find_first: a match start without a "
+                               "match end")
+        return s, e
+
+    def _bitset_is_match(self, data: np.ndarray) -> bool:
+        """Whether a BITSET_NFA plan matches: one forward bitset scan, a
+        flag below n (ref. _bitset_is_match, :2428-2443).  A non-nullable
+        plan has no match in an empty corpus."""
+        n = len(data)
+        if n == 0:
+            return False
+        self._check_size(n)
+        geom = plan_geometry(n)
+        with self._lock:
+            scan = self._bitset_scanner("fwd").scan_device(
+                device_corpus(data, self.device), geom,
+                self._word_tiles(data, *geom[:2]))
+            return int(flags_count_upto(scan)) > 0
 
     # -- every match empty (ALL_EMPTY) ----------------------------------------
     def _all_empty_spans_dev(self, data):

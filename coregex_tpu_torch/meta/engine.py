@@ -165,7 +165,8 @@ class Engine:
             self._batch = BatchEngine(self.parsed, self.parsed.ast,
                                       dfas_ok=self.fwd is not None,
                                       device=self.device,
-                                      longest=self.longest)
+                                      longest=self.longest,
+                                      host_find=self._find_span_host)
         return self._batch
 
     @property

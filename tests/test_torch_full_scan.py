@@ -17,8 +17,9 @@ overlapping candidate starts (`aaa@bbb.com`), multi-byte runes beside
 `\\b`, and a corpus with no match.  The chain selection and the class
 split are also compared as plain functions with the reference's
 ``go_select`` and its host split, on random inputs.  What still declines
-(BITSET_NFA, leftmost-longest, a reverse DFA that overflows) declines
-before the upload and gets the reference's spans from the host loop."""
+(a BITSET_NFA plan out of the bitset scan's scope, leftmost-longest, a
+reverse DFA that overflows) declines before the upload and gets the
+reference's spans from the host loop."""
 
 import numpy as np
 import pytest
@@ -167,12 +168,13 @@ def test_span_limit_raises_on_the_general_route():
 
 
 @pytest.mark.parametrize("pattern,longest", [
-    (r"[a-q][^u-z]{13}x", False), (r"\w*", True), (r"\b\d+\b", True),
+    (r"\d[^\n]{16}ERROR", False), (r"\w*", True), (r"\b\d+\b", True),
     (r"\b[ab]{15}a", False)])
 def test_what_still_declines_does_so_before_upload(ref, pattern, longest):
-    """BITSET_NFA, leftmost-longest and a pattern whose unanchored reverse
-    DFA overflows (`\\b[ab]{15}a`, FULL_SCAN) decline before the upload;
-    the host loop gives the reference's spans."""
+    """A BITSET_NFA plan whose reverse NFA is out of the bitset scan's
+    scope (515 range states), leftmost-longest and a pattern whose
+    unanchored reverse DFA overflows (`\\b[ab]{15}a`, FULL_SCAN) decline
+    before the upload; the host loop gives the reference's spans."""
     corpus_cache.clear()
     t = CORPORA["log"]
     eng = (ct.compile_posix if longest else ct.compile)(pattern,

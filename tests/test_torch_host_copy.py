@@ -3,8 +3,9 @@ package's results: the same strategy plan (strategy, reason and every
 field of the plan, ASTs included) and the same count-transducer and dense
 DFA tables, for the bench patterns, the nullable routes of
 tests/test_nullable_spans.py and the bidirectional patterns of
-tests/test_torch_engine.py, and the general find_all's automata for its
-patterns.  Every field is compared exactly.  Also pins
+tests/test_torch_engine.py (plans also for the BITSET_NFA tier's
+patterns), and the general find_all's automata for its patterns.  Every
+field is compared exactly.  Also pins
 that the copy builds its own native library and keeps its own artifact
 cache keys."""
 
@@ -33,6 +34,10 @@ from test_nullable_spans import ROUTES
 from test_torch_engine import BENCH, BIDI
 
 PATTERNS = list(dict.fromkeys(BENCH + [p for p, _ in ROUTES] + BIDI))
+# plans of the BITSET_NFA tier's patterns (their forward DFAs overflow)
+BITSET = [r"[a-q][^u-z]{13}x", r"[A-Za-z]\w{0,30}\d{2}\b",
+          r"[A-Za-z]\w{0,30}\d{2}", r"(a|b)*a(a|b){15}",
+          r"\d[^\n]{16}ERROR"]
 
 
 def _same(a, b, where="") -> None:
@@ -56,7 +61,7 @@ def _same(a, b, where="") -> None:
         assert a == b, (where, a, b)
 
 
-@pytest.mark.parametrize("pattern", PATTERNS)
+@pytest.mark.parametrize("pattern", PATTERNS + BITSET)
 def test_plan_matches_reference(pattern):
     ast = parser.parse(pattern).ast
     ref_ast = ref_parser.parse(pattern).ast

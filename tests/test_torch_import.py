@@ -2,9 +2,9 @@
 machine it runs on has no jax), and nothing of the JAX package coregex_tpu,
 not even its host modules.  A subprocess blocks `import jax` and `import
 coregex_tpu` with a meta-path finder that raises, imports the package,
-runs CPU counts and find_alls (a nullable pattern and an overlapping
-literal set among them), is_match and find_index calls against Python's
-re, and checks that neither entered sys.modules."""
+runs CPU counts and find_alls (a nullable pattern, an overlapping
+literal set and a BITSET_NFA pattern among them), is_match and find_index
+calls against Python's re, and checks that neither entered sys.modules."""
 
 import os
 import pathlib
@@ -59,6 +59,15 @@ for m in re.finditer(rb"\w*", text):
 eng = ct.compile(r"\w*", device="cpu")
 assert eng.find_all_index(text) == exp
 assert eng.count(text) == len(exp)
+assert eng.batch_engine().host_routes == 0
+# BITSET_NFA (its DFA overflows): the bitset-NFA scan finds the starts
+pattern = r"[a-q][^u-z]{13}x"
+eng = ct.compile(pattern, device="cpu")
+assert eng.strategy == "bitset_nfa"
+t2 = b"a0123456789abcx zz " * 1000
+exp = [m.span() for m in re.finditer(pattern.encode(), t2)]
+assert eng.find_all_index(t2) == exp and eng.count(t2) == len(exp) == 1000
+assert eng.is_match(t2) is True and eng.find_index(t2) == exp[0]
 assert eng.batch_engine().host_routes == 0
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "coregex_tpu"))

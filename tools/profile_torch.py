@@ -17,9 +17,10 @@ the kernels' times; one stream, so they do not overlap), its idle share,
 the call's peak device memory above what was allocated before it,
 the port's own kernels, and the eight operators whose kernels took the
 most device time.  Names
-come from chip_smoke.PATTERNS (the bench, class-run, nullable, literal
-and general find_all patterns; the general slice's sizes as chip_smoke's
-GENERAL gives them); default: the class-run and nullable patterns.  With
+come from chip_smoke.PATTERNS (the bench, class-run, nullable, literal,
+general find_all and BITSET_NFA patterns; the general slice's sizes as
+chip_smoke's GENERAL gives them); default: the class-run and nullable
+patterns.  With
 --limit it profiles the literal route's leftmost-first selection at the span
 limit instead: `aa` on MAX_DEVICE_SPANS + 1 bytes of `a`, whose
 MAX_DEVICE_SPANS hits all overlap.  Needs a CUDA card; imports no jax.
