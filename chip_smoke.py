@@ -68,10 +68,16 @@ Phases (any failure exits non-zero before the final line):
                lanes (the lane pass there for one scan), then pass 0
                and the settled scan of each on the whole corpus, timed,
                the reverse scan of `[a-q][^u-z]{13}x` also held to the
-               plain version there
+               plain version there; the OnePass capture walk
+               (cgx_onepass_extract) on every bidi span of the CAPTURES
+               patterns over the whole corpus (2.67M ip spans) and on
+               hand-made spans (random ones that die, MAX_WINDOW wide and
+               one byte wider, the corpus's last bytes), and the row scans
+               (cgx_rows_match, cgx_rows_rev_start) on the first 2^20 lines
+               of the corpus packed to [2^20, 256]
   4. e2e     - the public API on a 1536 MiB log corpus (the JAX package's
-               bench corpus), in six runs, each with the launch counts set
-               to 0 before it and read after it.  Earlier slices: count for
+               bench corpus), in seven runs, each with the launch counts
+               set to 0 before it and read after it.  Earlier slices: count for
                the 13 bench patterns and for `0\.0` (whose hits overlap,
                so K6 hands over to K7, with K7's repair passes printed),
                device find_all for the 4 bidirectional patterns and the 3
@@ -131,12 +137,21 @@ Phases (any failure exits non-zero before the final line):
                anchored DFA overflows too (ends from the host search at
                the device's starts), the same on the bench corpus (no
                match) and all four calls on a 1 MiB corpus of 128 matches
-               against `re`
+               against `re`.  Captures and row batches: the device form
+               of FindAllSubmatch (find_all_spans_device, then
+               OnePassScanner.extract_device) of the CAPTURES patterns at
+               1536 MiB against re's group spans on one tile, tiled, with
+               the extraction's kernel ms, its ok=False spans and the peak
+               device memory; find_all_submatch_index and replace_all with
+               "[$2:$1]" on 256 MiB against re; is_match_batch and
+               find_index_batch of `\d+\.\d+` and `\berror\b` on 2^20
+               lines against re per row, with the share of pack_rows
   5. routes  - every kernel K1-K7 was launched in the first run, K1-K4 and
                K8 in the second, K9 and the window scan's ends form in the
                third, K4 and K10 in the fourth, K9, the ends form, K4 and
                K8 in the fifth, the bitset scan, the ends form and K4 in
-               the sixth, and no call was declined to the host loop but
+               the sixth, the OnePass walk, both row scans and K2-K4 in
+               the seventh, and no call was declined to the host loop but
                the nullable find_index (the reference's FALLBACK, by
                design)
 
@@ -261,6 +276,17 @@ BITSET = [("nfa_u_z", r"[a-q][^u-z]{13}x"),
           ("nfa_word_digits_b", r"[A-Za-z]\w{0,30}\d{2}\b"),
           ("nfa_word_digits", r"[A-Za-z]\w{0,30}\d{2}")]
 BITSET_HOST_ENDS = ("nfa_ab_host", r"(a|b)*a(a|b){15}")
+# the captures and row-batch slice: the OnePass walk over the bidi spans of
+# the ip config with groups and of a key=value pattern at CORPUS_MIB, the
+# public find_all_submatch_index and replace_all on CAPTURE_API_MIB; the row
+# batches on the first ROWS lines of the tiled bench corpus
+CAPTURES = [("ip_groups", r"(\d+)\.(\d+)\.(\d+)\.(\d+)"),
+            ("kv_groups", r"([a-z]+)=(\d+)")]
+CAPTURE_API_MIB = 256
+CAPTURE_TEMPLATE = (b"[$2:$1]", rb"[\2:\1]")    # Go's form, re's form
+ROWS = 1 << 20
+ROW_PATTERNS = [("digits_dot", r"\d+\.\d+"), ("word_error", r"\berror\b")]
+SLICE_MS = {}   # phase 3's kernel ms of the slice's shapes, for phase 4
 # the single-match slice: the bench patterns and these
 SINGLE_EXTRA = [("ws_digit_ws", r"\s\d\s"), ("ab_plus_c", r"(a|b)+c"),
                 ("ws_digits_ws", r"\s\d+\s"), ("a_word_end", r"a\b"),
@@ -495,6 +521,7 @@ def phase_kernels(base: bytes, corpus: np.ndarray):
                 r["bound_ms"] = bound
                 r["bound_by"] = "bytes" if by_bytes >= by_ops \
                     else "operations"
+        return ms
 
     def repair_kernels(kind, mode, d, args_of, splits, label):
         """K1's, K2's, K3's or K9's two repair passes (sub-lane and lane)
@@ -780,8 +807,7 @@ def phase_kernels(base: bytes, corpus: np.ndarray):
     # K9 at its split over break-at-match DFAs on the 4 MiB sample, with
     # its two repair passes (there also unsplit), then over the fwd_all DFA
     # of `\s\d\s` on the whole corpus, the shape of a FULL_SCAN is_match
-    # (its plain lane pass at k = 64 walks whole lanes for 25-55 s, so the
-    # repair passes are compared on the sample), then the settled scan of
+    # (the repair passes are compared on the sample), then the settled scan of
     # ip's fwd_break there: an early match, so the dead cut ends it after
     # pass 0
     def match_kernel(name, kind, data, label, headline):
@@ -849,6 +875,9 @@ def phase_kernels(base: bytes, corpus: np.ndarray):
     # the bitset-NFA scan on the sample, then timed on the whole corpus
     bitset_kernels(compare, results, sample, data)
     del data
+    # the OnePass walk on the capture patterns' spans of the whole corpus,
+    # the row scans on the ROWS lines
+    capture_row_kernels(compare, base, corpus)
 
     # K10 on the compaction rig's mask (256 MiB at density 1/200, seed 11)
     # at its three row counts: R = 128 with no payload, R = 256 with two
@@ -1784,10 +1813,11 @@ def route_stats(be, route) -> str:
 
 
 def phase_e2e_class_nullable(base: bytes, arr: np.ndarray,
-                             cases=CLASS_NULLABLE):
+                             cases=CLASS_NULLABLE, oracles=None):
     """Class-run and nullable count and find_all through the public API,
     against the Go-rule oracle of the base tile scaled by the tile count
-    (the scaling checked on two tiles for the nullable patterns)."""
+    (the scaling checked on two tiles for the nullable patterns); each
+    case's oracle of the base tile goes into `oracles` by name."""
     import coregex_tpu_torch as ct
     from coregex_tpu_torch.ops.count_scan import COUNT_KERNEL
     from coregex_tpu_torch.ops.dfa_scan import MATCH_KERNEL
@@ -1798,6 +1828,8 @@ def phase_e2e_class_nullable(base: bytes, arr: np.ndarray,
     routes = {}
     for name, pattern, size in cases:
         spans0 = oracle_spans(pattern, base)
+        if oracles is not None:
+            oracles[name] = spans0
         inner, tail = tiled_spans(spans0, B, 1)
         nullable = bool(tail) or any(s == e for s, e in inner)
         if nullable:
@@ -1866,12 +1898,13 @@ def phase_e2e_general(base: bytes, arr: np.ndarray):
     import coregex_tpu_torch as ct
     from coregex_tpu_torch.ops import compact, compact2, dfa_scan
 
-    routes = phase_e2e_class_nullable(base, arr, GENERAL)
+    oracles = {}
+    routes = phase_e2e_class_nullable(base, arr, GENERAL, oracles)
     B = len(base)
     kernels = (dfa_scan.MATCH_KERNEL, dfa_scan.WINDOW_ENDS_KERNEL,
                compact2.COMPACT_KERNEL, compact.COMPACT_POS_KERNEL)
     for name, pattern, size in GENERAL:
-        spans0 = oracle_spans(pattern, base)
+        spans0 = oracles.pop(name)
         inner, tail = tiled_spans(spans0, B, 1)
         reps = sized_reps(size, inner, tail, B, arr)
         corpus = arr[:reps * B]
@@ -2162,6 +2195,293 @@ def phase_e2e_bitset(base: bytes, arr: np.ndarray):
     return routes
 
 
+def capture_oracle(pattern: str, base: bytes) -> np.ndarray:
+    """The capture slots [m, NS] int64 (-1: unset) of re's matches in one
+    tile."""
+    rx = re.compile(pattern.encode())
+    ns = 2 * (rx.groups + 1)
+    return np.array([[p for g in range(rx.groups + 1) for p in m.span(g)]
+                     for m in rx.finditer(base)],
+                    dtype=np.int64).reshape(-1, ns)
+
+
+def slot_digest(o: np.ndarray, B: int, reps: int, rng):
+    """(count, column sums, sampled indices, their rows) of the slots of
+    `reps` tiles of B bytes, from those of one tile (o); an unset slot
+    stays -1 in every tile."""
+    m0 = len(o)
+    sums = reps * o.sum(0) + B * (o >= 0).sum(0) * (reps * (reps - 1) // 2)
+    sidx = np.sort(rng.integers(0, reps * m0, 64))
+    rows = o[sidx % m0] + np.where(o[sidx % m0] >= 0,
+                                   (sidx // m0)[:, None] * B, 0)
+    return reps * m0, sums, sidx, rows
+
+
+def row_walk_bytes(tb, rows, s0, steps, ends=None) -> int:
+    """The bytes a row scan must read: each row's first steps[b] bytes
+    (from ends[b] - 1 down to 0 when ends is given), cut after the byte
+    that takes its walk from s0[b] to the dead state where tb.stop_dead:
+    the rest of the row cannot change its result."""
+    import torch
+    B, L = (int(x) for x in rows.shape)
+    tbl, cls = tb.tbl.long().reshape(-1), tb.classes.long()
+    ar = torch.arange(B, device=rows.device)
+    s = s0.long()
+    n = steps.long().clamp(0, L)
+    need = n.clone()
+    alive = torch.ones(B, dtype=torch.bool, device=rows.device)
+    for t in range(int(n.max()) if B else 0):
+        live = alive & (t < n)
+        col = rows[:, t] if ends is None else \
+            rows[ar, (ends.long() - 1 - t).clamp(0, L - 1)]
+        s = torch.where(live, tbl[s * tb.C + cls[col.long()]] >> 1, s)
+        if tb.stop_dead:
+            died = live & (s == 0)
+            need = torch.where(died, t + 1, need)
+            alive &= ~died
+    return int(need.sum())
+
+
+def bench_lines(base: bytes):
+    """The first ROWS lines of the tiled bench corpus."""
+    per_tile = base.count(b"\n")
+    return (base * -(-ROWS // per_tile)).split(b"\n")[:ROWS]
+
+
+def capture_row_kernels(compare, base: bytes, corpus: np.ndarray) -> None:
+    """cgx_onepass_extract against onepass_plain on every bidi span of the
+    CAPTURES patterns over the whole corpus (the device form's input) and
+    on hand-made spans (random spans, most of which die; spans of
+    MAX_WINDOW and one byte more; the corpus's last bytes), then
+    cgx_rows_match and cgx_rows_rev_start against theirs on the packed
+    ROWS lines for each ROW_PATTERNS pattern."""
+    import torch
+    import coregex_tpu_torch as ct
+    from coregex_tpu_torch.ops import onepass_scan as ops
+    from coregex_tpu_torch.ops import rowscan as rs
+    from coregex_tpu_torch.utils.corpus_cache import device_corpus
+
+    dev = torch.device(DEVICE)
+    t_start = time.perf_counter()
+    data = device_corpus(corpus, DEVICE)
+    n = len(corpus)
+    for i, (name, pattern) in enumerate(CAPTURES):
+        eng = ct.compile(pattern, device=DEVICE)
+        op = eng._onepass_dfa()
+        if not op:
+            fail(f"{name}: not one-pass")
+        d = ops.DeviceOnePass(op, DEVICE)
+        r = eng.batch_engine().find_all_spans_device(corpus)
+        if r is None:
+            fail(f"{name}: find_all declined")
+        sp = r[0][:int(r[1])]
+        walked = int((sp[:, 1] - sp[:, 0]).sum(dtype=torch.int64))
+        print(f"[kernels] onepass     {name}: {sp.shape[0]} spans, "
+              f"{walked} bytes, tables [{d.S}, {d.C}] x {d.NS} slots, "
+              f"{'shared' if d.shared else 'global'} memory (at "
+              f"{time.perf_counter() - t_start:.1f} s)")
+        SLICE_MS[("onepass_extract", name)] = compare(
+            "onepass_extract", f"{name} {CORPUS_MIB} MiB",
+            lambda: ops.onepass_cuda(d, data, sp),
+            lambda: ops.onepass_plain(d, data, sp), headline=i == 0,
+            in_bytes=walked + nbytes(sp, d.trans, d.fin, d.classes))
+        if i:
+            continue
+        g = torch.Generator(device=dev).manual_seed(14)
+        a = torch.randint(0, n - 64, (4096,), generator=g, device=dev)
+        rand = torch.stack([a, a + torch.randint(0, 65, (4096,), generator=g,
+                                                 device=dev)], 1)
+        W = ops.MAX_WINDOW
+        edge = torch.tensor([[0, W], [1, W + 2], [n - W, n], [n - W - 1, n],
+                             [n - 1, n], [n, n], [n - 15, n]], device=dev)
+        hand = torch.cat([rand, sp[:64].long(), edge]).to(torch.int32)
+        _, ok = ops.onepass_cuda(d, data, hand)
+        print(f"[kernels] onepass     hand-made: {hand.shape[0]} spans, "
+              f"{int(ok.sum())} end in a match (at "
+              f"{time.perf_counter() - t_start:.1f} s)")
+        compare("onepass_extract", "hand-made spans",
+                lambda: ops.onepass_cuda(d, data, hand),
+                lambda: ops.onepass_plain(d, data, hand), reps=3)
+    del data
+    lines = bench_lines(base)
+    t0 = time.perf_counter()
+    rows, lens = rs.pack_rows(lines)
+    print(f"[kernels] rows        {len(lines)} lines packed to "
+          f"{list(rows.shape)} in {time.perf_counter() - t0:.2f} s (at "
+          f"{time.perf_counter() - t_start:.1f} s)")
+    for i, (name, pattern) in enumerate(ROW_PATTERNS):
+        eng = ct.compile(pattern, device=DEVICE)
+        rb = rs.RowBatch(eng.fwd, eng.rev, DEVICE)
+        rt, lt = rb.upload(rows, lens)
+        tables = nbytes(rb.fwd.tbl, rb.fwd.eoi, rb.fwd.classes)
+        # the bytes each scan needs: a row up to its length or the byte
+        # that kills its walk
+        ahead = row_walk_bytes(rb.fwd, rt, torch.full_like(lt, rb.fwd.start),
+                               lt)
+        SLICE_MS[("rows_match", name)] = compare(
+            "rows_match", f"{name} {len(lines)} rows",
+            lambda: rs.rows_match_cuda(rb.fwd, rt, lt),
+            lambda: rs.rows_match_plain(rb.fwd, rt, lt), headline=i == 0,
+            in_bytes=ahead + nbytes(lt) + tables)
+        found, last = rs.rows_match_cuda(rb.fwd, rt, lt)
+        ends = torch.where(found, last, -1)
+        s0 = rs.rev_start_states(rb.rev, rt, lt, ends)
+        back = row_walk_bytes(rb.rev, rt, s0, ends.clamp(min=0), ends)
+        print(f"[kernels] rows        {name}: the walks need {ahead} bytes "
+              f"forward, {back} back (rows hold {int(lens.sum())})")
+        SLICE_MS[("rows_rev_start", name)] = compare(
+            "rows_rev_start", f"{name} {int(found.sum())} ends",
+            lambda: (rs.rows_rev_cuda(rb.rev, rt, ends, s0),),
+            lambda: (rs.rows_rev_plain(rb.rev, rt, ends, s0),),
+            headline=i == 0, in_bytes=back + nbytes(ends, s0) + nbytes(
+                rb.rev.tbl, rb.rev.eoi, rb.rev.classes))
+        del rt, lt, found, last, ends, s0
+    torch.cuda.empty_cache()
+    print(f"[kernels] captures and rows: "
+          f"{time.perf_counter() - t_start:.1f} s")
+
+
+def phase_e2e_captures_rows(base: bytes, arr: np.ndarray):
+    """The captures and row-batch slice through the public API.  Captures,
+    for each CAPTURES pattern: the device form (find_all_spans_device, then
+    OnePassScanner.extract_device over every span) on the whole corpus
+    (first call, then best of 2), its slots against the tiled re oracle
+    (count, column sums, 64 sampled rows), with the extraction's kernel
+    time, the spans that came back ok=False (re-extracted on the host) and
+    the peak device memory; then find_all_submatch_index and
+    replace_all(text, "[$2:$1]") on CAPTURE_API_MIB against the oracle.
+    Row batches: is_match_batch and find_index_batch of the ROW_PATTERNS
+    on the first ROWS lines against re per row, with the share of the wall
+    that pack_rows takes."""
+    import torch
+    import coregex_tpu_torch as ct
+    from coregex_tpu_torch.ops import rowscan
+    from coregex_tpu_torch.ops.onepass_scan import OnePassScanner
+    from coregex_tpu_torch.utils.corpus_cache import device_corpus
+
+    B = len(base)
+    reps = len(arr) // B
+    rng = np.random.default_rng(14)
+    routes = {}
+    for name, pattern in CAPTURES:
+        o = capture_oracle(pattern, base)
+        eng = ct.compile(pattern, device=DEVICE)
+        be = eng.batch_engine()
+        op = eng._onepass_dfa()
+        route = be._spans_route(arr)
+        if not op or route is None or route[0] != "bidi":
+            fail(f"{name}: one-pass {bool(op)}, find_all route {route}")
+        sc = OnePassScanner(op, DEVICE)
+        cnt_e, sums_e, sidx, rows_e = slot_digest(o, B, reps, rng)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+
+        def run():
+            data = device_corpus(arr, DEVICE)
+            spans, cnt = be.find_all_spans_device(arr)
+            sp = spans[:int(cnt)]
+            ev[0].record()
+            slots, ok = sc.extract_device(data, sp)
+            ev[1].record()
+            torch.cuda.synchronize()
+            return sp, slots, ok
+
+        t0 = time.perf_counter()
+        run()
+        first = time.perf_counter() - t0
+        best = float("inf")
+        for _ in range(2):
+            resident = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            sp, slots, ok = run()
+            wall = time.perf_counter() - t0
+            if wall < best:
+                best, kms = wall, ev[0].elapsed_time(ev[1])
+        peak = torch.cuda.max_memory_allocated()
+        bad = torch.nonzero(~ok).reshape(-1).cpu().numpy()
+        if len(bad):
+            # the reference's contract: the host walks what the lanes could
+            # not (dead lanes, spans past MAX_WINDOW)
+            text = arr.tobytes()
+            fix = [eng._captures_in_span(arr, text, tuple(
+                int(x) for x in sp[i].tolist())) for i in bad]
+            slots[torch.from_numpy(bad).to(slots.device)] = torch.tensor(
+                fix, dtype=torch.int32, device=slots.device)
+        cnt = int(slots.shape[0])
+        sums = slots.long().sum(0).cpu().numpy()
+        samp = slots[torch.from_numpy(sidx).to(slots.device)].cpu().numpy()
+        if cnt != cnt_e or not (sums == sums_e).all() \
+                or not (samp == rows_e).all():
+            fail(f"{name}: slots digest ({cnt}, {sums}) != oracle "
+                 f"({cnt_e}, {sums_e}) or sampled rows differ")
+        print(f"[captures] {name:9} {cnt} spans x {slots.shape[1]} slots on "
+              f"{len(arr)} bytes: digest+64 samples ok, wall "
+              f"{best * 1e3:.1f} ms (first {first:.2f} s), extraction "
+              f"kernel {kms:.3f} ms, ok=False {len(bad)}, peak device "
+              f"memory {peak / 2 ** 30:.2f} GiB ({resident / 2 ** 30:.2f} "
+              f"GiB resident before the call)", flush=True)
+        del sp, slots, ok
+        # the public API on whole tiles of at least CAPTURE_API_MIB
+        k = -(-(CAPTURE_API_MIB << 20) // B)
+        sub = arr[:k * B]
+        tile = [[None if s < 0 else (s, e) for s, e in zip(r[::2], r[1::2])]
+                for r in o.tolist()]
+        t0 = time.perf_counter()
+        got = eng.find_all_submatch_index(sub)
+        w_idx = time.perf_counter() - t0
+        want = [[None if g is None else (g[0] + t * B, g[1] + t * B)
+                 for g in groups] for t in range(k) for groups in tile]
+        if got != want:
+            fail(f"{name}: find_all_submatch_index on {len(sub)} bytes "
+                 f"differs from the oracle")
+        del got, want
+        go, py = CAPTURE_TEMPLATE
+        t0 = time.perf_counter()
+        got = eng.replace_all(sub, go)
+        w_rep = time.perf_counter() - t0
+        if got != re.sub(pattern.encode(), py, base) * k:
+            fail(f"{name}: replace_all on {len(sub)} bytes differs from "
+                 f"re.sub")
+        print(f"[captures] {name:9} on {len(sub)} bytes: "
+              f"find_all_submatch_index {k * len(o)} matches "
+              f"{w_idx:.2f} s, replace_all {go.decode()} {w_rep:.2f} s, "
+              f"both equal the oracle", flush=True)
+        routes[f"{name} captures"] = be.host_routes
+    del sub, got
+    lines = bench_lines(base)
+    for name, pattern in ROW_PATTERNS:
+        eng = ct.compile(pattern, device=DEVICE)
+        if not eng._batch_rows_ok():
+            fail(f"{name}: the row batches decline")
+        rx = re.compile(pattern.encode())
+        want = [m.span() if m else None for m in map(rx.search, lines)]
+        t0 = time.perf_counter()
+        rowscan.pack_rows(lines)
+        pack = time.perf_counter() - t0
+        line = f"[rows] {name:10} {len(lines)} rows"
+        for what, fn, w in (("is_match_batch", eng.is_match_batch,
+                             [x is not None for x in want]),
+                            ("find_index_batch", eng.find_index_batch,
+                             want)):
+            t0 = time.perf_counter()
+            got = fn(lines)
+            first = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            again = fn(lines)
+            wall = time.perf_counter() - t0
+            if got != w or again != w:
+                fail(f"{name}: {what} differs from re per row")
+            line += (f" | {what} {sum(x is not None and x is not False
+                                      for x in got)} found, wall "
+                     f"{wall * 1e3:.1f} ms (first {first:.2f} s), pack_rows "
+                     f"{100 * pack / wall:.0f}% of it")
+        line += (f" | kernels (phase 3): rows_match "
+                 f"{SLICE_MS[('rows_match', name)]:.3f} ms, rows_rev_start "
+                 f"{SLICE_MS[('rows_rev_start', name)]:.3f} ms")
+        print(line, flush=True)
+    return routes
+
+
 def main():
     card = phase_device()
     import torch
@@ -2171,8 +2491,8 @@ def main():
         fail(f"cannot import coregex_tpu_torch: {ex}")
     from coregex_tpu_torch.ops import (compact, compact2, compact_exp,
                                        count_scan, dfa_scan, flag_scan,
-                                       line_scan, nfa_scan, seq_scan,
-                                       span_scan)
+                                       line_scan, nfa_scan, onepass_scan,
+                                       rowscan, seq_scan, span_scan)
     ops = "coregex_tpu/ops/"
     counters = [
         (count_scan.COUNT_KERNEL, "lane_scan.cu", ops + "count_scan.py:211"),
@@ -2195,6 +2515,12 @@ def main():
         # the BITSET_NFA scan: a lax.scan with an MXU step and a while_loop
         # repair, no Pallas kernel
         (nfa_scan.BITSET_KERNEL, "nfa_scan.cu", ops + "nfa_scan.py:237"),
+        # the captures and row batches: three lax.scan loops, no Pallas
+        # kernel
+        (onepass_scan.ONEPASS_KERNEL, "onepass_scan.cu",
+         ops + "onepass_scan.py:84"),
+        (rowscan.ROWS_KERNEL, "row_scan.cu", ops + "rowscan.py:57"),
+        (rowscan.ROWS_REV_KERNEL, "row_scan.cu", ops + "rowscan.py:90"),
     ]
     # kernels each run of phase 4 must launch: the earlier slices' path,
     # then the class-run and nullable path (K1 for the `\w*` count, K2/K3
@@ -2204,8 +2530,10 @@ def main():
     # then the general find_all (K9 over the reverse DFA, the ends form for
     # the ends, K4 for the starts, the alive lanes and the chain, K8 for
     # ALL_EMPTY), then BITSET_NFA (the bitset scan for the starts and
-    # is_match, the ends form, K4 for the starts and the chain); the flags
-    # form has no caller on a user path (its checks are phase 3's)
+    # is_match, the ends form, K4 for the starts and the chain), then the
+    # captures and row batches (the OnePass walk, both row scans, K2-K4 for
+    # the capture patterns' bidi spans); the flags form has no caller on a
+    # user path (its checks are phase 3's)
     paths = [("earlier slices", phase_e2e,
               [c for c, _, _ in counters[:7]]),
              ("class runs and nullable", phase_e2e_class_nullable,
@@ -2217,7 +2545,9 @@ def main():
              ("general find_all", phase_e2e_general,
               [counters[i][0] for i in (8, 11, 3, 7)]),
              ("BITSET_NFA", phase_e2e_bitset,
-              [counters[i][0] for i in (12, 11, 3)])]
+              [counters[i][0] for i in (12, 11, 3)]),
+             ("captures and row batches", phase_e2e_captures_rows,
+              [counters[i][0] for i in (13, 14, 15, 1, 2, 3)])]
     build_s = phase_build()
     base = build_base()
     corpus = bench_corpus(base)

@@ -17,10 +17,11 @@ What differs from the reference:
     ``find_all*`` run there;
   * ``count`` (ref. :312-337) asks the BatchEngine once: its count already
     covers nullable plans;
-  * the reference's two other device call sites, ``_batch_captures``
-    (ref. :418-443, OnePassScanner) and the row batches (ref. :687-732,
-    RowBatch), stay on the host until the capture and row-batch slices
-    are ported (ROADMAP M8).
+  * the reference's two other device call sites run on the engine's device
+    too: ``_batch_captures`` (ref. :418-443) through the port's
+    OnePassScanner (ops/onepass_scan.py) and the row batches (ref.
+    :687-732) through its RowBatch (ops/rowscan.py); neither probes for
+    jax, since the device is explicit.
 
 The device is explicit: "cpu" runs the kernels' plain torch versions,
 "cuda" runs the CUDA kernels.  Nothing picks it by probing for a GPU.
@@ -424,11 +425,27 @@ class Engine:
                 b.decode("utf-8", errors="surrogateescape") for b in res]
 
     def _batch_captures(self, arr: np.ndarray, spans):
-        """Batched capture extraction (ref. :418-443 runs OnePassScanner
-        on the device): a list aligned with spans of flat slot tuples or
-        None (host re-extracts).  All None until the capture slice is
-        ported (ROADMAP M8)."""
-        return [None] * len(spans)
+        """Device OnePass capture extraction over many spans at once
+        (dfa/onepass/onepass.go:33-93 batched); returns a list aligned
+        with spans of flat slot tuples or None (host re-extracts)."""
+        out = [None] * len(spans)
+        if self.longest or len(spans) < 64:
+            return out
+        op = self._onepass_dfa()
+        if not op:
+            return out
+        from ..ops.onepass_scan import OnePassScanner
+        from ..utils.corpus_cache import device_corpus
+        if getattr(self, "_onepass_sc", None) is None:
+            self._onepass_sc = OnePassScanner(op, self.device)
+        dev = device_corpus(arr, self.device)
+        sp = np.asarray(spans, dtype=np.int64).reshape(-1, 2)
+        slots, ok = self._onepass_sc.extract(dev, sp)
+        self.stats.kernel_scans += 1
+        for i, row in enumerate(slots.tolist()):
+            if ok[i]:
+                out[i] = tuple(row)
+        return out
 
     def find_all_submatch_index(self, data: Bytes, n: int = -1):
         arr = _as_array(data)
@@ -668,21 +685,54 @@ class Engine:
                 flat.append(int(v))
         return self._expand(tmpl, text, tuple(flat))
 
-    # -- batched many-strings APIs: the reference runs them as one
-    #    [B, L] row scan on the device (ops/rowscan.py, ref. :687-732);
-    #    here they loop on the host until the row-batch slice is ported
-    #    (ROADMAP M8) ------------------------------------------------------
+    # -- batched many-strings APIs (BranchDispatch/FirstByteSet subsumed,
+    #    nfa/branch_dispatch.go:18-40 + nfa/firstbytes.go:8-41: the dense
+    #    row scan dispatches and rejects every row's first byte with the
+    #    same table gather; ops/rowscan.py) ------------------------------
+    def _row_batch(self):
+        if getattr(self, "_rows", None) is None:
+            from ..ops.rowscan import RowBatch
+            self._rows = RowBatch(self.fwd, self.rev, self.device)
+        return self._rows
+
     def _batch_rows_ok(self) -> bool:
-        return False
+        return self.fwd is not None and self.rev is not None \
+            and not self.longest
+
+    @staticmethod
+    def _row_bytes(texts: Sequence[Bytes]) -> List[bytes]:
+        return [t if isinstance(t, bytes) else _as_array(t).tobytes()
+                for t in texts]
 
     def is_match_batch(self, texts: Sequence[Bytes]) -> List[bool]:
-        """Match one pattern against many independent strings."""
-        return [self.is_match(t) for t in texts]
+        """Match one pattern against many independent strings in a single
+        device launch (the reference's per-call anchored dispatch loop,
+        re-expressed as a [B, L] row scan)."""
+        if not self._batch_rows_ok():
+            return [self.is_match(t) for t in texts]
+        from ..ops.rowscan import pack_rows
+        rb = self._row_batch()
+        rows, lens = rb.upload(*pack_rows(self._row_bytes(texts)))
+        self.stats.kernel_scans += 1
+        found, _ = rb.match_ends_device(rows, lens)
+        return found[:len(texts)].tolist()
 
     def find_index_batch(self, texts: Sequence[Bytes]
                          ) -> List[Optional[Tuple[int, int]]]:
-        """Leftmost-first span per string."""
-        return [self.find_index(t) for t in texts]
+        """Leftmost-first span per string, two launches total: forward
+        ends (break-at-match rows scan) + reverse anchored starts."""
+        if not self._batch_rows_ok():
+            return [self.find_index(t) for t in texts]
+        from ..ops.rowscan import pack_rows
+        rb = self._row_batch()
+        rows, lens = rb.upload(*pack_rows(self._row_bytes(texts)))
+        self.stats.kernel_scans += 1
+        found, ends = rb.match_ends_device(rows, lens)
+        ends = torch.where(found, ends, -1)
+        starts = rb.rev_starts_device(rows, lens, ends)
+        m = len(texts)
+        return [(s, e) if f else None for f, s, e in zip(
+            found[:m].tolist(), starts[:m].tolist(), ends[:m].tolist())]
 
     # -- streaming (MatchReader family, regex.go:1619-1667 analogue) -----
     def is_match_reader(self, reader, chunk_size: int = 1 << 20) -> bool:

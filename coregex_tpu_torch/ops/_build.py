@@ -30,7 +30,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("lane_scan.cu", "compact.cu", "needle_scan.cu",
-           "window_scan.cu", "compact_exp.cu", "nfa_scan.cu")
+           "window_scan.cu", "compact_exp.cu", "nfa_scan.cu",
+           "onepass_scan.cu", "row_scan.cu")
 HEADERS = ("compact_common.cuh", "split_common.cuh")  # included; hashed too
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
@@ -65,6 +66,12 @@ _SIGNATURES = {
                         _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                         _P, _P, _P],
     "cgx_bitset_occupancy": [_I, _I, _I, _I, ctypes.POINTER(ctypes.c_int)],
+    "cgx_onepass_extract": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P, _I,
+                            _P, _P, _P],
+    "cgx_rows_match": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _P, _P,
+                       _P, _P],
+    "cgx_rows_rev_start": [_P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _P, _P,
+                           _P, _P],
 }
 
 _lock = threading.Lock()

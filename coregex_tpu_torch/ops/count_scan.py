@@ -327,6 +327,42 @@ def unsettled(exits, sync, limits, first: int, T: int):
     return real & (sync != want_of(exits, first))
 
 
+MAP_COLUMNS = 1 << 24   # the most walkers _lane_entries' exit maps take
+
+
+def _lane_entries(tbl, seg, nseg, tv, lim, first, S: int):
+    """The state each sub-lane enters with when every lane walks its k
+    sub-lanes in order from first [L] (a sub-lane past the corpus passes
+    its entry through): [k, L] int64.  Each sub-lane's exit as a function
+    of its entry comes from walking it from all S states at once
+    (MODE_COUNT: no flag words; its counts are not read), and the entries
+    from composing those maps along the lanes: T/k torch steps, not T.
+    Past MAP_COLUMNS walkers (S x k x L), or at k = 1, the sub-lanes walk
+    one after another instead."""
+    k, T4k, L = (int(x) for x in tv.shape)
+    dev = tv.device
+    s = first.long()
+    entry = torch.empty((k, L), dtype=torch.int64, device=dev)
+    if k > 1 and S * k * L <= MAP_COLUMNS:
+        _, ex, _, _ = _walk_plain(
+            MODE_COUNT, tbl, seg, nseg,
+            lambda t: tv[:, t].reshape(-1).repeat(S), T4k,
+            torch.arange(S, device=dev).repeat_interleave(k * L),
+            lim.reshape(-1).repeat(S))
+        exit_of = ex.view(S, k, L)
+        cols = torch.arange(L, device=dev)
+        for j in range(k):
+            entry[j] = s
+            s = exit_of[s, j, cols]
+        return entry
+    for j in range(k - 1):
+        entry[j] = s
+        _, s, _, _ = _walk_plain(MODE_COUNT, tbl, seg, nseg,
+                                 lambda t: tv[j, t], T4k, s, lim[j])
+    entry[k - 1] = s
+    return entry
+
+
 def lane_repair_plain(mode: int, whole: bool, packed, segmap, tiles,
                       first: int, limits, prev, exits, counts, sync, flagw,
                       aux, walked):
@@ -362,25 +398,27 @@ def lane_repair_plain(mode: int, whole: bool, packed, segmap, tiles,
                     sel.reshape(-1, 1, L), lw, cur.reshape(-1, G, L)
                 ).reshape(cur.shape)
 
+    tv = tiles.view(k, T4k, L)
+
+    def walk(entry):
+        return _walk_plain(mode, tbl, seg, nseg,
+                           lambda t: tv[:, t].reshape(-1), T4k,
+                           entry.reshape(-1).long(), lim.reshape(-1))
+
     if whole:
+        # a lane walks from want[0] through its k sub-lanes in order
         lanes = bad.any(dim=0)
-        s = want[0].long()
-        for j in range(k):
-            c, s2, fw, a = _walk_plain(
-                mode, tbl, seg, nseg, lambda t: tiles[j * T4k + t], T4k, s,
-                lim[j])
-            commit(j, lanes, c, s, s2, fw, a)
-            s = s2
+        sel = lanes[None, :].expand(k, L)
+        entry = _lane_entries(tbl, seg, nseg, tv, lim, want[0],
+                              int(packed.shape[0]))
+        c, s2, fw, a = walk(entry)
         walked.fill_(int(lanes.sum()))
     else:
-        tv = tiles.view(k, T4k, L)
-        s = want.reshape(-1).long()
-        c, s2, fw, a = _walk_plain(
-            mode, tbl, seg, nseg, lambda t: tv[:, t].reshape(-1), T4k, s,
-            lim.reshape(-1))
-        commit(slice(None), bad, c.reshape(k, L), s.reshape(k, L),
-               s2.reshape(k, L), fw, a)
+        sel, entry = bad, want
+        c, s2, fw, a = walk(entry)
         walked.fill_(int(bad.sum()))
+    commit(slice(None), sel, c.reshape(k, L), entry, s2.reshape(k, L), fw,
+           a)
 
 
 def _check_lane_args(mode, packed, segmap, tiles, W4, entries, offsets,

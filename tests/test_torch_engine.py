@@ -283,17 +283,30 @@ def test_device_is_explicit():
 
 
 def test_capture_and_row_seams_stay_on_host():
+    """The two seams that stayed on the host until the captures and row
+    batches were ported now serve on the engine's device: _batch_captures
+    extracts every span of a corpus-scale FindAllSubmatch through the
+    OnePass walk, and the row batches go through the row scans; the
+    results are the reference engine's."""
     pattern = r"(\d+)\.(\d+)"
     t = _log_corpus(7, 20000)
     eng = ct.compile(pattern, device="cpu")
+    ref = ref_ct.compile(pattern)
     spans = eng.find_all_index(t)
     assert len(spans) >= 64
-    assert eng._batch_captures(_arr(t), spans) == [None] * len(spans)
-    assert not eng._batch_rows_ok()
-    assert eng.find_all_submatch_index(t) == \
-        ref_ct.compile(pattern).find_all_submatch_index(t)
+    before = eng.stats.kernel_scans
+    batched = eng._batch_captures(_arr(t), spans)
+    assert eng.stats.kernel_scans == before + 1
+    assert all(b is not None and b[:2] == sp for b, sp in zip(batched,
+                                                              spans))
+    assert eng._batch_rows_ok()
+    assert eng.find_all_submatch_index(t) == ref.find_all_submatch_index(t)
+    assert eng.replace_all(t, b"$2.$1") == ref.replace_all(t, b"$2.$1")
     rows = [b"x 1.2", b"nothing", b"3.4 5.6"]
+    before = eng.stats.kernel_scans
     assert eng.find_index_batch(rows) == [(2, 5), None, (0, 3)]
+    assert eng.is_match_batch(rows) == [True, False, True]
+    assert eng.stats.kernel_scans == before + 2
 
 
 def test_corpus_cache_contract():

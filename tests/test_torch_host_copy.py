@@ -131,6 +131,32 @@ def test_full_scan_tables_match_reference(pattern):
         _same(be._dense(kind), ref_be._host_dense[kind], f"{pattern} {kind}")
 
 
+# the capture slice's patterns (the OnePass walk) and one that is not
+# one-pass
+ONEPASS = [r"(\d+)\.(\d+)\.(\d+)\.(\d+)", r"([a-z]+)=(\d+)",
+           r"(\d+)-(\w+)", r"(\d+)\.(\d+)", r"(\w+)(@\w+)?", r"(a)(b)?c",
+           r"(a)|(a)b"]
+
+
+@pytest.mark.parametrize("pattern", ONEPASS)
+def test_onepass_tables_match_reference(pattern):
+    """build_onepass gives the reference's OnePass tables (delta, slot
+    masks, match conditions and slots, classes), or rejects the same
+    patterns."""
+    from coregex_tpu.dfa import onepass as ref_onepass
+    from coregex_tpu_torch.dfa import onepass
+    out = []
+    for mod, prs, th in ((onepass, parser, thompson),
+                         (ref_onepass, ref_parser, ref_thompson)):
+        nfa = th.compile_nfa(prs.parse(pattern), with_captures=True)
+        try:
+            out.append(mod.build_onepass(nfa))
+        except mod.NotOnePass as ex:
+            out.append(str(ex))
+    _same(out[0], out[1], pattern)
+    assert isinstance(out[0], str) == (pattern == r"(a)|(a)b")
+
+
 def test_native_library_is_the_ports_own():
     lib = native.get_lib()
     if lib is None:

@@ -4,7 +4,9 @@ not even its host modules.  A subprocess blocks `import jax` and `import
 coregex_tpu` with a meta-path finder that raises, imports the package,
 runs CPU counts and find_alls (a nullable pattern, an overlapping
 literal set and a BITSET_NFA pattern among them), is_match and find_index
-calls against Python's re, and checks that neither entered sys.modules."""
+calls, captures (find_all_submatch_index, replace_all) and row batches
+(is_match_batch, find_index_batch) against Python's re, and checks that
+neither entered sys.modules."""
 
 import os
 import pathlib
@@ -69,6 +71,22 @@ exp = [m.span() for m in re.finditer(pattern.encode(), t2)]
 assert eng.find_all_index(t2) == exp and eng.count(t2) == len(exp) == 1000
 assert eng.is_match(t2) is True and eng.find_index(t2) == exp[0]
 assert eng.batch_engine().host_routes == 0
+# captures (the OnePass walk) and row batches (the row scans)
+t3 = b"a12-foo b345-xy c6-zz q99-abc k1-m\n" * 20
+eng = ct.compile(r"(\d+)-(\w+)", device="cpu")
+exp = [[m.span(0), m.span(1), m.span(2)]
+       for m in re.finditer(rb"(\d+)-(\w+)", t3)]
+spans = eng.find_all_index(t3)
+assert len(spans) == len(exp) >= 64
+assert None not in eng._batch_captures(np.frombuffer(t3, np.uint8), spans)
+assert eng.find_all_submatch_index(t3) == exp
+assert eng.replace_all(t3, b"[$2:$1]") == re.sub(rb"(\d+)-(\w+)",
+                                                 rb"[\2:\1]", t3)
+eng = ct.compile(r"\d+\.\d+", device="cpu")
+assert eng._batch_rows_ok()
+assert eng.find_index_batch([b"x 1.2", b"no", b"3.4"]) == [(2, 5), None,
+                                                            (0, 3)]
+assert eng.is_match_batch([b"x 1.2", b"no"]) == [True, False]
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "coregex_tpu"))
 assert not bad, bad
@@ -124,6 +142,11 @@ def test_no_source_file_imports_jax():
     files = sorted(f for f in pkg.rglob("*.py")
                    if "_build" not in f.relative_to(pkg).parts)
     assert len(files) > 10
+    assert {"onepass_scan.py", "rowscan.py"} <= {f.name for f in files}
+    # chip_smoke.py's phases import lazily, inside each phase: the text
+    # scan below reads them, the captures-and-rows phase among them
+    assert "def phase_e2e_captures_rows(" in \
+        (ROOT / "chip_smoke.py").read_text()
     outside = sorted((ROOT / "tools").glob("*_torch.py"))
     assert {f.name for f in outside} >= {"profile_torch.py",
                                           "profile_compact_torch.py"}

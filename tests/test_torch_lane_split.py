@@ -474,3 +474,64 @@ def test_split_helpers_live_in_one_hashed_header(tmp_path, monkeypatch):
         assert "int sub_limit(" not in text
         assert "void count_walker(" not in text
     assert "int sub_limit(" in open(tmp_path / "split_common.cuh").read()
+
+
+@pytest.mark.parametrize("maps", [True, False], ids=["maps", "in_order"])
+@pytest.mark.parametrize("mode", [cs.MODE_COUNT, cs.MODE_SPAN])
+@pytest.mark.parametrize("what", ["words", "quotes"])
+def test_lane_pass_equals_sequential_walk(what, mode, maps, monkeypatch):
+    """The plain lane pass finds each sub-lane's entry by composing the
+    sub-lanes' exit maps (or, past MAP_COLUMNS, by walking them in order)
+    and then walks all sub-lanes at once: its outputs equal a walk of the
+    sub-lanes one after another, each from the previous one's exit, from
+    exits of which a third are random (some of them the count DFA's
+    absorbing state 0, which no later byte leaves; quote parity never
+    syncs); the corpus ends inside the last lane."""
+    if not maps:
+        monkeypatch.setattr(cs, "MAP_COLUMNS", 0)
+    k = 8
+    pattern = r'"[^"]*"' if what == "quotes" else r"\d+\.\d+\.\d+\.\d+"
+    cd = _cd(pattern, spans=mode == cs.MODE_SPAN)
+    d = (ss.DeviceSpanDFA if mode == cs.MODE_SPAN
+         else cs.DeviceCountDFA).from_host(cd, "cpu")
+    arr = _quotes(9000) if what == "quotes" else _corpus(12, 15000)
+    L, T, W, _ = GEOM
+    dev = torch.from_numpy(arr.copy())
+    tiles = cs.make_word_tiles(dev, L, T // 4)
+    e0, o0, lim = cs.first_pass_inputs(d.starts, dev, len(arr), L, T, W, k)
+    counts, exits, sync, fw, aux = cs.lane_walk_plain(
+        mode, d.packed, d.segmap, tiles, W // 4, e0, o0, lim)
+    g = torch.Generator().manual_seed(3)
+    prev = torch.where(torch.rand(exits.shape, generator=g) < 1 / 3,
+                       torch.randint(0, int(d.packed.shape[0]), exits.shape,
+                                     generator=g, dtype=torch.int32), exits)
+    got = [torch.empty_like(prev), counts.clone(), sync.clone(),
+           None if fw is None else fw.clone(),
+           None if aux is None else aux.clone(),
+           torch.zeros(1, dtype=torch.int32)]
+    cs.lane_repair_plain(mode, True, d.packed, d.segmap, tiles, d.sot, lim,
+                         prev, *got)
+    g_exits, g_counts, g_sync, g_fw, g_aux, walked = got
+    T4k = T // 4 // k
+    G = T4k // 8
+    lsub = cs.sub_limits(lim, k, T // k).reshape(k, L)
+    want = cs.want_of(prev, d.sot)
+    lanes = ((lsub > 0) & (sync != want)).any(dim=0)
+    assert lanes.any() and int(walked) == int(lanes.sum())
+    tbl = d.packed.reshape(-1).long()
+    seg = None if d.segmap is None else d.segmap.long()
+    s = want[0].long()
+    for j in range(k):
+        c, s2, w, a = cs._walk_plain(
+            mode, tbl, seg, int(d.packed.shape[1]),
+            lambda t: tiles[j * T4k + t], T4k, s, lsub[j])
+        for out, exp, old in ((g_counts, c, counts), (g_sync, s, sync),
+                              (g_exits, s2, prev)):
+            assert torch.equal(out[j], torch.where(lanes, exp.to(
+                torch.int32), old[j]))
+        for out, exp, old in ((g_fw, w, fw), (g_aux, a, aux)):
+            if mode == cs.MODE_SPAN:
+                rows = slice(j * G, (j + 1) * G)
+                assert torch.equal(out[rows], torch.where(lanes, exp,
+                                                          old[rows]))
+        s = s2
