@@ -1158,6 +1158,22 @@ def bitset_repair_case(d, args, first):
 # so the other scans' lane passes are held unsplit on the sample only
 BITSET_MAIN_LANE_PASS = (("nfa_u_z", "rev"),)
 BITSET_SLICE_LANES = 16
+# the scan also held to its plain version on the whole corpus beside the
+# headline's: the look path with two start groups (Gs = 2)
+BITSET_WHOLE_LOOK = ("nfa_word_digits_b", "rev")
+
+
+def idle_corpora(n: int, dev):
+    """Two n-byte corpora at the bitset scan's extremes: lowercase letters
+    only (seed 17), on which the walkers are busy on most bytes, and spaces
+    with one newline, on which every walker's set stays its seed."""
+    import torch
+    lower = np.random.default_rng(17).integers(ord("a"), ord("z") + 1, n,
+                                               dtype=np.uint8)
+    blank = np.full(n, ord(" "), dtype=np.uint8)
+    blank[n // 2] = ord("\n")
+    return [(name, torch.from_numpy(x).to(dev))
+            for name, x in (("lowercase", lower), ("blank", blank))]
 
 
 def bitset_kernels(compare, results, small, data) -> None:
@@ -1166,19 +1182,22 @@ def bitset_kernels(compare, results, small, data) -> None:
     counts, last flags, exit and warmup sets), for the forward scan and
     the reverse scan over the flipped corpus of each BITSET pattern: pass
     0 and both repair passes from exits of which a tenth are random,
-    unsplit on the 4 MiB sample (`small`, on the card) and at the main
-    path's shape (the whole corpus's T, W and k = lane_split) on its first
-    BITSET_SLICE_LANES lanes (the lane pass there for the scan of
-    BITSET_MAIN_LANE_PASS).  Then on the whole corpus (`data` on the
-    card) pass 0, timed, and the settled scan with its repair passes and
-    launches.  The reverse scan of the first pattern (find_all's and
-    find_index's scan) is also held to the plain version on the whole
-    corpus: the line of the kernels takes its ms, plain ms and bound from
-    that one input."""
+    unsplit on the 4 MiB sample (`small`, on the card) and on the two
+    corpora of its size from idle_corpora (every walker busy on most
+    bytes; every walker idle), and at the main path's shape (the whole
+    corpus's T, W and k = lane_split) on its first BITSET_SLICE_LANES
+    lanes (the lane pass there for the scan of BITSET_MAIN_LANE_PASS).
+    Then on the whole corpus (`data` on the card) pass 0, timed, with its
+    kernel's registers, spills and resident warps, and the settled scan
+    with its repair passes and launches.  The reverse scan of the first
+    pattern (find_all's and find_index's scan) is also held to the plain
+    version on the whole corpus: the line of the kernels takes its ms,
+    plain ms and bound from that one input; so is BITSET_WHOLE_LOOK's."""
     import torch
     import coregex_tpu_torch as ct
     from coregex_tpu_torch.ops import count_scan as cs
     from coregex_tpu_torch.ops import nfa_scan as ns
+    idle = idle_corpora(int(small.shape[0]), small.device)
     for name, pattern in BITSET:
         be = ct.compile(pattern, device=DEVICE).batch_engine()
         for kind in ("fwd", "rev"):
@@ -1186,6 +1205,7 @@ def bitset_kernels(compare, results, small, data) -> None:
             if not sc:
                 fail(f"{name}: no {kind} bitset scanner")
             d = sc.d
+            info = ns.kernel_info(d)
             for big in (False, True):
                 x = data if big else small
                 x = x if kind == "fwd" else torch.flip(x, [0])
@@ -1198,47 +1218,56 @@ def bitset_kernels(compare, results, small, data) -> None:
                     y, case = x[:Ls * T], (f"{label} lanes 0-{Ls - 1} "
                                            f"k={k}", Ls, k)
                 else:
+                    smem = ns.smem_bytes(d.S, d.NW, d.G, d.Gs, d.ascii_word)
                     print(f"[kernels] bitset_scan {label}: S={d.S} "
-                          f"NW={d.NW} G={d.G} Gs={d.Gs}, shared memory "
-                          f"{ns.smem_bytes(d.S, d.NW, d.G, d.Gs)} B, "
-                          f"{ns.resident_warps(d)} resident warps an SM",
+                          f"NW={d.NW} G={d.G} Gs={d.Gs} mode={d.mode}, "
+                          f"shared memory {smem} B, "
+                          f"{info.registers} registers, {info.spill_bytes} "
+                          f"spill bytes, {info.warps} resident warps an SM",
                           flush=True)
                     y, case = x, (f"{label} k=1", L, 1)
-                lab, Ly, kk = case
-                ty = cs.make_word_tiles(y, Ly, T // 4)
-                args, first = bitset_args(d, y, (Ly, T, W), ty, kk)
-                compare("bitset_scan", lab,
-                        lambda: ns.bitset_walk_cuda(*args),
-                        lambda: ns.bitset_walk_plain(*args), reps=3,
-                        in_bytes=nbytes(y))
-                run = bitset_repair_case(d, args, first)
-                for whole in (False, True):
-                    if whole and big and (name, kind) \
-                            not in BITSET_MAIN_LANE_PASS:
-                        continue
-                    t0 = time.perf_counter()
-                    compare("bitset_scan", f"{lab} "
-                            f"{'lane' if whole else 'sub-lane'} pass",
-                            lambda: run(ns.bitset_repair_cuda, whole),
-                            lambda: run(ns.bitset_repair_plain, whole))
-                    if big:
-                        print(f"[kernels] bitset_scan {lab} "
-                              f"{'lane' if whole else 'sub-lane'} pass "
-                              f"checked in "
-                              f"{time.perf_counter() - t0:.1f} s",
-                              flush=True)
-                del args, ty, y, run
+                cases = [case + (y,)]
+                if not big:
+                    cases += [(f"{name} {kind} {what} {n / 2 ** 20:.0f} "
+                               f"MiB k=1", L, 1,
+                               z if kind == "fwd" else torch.flip(z, [0]))
+                              for what, z in idle]
+                for lab, Ly, kk, y in cases:
+                    ty = cs.make_word_tiles(y, Ly, T // 4)
+                    args, first = bitset_args(d, y, (Ly, T, W), ty, kk)
+                    compare("bitset_scan", lab,
+                            lambda: ns.bitset_walk_cuda(*args),
+                            lambda: ns.bitset_walk_plain(*args), reps=3,
+                            in_bytes=nbytes(y))
+                    run = bitset_repair_case(d, args, first)
+                    for whole in (False, True):
+                        if whole and big and (name, kind) \
+                                not in BITSET_MAIN_LANE_PASS:
+                            continue
+                        t0 = time.perf_counter()
+                        compare("bitset_scan", f"{lab} "
+                                f"{'lane' if whole else 'sub-lane'} pass",
+                                lambda: run(ns.bitset_repair_cuda, whole),
+                                lambda: run(ns.bitset_repair_plain, whole))
+                        if big:
+                            print(f"[kernels] bitset_scan {lab} "
+                                  f"{'lane' if whole else 'sub-lane'} pass "
+                                  f"checked in "
+                                  f"{time.perf_counter() - t0:.1f} s",
+                                  flush=True)
+                    del args, ty, run
+                del y, cases
                 if not big:
                     continue
                 tiles = cs.make_word_tiles(x, L, T // 4)
                 args, _first = bitset_args(d, x, (L, T, W), tiles, k)
-                if name == BITSET[0][0] and kind == "rev":
+                head = name == BITSET[0][0] and kind == "rev"
+                if head or (name, kind) == BITSET_WHOLE_LOOK:
                     t0 = time.perf_counter()
-                    compare("bitset_scan", f"{label} k={k}",
-                            lambda: ns.bitset_walk_cuda(*args),
-                            lambda: ns.bitset_walk_plain(*args), reps=3,
-                            headline=True, in_bytes=n)
-                    ms = results["bitset_scan"]["ms"]
+                    ms = compare("bitset_scan", f"{label} k={k}",
+                                 lambda: ns.bitset_walk_cuda(*args),
+                                 lambda: ns.bitset_walk_plain(*args),
+                                 reps=3, headline=head, in_bytes=n)
                     print(f"[kernels] bitset_scan {label} k={k}: checked "
                           f"in {time.perf_counter() - t0:.1f} s",
                           flush=True)
@@ -1256,7 +1285,9 @@ def bitset_kernels(compare, results, small, data) -> None:
                 settled_ms = (time.perf_counter() - t0) * 1e3
                 print(f"[kernels] bitset_scan {label} k={k} (L={L} T={T} "
                       f"W={W}): pass 0 {ms:.3f} ms (bound {bound:.3f} ms, "
-                      f"{ms / bound:.0f}x); settled scan "
+                      f"{ms / bound:.1f}x; {info.registers} registers, "
+                      f"{info.spill_bytes} spill bytes, {info.warps} "
+                      f"resident warps an SM); settled scan "
                       f"{settled_ms:.1f} ms, {c.launches - before} "
                       f"launches, repair passes {passes(c)}, {flags} flags",
                       flush=True)

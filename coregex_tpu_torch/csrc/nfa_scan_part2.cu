@@ -1,0 +1,5 @@
+// The bitset-NFA scan's kernels without looks at NW = 5-8 (csrc/nfa_scan.cu), in a
+// translation unit of their own so that nvcc builds the scan's kernels
+// side by side.
+#define CGX_NFA_PART 2
+#include "nfa_scan.cu"

@@ -31,7 +31,8 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("lane_scan.cu", "compact.cu", "needle_scan.cu",
            "window_scan.cu", "compact_exp.cu", "nfa_scan.cu",
-           "onepass_scan.cu", "row_scan.cu")
+           "nfa_scan_part1.cu", "nfa_scan_part2.cu", "nfa_scan_part3.cu",
+           "nfa_scan_part4.cu", "onepass_scan.cu", "row_scan.cu")
 HEADERS = ("compact_common.cuh", "split_common.cuh")  # included; hashed too
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
@@ -62,10 +63,11 @@ _SIGNATURES = {
     "cgx_hits_lanes": [_P, _P, _I, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "cgx_seq_lanes": [_I, _I, _P, _P, _I, _I, _I, _I, _P, _I, _I, _I, _I,
                       _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P],
-    "cgx_bitset_scan": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I,
-                        _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                        _P, _P, _P],
-    "cgx_bitset_occupancy": [_I, _I, _I, _I, ctypes.POINTER(ctypes.c_int)],
+    "cgx_bitset_scan": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                        _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                        _P, _P, _P, _P, _P],
+    "cgx_bitset_occupancy": [_I, _I, _I, _I, _I, _I,
+                             ctypes.POINTER(ctypes.c_int)],
     "cgx_onepass_extract": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P, _I,
                             _P, _P, _P],
     "cgx_rows_match": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _P, _P,

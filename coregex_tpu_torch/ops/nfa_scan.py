@@ -74,8 +74,11 @@ BITSET_KERNEL = LaunchCounter("bitset_scan")
 # csrc/nfa_scan.cu's passes: pass 0 with warmup, a pass over the unsettled
 # sub-lanes, a pass over the lanes holding one (count_scan's PASS_*)
 PASS_FIRST, PASS_SUB, PASS_LANE = 0, 1, 2
-THREADS = 128           # threads a block (nfa_scan.cu's kThreads)
 SMEM_LIMIT = 232448     # shared memory an H100 block can use
+# the table shapes csrc/nfa_scan.cu's kernel is specialised on (its Mode):
+# no looks (G = Gs = 1: gmap and smap all 0, no byte context at all), and
+# looks
+MODE_FREE, MODE_LOOK = 0, 1
 
 
 class LookUnsupported(Exception):
@@ -198,9 +201,18 @@ class DeviceBitsetNFA:
     Their packed forms, int64 bitsets of NW = ceil(S/64) words: ``cover``
     [256, NW] (bit s of byte b's row: lo[s] <= b <= hi[s]), ``rows`` [G, S,
     NW] (ct's closure columns), ``mbits`` [G, NW] (ct's match column),
-    ``startw`` [Gs, NW] and ``botw`` [4, NW].  ``tables`` holds them and
-    the context maps on `device`.  Raises LookUnsupported past S or G's
-    limit."""
+    ``startw`` [Gs, NW] and ``botw`` [4, NW].  Their bit j is range state
+    ``order[j]``, the states sorted by their byte range (lo, then hi): the
+    states that take some byte < 128 come first, so that when at most 64
+    do (``ascii_word``) a byte < 128 touches word 0 alone, which the
+    kernel's ASCII step relies on, and the states of one range sit side by
+    side, so that the states a byte takes gather into few bytes and
+    nibbles of a set (the kernel's chunk tables).  The plain version walks
+    the same order (plain_tables).  ``mode`` is the kernel's
+    specialisation: MODE_FREE where G = Gs = 1 (so cmap and smap are all
+    0), else MODE_LOOK.
+    ``tables`` holds them and the context maps on `device`.  Raises
+    LookUnsupported past S or G's limit."""
 
     def __init__(self, nfa: NFA, device):
         range_states = [i for i, st in enumerate(nfa.states)
@@ -280,15 +292,20 @@ class DeviceBitsetNFA:
         self.start, self.bot, self.cmap, self.smap = (start_stack, bot, cmap,
                                                       smap)
         self.NW = set_words(S)
+        self.order = np.lexsort((np.arange(S), hi, lo))
+        self.ascii_word = self.NW > 1 and int((lo < 128).sum()) <= 64
+        o = self.order
         b = np.arange(256)[:, None]
-        self.cover = pack_sets_np((lo[None, :] <= b) & (b <= hi[None, :]))
-        self.rows = pack_sets_np(ct_stack[:, :, :S])
-        self.mbits = pack_sets_np(ct_stack[:, :, S])
-        self.startw = pack_sets_np(start_stack)
-        self.botw = pack_sets_np(bot)
+        self.cover = pack_sets_np((lo[None, o] <= b) & (b <= hi[None, o]))
+        self.rows = pack_sets_np(ct_stack[:, o][:, :, o])
+        self.mbits = pack_sets_np(ct_stack[:, o, S])
+        self.startw = pack_sets_np(start_stack[:, o])
+        self.botw = pack_sets_np(bot[:, o])
+        self.mode = MODE_FREE if G == 1 and self.Gs == 1 else MODE_LOOK
         self.device = torch.device(device)
         if (self.device.type == "cuda"
-                and smem_bytes(S, self.NW, G, self.Gs) > SMEM_LIMIT):
+                and max(smem_bytes(S, self.NW, G, self.Gs, a)
+                        for a in (False, self.ascii_word)) > SMEM_LIMIT):
             raise ValueError("bitset tables exceed the kernel's shared "
                              "memory")
 
@@ -302,19 +319,37 @@ class DeviceBitsetNFA:
             cmap=dev(cmap, torch.int32), smap=dev(smap, torch.int32))
 
 
-def smem_bytes(S: int, NW: int, G: int, Gs: int) -> int:
+def chunk_words(NW: int, G: int, ascii: bool) -> int:
+    """64-bit words of a block's chunk tables (nfa_scan.cu's chunk_words):
+    the closure rows' word 0 ORed by each byte of m's word 0 (the ASCII
+    kernels), or the rows ORed by each nibble of m (NW <= 2)."""
+    if ascii and NW > 1:
+        return G * 8 * 256
+    return G * NW * 256 * NW if NW <= 2 else 0
+
+
+def smem_bytes(S: int, NW: int, G: int, Gs: int, ascii: bool = False) -> int:
     """Shared memory of a cgx_bitset_scan block: the bitset tables, the
-    byte classes and the two context maps."""
-    return 8 * NW * (256 + G * S + G + Gs) + 256 + 24
+    chunk tables and the byte classes (pass 0 on ascii_word tables takes
+    the ASCII kernel's)."""
+    return 8 * (NW * (256 + G * S + G + Gs) + chunk_words(NW, G, ascii)) \
+        + 256
 
 
-def resident_warps(d: DeviceBitsetNFA) -> int:
-    """Warps of a pass-0 launch on d's tables that one SM holds at once
-    (the CUDA occupancy calculator)."""
-    blocks = ctypes.c_int(0)
+class KernelInfo(NamedTuple):
+    """Pass 0's kernel on a table shape, from the CUDA runtime."""
+    warps: int          # resident warps an SM (the occupancy calculator)
+    registers: int      # registers a thread
+    spill_bytes: int    # local-memory bytes a thread
+
+
+def kernel_info(d: DeviceBitsetNFA) -> KernelInfo:
+    """Occupancy, registers and spills of pass 0's kernel on d's tables."""
+    info = (ctypes.c_int * 4)()
     _build.check(_build.lib().cgx_bitset_occupancy(
-        d.S, d.NW, d.G, d.Gs, ctypes.byref(blocks)), "bitset_scan")
-    return blocks.value * THREADS // 32
+        d.mode, int(d.ascii_word), d.S, d.NW, d.G, d.Gs, info),
+        "bitset_scan")
+    return KernelInfo(info[0] * info[3] // 32, info[1], info[2])
 
 
 # ---------------------------------------------------------------------------
@@ -322,10 +357,10 @@ def resident_warps(d: DeviceBitsetNFA) -> int:
 # ---------------------------------------------------------------------------
 
 class PlainTables(NamedTuple):
-    """The plain version's tables in the reference's layout: ok [256, S]
-    bool (state s takes byte b: lo[s] <= b <= hi[s]), float32 0/1 ct [G, S,
-    S+1], start [12, S] (the start row of each context, start[smap]), and
-    cmap [12] int64."""
+    """The plain version's tables in the reference's layout, states in the
+    packed order (DeviceBitsetNFA.order): ok [256, S] bool (state s takes
+    byte b: lo[s] <= b <= hi[s]), float32 0/1 ct [G, S, S+1], start [12, S]
+    (the start row of each context, start[smap]), and cmap [12] int64."""
     ok: torch.Tensor
     ct: torch.Tensor
     start: torch.Tensor
@@ -335,12 +370,14 @@ class PlainTables(NamedTuple):
 def plain_tables(d: DeviceBitsetNFA, device) -> PlainTables:
     """d's host tables as the plain version reads them, on `device`."""
     b = np.arange(256)[:, None]
+    o = d.order
 
     def f32(x):
         return torch.tensor(np.asarray(x, dtype=np.float32), device=device)
-    return PlainTables(ok=torch.tensor((d.lo[None, :] <= b)
-                                       & (b <= d.hi[None, :]), device=device),
-                       ct=f32(d.ct), start=f32(d.start[d.smap]),
+    return PlainTables(ok=torch.tensor((d.lo[None, o] <= b)
+                                       & (b <= d.hi[None, o]), device=device),
+                       ct=f32(d.ct[:, o][:, :, np.append(o, d.S)]),
+                       start=f32(d.start[d.smap][:, o]),
                        cmap=torch.tensor(d.cmap, dtype=torch.int64,
                                          device=device))
 
@@ -544,15 +581,16 @@ def _check_scan_args(tb: BitsetTables, tiles, W4: int, entries, limits,
         raise ValueError("bad limits or corpus length")
 
 
-def _launch(pass_, tb, tiles, W4, k, n, entries, offsets, limits, first,
+def _launch(pass_, d, tiles, W4, k, n, entries, offsets, limits, first,
             prev, counts, last, exits, sync, flagw, walked):
     T4, L = (int(x) for x in tiles.shape)
-    G, S, NW = (int(x) for x in tb.rows.shape)
+    tb = d.tables
     p = _build.ptr
     with torch.cuda.device(tiles.device):
         rc = _build.lib().cgx_bitset_scan(
-            pass_, p(tb.cover), p(tb.rows), p(tb.mbits), p(tb.startw),
-            p(tb.cmap), p(tb.smap), S, NW, G, int(tb.startw.shape[0]),
+            pass_, d.mode, int(d.ascii_word), p(tb.cover), p(tb.rows),
+            p(tb.mbits), p(tb.startw), p(tb.cmap), p(tb.smap),
+            d.S, d.NW, d.G, d.Gs,
             p(tiles), T4, L, W4, k, n, p(entries), p(offsets), p(limits),
             p(first), p(prev), p(counts), p(last), p(exits), p(sync),
             p(flagw), p(walked), _build.stream(tiles.device))
@@ -575,7 +613,7 @@ def bitset_walk_cuda(d: DeviceBitsetNFA, tiles, W4: int, entries, offsets,
                     for _ in range(2))
     exits, sync = torch.empty_like(entries), torch.empty_like(entries)
     flagw = torch.empty((T4 // 8, L), dtype=torch.int32, device=dev)
-    _launch(PASS_FIRST, tb, tiles, W4, k, n, entries, offsets, limits, None,
+    _launch(PASS_FIRST, d, tiles, W4, k, n, entries, offsets, limits, None,
             None, counts, last, exits, sync, flagw, None)
     return counts, exits, sync, flagw, last
 
@@ -600,7 +638,7 @@ def bitset_repair_cuda(d: DeviceBitsetNFA, whole: bool, tiles, n: int,
                 or not t.is_contiguous() or t.device != tiles.device):
             raise ValueError(f"{name} must be a contiguous {dt} tensor of "
                              f"shape {shape} beside the tiles")
-    _launch(PASS_LANE if whole else PASS_SUB, tb, tiles, 0, k, n, None,
+    _launch(PASS_LANE if whole else PASS_SUB, d, tiles, 0, k, n, None,
             None, limits, first, prev, counts, last, exits, sync, flagw,
             walked)
 

@@ -89,20 +89,106 @@ def test_tables_match_reference(pattern, reverse):
         have = getattr(got, f)
         assert have.dtype == want.dtype and have.shape == want.shape, f
         np.testing.assert_array_equal(have, want, err_msg=f)
-    # the kernel's bitsets unpack to the same tables
+    # the kernel's bitsets unpack to the same tables, bit j = state order[j]
     S = got.S
     t = got.tables
+    o = got.order
+    assert sorted(o) == list(range(S))
 
     def unpack(x):
         return ns.unpack_sets(x.reshape(-1, got.NW), S).numpy()
-    lo, hi = got.lo, got.hi
+    lo, hi = got.lo[o], got.hi[o]
     b = np.arange(256)[:, None]
     np.testing.assert_array_equal(unpack(t.cover), (lo <= b) & (b <= hi))
     np.testing.assert_array_equal(
-        unpack(t.rows).reshape(got.G, S, S), got.ct[:, :, :S])
-    np.testing.assert_array_equal(unpack(t.mbits), got.ct[:, :, S])
-    np.testing.assert_array_equal(unpack(t.startw), got.start)
-    np.testing.assert_array_equal(unpack(t.botw), got.bot)
+        unpack(t.rows).reshape(got.G, S, S), got.ct[:, o][:, :, o])
+    np.testing.assert_array_equal(unpack(t.mbits), got.ct[:, o, S])
+    np.testing.assert_array_equal(unpack(t.startw), got.start[:, o])
+    np.testing.assert_array_equal(unpack(t.botw), got.bot[:, o])
+
+
+# the scans chip_smoke.py times (its BITSET and BITSET_HOST_ENDS) and this
+# file's patterns with looks: the tables the kernel's ASCII step and its
+# look-free specialisation read
+STEP_PATTERNS = CHIP[:4] + [p for p, _ in LOOK_CASES]
+
+
+def _step_tables(pattern, reverse):
+    return ns.DeviceBitsetNFA(
+        compile_nfa(parse(pattern), reverse=reverse, with_captures=False),
+        "cpu")
+
+
+@pytest.mark.parametrize("reverse", [False, True], ids=["fwd", "rev"])
+@pytest.mark.parametrize("pattern", STEP_PATTERNS)
+def test_packed_order_and_mode(pattern, reverse):
+    """The packed order puts the states that take a byte < 128 first;
+    when at most 64 do (and a set has more than one word), no byte < 128
+    touches a word past the first, as the kernel's ASCII step assumes.
+    The kernel's table mode follows G and Gs, and the look-free mode
+    (G = Gs = 1) has cmap and smap all 0, as every pattern without looks
+    has."""
+    d = _step_tables(pattern, reverse)
+    takes_ascii = d.lo[d.order] < 128
+    n_ascii = int(takes_ascii.sum())
+    assert takes_ascii[:n_ascii].all() and not takes_ascii[n_ascii:].any()
+    assert d.ascii_word == (d.NW > 1 and n_ascii <= 64)
+    if d.ascii_word:
+        assert not d.cover[:128, 1:].any()
+    look_free = d.G == 1 and d.Gs == 1
+    assert d.mode == (ns.MODE_FREE if look_free else ns.MODE_LOOK)
+    if look_free:
+        assert not d.cmap.any() and not d.smap.any()
+    if not d.has_looks:
+        assert look_free
+    chunks = (d.G * 8 * 256 if d.ascii_word else
+              d.G * d.NW * 256 * d.NW if d.NW <= 2 else 0)
+    assert ns.smem_bytes(d.S, d.NW, d.G, d.Gs, d.ascii_word) == (
+        8 * (d.NW * (256 + d.G * d.S + d.G + d.Gs) + chunks) + 256)
+    # states of one byte range side by side, in range order
+    key = list(zip(d.lo[d.order], d.hi[d.order]))
+    assert key == sorted(key)
+
+
+def _or_rows(rows, m):
+    """OR of rows [S, NW] int64 over the states set in m [NW] int64."""
+    out = np.zeros(rows.shape[1], dtype=np.int64)
+    for s in np.flatnonzero(np.unpackbits(m.view(np.uint8),
+                                          bitorder="little")):
+        out |= rows[s]
+    return out
+
+
+@pytest.mark.parametrize("reverse", [False, True], ids=["fwd", "rev"])
+@pytest.mark.parametrize("pattern", STEP_PATTERNS)
+def test_packed_step_equals_plain_step(pattern, reverse):
+    """The kernel's step on the packed tables, m = a & cover[b], flag = m &
+    mbits[cmap[ctx]], next = startw[smap[ctx]] | OR over s in m of
+    rows[cmap[ctx]][s], equals one plain step (the reference's float32
+    step) from random sets, for every byte in each of the 12 contexts; on
+    ascii_word tables m of a byte < 128 lies in word 0, so the next set's
+    other words follow from that m alone (the kernel's deferred words)."""
+    d = _step_tables(pattern, reverse)
+    rng = np.random.default_rng(len(pattern) + reverse)
+    sets = ns.pack_sets_np(rng.random((3, d.S)) < 0.2)
+    b, cx, k = np.meshgrid(np.arange(256), np.arange(12), np.arange(3),
+                           indexing="ij")
+    b, cx, k = b.ravel(), cx.ravel(), k.ravel()
+    M = len(b)
+    act = ns.unpack_sets(torch.from_numpy(sets[k]), d.S)
+    nxt, flags = ns._walk_plain(
+        ns.plain_tables(d, "cpu"), torch.from_numpy(b.astype(np.uint8)),
+        torch.from_numpy(cx.astype(np.uint8)), torch.arange(M), 1, act,
+        torch.ones(M, dtype=torch.int64), 0, True)
+    got = ns.pack_sets(nxt).numpy()
+    for i in range(M):
+        g, sg = d.cmap[cx[i]], d.smap[cx[i]]
+        m = sets[k[i]] & d.cover[b[i]]
+        if d.ascii_word and b[i] < 128:
+            assert not m[1:].any()
+        want = d.startw[sg] | _or_rows(d.rows[g], m)
+        np.testing.assert_array_equal(got[i], want)
+        assert bool(flags[i, 0]) == bool((m & d.mbits[g]).any())
 
 
 def test_packing_round_trips():
