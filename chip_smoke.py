@@ -72,9 +72,12 @@ Phases (any failure exits non-zero before the final line):
                (cgx_onepass_extract) on every bidi span of the CAPTURES
                patterns over the whole corpus (2.67M ip spans) and on
                hand-made spans (random ones that die, MAX_WINDOW wide and
-               one byte wider, the corpus's last bytes), and the row scans
+               one byte wider, the corpus's last bytes, also of a corpus
+               of n % 16 != 0 bytes at byte offset 3), and the row scans
                (cgx_rows_match, cgx_rows_rev_start) on the first 2^20 lines
-               of the corpus packed to [2^20, 256]
+               of the corpus packed to [2^20, 256]; the OnePass walk and
+               the forward row scan in every table mode their tables allow
+               (byte-indexed and class-indexed shared, global)
   4. e2e     - the public API on a 1536 MiB log corpus (the JAX package's
                bench corpus), in seven runs, each with the launch counts
                set to 0 before it and read after it.  Earlier slices: count for
@@ -107,8 +110,9 @@ Phases (any failure exits non-zero before the final line):
                match), each of its own length, against `re` on windows
                whose bounds no match can cross (the filler checked with re
                to hold no match but the nullable one), with K9's repair
-               passes of each call; and the re-tiling of find_first's
-               prefixes, timed.  Literals: device find_all
+               passes of each call; the module-level match and
+               match_string once each against re; and the re-tiling of
+               find_first's prefixes, timed.  Literals: device find_all
                (first call, then best of 2) of literal_error,
                http_methods, alt_literal, multi_literal32, `0\.0` (a
                self-overlapping literal) and `0\.0|\.0\.` (hits that
@@ -2111,6 +2115,20 @@ def phase_e2e_single_match(base: bytes, corpus: np.ndarray):
             fail(f"{name}: {eng.batch_engine().host_routes} host routes, "
                  f"expected {expected}")
         routes[f"{name} single"] = 0
+    # the module-level Match and MatchString on the card: a late match on
+    # the late corpus, none in a 1 MiB str of the base tile
+    late = corpora[1][1]
+    text = base[:1 << 20].decode()
+    for what, got, want in (
+            ("match", ct.match(r"(\d+)\.(\d+)", late, device=DEVICE),
+             re.search(rb"(\d+)\.(\d+)", base) is not None),
+            ("match_string", ct.match_string(r"zq\d{3}", text,
+                                             device=DEVICE),
+             re.search(r"zq\d{3}", text) is not None)):
+        if got != want:
+            fail(f"coregex_tpu_torch.{what}: {got} != re's {want}")
+        print(f"[single] coregex_tpu_torch.{what}: {got}, equal to re",
+              flush=True)
     # find_first tiles each prefix below the corpus afresh
     dev = device_corpus(corpora[1][1], DEVICE)
     for c in (1 << 22, 1 << 25, 1 << 28, int(dev.shape[0])):
@@ -2248,11 +2266,11 @@ def slot_digest(o: np.ndarray, B: int, reps: int, rng):
     return reps * m0, sums, sidx, rows
 
 
-def row_walk_bytes(tb, rows, s0, steps, ends=None) -> int:
-    """The bytes a row scan must read: each row's first steps[b] bytes
-    (from ends[b] - 1 down to 0 when ends is given), cut after the byte
-    that takes its walk from s0[b] to the dead state where tb.stop_dead:
-    the rest of the row cannot change its result."""
+def row_walk_need(tb, rows, s0, steps, ends=None):
+    """The bytes [B] int64 a row scan must read of each row: its first
+    steps[b] bytes (from ends[b] - 1 down to 0 when ends is given), cut
+    after the byte that takes its walk from s0[b] to the dead state where
+    tb.stop_dead: the rest of the row cannot change its result."""
     import torch
     B, L = (int(x) for x in rows.shape)
     tbl, cls = tb.tbl.long().reshape(-1), tb.classes.long()
@@ -2270,7 +2288,12 @@ def row_walk_bytes(tb, rows, s0, steps, ends=None) -> int:
             died = live & (s == 0)
             need = torch.where(died, t + 1, need)
             alive &= ~died
-    return int(need.sum())
+    return need
+
+
+def row_walk_bytes(tb, rows, s0, steps, ends=None) -> int:
+    """The bytes a row scan must read in all (row_walk_need's sum)."""
+    return int(row_walk_need(tb, rows, s0, steps, ends).sum())
 
 
 def bench_lines(base: bytes):
@@ -2283,14 +2306,25 @@ def capture_row_kernels(compare, base: bytes, corpus: np.ndarray) -> None:
     """cgx_onepass_extract against onepass_plain on every bidi span of the
     CAPTURES patterns over the whole corpus (the device form's input) and
     on hand-made spans (random spans, most of which die; spans of
-    MAX_WINDOW and one byte more; the corpus's last bytes), then
-    cgx_rows_match and cgx_rows_rev_start against theirs on the packed
-    ROWS lines for each ROW_PATTERNS pattern."""
+    MAX_WINDOW and one byte more; the corpus's last bytes, also of a
+    corpus of n % 16 != 0 bytes at byte offset 3), then cgx_rows_match and
+    cgx_rows_rev_start against theirs on the packed ROWS lines for each
+    ROW_PATTERNS pattern.  The OnePass walk and the forward row scan run
+    in every table mode their tables allow (byte-indexed and
+    class-indexed shared, global), the chosen one first."""
     import torch
     import coregex_tpu_torch as ct
     from coregex_tpu_torch.ops import onepass_scan as ops
     from coregex_tpu_torch.ops import rowscan as rs
     from coregex_tpu_torch.utils.corpus_cache import device_corpus
+
+    def each_mode(tables, run):
+        """run(mode, chosen) in every table mode, the chosen one first."""
+        chosen = tables.mode
+        for mode in tables.modes:
+            tables.mode = mode
+            run(mode, mode == chosen)
+        tables.mode = chosen
 
     dev = torch.device(DEVICE)
     t_start = time.perf_counter()
@@ -2309,13 +2343,19 @@ def capture_row_kernels(compare, base: bytes, corpus: np.ndarray) -> None:
         walked = int((sp[:, 1] - sp[:, 0]).sum(dtype=torch.int64))
         print(f"[kernels] onepass     {name}: {sp.shape[0]} spans, "
               f"{walked} bytes, tables [{d.S}, {d.C}] x {d.NS} slots, "
-              f"{'shared' if d.shared else 'global'} memory (at "
+              f"modes {'/'.join(d.modes)} (at "
               f"{time.perf_counter() - t_start:.1f} s)")
-        SLICE_MS[("onepass_extract", name)] = compare(
-            "onepass_extract", f"{name} {CORPUS_MIB} MiB",
-            lambda: ops.onepass_cuda(d, data, sp),
-            lambda: ops.onepass_plain(d, data, sp), headline=i == 0,
-            in_bytes=walked + nbytes(sp, d.trans, d.fin, d.classes))
+
+        def whole(mode, chosen):
+            ms = compare(
+                "onepass_extract", f"{name} {CORPUS_MIB} MiB {mode}",
+                lambda: ops.onepass_cuda(d, data, sp),
+                lambda: ops.onepass_plain(d, data, sp),
+                headline=i == 0 and chosen,
+                in_bytes=walked + nbytes(sp, d.trans, d.fin, d.classes))
+            if chosen:
+                SLICE_MS[("onepass_extract", name)] = ms
+        each_mode(d, whole)
         if i:
             continue
         g = torch.Generator(device=dev).manual_seed(14)
@@ -2326,13 +2366,31 @@ def capture_row_kernels(compare, base: bytes, corpus: np.ndarray) -> None:
         edge = torch.tensor([[0, W], [1, W + 2], [n - W, n], [n - W - 1, n],
                              [n - 1, n], [n, n], [n - 15, n]], device=dev)
         hand = torch.cat([rand, sp[:64].long(), edge]).to(torch.int32)
-        _, ok = ops.onepass_cuda(d, data, hand)
-        print(f"[kernels] onepass     hand-made: {hand.shape[0]} spans, "
-              f"{int(ok.sum())} end in a match (at "
-              f"{time.perf_counter() - t_start:.1f} s)")
-        compare("onepass_extract", "hand-made spans",
-                lambda: ops.onepass_cuda(d, data, hand),
-                lambda: ops.onepass_plain(d, data, hand), reps=3)
+        # a corpus of n % 16 != 0 bytes starting at byte offset 3: its last
+        # bytes, the first ones, spans reaching past it
+        odd = data[3:n - 2]
+        m = int(odd.shape[0])
+        ends = torch.tensor([[m - 1, m], [m - 5, m], [m - 13, m],
+                             [m - 17, m], [m - 40, m], [0, 1], [0, 13],
+                             [m - 3, m + 4], [-2, 5]], device=dev)
+        hand_odd = torch.cat([rand[:512], sp[-512:].long() - 3,
+                              ends]).to(torch.int32)
+
+        def hand_made(mode, chosen):
+            _, ok = ops.onepass_cuda(d, data, hand)
+            _, ok_odd = ops.onepass_cuda(d, odd, hand_odd)
+            print(f"[kernels] onepass     hand-made ({mode}): "
+                  f"{hand.shape[0]} spans, {int(ok.sum())} end in a match; "
+                  f"{hand_odd.shape[0]} on {m} bytes at offset 3, "
+                  f"{int(ok_odd.sum())} (at "
+                  f"{time.perf_counter() - t_start:.1f} s)")
+            compare("onepass_extract", f"hand-made spans {mode}",
+                    lambda: ops.onepass_cuda(d, data, hand),
+                    lambda: ops.onepass_plain(d, data, hand), reps=3)
+            compare("onepass_extract", f"corpus end, n%16={m % 16} {mode}",
+                    lambda: ops.onepass_cuda(d, odd, hand_odd),
+                    lambda: ops.onepass_plain(d, odd, hand_odd), reps=3)
+        each_mode(d, hand_made)
     del data
     lines = bench_lines(base)
     t0 = time.perf_counter()
@@ -2349,11 +2407,19 @@ def capture_row_kernels(compare, base: bytes, corpus: np.ndarray) -> None:
         # that kills its walk
         ahead = row_walk_bytes(rb.fwd, rt, torch.full_like(lt, rb.fwd.start),
                                lt)
-        SLICE_MS[("rows_match", name)] = compare(
-            "rows_match", f"{name} {len(lines)} rows",
-            lambda: rs.rows_match_cuda(rb.fwd, rt, lt),
-            lambda: rs.rows_match_plain(rb.fwd, rt, lt), headline=i == 0,
-            in_bytes=ahead + nbytes(lt) + tables)
+
+        def forward(mode, chosen):
+            ms = compare(
+                "rows_match", f"{name} {len(lines)} rows {mode}",
+                lambda: rs.rows_match_cuda(rb.fwd, rt, lt),
+                lambda: rs.rows_match_plain(rb.fwd, rt, lt),
+                headline=i == 0 and chosen,
+                in_bytes=ahead + nbytes(lt) + tables)
+            if chosen:
+                SLICE_MS[("rows_match", name)] = ms
+        print(f"[kernels] rows        {name}: S={rb.fwd.S} C={rb.fwd.C}, "
+              f"modes {'/'.join(rb.fwd.modes)}")
+        each_mode(rb.fwd, forward)
         found, last = rs.rows_match_cuda(rb.fwd, rt, lt)
         ends = torch.where(found, last, -1)
         s0 = rs.rev_start_states(rb.rev, rt, lt, ends)

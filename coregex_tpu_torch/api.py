@@ -26,3 +26,11 @@ def must_compile(pattern, device="cuda", **kw):
 
 def compile_posix(pattern, device="cuda", **kw):
     return compile(pattern, device=device, longest=True, **kw)
+
+
+def match(pattern, data, device="cuda") -> bool:
+    return compile(pattern, device=device).is_match(data)
+
+
+def match_string(pattern, s: str, device="cuda") -> bool:
+    return compile(pattern, device=device).is_match(s)

@@ -12,122 +12,234 @@
 //   slot i = p for every bit i of mask; s = nxt
 // and at p == end: ok = match_cond[s], and when it holds, slot i = end for
 // every bit i of match_slots[s] (the reference's body, :96-131).  A span
-// wider than kMaxWindow is not walked: slots -1, ok 0, as the reference
-// leaves the spans past its largest bucket.
+// wider than kMaxWindow, or ending before its start, is not walked: slots
+// -1, ok 0, as the reference leaves the spans past its largest bucket.
 //
-// What bounds it on an H100: the dependent chain of a step (byte load,
-// class load, table load) times the longest span of a warp; the bytes
-// (spans 8 B, the span's bytes, NS slots of 4 B and ok) are few.  So the
-// card wants many spans in flight: one thread each, 128 a block.  The
-// slots live in shared memory, slot-major (slot i of thread t at
-// i * kThreads + t, no bank conflict), since a mask names its slots by
-// bit number and registers cannot be indexed; a mask is 0 on most bytes.
-// The tables go to shared memory when they fit beside the slots; a OnePass
-// DFA may have up to 4096 states (dfa/onepass.py's cap), so a larger one is
-// read from global memory (through the read-only cache) by the same kernel,
-// never declined.
+// What bounds it on an H100: memory traffic, not the walk.  The spans of a
+// find_all are short (ip's are 7-15 bytes) and far apart (about 600 bytes),
+// and the tables are tiny, so the bytes to move are the spans (8 B), the
+// span's bytes, and NS slots of 4 B and ok a span; the slots are most of
+// them.  The design moves them in few, wide transactions:
+//   * a span's bytes come in aligned 16-byte chunks (ld.global.nc), the
+//     next chunk requested before the current one is walked; the chunks
+//     are shifted so that byte k of a 16-byte window is span byte k, and
+//     the window is walked with constant byte offsets (an 11-byte span
+//     costs one or two loads, not 11);
+//   * the slots are written into a row-major shared slab [kThreads][NS | 1]
+//     (the odd row stride keeps a warp's 32 rows on 32 banks), then, after
+//     a barrier, the block writes its contiguous [rows, NS] slab of the
+//     output with neighbouring threads on neighbouring words;
+//   * the tables sit in shared memory where they fit beside the slab, else
+//     they are read from global memory (a OnePass DFA may have up to 4096
+//     states, dfa/onepass.py's cap): the kernel never declines.  A
+//     byte-indexed table (one lookup a step, no class lookup) measured
+//     within 1 % of the class-indexed one on the bench's spans, whose walks
+//     are short: the time is in the memory traffic;
+//   * blocks are persistent (as many as stay resident) and walk tiles of
+//     kThreads spans, so each copies its tables once.
 //
 // Layouts:
-//   trans  [S, C] int2   {next state (-1: none), slot mask}
-//   fin    [S] int2      {match_cond, match_slots}
+//   trans   [S, C] int2    {next state (-1: none), slot mask}
+//   fin     [S] int2       {match_cond, match_slots}
 //   classes [256] int32
-//   spans  [M, 2] int32  start, end; positions are int32 (the corpus is at
-//                        most MAX_CORPUS bytes); a walked span reads bytes
-//                        start .. end - 1, clamped to the corpus
-//   slots  [M, NS] int32 (-1: unset); ok [M] bool
+//   spans   [M, 2] int32   start, end (8-byte aligned rows); positions are
+//                          int32 (the corpus is at most MAX_CORPUS bytes);
+//                          a span inside the corpus reads bytes start ..
+//                          end - 1, one outside it reads each byte clamped
+//                          to the corpus (byte 0 of an empty corpus reads
+//                          as 0)
+//   slots   [M, NS] int32 (-1: unset); ok [M] bool
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 256;
 constexpr int kMaxWindow = 1 << 14;
 constexpr int kMaxSlots = 32;
 
+// The slot slab [kThreads][NS | 1], then fin and trans when they sit in
+// shared memory, then the classes.
 size_t smem_bytes(int S, int C, int NS, bool shared_tables) {
-  size_t b = (size_t)4 * (NS * kThreads + 256);
-  if (shared_tables) b += (size_t)8 * ((size_t)S * C + S);
+  size_t b = (size_t)4 * kThreads * (NS | 1) + 4 * 256;
+  if (shared_tables) b += (size_t)8 * S + 8 * (size_t)S * C;
   return b;
 }
 
-__device__ __forceinline__ void set_slots(int32_t* sl, uint32_t mask,
+struct Args {
+  const int2* trans;
+  const int2* fin;
+  const int32_t* classes;
+  int S, C, NS, start;
+  const uint8_t* data;
+  int n;
+  const int2* spans;
+  long long M;
+  int32_t* slots;
+  bool* ok;
+};
+
+// The tables, in shared or global memory; a step gives the next state (-1:
+// dead) and the slot mask.
+struct Tab {
+  const int2* tr;
+  const int32_t* cls;
+  const int2* fin;
+  int C;
+  __device__ __forceinline__ int step(int s, int byte, uint32_t& mask) const {
+    const int2 t = tr[s * C + cls[byte]];
+    mask = (uint32_t)t.y;
+    return t.x;
+  }
+};
+
+__device__ __forceinline__ void set_slots(int32_t* row, uint32_t mask,
                                           int p) {
   while (mask) {
-    const int i = __ffs(mask) - 1;
+    row[__ffs(mask) - 1] = p;
     mask &= mask - 1;
-    sl[i * kThreads] = p;
   }
 }
 
+// Bytes r .. r + 15 of the 32 bytes cur ++ nxt, as four words.
+__device__ __forceinline__ void window(const uint4& cur, const uint4& nxt,
+                                       int r, uint32_t w[4]) {
+  const uint32_t v[8] = {cur.x, cur.y, cur.z, cur.w,
+                         nxt.x, nxt.y, nxt.z, nxt.w};
+  const int q = r >> 2;
+  uint32_t u[5];
+#pragma unroll
+  for (int i = 0; i < 5; ++i)
+    u[i] = q == 0 ? v[i] : q == 1 ? v[i + 1] : q == 2 ? v[i + 2] : v[i + 3];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    w[i] = __funnelshift_r(u[i], u[i + 1], 8 * (r & 3));
+}
+
+// Walks span [sa, se) into the thread's slot row; returns ok.
+__device__ __forceinline__ bool walk(const Tab& tb, const Args& a, int sa,
+                                     int se, int32_t* row, uint32_t keep) {
+  if (se < sa || (long long)se - sa > kMaxWindow) return false;
+  int s = a.start;
+  if (se > sa && sa >= 0 && se <= a.n) {
+    // aligned chunks; a chunk is loaded only when it holds a span byte
+    const uint8_t* p0 = a.data + sa;
+    const int r = (int)(reinterpret_cast<uintptr_t>(p0) & 15);
+    const uint4* q = reinterpret_cast<const uint4*>(p0 - r);
+    const uint4 zero = make_uint4(0, 0, 0, 0);
+    int left = se - sa, pos = sa;
+    uint4 cur = __ldg(q);
+    uint4 nxt = r + left > 16 ? __ldg(q + 1) : zero;
+#pragma unroll 1
+    for (;;) {
+      const uint4 ahead = r + left > 32 ? __ldg(q + 2) : zero;
+      uint32_t w[4];
+      window(cur, nxt, r, w);
+#pragma unroll
+      for (int k = 0; k < 16; ++k) {
+        if (k >= left) break;
+        uint32_t mask;
+        const int nx = tb.step(s, (w[k >> 2] >> (8 * (k & 3))) & 255, mask);
+        if (nx < 0) return false;
+        if (mask & keep) set_slots(row, mask & keep, pos + k);
+        s = nx;
+      }
+      if (left <= 16) break;
+      left -= 16;
+      pos += 16;
+      ++q;
+      cur = nxt;
+      nxt = ahead;
+    }
+  } else {
+    // a span reaching outside the corpus: each byte clamped to it
+#pragma unroll 1
+    for (int p = sa; p < se; ++p) {
+      const int c = p < 0 ? 0 : (p >= a.n ? a.n - 1 : p);
+      uint32_t mask;
+      const int nx = tb.step(s, a.n > 0 ? a.data[c] : 0, mask);
+      if (nx < 0) return false;
+      if (mask & keep) set_slots(row, mask & keep, p);
+      s = nx;
+    }
+  }
+  const int2 f = tb.fin[s];
+  if (f.x == 0) return false;
+  set_slots(row, (uint32_t)f.y & keep, se);
+  return true;
+}
+
 template <bool kShared>
-__global__ void __launch_bounds__(kThreads)
-    onepass_kernel(const int2* __restrict__ trans, const int2* __restrict__ fin,
-                   const int32_t* __restrict__ classes, int S, int C, int NS,
-                   int start, const uint8_t* __restrict__ data, int n,
-                   const int32_t* __restrict__ spans, int M,
-                   int32_t* __restrict__ slots, bool* __restrict__ ok) {
+__global__ void __launch_bounds__(kThreads) onepass_kernel(Args a) {
   extern __shared__ int4 smem[];
-  int32_t* sl = reinterpret_cast<int32_t*>(smem);   // [NS][kThreads]
-  int32_t* cls = sl + NS * kThreads;                 // [256]
-  int2* tr_s = reinterpret_cast<int2*>(cls + 256);   // [S * C], then [S]
-  for (int i = threadIdx.x; i < 256; i += kThreads) cls[i] = classes[i];
-  const int2* tr = trans;
-  const int2* fn = fin;
+  const int NS = a.NS, NSP = NS | 1;
+  int32_t* slab = reinterpret_cast<int32_t*>(smem);   // [kThreads][NSP]
+  int2* fin_s = reinterpret_cast<int2*>(slab + kThreads * NSP);
+  int2* tr_s = fin_s + a.S;
+  int32_t* cls = kShared ? reinterpret_cast<int32_t*>(tr_s + a.S * a.C)
+                         : reinterpret_cast<int32_t*>(fin_s);
+  for (int i = threadIdx.x; i < 256; i += kThreads) cls[i] = a.classes[i];
+  Tab tb{a.trans, cls, a.fin, a.C};
   if (kShared) {
-    const int nt = S * C;
-    for (int i = threadIdx.x; i < nt; i += kThreads) tr_s[i] = trans[i];
-    for (int i = threadIdx.x; i < S; i += kThreads) tr_s[nt + i] = fin[i];
-    tr = tr_s;
-    fn = tr_s + nt;
+    for (int i = threadIdx.x; i < a.S; i += kThreads) fin_s[i] = a.fin[i];
+    for (int i = threadIdx.x; i < a.S * a.C; i += kThreads)
+      tr_s[i] = a.trans[i];
+    tb.tr = tr_s;
+    tb.fin = fin_s;
   }
   __syncthreads();
-  const long long m = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (m >= M) return;
-  int32_t* mine = sl + threadIdx.x;
-  for (int i = 0; i < NS; ++i) mine[i * kThreads] = -1;
   const uint32_t keep = NS >= kMaxSlots ? ~0u : (1u << NS) - 1u;
-  const int a = spans[2 * m], e = spans[2 * m + 1];
-  bool good = false;
-  if ((long long)e - a <= kMaxWindow) {
-    int s = start;
-    int p = a;
-    bool dead = false;
+  int32_t* row = slab + threadIdx.x * NSP;
+  // the block's store: flat entry f = r * NS + i of its [rows, NS] slab
+  const int r0 = threadIdx.x / NS, i0 = threadIdx.x % NS;
+  const int dr = kThreads / NS, di = kThreads % NS;
+  const long long tiles = (a.M + kThreads - 1) / kThreads;
 #pragma unroll 1
-    for (; p < e; ++p) {
-      const int q = p < 0 ? 0 : (p >= n ? n - 1 : p);
-      const int2 t = tr[s * C + cls[n > 0 ? data[q] : 0]];
-      if (t.x < 0) {
-        dead = true;
-        break;
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const long long m0 = tile * kThreads, m = m0 + threadIdx.x;
+    for (int i = 0; i < NS; ++i) row[i] = -1;
+    if (m < a.M) {
+      const int2 sp = a.spans[m];
+      a.ok[m] = walk(tb, a, sp.x, sp.y, row, keep);
+    }
+    __syncthreads();
+    const int rows = (int)(a.M - m0 < kThreads ? a.M - m0 : kThreads);
+    int32_t* out = a.slots + m0 * NS;
+    int r = r0, i = i0;
+    for (int f = threadIdx.x; f < rows * NS; f += kThreads) {
+      out[f] = slab[r * NSP + i];
+      r += dr;
+      i += di;
+      if (i >= NS) {
+        i -= NS;
+        ++r;
       }
-      set_slots(mine, (uint32_t)t.y & keep, p);
-      s = t.x;
     }
-    if (!dead && p == e) {
-      const int2 f = fn[s];
-      good = f.x != 0;
-      if (good) set_slots(mine, (uint32_t)f.y & keep, p);
-    }
+    __syncthreads();
   }
-  int32_t* out = slots + m * NS;
-  for (int i = 0; i < NS; ++i) out[i] = mine[i * kThreads];
-  ok[m] = good;
 }
 
 template <bool kShared>
-int launch(const int2* trans, const int2* fin, const int32_t* classes, int S,
-           int C, int NS, int start, const uint8_t* data, int n,
-           const int32_t* spans, int M, int32_t* slots, bool* ok,
-           void* stream) {
-  const size_t smem = smem_bytes(S, C, NS, kShared);
+int launch(const Args& a, void* stream) {
+  const int smem = (int)smem_bytes(a.S, a.C, a.NS, kShared);
   auto kernel = onepass_kernel<kShared>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (int)(((long long)M + kThreads - 1) / kThreads);
-  kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-      trans, fin, classes, S, C, NS, start, data, n, spans, M, slots, ok);
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                  dev)) != cudaSuccess)
+    return (int)e;
+  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, kThreads, smem)) != cudaSuccess)
+    return (int)e;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const long long tiles = (a.M + kThreads - 1) / kThreads;
+  const int blocks = (int)(tiles < (long long)sms * per_sm
+                               ? tiles : (long long)sms * per_sm);
+  kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -137,8 +249,9 @@ extern "C" {
 
 // Capture slots of M spans [M, 2] over the corpus data[n] under a OnePass
 // DFA of S states and C classes with NS <= 32 slots; shared = 1 holds the
-// tables in shared memory (the caller checks that smem_bytes fits a block),
-// 0 reads them from global memory.
+// tables in shared memory (the caller checks that smem_bytes fits a
+// block), 0 reads them from global memory.  The spans' rows are 8-byte
+// aligned.
 int cgx_onepass_extract(const int32_t* trans, const int32_t* fin,
                         const int32_t* classes, int S, int C, int NS,
                         int start, int shared, const uint8_t* data, int n,
@@ -147,13 +260,12 @@ int cgx_onepass_extract(const int32_t* trans, const int32_t* fin,
   if (NS < 1 || NS > kMaxSlots || S < 1 || C < 1 || M < 0 || n < 0)
     return (int)cudaErrorInvalidValue;
   if (M == 0) return 0;
-  const int2* tr = reinterpret_cast<const int2*>(trans);
-  const int2* fn = reinterpret_cast<const int2*>(fin);
-  if (shared)
-    return launch<true>(tr, fn, classes, S, C, NS, start, data, n, spans, M,
-                        slots, ok, stream);
-  return launch<false>(tr, fn, classes, S, C, NS, start, data, n, spans, M,
-                       slots, ok, stream);
+  const Args a = {reinterpret_cast<const int2*>(trans),
+                  reinterpret_cast<const int2*>(fin), classes, S, C, NS,
+                  start, data, n, reinterpret_cast<const int2*>(spans), M,
+                  slots, ok};
+  if (shared) return launch<true>(a, stream);
+  return launch<false>(a, stream);
 }
 
 }  // extern "C"

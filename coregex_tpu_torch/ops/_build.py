@@ -70,8 +70,8 @@ _SIGNATURES = {
                              ctypes.POINTER(ctypes.c_int)],
     "cgx_onepass_extract": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P, _I,
                             _P, _P, _P],
-    "cgx_rows_match": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _P, _P,
-                       _P, _P],
+    "cgx_rows_match": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _P,
+                       _P, _P, _P],
     "cgx_rows_rev_start": [_P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _P, _P,
                            _P, _P],
 }

@@ -11,9 +11,12 @@ per power-of-two width bucket (:150-189).  Here the tables stay integers:
 transition goes to a dead state whose match_cond is 0, as the reference's
 sentinel row does.  The CUDA kernel, ``cgx_onepass_extract`` in
 ``csrc/onepass_scan.cu``, walks every span to its own end in one launch,
-one span a thread; the plain version, for CPU tensors, steps a state
-vector over the W + 1 columns of each power-of-two width bucket, as the
-reference's scan does.
+one span a thread of persistent blocks, reading the span's bytes in
+aligned 16-byte chunks and writing each block's slots as one coalesced
+slab; its tables sit in shared memory where they fit (``mode`` "class"),
+else in global memory ("global").  The plain version, for CPU tensors,
+steps a state vector over the W + 1 columns of each power-of-two width
+bucket, as the reference's scan does.
 
 Results equal the reference's ``extract``: slots [M, NS] (-1 unset) and
 ok [M], False for a lane that dies or ends in a non-match state and for
@@ -34,19 +37,23 @@ from .count_scan import SMEM_LIMIT, LaunchCounter
 
 MAX_WINDOW = 1 << 14
 ONEPASS_KERNEL = LaunchCounter("onepass_extract")
-THREADS = 128           # threads a block (onepass_scan.cu's kThreads)
+THREADS = 256           # threads a block (onepass_scan.cu's kThreads)
+MODES = ("global", "class")     # the tables in global or shared memory
 
 
 def smem_bytes(S: int, C: int, NS: int, shared_tables: bool) -> int:
     """Dynamic shared memory of a launch (onepass_scan.cu's smem_bytes):
-    the slots of the block's spans and the classes, and the tables when
-    they sit there."""
-    return 4 * (NS * THREADS + 256) + (8 * (S * C + S) if shared_tables
-                                       else 0)
+    the slot slab [THREADS, NS | 1] and the classes, and fin and trans
+    when the tables sit there."""
+    return (4 * THREADS * (NS | 1) + 4 * 256
+            + (8 * S + 8 * S * C if shared_tables else 0))
 
 
 class DeviceOnePass:
-    """A OnePass DFA's tables as int32 tensors on `device`."""
+    """A OnePass DFA's tables as int32 tensors on `device`.  ``mode`` is
+    the kernel's table mode, the first of ``modes`` (those these tables
+    allow): "class" holds them in shared memory, "global" reads them from
+    global memory."""
 
     def __init__(self, op: OnePassDFA, device):
         S, C = (int(x) for x in op.delta.shape)
@@ -73,7 +80,9 @@ class DeviceOnePass:
         self.device = self.classes.device       # "cuda" -> "cuda:0"
         # the tables sit in shared memory where they fit beside the slots;
         # past that the kernel reads them from global memory
-        self.shared = smem_bytes(S, C, self.NS, True) <= SMEM_LIMIT
+        self.modes = (("class",) if smem_bytes(S, C, self.NS, True)
+                      <= SMEM_LIMIT else ()) + ("global",)
+        self.mode = self.modes[0]
 
 
 def _check(d: DeviceOnePass, data, spans) -> None:
@@ -143,8 +152,13 @@ def onepass_plain(d: DeviceOnePass, data, spans):
 
 
 def onepass_cuda(d: DeviceOnePass, data, spans):
-    """cgx_onepass_extract on d's tables; onepass_plain's outputs."""
+    """cgx_onepass_extract on d's tables in d.mode; onepass_plain's
+    outputs."""
     _check(d, data, spans)
+    if spans.data_ptr() % 8:
+        raise ValueError("the kernel reads spans as 8-byte rows")
+    if d.mode not in d.modes:
+        raise ValueError(f"table mode {d.mode!r} not among {d.modes}")
     M = int(spans.shape[0])
     slots = torch.empty((M, d.NS), dtype=torch.int32, device=d.device)
     ok = torch.empty(M, dtype=torch.bool, device=d.device)
@@ -152,7 +166,7 @@ def onepass_cuda(d: DeviceOnePass, data, spans):
     with torch.cuda.device(d.device):
         rc = _build.lib().cgx_onepass_extract(
             p(d.trans), p(d.fin), p(d.classes), d.S, d.C, d.NS, d.start,
-            int(d.shared), p(data), int(data.numel()), p(spans), M,
+            MODES.index(d.mode), p(data), int(data.numel()), p(spans), M,
             p(slots), p(ok), _build.stream(d.device))
     _build.check(rc, "onepass_extract")
     return slots, ok

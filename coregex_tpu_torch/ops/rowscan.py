@@ -10,13 +10,24 @@ nfa/branch_dispatch.go:18-40 and nfa/firstbytes.go:8-41, for free).
 Row semantics: each row is its own text (SOT context at column 0, true EOI
 at its own length).  Padding beyond a row's length never contributes.
 
-Kernels (``csrc/row_scan.cu``, one row a thread, the DFA in shared memory):
+Kernels (``csrc/row_scan.cu``):
   cgx_rows_match      per-row "any match" flag and last flag position
                       (IsMatch and the forward ends of find_index_batch);
-                      ref. ``_rows_scan`` (:57-87)
+                      ref. ``_rows_scan`` (:57-87).  A block ranks a tile
+                      of 512 rows by length; each warp then takes 32 rows
+                      of like length at a time and stages their next 64
+                      columns into shared memory with cp.async (the pieces
+                      of rows still walking, two stages in flight); each
+                      thread walks its row from there, one table load a
+                      byte: the byte-indexed table ``RowTables.tbl_b``
+                      where it fits (mode "byte"), else the class-indexed
+                      one in shared ("class") or global memory ("global")
   cgx_rows_rev_start  per-row match starts for known ends: the reverse
-                      anchored pass of the two-pass find; ref.
-                      ``_rows_rev_scan`` (:90-127)
+                      anchored pass of the two-pass find, one row a thread
+                      read back in aligned 16-byte chunks, the
+                      class-indexed table in shared memory where it fits
+                      (``RowTables.shared``); ref. ``_rows_rev_scan``
+                      (:90-127)
 The plain versions, for CPU tensors, are the reference's column-lockstep
 scans in torch.  The reverse pass's entry states (the reverse DFA's start
 for the byte at each end, ref. :159-178, a Python loop over B there) are
@@ -71,16 +82,51 @@ def pack_rows(texts: Sequence[bytes]) -> Tuple[np.ndarray, np.ndarray]:
     return rows, out
 
 
+THREADS = 128           # threads a block (row_scan.cu's kThreads)
+# the warps' stages: kThreads / 32 warps x kStages (2) x 32 rows x
+# kStageRow (64 columns + 16) bytes
+STAGE_BYTES = THREADS // 32 * 2 * 32 * (64 + 16)
+BYTE_ROW = 260          # uint8 entries a byte-table row (kByteRow)
+BYTE_MAX_S = 128        # delta << 1 | match_on fits a byte (kByteMaxS)
+BYTE_SMEM = 48 << 10    # the byte-indexed table where a block's shared
+                        # memory stays within this (a few blocks an SM)
+MODES = ("global", "class", "byte")   # cgx_rows_match's mode numbers
+
+
 def smem_bytes(S: int, C: int, shared_tables: bool) -> int:
-    """Dynamic shared memory of a launch (row_scan.cu's smem_bytes)."""
+    """Dynamic shared memory of a cgx_rows_rev_start launch (row_scan.cu's
+    smem_bytes)."""
     return 4 * 256 + ((4 * S * C + (S + 15) // 16 * 16) if shared_tables
                       else 0)
+
+
+def match_smem_bytes(S: int, C: int, mode: str) -> int:
+    """Dynamic shared memory of a cgx_rows_match launch in a table mode
+    (row_scan.cu's match_smem_bytes): the warps' stages, match_eoi's
+    column, the table."""
+    b = STAGE_BYTES + (S + 15) // 16 * 16
+    if mode == "byte":
+        return b + S * BYTE_ROW
+    if mode == "class":
+        return b + 4 * S * C + 4 * 256
+    return b + 4 * 256
+
+
+def byte_table(tbl: np.ndarray, classes: np.ndarray) -> np.ndarray:
+    """tbl_b [S, BYTE_ROW] uint8 = tbl[s, classes[byte]] (delta << 1 |
+    match_on, S <= BYTE_MAX_S); the padding past byte 255 is 0."""
+    out = np.zeros((tbl.shape[0], BYTE_ROW), dtype=np.uint8)
+    out[:, :256] = tbl[:, classes]
+    return out
 
 
 class RowTables:
     """A dense DFA's tables on `device` for the row kernels: delta and
     match_on packed as delta << 1 | match_on [S, C] int32, match_eoi's SOT
-    column [S] uint8, classes [256] int32, starts [4] int32."""
+    column [S] uint8, classes [256] int32, starts [4] int32, and where it
+    fits the byte-indexed tbl_b [S, BYTE_ROW] uint8 (``byte_table``).  ``mode`` is cgx_rows_match's table mode, the
+    first of ``modes`` (those these tables allow); ``shared`` says whether
+    cgx_rows_rev_start holds the class-indexed table in shared memory."""
 
     def __init__(self, dense: DenseDFA, device):
         self.device = torch.device(device)
@@ -103,6 +149,15 @@ class RowTables:
                               and not eoi[DEAD])
         # past shared memory the kernels read the tables from global memory
         self.shared = smem_bytes(S, C, True) <= SMEM_LIMIT
+        self.tbl_b = None
+        if S <= BYTE_MAX_S and match_smem_bytes(S, C, "byte") <= BYTE_SMEM:
+            self.tbl_b = torch.from_numpy(
+                byte_table(packed, dense.classes)).to(self.device)
+        self.modes = tuple(m for m, ok in (
+            ("byte", self.tbl_b is not None),
+            ("class", match_smem_bytes(S, C, "class") <= SMEM_LIMIT),
+            ("global", True)) if ok)
+        self.mode = self.modes[0]
 
 
 # the reverse pass's entry context of each byte value (DenseDFA.context_of)
@@ -189,18 +244,21 @@ def _check_chunks(rows) -> None:
 
 
 def rows_match_cuda(tb: RowTables, rows, lens):
-    """cgx_rows_match on tb's tables; rows_match_plain's outputs."""
+    """cgx_rows_match on tb's tables in tb.mode; rows_match_plain's
+    outputs."""
     _check(tb, rows, [("lens", lens)])
     _check_chunks(rows)
+    if tb.mode not in tb.modes:
+        raise ValueError(f"table mode {tb.mode!r} not among {tb.modes}")
     B, L = (int(x) for x in rows.shape)
     found = torch.empty(B, dtype=torch.bool, device=tb.device)
     last = torch.empty(B, dtype=torch.int32, device=tb.device)
     p = _build.ptr
     with torch.cuda.device(tb.device):
         rc = _build.lib().cgx_rows_match(
-            p(tb.tbl), p(tb.eoi), p(tb.classes), tb.S, tb.C, tb.start,
-            int(tb.stop_dead), int(tb.shared), p(rows), B, L, p(lens),
-            p(found), p(last), _build.stream(tb.device))
+            p(tb.tbl), p(tb.eoi), p(tb.classes), p(tb.tbl_b), tb.S, tb.C,
+            tb.start, int(tb.stop_dead), MODES.index(tb.mode), p(rows), B,
+            L, p(lens), p(found), p(last), _build.stream(tb.device))
     _build.check(rc, "rows_match")
     return found, last
 

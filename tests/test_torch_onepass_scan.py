@@ -13,9 +13,13 @@ package on the CPU, with tolerance 0.
   ``_batch_captures`` serving on both sides (the reference's spans from its
   host walk, whose device find_all takes seconds to trace here, but once
   on its device path); what stays on the host (fewer than 64 spans,
-  leftmost-longest, a pattern that is not one-pass).
+  leftmost-longest, a pattern that is not one-pass);
+* the kernel's contract: the wrapper's constants and shared memory
+  against ``csrc/onepass_scan.cu``'s, its table modes (shared memory
+  where the tables fit, global memory past it).
 """
 
+import pathlib
 import re
 
 import numpy as np
@@ -145,7 +149,7 @@ def test_tables_and_wrapper_contract():
     np.testing.assert_array_equal(d.trans[..., 0].numpy(), op.delta)
     np.testing.assert_array_equal(
         d.trans[..., 1].numpy().view(np.uint32), op.slotmask)
-    assert d.shared and d.NS == op.num_slots == 10
+    assert d.mode == "class" and d.NS == op.num_slots == 10
     # past shared memory the kernel reads the tables from global memory
     assert not ops.smem_bytes(4096, 64, 32, True) <= ops.SMEM_LIMIT
     data = torch.zeros(16, dtype=torch.uint8)
@@ -230,3 +234,39 @@ def test_host_cases_stay_on_host(case):
         ref.find_all_submatch_index(text)
     assert eng.replace_all(text, b"<$1|$2>") == \
         ref.replace_all(text, b"<$1|$2>")
+
+
+CSRC = pathlib.Path(ops.__file__).resolve().parent.parent / "csrc"
+
+
+def _constants(source: str):
+    text = (CSRC / source).read_text()
+    return {k: (1 << int(v) if sh else int(v)) for k, sh, v in re.findall(
+        r"constexpr int (k\w+) = (1 << )?(\d+);", text)}
+
+
+@pytest.mark.parametrize("pattern", [IP, r"([a-z]+)=(\d+)", r"a{300}(b)"])
+def test_smem_and_mode_choice_follow_the_kernel(pattern):
+    """The wrapper's constants are onepass_scan.cu's, its shared memory
+    sums the slab (NS | 1 words a thread) and the classes, and fin and
+    trans in shared memory; the mode holds the tables in shared memory
+    where they fit (the bench's capture patterns, and a one-pass DFA of
+    302 states), else in global memory; the kernel takes either."""
+    k = _constants("onepass_scan.cu")
+    assert (k["kThreads"], k["kMaxWindow"], k["kMaxSlots"]) == (
+        ops.THREADS, ops.MAX_WINDOW, ops.MAX_SLOTS)
+    assert ops.MODES == ("global", "class")
+    slab = 4 * ops.THREADS * 11
+    assert ops.smem_bytes(8, 3, 10, False) == slab + 1024
+    assert ops.smem_bytes(8, 3, 10, True) == slab + 1024 + 64 + 192
+    # NS = 32 keeps an odd row stride: 33 words
+    assert ops.smem_bytes(1, 1, 32, False) == 4 * 256 * 33 + 1024
+    d = ops.DeviceOnePass(_ops(pattern)[1], "cpu")
+    assert d.modes == ("class", "global") and d.mode == "class"
+    assert ops.smem_bytes(d.S, d.C, d.NS, True) <= ops.SMEM_LIMIT
+    # 4096 states (dfa/onepass.py's cap) of 64 classes: global memory only
+    assert not ops.smem_bytes(4096, 64, 32, True) <= ops.SMEM_LIMIT
+    d.mode = "byte"
+    with pytest.raises(ValueError, match="table mode"):
+        ops.onepass_cuda(d, torch.zeros(16, dtype=torch.uint8),
+                         torch.zeros((4, 2), dtype=torch.int32))

@@ -11,9 +11,14 @@ tolerance 0.
   reference's per-row ``DenseDFA.context_of`` loop, at ends before word
   bytes, newlines, other bytes and the row's end, and at no end (-1);
 * the engine: ``is_match_batch`` and ``find_index_batch`` against the
-  reference engine and ``re``; leftmost-longest stays on the host loop.
+  reference engine and ``re``; leftmost-longest stays on the host loop;
+* the forward kernel's tables: the byte-indexed ``tbl_b`` against
+  ``tbl[s, classes[byte]]`` for every state and byte, the table modes
+  (byte-indexed, class-indexed, global) and the shared memory against
+  ``csrc/row_scan.cu``'s constants.
 """
 
+import pathlib
 import re
 
 import numpy as np
@@ -137,6 +142,71 @@ def test_tables_and_wrapper_contract():
         rs.rows_match(tb, rows.t(), lens)
     with pytest.raises(ValueError):
         rs.rows_rev_start(tb, rows, lens[:4], lens)
+
+
+# a DFA of more states than the byte-indexed table takes (514)
+BIG = r"(a|b)*a(a|b){7}"
+CSRC = pathlib.Path(rs.__file__).resolve().parent.parent / "csrc"
+
+
+@pytest.mark.parametrize("pattern", PATTERNS + [BIG])
+def test_byte_table_matches_class_table(pattern):
+    """tbl_b[s, byte] = tbl[s, classes[byte]] for every state and byte of
+    the forward DFA (the bench's row patterns are PATTERNS' `\\d+\\.\\d+`
+    and `\\berror\\b`), where the table fits; the mode falls back to the
+    class-indexed table otherwise."""
+    eng = ct.compile(pattern, device="cpu")
+    tb = rs.RowTables(eng.fwd, "cpu")
+    S = eng.fwd.delta.shape[0]
+    packed = (eng.fwd.delta.astype(np.int64) << 1) | eng.fwd.match_on
+    if pattern == BIG:
+        assert S > rs.BYTE_MAX_S and tb.tbl_b is None
+        assert tb.modes == ("class", "global") and tb.mode == "class"
+        return
+    assert tb.modes == ("byte", "class", "global") and tb.mode == "byte"
+    b = tb.tbl_b.numpy()
+    assert tb.tbl_b.dtype == torch.uint8 and b.shape == (S, rs.BYTE_ROW)
+    assert not b[:, 256:].any()
+    np.testing.assert_array_equal(b[:, :256],
+                                  packed[:, eng.fwd.classes])
+    np.testing.assert_array_equal(
+        rs.byte_table(tb.tbl.numpy(), tb.classes.numpy()), b)
+
+
+def test_smem_and_mode_choice_follow_the_kernel():
+    """The wrapper's constants are row_scan.cu's, cgx_rows_match's shared
+    memory sums the warps' stages, match_eoi's column and the table of
+    each mode, and the mode is the byte-indexed table where S <= 128 and
+    a block stays within BYTE_SMEM, the class-indexed one within
+    SMEM_LIMIT, else global memory."""
+    text = (CSRC / "row_scan.cu").read_text()
+    k = {n: int(v) for n, v in re.findall(
+        r"constexpr int (k\w+) = (\d+);", text)}
+    assert k["kThreads"] == rs.THREADS and k["kByteRow"] == rs.BYTE_ROW
+    assert k["kByteMaxS"] == rs.BYTE_MAX_S
+    # kStageRow = kCols + 16
+    assert rs.STAGE_BYTES == (k["kThreads"] // 32) * k["kStages"] * 32 * \
+        (k["kCols"] + 16)
+    assert rs.MODES == ("global", "class", "byte")
+    st = rs.STAGE_BYTES
+    assert rs.match_smem_bytes(7, 3, "global") == st + 16 + 1024
+    assert rs.match_smem_bytes(7, 3, "class") == st + 16 + 84 + 1024
+    assert rs.match_smem_bytes(17, 3, "byte") == st + 32 + 17 * 260
+    # 128 states would leave room for fewer blocks an SM than BYTE_SMEM
+    assert rs.match_smem_bytes(106, 9, "byte") <= rs.BYTE_SMEM < \
+        rs.match_smem_bytes(rs.BYTE_MAX_S, 9, "byte")
+    # the reverse kernel's shared memory is as before
+    assert rs.smem_bytes(7, 3, True) == 1024 + 84 + 16
+    for pattern, mode in ((r"\d+\.\d+", "byte"), (BIG, "class")):
+        tb = rs.RowTables(ct.compile(pattern, device="cpu").fwd, "cpu")
+        assert tb.mode == mode and tb.shared
+    # a DFA of 20,000 states and 16 classes: global memory for both
+    assert rs.match_smem_bytes(20000, 16, "class") > rs.SMEM_LIMIT
+    tb = rs.RowTables(ct.compile(r"\d+", device="cpu").fwd, "cpu")
+    tb.mode = "wide"
+    with pytest.raises(ValueError, match="table mode"):
+        rs.rows_match_cuda(tb, torch.zeros((8, 16), dtype=torch.uint8),
+                           torch.zeros(8, dtype=torch.int32))
 
 
 @pytest.mark.parametrize("pattern", PATTERNS)
