@@ -76,10 +76,16 @@ Phases (any failure exits non-zero before the final line):
                of n % 16 != 0 bytes at byte offset 3), and the row scans
                (cgx_rows_match, cgx_rows_rev_start) on the first 2^20 lines
                of the corpus packed to [2^20, 256]; the OnePass walk and
-               the forward row scan in every table mode their tables allow
-               (byte-indexed and class-indexed shared, global)
+               both row scans in every table mode their tables allow
+               (byte-indexed and class-indexed shared, global), the
+               reverse scan also from edge ends (0, L, on and beside
+               16-byte boundaries) and from none; the all-entries
+               transfer walk (cgx_transfer_walk) in both modes, on the
+               4 MiB sample for the 13 bench patterns and on the whole
+               corpus in MESH_SHARDS shards for ip, with its rate of
+               table steps
   4. e2e     - the public API on a 1536 MiB log corpus (the JAX package's
-               bench corpus), in seven runs, each with the launch counts
+               bench corpus), in eight runs, each with the launch counts
                set to 0 before it and read after it.  Earlier slices: count for
                the 13 bench patterns and for `0\.0` (whose hits overlap,
                so K6 hands over to K7, with K7's repair passes printed),
@@ -149,13 +155,23 @@ Phases (any failure exits non-zero before the final line):
                device memory; find_all_submatch_index and replace_all with
                "[$2:$1]" on 256 MiB against re; is_match_batch and
                find_index_batch of `\d+\.\d+` and `\berror\b` on 2^20
-               lines against re per row, with the share of pack_rows
+               lines against re per row, with the share of pack_rows.
+               Multi-device (phase_e2e_multi, a virtual mesh of
+               MESH_SHARDS shards on the card): the sharded count of the
+               13 bench patterns against K1 on that mesh and on one of
+               one shard (also on n % 4 != 0 bytes), the find_all of
+               `\b\d+\b` and `\berror\b` with default_mesh replaced
+               (the Engine's _sharded_starts hook) against the tiled
+               oracle, make_sharded_ends against the single-device
+               starts, distributed_count in a world of one process under
+               NCCL, the phase probe's three times
   5. routes  - every kernel K1-K7 was launched in the first run, K1-K4 and
                K8 in the second, K9 and the window scan's ends form in the
                third, K4 and K10 in the fourth, K9, the ends form, K4 and
                K8 in the fifth, the bitset scan, the ends form and K4 in
                the sixth, the OnePass walk, both row scans and K2-K4 in
-               the seventh, and no call was declined to the host loop but
+               the seventh, the transfer walk in both modes, K9 and K8
+               in the eighth, and no call was declined to the host loop but
                the nullable find_index (the reference's FALLBACK, by
                design)
 
@@ -291,6 +307,10 @@ CAPTURE_TEMPLATE = (b"[$2:$1]", rb"[\2:\1]")    # Go's form, re's form
 ROWS = 1 << 20
 ROW_PATTERNS = [("digits_dot", r"\d+\.\d+"), ("word_error", r"\berror\b")]
 SLICE_MS = {}   # phase 3's kernel ms of the slice's shapes, for phase 4
+MESH_SHARDS = 4     # shards of the virtual mesh on the one card
+TRANSFER_MAIN = "ip"    # the transfer walk's whole-corpus pattern
+MULTI_ODD = ("ip", "multi_literal32")   # also counted on n % 4 != 0 bytes
+MULTI_FIND_ALL = [("word_digits", r"\b\d+\b"), ("word_error", r"\berror\b")]
 # the single-match slice: the bench patterns and these
 SINGLE_EXTRA = [("ws_digit_ws", r"\s\d\s"), ("ab_plus_c", r"(a|b)+c"),
                 ("ws_digits_ws", r"\s\d+\s"), ("a_word_end", r"a\b"),
@@ -882,6 +902,8 @@ def phase_kernels(base: bytes, corpus: np.ndarray):
     # the OnePass walk on the capture patterns' spans of the whole corpus,
     # the row scans on the ROWS lines
     capture_row_kernels(compare, base, corpus)
+    # the all-entries transfer walk of the sharded scans, both modes
+    transfer_kernels(compare, base, corpus)
 
     # K10 on the compaction rig's mask (256 MiB at density 1/200, seed 11)
     # at its three row counts: R = 128 with no payload, R = 256 with two
@@ -2426,12 +2448,37 @@ def capture_row_kernels(compare, base: bytes, corpus: np.ndarray) -> None:
         back = row_walk_bytes(rb.rev, rt, s0, ends.clamp(min=0), ends)
         print(f"[kernels] rows        {name}: the walks need {ahead} bytes "
               f"forward, {back} back (rows hold {int(lens.sum())})")
-        SLICE_MS[("rows_rev_start", name)] = compare(
-            "rows_rev_start", f"{name} {int(found.sum())} ends",
-            lambda: (rs.rows_rev_cuda(rb.rev, rt, ends, s0),),
-            lambda: (rs.rows_rev_plain(rb.rev, rt, ends, s0),),
-            headline=i == 0, in_bytes=back + nbytes(ends, s0) + nbytes(
-                rb.rev.tbl, rb.rev.eoi, rb.rev.classes))
+        print(f"[kernels] rows        {name}: reverse S={rb.rev.S} "
+              f"C={rb.rev.C}, modes {'/'.join(rb.rev.modes)}")
+
+        def backward(mode, chosen):
+            ms = compare(
+                "rows_rev_start", f"{name} {int(found.sum())} ends {mode}",
+                lambda: (rs.rows_rev_cuda(rb.rev, rt, ends, s0),),
+                lambda: (rs.rows_rev_plain(rb.rev, rt, ends, s0),),
+                headline=i == 0 and chosen,
+                in_bytes=back + nbytes(ends, s0) + nbytes(
+                    rb.rev.tbl, rb.rev.eoi, rb.rev.classes))
+            if chosen:
+                SLICE_MS[("rows_rev_start", name)] = ms
+        each_mode(rb.rev, backward)
+        if i == 0:
+            # edge rows at the same shape: ends 0 and L, on 16-byte
+            # boundaries and beside them, none; then no row with an end
+            L = int(rt.shape[1])
+            B = int(rt.shape[0])
+            edge = torch.tensor([0, L, 16, 32, L - 16, 1, 15, 17, 48, -1],
+                                dtype=torch.int32, device=dev).repeat(
+                                    B // 10 + 1)[:B].contiguous()
+            for what, e in (("edge ends", edge),
+                            ("no ends", torch.full_like(ends, -1))):
+                se = rs.rev_start_states(rb.rev, rt, lt, e)
+                each_mode(rb.rev, lambda mode, chosen: compare(
+                    "rows_rev_start", f"{name} {what} {mode}",
+                    lambda: (rs.rows_rev_cuda(rb.rev, rt, e, se),),
+                    lambda: (rs.rows_rev_plain(rb.rev, rt, e, se),),
+                    reps=3))
+            del edge, se
         del rt, lt, found, last, ends, s0
     torch.cuda.empty_cache()
     print(f"[kernels] captures and rows: "
@@ -2579,6 +2626,255 @@ def phase_e2e_captures_rows(base: bytes, arr: np.ndarray):
     return routes
 
 
+def virtual_mesh(D: int):
+    """A mesh of D shards, all on the one card."""
+    from coregex_tpu_torch.parallel.shard import Mesh
+    return Mesh([DEVICE] * D)
+
+
+def transfer_kernels(compare, base: bytes, corpus: np.ndarray) -> None:
+    """cgx_transfer_walk against transfer_walk_plain in both modes (the
+    DFA mode over the unanchored forward DFA's match table, the count mode
+    over the count transducer's table): on the 4 MiB sample for the 13
+    bench patterns as one shard, and on the whole corpus cut into
+    MESH_SHARDS shards of a virtual mesh on the card for TRANSFER_MAIN, the
+    split sub_lanes picks each time; with the rate of table steps (S x n
+    over the kernel's time)."""
+    import torch
+    import coregex_tpu_torch as ct
+    from coregex_tpu_torch.ops import transfer_scan as ts
+    from coregex_tpu_torch.ops.dfa_scan import DFATables, MatchTables
+
+    t_start = time.perf_counter()
+    dev = torch.device(DEVICE)
+    n = 4 * 1024 * 1024
+    sample = base[:base.rfind(b"\n", 0, n) + 1]
+    small = torch.from_numpy(np.frombuffer(sample, np.uint8).copy()).to(dev)
+
+    def case(name, mode, data, D, headline):
+        be = ct.compile(PATTERNS[name], device=DEVICE).batch_engine()
+        if mode == ts.MODE_DFA:
+            t = MatchTables(DFATables.from_dense(be._dense("fwd_all")),
+                            DEVICE)
+        else:
+            t = be._count_scanner().dcd
+        S = int(t.packed.shape[0])
+        m = int(data.shape[0]) // D
+        G = ts.sub_lanes(S, m, D)
+        kind = ts.COUNTERS[mode].name
+        ms = compare(kind, f"{name} {int(data.shape[0]) / 2 ** 20:.0f} MiB "
+                           f"D={D}",
+                     lambda: ts.transfer_walk_cuda(t.packed, t.segmap, data,
+                                                   m, D, G),
+                     lambda: ts.transfer_walk_plain(t.packed, t.segmap,
+                                                    data, m, D, G),
+                     headline=headline,
+                     in_bytes=int(data.shape[0]) + nbytes(t.packed,
+                                                          t.segmap))
+        steps = S * int(data.shape[0])
+        print(f"[kernels] {kind:14} {name}: S={S} NSEG="
+              f"{int(t.packed.shape[1])}, {D} shard(s) x G={G} pieces of "
+              f"{ts.piece_len(m, G)} bytes, {S * D * G} walkers, {steps} "
+              f"table steps: {steps / ms / 1e9:.2f} G steps/ms (at "
+              f"{time.perf_counter() - t_start:.1f} s)", flush=True)
+        if headline:
+            SLICE_MS[(kind, name)] = ms
+
+    for mode in (ts.MODE_DFA, ts.MODE_COUNT):
+        for name, _ in CONFIGS:
+            case(name, mode, small, 1, False)
+    del small
+    big = torch.from_numpy(corpus[:len(corpus) // MESH_SHARDS
+                                  * MESH_SHARDS]).to(dev)
+    for mode in (ts.MODE_DFA, ts.MODE_COUNT):
+        case(TRANSFER_MAIN, mode, big, MESH_SHARDS, True)
+    del big
+    torch.cuda.empty_cache()
+    print(f"[kernels] transfer walk: {time.perf_counter() - t_start:.1f} s")
+
+
+def phase_e2e_multi(base: bytes, arr: np.ndarray):
+    """The multi-device layer at the main path's width, on a virtual mesh
+    of MESH_SHARDS shards on the card (the one card's own mesh holds one
+    device, so the Engine's hooks are off unless a mesh is substituted):
+    ShardedGoCount.count of the 13 bench patterns on that mesh and on a
+    mesh of 1 against the single-device count (K1), also on n % 4 != 0
+    bytes for MULTI_ODD; the Engine's find_all of MULTI_FIND_ALL with
+    ``default_mesh`` replaced by the virtual mesh (the _sharded_starts hook
+    over make_sharded_ends, or its decline when a shard's starts overflow
+    the reference's buffer) against the tiled oracle; make_sharded_ends of
+    the first at a buffer that holds its starts against the single-device
+    starts; distributed_count in a world of one process under NCCL (a
+    file:// rendezvous) against K9's flag count; ShardedPhaseProbe's three
+    phases.  The comparisons' own K1 and K9 launches are not counted."""
+    import os
+    import shutil
+    import tempfile
+    import torch
+    import coregex_tpu_torch as ct
+    from coregex_tpu_torch.dfa.dense import CTX_SOT
+    from coregex_tpu_torch.ops.count_scan import COUNT_KERNEL
+    from coregex_tpu_torch.ops.dfa_scan import (MATCH_KERNEL, DFATables,
+                                                exit_at_end,
+                                                flags_count_upto)
+    from coregex_tpu_torch.parallel import distributed, shard
+    from coregex_tpu_torch.parallel.sharded_count import (
+        ShardedGoCount, ShardedPhaseProbe)
+    from coregex_tpu_torch.utils.corpus_cache import (device_corpus,
+                                                      device_corpus_flipped)
+
+    def oracle(fn):
+        """fn() with the K1 and K9 launches it makes left uncounted."""
+        saved = COUNT_KERNEL.launches, MATCH_KERNEL.launches
+        out = fn()
+        COUNT_KERNEL.launches, MATCH_KERNEL.launches = saved
+        return out
+
+    def best_of(fn, k=2):
+        out = fn()
+        best = float("inf")
+        for _ in range(k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            best = min(best, time.perf_counter() - t0)
+        return out, best
+
+    B = len(base)
+    n = len(arr)
+    reps = n // B
+    D = MESH_SHARDS
+    dev = device_corpus(arr, DEVICE)
+    odd_n = n - 1 if (n - 1) % D else n - 2
+    meshes = {D: virtual_mesh(D), 1: virtual_mesh(1)}
+    routes = {}
+    print(f"[multi] corpus {n} bytes (n % {D} = {n % D}); virtual mesh of "
+          f"{D} shards on {DEVICE}, and of 1", flush=True)
+    for name, pattern in CONFIGS:
+        eng = ct.compile(pattern, device=DEVICE)
+        be = eng.batch_engine()
+        sc = be._count_scanner()
+        if not sc:
+            fail(f"{name}: no count transducer")
+        want, k1 = oracle(lambda: best_of(lambda: sc.count(dev)))
+        line = (f"[multi] {name:16} S={sc.cd.num_states:3} K1 {want:>10} "
+                f"({k1 * 1e3:.1f} ms)")
+        for k, mesh in meshes.items():
+            shc = ShardedGoCount(sc.cd, mesh)
+            got, wall = best_of(lambda: shc.count(dev))
+            if got != want:
+                fail(f"{name}: sharded count on {k} shard(s) {got} != K1 "
+                     f"{want}")
+            line += f" | {k} shard(s) equal ({wall * 1e3:.1f} ms)"
+        if name in MULTI_ODD:
+            part = dev[:odd_n]
+            want = oracle(lambda: sc.count(part))
+            got = ShardedGoCount(sc.cd, meshes[D]).count(part)
+            if got != want:
+                fail(f"{name}: sharded count of {odd_n} bytes {got} != K1 "
+                     f"{want}")
+            line += f" | {odd_n} bytes (n % {D} = {odd_n % D}) equal"
+        print(line, flush=True)
+        routes[f"{name} multi-device"] = be.host_routes
+    rng = np.random.default_rng(17)
+    saved = shard.default_mesh
+    shard.default_mesh = (lambda n_devices=None, device=None, axis="data":
+                          shard.Mesh([device] * D, axis))
+    try:
+        for name, pattern in MULTI_FIND_ALL:
+            inner, tail = tiled_spans(oracle_spans(pattern, base), B, reps)
+            be = ct.compile(pattern, device=DEVICE).batch_engine()
+            served = []
+            hook = be._sharded_starts
+
+            def spy(rev, data, hook=hook, served=served):
+                served.append(hook(rev, data))
+                return served[-1]
+            be._sharded_starts = spy
+            line = check_find_all(
+                name, be, arr, tiled_digest(inner, tail, B, reps, rng),
+                kernels=[("K9", MATCH_KERNEL)])
+            if not served:
+                fail(f"{name}: find_all did not reach the _sharded_starts "
+                     f"hook")
+            how = ("served by _sharded_starts" if served[-1] is not None
+                   else f"_sharded_starts declined: a shard's starts "
+                   f"overflow max(4096, n // 256) = {max(4096, n // 256)}")
+            print(f"[multi] {name:12} {line} | {how}", flush=True)
+            if name == "word_error" and served[-1] is None:
+                fail(f"{name}: the _sharded_starts hook declined")
+            routes[f"{name} multi-device"] = be.host_routes
+    finally:
+        shard.default_mesh = saved
+    # make_sharded_ends at a buffer that holds every start, against the
+    # single-device starts of the same reverse scan
+    name, pattern = MULTI_FIND_ALL[0]
+    be = ct.compile(pattern, device=DEVICE).batch_engine()
+    rev = be._chunk_scanner("rev_all")
+    starts, m, ok = oracle(lambda: be._all_starts(rev, arr))
+    flipped = device_corpus_flipped(arr, DEVICE)
+    if n % D:
+        flipped = torch.cat([flipped, flipped.new_zeros(-n % D)])
+    fn = shard.make_sharded_ends(meshes[D], rev.tables, m + 16)
+    (pos, cnt), wall = best_of(lambda: fn(flipped), 1)
+    got = n - pos[pos < n].flip(0)
+    at0 = m - int(got.numel())
+    if not bool(ok) or at0 not in (0, 1) or not torch.equal(
+            got.to(torch.int32), starts[at0:m]):
+        fail(f"{name}: make_sharded_ends' starts differ from the single "
+             f"device's ({int(got.numel())} vs {m})")
+    print(f"[multi] {name:12} make_sharded_ends on {D} shards, cap "
+          f"{m + 16}: {int(got.numel())} starts (shards {cnt.tolist()}) "
+          f"equal the single device's ({wall * 1e3:.1f} ms)", flush=True)
+    del starts, flipped, pos, got
+    # distributed_count in a world of one process under NCCL
+    tmp = tempfile.mkdtemp(prefix="coregex_nccl_")
+    try:
+        t0 = time.perf_counter()
+        distributed.initialize("file://" + os.path.join(tmp, "rendezvous"),
+                               1, 0, backend="nccl")
+        be = ct.compile(r"\d+\.\d+", device=DEVICE).batch_engine()
+        tables = DFATables.from_dense(be._dense("fwd_all"))
+        cut = n - n % D
+        got = distributed.distributed_count(
+            tables, dev[:cut], shard.Mesh([DEVICE] * D, "data", 1, 0))
+        wall = time.perf_counter() - t0
+        sc = be._chunk_scanner("fwd_all")
+
+        def k9():
+            scan = sc.scan_device(dev[:cut])
+            return int(flags_count_upto(scan)) + int(
+                tables.match_eoi[int(exit_at_end(scan)), CTX_SOT])
+        want = oracle(k9)
+        if got != want:
+            fail(f"distributed_count {got} != K9's flag count {want}")
+        print(f"[multi] distributed_count of \\d+\\.\\d+ under "
+              f"{torch.distributed.get_backend()} (world "
+              f"{torch.distributed.get_world_size()}, {D} shards): {got} "
+              f"ends equal K9's ({wall:.2f} s with the rendezvous)",
+              flush=True)
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    # the probe's three phases
+    be = ct.compile(PATTERNS[TRANSFER_MAIN], device=DEVICE).batch_engine()
+    cd = be._count_scanner().cd
+    r = ShardedPhaseProbe(cd, meshes[D]).measure(dev, reps=3)
+    if n % D == 0 and r["count"] != ShardedGoCount(cd, meshes[D]).count(dev):
+        fail(f"probe count {r['count']} differs from the sharded count")
+    print(f"[multi] ShardedPhaseProbe {TRANSFER_MAIN} on {D} shards: phase 1 "
+          f"{r['phase1_scan'] * 1e3:.3f} ms, collective "
+          f"{r['collective'] * 1e3:.3f} ms, phase 2 "
+          f"{r['phase2_fold'] * 1e3:.3f} ms (count {r['count']}); kernels "
+          f"(phase 3): transfer_walk "
+          f"{SLICE_MS[('transfer_walk', TRANSFER_MAIN)]:.3f} ms, "
+          f"transfer_count "
+          f"{SLICE_MS[('transfer_count', TRANSFER_MAIN)]:.3f} ms",
+          flush=True)
+    return routes
+
+
 def main():
     card = phase_device()
     import torch
@@ -2589,7 +2885,8 @@ def main():
     from coregex_tpu_torch.ops import (compact, compact2, compact_exp,
                                        count_scan, dfa_scan, flag_scan,
                                        line_scan, nfa_scan, onepass_scan,
-                                       rowscan, seq_scan, span_scan)
+                                       rowscan, seq_scan, span_scan,
+                                       transfer_scan)
     ops = "coregex_tpu/ops/"
     counters = [
         (count_scan.COUNT_KERNEL, "lane_scan.cu", ops + "count_scan.py:211"),
@@ -2618,6 +2915,12 @@ def main():
          ops + "onepass_scan.py:84"),
         (rowscan.ROWS_KERNEL, "row_scan.cu", ops + "rowscan.py:57"),
         (rowscan.ROWS_REV_KERNEL, "row_scan.cu", ops + "rowscan.py:90"),
+        # the multi-device layer's phase 1: the lax.scans of the sharded
+        # scan and of the sharded count, no Pallas kernel
+        (transfer_scan.TRANSFER_KERNEL, "transfer_scan.cu",
+         "coregex_tpu/parallel/shard.py:37"),
+        (transfer_scan.TRANSFER_COUNT_KERNEL, "transfer_scan.cu",
+         "coregex_tpu/parallel/sharded_count.py:83"),
     ]
     # kernels each run of phase 4 must launch: the earlier slices' path,
     # then the class-run and nullable path (K1 for the `\w*` count, K2/K3
@@ -2629,8 +2932,9 @@ def main():
     # ALL_EMPTY), then BITSET_NFA (the bitset scan for the starts and
     # is_match, the ends form, K4 for the starts and the chain), then the
     # captures and row batches (the OnePass walk, both row scans, K2-K4 for
-    # the capture patterns' bidi spans); the flags form has no caller on a
-    # user path (its checks are phase 3's)
+    # the capture patterns' bidi spans), then the multi-device layer (the
+    # transfer walk in both modes, K9 and K8 for the sharded ends); the
+    # flags form has no caller on a user path (its checks are phase 3's)
     paths = [("earlier slices", phase_e2e,
               [c for c, _, _ in counters[:7]]),
              ("class runs and nullable", phase_e2e_class_nullable,
@@ -2644,7 +2948,9 @@ def main():
              ("BITSET_NFA", phase_e2e_bitset,
               [counters[i][0] for i in (12, 11, 3)]),
              ("captures and row batches", phase_e2e_captures_rows,
-              [counters[i][0] for i in (13, 14, 15, 1, 2, 3)])]
+              [counters[i][0] for i in (13, 14, 15, 1, 2, 3)]),
+             ("multi-device", phase_e2e_multi,
+              [counters[i][0] for i in (16, 17, 8, 7)])]
     build_s = phase_build()
     base = build_base()
     corpus = bench_corpus(base)

@@ -52,12 +52,23 @@
 // memory (a DFA up to the determinizer's state limit).  Each block copies
 // its tables once; its warps share no barrier after the rank.
 //
-// cgx_rows_rev_start keeps one row a thread, reading its row back from the
-// end in aligned 16-byte chunks (an aligned uint4 of the row: L is a
-// multiple of 16 and the matrix 16-byte aligned, which RowBatch.upload and
-// the wrappers see to), with the class-indexed table in shared memory where
-// it fits (delta << 1 | match_on [S, C] int32, match_eoi's SOT column [S]
-// as bytes, classes [256]) and in global memory otherwise.
+// cgx_rows_rev_start walks few bytes a row (on the bench's lines
+// `\d+\.\d+`'s reverse walks read 4.5 bytes on average: each dies within its
+// number), so the forward scan's stages buy nothing there (measured slower)
+// and its time goes to reaching the rows that have an end, a third of them
+// or fewer.  A block takes a tile of kRevTile rows, answers at once the
+// rows with no end (-1) and those with nothing to walk (end 0: the EOI flag
+// of their entry state), and ranks the others by min(end, L), longest first
+// (the forward scan's 8-byte buckets); its warps then claim 32 ranked rows
+// at a time from a shared counter, so that no warp holds an idle row, and
+// each lane walks its row back from the aligned 16-byte chunk that holds
+// byte end - 1, loading the next chunk down when the walk reaches it, with
+// cgx_rows_match's tables in the same three modes and no stages.  A row
+// whose end lies past L reads byte L - 1 for the positions at or past L, as
+// the reference's clamp does; nothing the port calls makes such an end.
+// Its result is the lowest flagged position plus one, or 0 where the exit
+// state's EOI flag is set (the reference's last = max(last, end): start =
+// end - last).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -70,113 +81,27 @@ constexpr int kPieces = kCols / 16;    // 16-byte pieces of a staged row
 constexpr int kStageRow = kCols + 16;  // bytes between a warp's staged rows
 constexpr int kStages = 2;         // stages a warp, in flight together
 constexpr int kWarpStage = 32 * kStageRow;
+constexpr int kStageBytes = (kThreads / 32) * kStages * kWarpStage;
 constexpr int kRankGroups = 4;     // groups of 32 rows a warp, a tile
 constexpr int kTile = kThreads * kRankGroups;   // rows a block ranks
 constexpr int kKeys = 32;          // length buckets of 8 bytes
 static_assert(kKeys == 32, "one warp sums the buckets");
 constexpr int kByteRow = 260;      // uint8 entries a byte-table row
 constexpr int kByteMaxS = 128;     // delta << 1 | match_on fits a byte
+constexpr int kRevGroups = 4;      // groups of 32 rows a warp, a reverse tile
+constexpr int kRevTile = kThreads * kRevGroups;  // rows a reverse block ranks
 
 enum { kGlobal = 0, kClass = 1, kByte = 2 };
 
-// Dynamic shared memory of cgx_rows_match: the warps' stages, match_eoi's
-// SOT column, then the table of the mode (the rank's histogram and
-// permutation are static, 4 * (kKeys + kTile) bytes).
-size_t match_smem_bytes(int S, int C, int mode) {
-  const size_t b = (size_t)(kThreads / 32) * kStages * kWarpStage +
-                   ((size_t)S + 15) / 16 * 16;
+// Dynamic shared memory of a row kernel: stage_bytes of the warps' stages
+// (cgx_rows_match's kStageBytes, none for cgx_rows_rev_start), match_eoi's
+// SOT column, then the table of the mode (the ranks' histograms and
+// permutations are static).
+size_t match_smem_bytes(int S, int C, int mode, int stage_bytes) {
+  const size_t b = (size_t)stage_bytes + ((size_t)S + 15) / 16 * 16;
   if (mode == kByte) return b + (size_t)S * kByteRow;
   if (mode == kClass) return b + (size_t)4 * S * C + 4 * 256;
   return b + 4 * 256;
-}
-
-// Dynamic shared memory of cgx_rows_rev_start.
-size_t smem_bytes(int S, int C, bool shared_tables) {
-  size_t b = 4 * 256;
-  if (shared_tables) b += (size_t)4 * S * C + ((size_t)S + 15) / 16 * 16;
-  return b;
-}
-
-struct Tables {
-  const int32_t* tbl;   // [S * C] delta << 1 | match_on
-  const uint8_t* eoi;   // [S] match_eoi[:, SOT]
-  const int32_t* cls;   // [256]
-  int C;
-};
-
-// Tables in shared memory (kShared) or global memory; classes always in
-// shared memory.
-template <bool kShared>
-__device__ __forceinline__ Tables load_tables(const int32_t* tbl,
-                                              const uint8_t* eoi,
-                                              const int32_t* classes, int S,
-                                              int C) {
-  extern __shared__ int4 smem[];
-  int32_t* cls = reinterpret_cast<int32_t*>(smem);
-  for (int i = threadIdx.x; i < 256; i += kThreads) cls[i] = classes[i];
-  Tables tb{tbl, eoi, cls, C};
-  if (kShared) {
-    int32_t* t_s = cls + 256;
-    uint8_t* e_s = reinterpret_cast<uint8_t*>(t_s + S * C);
-    for (int i = threadIdx.x; i < S * C; i += kThreads) t_s[i] = tbl[i];
-    for (int i = threadIdx.x; i < S; i += kThreads) e_s[i] = eoi[i];
-    tb.tbl = t_s;
-    tb.eoi = e_s;
-  }
-  __syncthreads();
-  return tb;
-}
-
-// Byte p of a row, through a cached aligned 16-byte chunk.
-struct RowReader {
-  const uint8_t* row;
-  int base = -1;
-  uint4 chunk;
-
-  __device__ __forceinline__ int at(int p) {
-    const int b = p & ~15;
-    if (b != base) {
-      chunk = *reinterpret_cast<const uint4*>(row + b);
-      base = b;
-    }
-    const int j = p & 15;
-    const uint32_t w =
-        j < 8 ? (j < 4 ? chunk.x : chunk.y) : (j < 12 ? chunk.z : chunk.w);
-    return (w >> (8 * (j & 3))) & 255;
-  }
-};
-
-template <bool kShared>
-__global__ void __launch_bounds__(kThreads)
-    rows_rev_kernel(const int32_t* __restrict__ tbl,
-                    const uint8_t* __restrict__ eoi,
-                    const int32_t* __restrict__ classes, int S, int C,
-                    int stop_dead, const uint8_t* __restrict__ rows, int B,
-                    int L, const int32_t* __restrict__ ends,
-                    const int32_t* __restrict__ s0,
-                    int32_t* __restrict__ starts) {
-  const Tables tb = load_tables<kShared>(tbl, eoi, classes, S, C);
-  const long long b = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (b >= B) return;
-  const int end = ends[b];
-  if (end < 0) {
-    starts[b] = -1;
-    return;
-  }
-  const int steps = end < L ? end : L;
-  RowReader rd{rows + b * L};
-  int s = s0[b];
-  int lst = -1;
-#pragma unroll 1
-  for (int t = 0; t < steps; ++t) {
-    const int p = end - 1 - t;
-    const int e = tb.tbl[s * C + tb.cls[rd.at(p < L ? p : L - 1)]];
-    if (e & 1) lst = t;
-    s = e >> 1;
-    if (stop_dead && s == 0) break;
-  }
-  if (tb.eoi[s]) lst = lst > end ? lst : end;
-  starts[b] = lst >= 0 ? end - lst : -1;
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -186,17 +111,32 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
                : "memory");
 }
 
+// A DFA's tables as both row kernels take them.
+struct TableArgs {
+  const int32_t* tbl;     // [S * C] delta << 1 | match_on
+  const uint8_t* eoi;     // [S] match_eoi[:, SOT]
+  const int32_t* classes; // [256]
+  const uint8_t* tbl_b;   // [S * kByteRow] byte-indexed (mode kByte)
+  int S, C, stop_dead;
+};
+
 struct MatchArgs {
-  const int32_t* tbl;
-  const uint8_t* eoi;
-  const int32_t* classes;
-  const uint8_t* tbl_b;
-  int S, C, start, stop_dead;
+  TableArgs t;
+  int start;
   const uint8_t* rows;
   int B, L;
   const int32_t* lens;
   bool* found;
   int32_t* last;
+};
+
+struct RevArgs {
+  TableArgs t;
+  const uint8_t* rows;
+  int B, L;
+  const int32_t* ends;
+  const int32_t* s0;
+  int32_t* starts;
 };
 
 // A step's entry delta << 1 | match_on: from the byte-indexed table, or
@@ -278,7 +218,7 @@ __device__ __forceinline__ void walk_group(const MatchArgs& a, const Tab& tb,
     if (live) {
       const int cnt = nb - c < kCols ? nb - c : kCols;
       live = walk_stage(tb, mine + st * kWarpStage + lane * kStageRow, c,
-                        cnt, s, lst, a.stop_dead) &&
+                        cnt, s, lst, a.t.stop_dead) &&
              nb > c + kCols;
     }
     __syncwarp();  // the stage is requested again
@@ -294,11 +234,15 @@ __device__ __forceinline__ void walk_group(const MatchArgs& a, const Tab& tb,
   }
 }
 
+// Copies match_eoi's column and the table of the mode into shared memory
+// after stage_bytes of the warps' stages (`eoi` gets the column); the
+// caller syncs.
 template <int kMode>
-__global__ void __launch_bounds__(kThreads) rows_match_kernel(MatchArgs a) {
-  extern __shared__ int4 smem[];
-  uint8_t* stages = reinterpret_cast<uint8_t*>(smem);
-  uint8_t* eoi = stages + (kThreads / 32) * kStages * kWarpStage;
+__device__ __forceinline__ MatchTab<kMode> load_tables(const TableArgs& a,
+                                                       uint8_t* smem,
+                                                       int stage_bytes,
+                                                       uint8_t*& eoi) {
+  eoi = smem + stage_bytes;
   uint8_t* tab = eoi + (a.S + 15) / 16 * 16;
   for (int i = threadIdx.x; i < a.S; i += kThreads) eoi[i] = a.eoi[i];
   MatchTab<kMode> tb{};
@@ -321,6 +265,16 @@ __global__ void __launch_bounds__(kThreads) rows_match_kernel(MatchArgs a) {
       tb.tbl = t;
     }
   }
+  return tb;
+}
+
+template <int kMode>
+__global__ void __launch_bounds__(kThreads) rows_match_kernel(MatchArgs a) {
+  extern __shared__ int4 smem[];
+  uint8_t* stages = reinterpret_cast<uint8_t*>(smem);
+  uint8_t* eoi;
+  const MatchTab<kMode> tb = load_tables<kMode>(a.t, stages, kStageBytes,
+                                                eoi);
   __syncthreads();
   const unsigned full = 0xffffffffu;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -364,9 +318,122 @@ __global__ void __launch_bounds__(kThreads) rows_match_kernel(MatchArgs a) {
                t0 + perm[i * kThreads + warp * 32 + lane]);
 }
 
+// One row's reverse walk from its end (> 0) and entry state s: positions
+// end - 1 down to end - min(end, L), those at or past L reading byte L - 1,
+// the row read in aligned 16-byte chunks, each loaded when the walk reaches
+// it; returns the row's start.
+template <class Tab>
+__device__ __forceinline__ int walk_rev(const Tab& tb, const uint8_t* eoi,
+                                        const uint8_t* row, int L, int end,
+                                        int s, int stop_dead) {
+  const int lo = end - (end < L ? end : L);   // the last position walked
+  int lo_flag = -1, p = end - 1;
+  bool live = true;
+#pragma unroll 1
+  for (; p >= L && p >= lo; --p) {   // end > L only
+    const int e = tb.entry(s, row[L - 1]);
+    if (e & 1) lo_flag = p;
+    s = e >> 1;
+    if (stop_dead && s == 0) {
+      live = false;
+      break;
+    }
+  }
+#pragma unroll 1
+  for (int base = p & ~15; live && p >= lo; base -= 16) {
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(row + base));
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+    const int kh = p - base, kl = lo - base;
+#pragma unroll
+    for (int k = 15; k >= 0; --k) {
+      if (k > kh) continue;
+      if (k < kl) break;
+      const int e = tb.entry(s, (w[k >> 2] >> (8 * (k & 3))) & 255);
+      if (e & 1) lo_flag = base + k;
+      s = e >> 1;
+      if (stop_dead && s == 0) {
+        live = false;
+        break;
+      }
+    }
+    p = base - 1;
+  }
+  return eoi[s] ? 0 : (lo_flag >= 0 ? lo_flag + 1 : -1);
+}
+
+template <int kMode>
+__global__ void __launch_bounds__(kThreads) rows_rev_kernel(RevArgs a) {
+  extern __shared__ int4 smem[];
+  uint8_t* eoi;
+  const MatchTab<kMode> tb =
+      load_tables<kMode>(a.t, reinterpret_cast<uint8_t*>(smem), 0, eoi);
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  // rank the tile's rows that have bytes to walk by min(end, L), longest
+  // first, 8 bytes a bucket: perm[rank] = row, pend[rank] = its end; the
+  // others are answered here
+  __shared__ int hist[kKeys];
+  __shared__ int perm[kRevTile], pend[kRevTile];
+  __shared__ int nrank, next;
+  const long long t0 = (long long)blockIdx.x * kRevTile;
+  int key[kRevGroups], slot[kRevGroups], end[kRevGroups];
+  if (threadIdx.x < kKeys) hist[threadIdx.x] = 0;
+  if (threadIdx.x == 0) next = 0;
+  __syncthreads();   // and the tables
+#pragma unroll
+  for (int i = 0; i < kRevGroups; ++i) {
+    const long long r = t0 + threadIdx.x + i * kThreads;
+    end[i] = r < a.B ? a.ends[r] : -1;
+    key[i] = -1;
+    if (end[i] > 0) {
+      const int k = (end[i] < a.L ? end[i] : a.L) >> 3;
+      key[i] = kKeys - 1 - (k < kKeys ? k : kKeys - 1);
+      slot[i] = atomicAdd(&hist[key[i]], 1);
+    } else if (r < a.B) {
+      // no end, or nothing to walk: the entry state's EOI flag
+      a.starts[r] = end[i] < 0 ? -1 : (eoi[a.s0[r]] ? 0 : -1);
+    }
+  }
+  __syncthreads();
+  if (warp == 0) {  // exclusive prefix sum of the buckets, and their total
+    const int v = hist[lane];
+    int x = v;
+#pragma unroll
+    for (int o = 1; o < kKeys; o <<= 1) {
+      const int y = __shfl_up_sync(full, x, o);
+      if (lane >= o) x += y;
+    }
+    hist[lane] = x - v;
+    if (lane == kKeys - 1) nrank = x;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < kRevGroups; ++i)
+    if (key[i] >= 0) {
+      perm[hist[key[i]] + slot[i]] = threadIdx.x + i * kThreads;
+      pend[hist[key[i]] + slot[i]] = end[i];
+    }
+  __syncthreads();
+  // each warp claims the next 32 ranks until none is left, one row a lane
+  const int n = nrank;
+#pragma unroll 1
+  for (;;) {
+    int g = 0;
+    if (lane == 0) g = atomicAdd(&next, 1);
+    g = __shfl_sync(full, g, 0);
+    if (32 * g >= n) break;
+    const int i = 32 * g + lane;
+    if (i < n) {
+      const long long b = t0 + perm[i];
+      a.starts[b] = walk_rev(tb, eoi, a.rows + b * a.L, a.L, pend[i],
+                             a.s0[b], a.t.stop_dead);
+    }
+  }
+}
+
 template <int kMode>
 int launch_match(const MatchArgs& a, void* stream) {
-  const int smem = (int)match_smem_bytes(a.S, a.C, kMode);
+  const int smem = (int)match_smem_bytes(a.t.S, a.t.C, kMode, kStageBytes);
   auto kernel = rows_match_kernel<kMode>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -376,18 +443,21 @@ int launch_match(const MatchArgs& a, void* stream) {
   return (int)cudaGetLastError();
 }
 
-template <typename K, typename... Args>
-int launch(K kernel, size_t smem, int B, void* stream, Args... args) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (int)(((long long)B + kThreads - 1) / kThreads);
-  kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(args...);
+template <int kMode>
+int launch_rev(const RevArgs& a, void* stream) {
+  const int smem = (int)match_smem_bytes(a.t.S, a.t.C, kMode, 0);
+  auto kernel = rows_rev_kernel<kMode>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const int blocks = (int)(((long long)a.B + kRevTile - 1) / kRevTile);
+  kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-bool bad_args(int S, int C, int B, int L) {
-  return S < 1 || C < 1 || B < 0 || L < 16 || L % 16;
+bool bad_args(int S, int C, int B, int L, int mode) {
+  return S < 1 || C < 1 || B < 0 || L < 16 || L % 16 || mode < kGlobal ||
+         mode > kByte || (mode == kByte && S > kByteMaxS);
 }
 
 }  // namespace
@@ -403,15 +473,12 @@ extern "C" {
 // aligned 16-byte pieces: L % 16 == 0 and rows 16-byte aligned.
 int cgx_rows_match(const int32_t* tbl, const uint8_t* eoi,
                    const int32_t* classes, const uint8_t* tbl_b, int S,
-                   int C,
-                   int start, int stop_dead, int mode, const uint8_t* rows,
-                   int B, int L, const int32_t* lens, bool* found,
-                   int32_t* last, void* stream) {
-  if (bad_args(S, C, B, L) || mode < kGlobal || mode > kByte ||
-      (mode == kByte && S > kByteMaxS))
-    return (int)cudaErrorInvalidValue;
+                   int C, int start, int stop_dead, int mode,
+                   const uint8_t* rows, int B, int L, const int32_t* lens,
+                   bool* found, int32_t* last, void* stream) {
+  if (bad_args(S, C, B, L, mode)) return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
-  const MatchArgs a = {tbl, eoi, classes, tbl_b, S, C, start, stop_dead,
+  const MatchArgs a = {{tbl, eoi, classes, tbl_b, S, C, stop_dead}, start,
                        rows, B, L, lens, found, last};
   if (mode == kByte) return launch_match<kByte>(a, stream);
   if (mode == kClass) return launch_match<kClass>(a, stream);
@@ -419,22 +486,20 @@ int cgx_rows_match(const int32_t* tbl, const uint8_t* eoi,
 }
 
 // starts [B] of the rows [B, L] with known ends [B] (< 0: none) under a
-// reverse DFA (tables and rows as cgx_rows_match's) from the entry states
-// s0 [B].
+// reverse DFA from the entry states s0 [B]; tables, table modes and rows
+// as cgx_rows_match's.
 int cgx_rows_rev_start(const int32_t* tbl, const uint8_t* eoi,
-                       const int32_t* classes, int S, int C, int stop_dead,
-                       int shared, const uint8_t* rows, int B, int L,
-                       const int32_t* ends, const int32_t* s0,
+                       const int32_t* classes, const uint8_t* tbl_b, int S,
+                       int C, int stop_dead, int mode, const uint8_t* rows,
+                       int B, int L, const int32_t* ends, const int32_t* s0,
                        int32_t* starts, void* stream) {
-  if (bad_args(S, C, B, L)) return (int)cudaErrorInvalidValue;
+  if (bad_args(S, C, B, L, mode)) return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
-  const size_t smem = smem_bytes(S, C, shared != 0);
-#define CGX_REV(SH)                                                          \
-  return launch(rows_rev_kernel<SH>, smem, B, stream, tbl, eoi, classes,    \
-                S, C, stop_dead, rows, B, L, ends, s0, starts)
-  if (shared) CGX_REV(true);
-  CGX_REV(false);
-#undef CGX_REV
+  const RevArgs a = {{tbl, eoi, classes, tbl_b, S, C, stop_dead}, rows, B,
+                     L, ends, s0, starts};
+  if (mode == kByte) return launch_rev<kByte>(a, stream);
+  if (mode == kClass) return launch_rev<kClass>(a, stream);
+  return launch_rev<kGlobal>(a, stream);
 }
 
 }  // extern "C"

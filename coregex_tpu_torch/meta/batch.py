@@ -24,7 +24,8 @@ split of ``_charclass_spans`` (:2028-2075), ALL_EMPTY's spans
 (``_bitset_scanner``, ``_bitset_starts`` as ``_bitset_rev_scan`` with
 ``_compact_starts``, ``_bitset_is_match``, ``_bitset_spans``,
 ``_bitset_nfa_spans_dev`` and ``_spans_from_starts_host``, :2385-2522 and
-:1308-1335).  The
+:1308-1335) and the multi-device hooks (``_sharded_counter`` :1644-1666,
+``_sharded_starts`` :2526-2571, over ``..parallel``).  The
 port builds on its own copy of the host pipeline (``..dfa``, ``..nfa``,
 ``.strategy``, ``.literal``) and imports nothing of ``coregex_tpu``.
 
@@ -43,13 +44,21 @@ Routes:
     run on every device (its scanners run only on a TPU backend) and a
     failing scanner raises instead of being retired.  The reference
     reaches K7 in MODE_LINE only after retiring a LineScanner, since both
-    take the same needle sets, so the port does not route it.
+    take the same needle sets, so the port does not route it.  With a
+    mesh of several devices (``parallel.shard.default_mesh`` of the
+    engine's device; one H100 gives a mesh of one) the sharded count
+    transducer counts before these routes, and for a nullable plan once
+    its transducer's gate passes, as the reference's does; it declines
+    only for a transducer wider than the phase-1 gate (512 states) and
+    raises where the reference retires it.
   * find_all: the bidirectional span path for PREFIX_RUN, PREFIX_SET,
     FULL_SCAN and INNER plans whose count transducer is spans_simple with
     no EOI_COMPLEX state and that have no look; the general fallback for
     the other plans of those four families (``_full_scan_spans_dev``: K9
-    over the unanchored reverse DFA for every match start, the forward
-    window scan for their ends, Go's chain on the device), unless its
+    over the unanchored reverse DFA for every match start, sharded over
+    the mesh with each shard's starts compacted where a mesh of several
+    devices serves the corpus, the forward window scan for their ends,
+    Go's chain on the device), unless its
     DFAs overflow or do not fit the kernels; the candidate chain for
     LINE_SHAPE plans with newline-free, non-empty literals and no ``(?s)``
     part; class runs for CHARCLASS plans (two sparse chains, or K4 over
@@ -103,6 +112,7 @@ engine attributes, so concurrent calls on one engine cannot mix corpora
 
 from __future__ import annotations
 
+from contextlib import ExitStack
 from typing import Dict, Optional
 
 import numpy as np
@@ -112,7 +122,7 @@ from ..dfa.countdfa import (EOI_COMPLEX, build_count_dfa,
                             build_count_dfa_nullable)
 from ..dfa.dense import CTX_SOT, DEAD
 from ..dfa.determinize import DFAOverflow, determinize, determinize_py
-from ..dfa.search import find_rev_start
+from ..dfa.search import anchored_last_end, find_rev_start
 from ..nfa.thompson import compile_nfa
 from ..ops.bytescan import (_bucket, _memmem_mask, _multi_literal_scan,
                             _range_mask, first_run_geq, first_set_index,
@@ -140,6 +150,8 @@ from ..ops.span_chain import (MULTI_FUSED_LIMIT, SPARSE_OK, _rune_boundaries,
                               nullable_fill_words, nullable_merge,
                               pair_spans_sparse, word_positions)
 from ..ops.span_scan import SpanScanner, to_global
+from ..parallel import shard
+from ..parallel.sharded_count import Phase1TooWide, ShardedGoCount
 from ..syntax.ast import Node, Op
 from ..syntax.parser import Parsed
 from ..utils.artifact_cache import load_dense, save_dense
@@ -257,6 +269,10 @@ class BatchEngine:
         # (match starts, window rounds) of the last general find_all, None
         # before the first
         self.full_scan_stats = None
+        # the multi-device hooks' objects, by mesh devices: ShardedGoCount
+        # or False; (make_sharded_ends' fn, its cap)
+        self._sharded_sc = {}
+        self._sharded_ends = {}
 
     def _decline(self, result=None):
         self.host_routes += 1
@@ -455,13 +471,23 @@ class BatchEngine:
 
     def count(self, data: np.ndarray) -> Optional[int]:
         """Match count through the route `_count_route` picks, or None
-        (declined: the Engine's host loop counts)."""
+        (declined: the Engine's host loop counts).  With a mesh of several
+        devices (``_mesh``) the multi-device hook ``_sharded_counter``
+        counts first, as the reference's count does (:1721-1729): before
+        the line, hits and transducer routes, and for nullable plans once
+        their transducer's gate passes (its nullable_count, :1678-1685)."""
         self._check_size(len(data))
         if self.plan.strategy == Strategy.END_ANCHORED:
             sp = self._end_anchored_spans(data)
             return None if sp is None else len(sp)
-        with self._lock:
+        mesh = self._mesh()
+        with self._locks(mesh):
             route = self._count_route(data)
+            if mesh is not None and (not self.plan.nullable or (
+                    route is not None and route[0] == "dfa")):
+                shc = self._sharded_counter(mesh)
+                if shc:
+                    return shc.count(device_corpus(data, self.device))
             if route is None:
                 return self._count_by_spans(data)
             kind, sc = route
@@ -476,6 +502,91 @@ class BatchEngine:
                     c = sq.count(dev, seq_geometry(len(data), sq.M), tiles)
                 return c
             return sc.count(dev, geom, tiles)
+
+    # -- the multi-device hooks ------------------------------------------------
+    def _mesh(self):
+        """The mesh of ``parallel.shard.default_mesh`` for this engine's
+        device when it holds more than one device, else None: the hooks
+        stay off.  One card gives a mesh of one; tests substitute a
+        virtual mesh by replacing ``default_mesh``."""
+        mesh = shard.default_mesh(device=self.device)
+        return mesh if mesh.size > 1 else None
+
+    def _locks(self, mesh):
+        """This engine's device lock and, with a mesh, the lock of every
+        device in it, taken in one order (their keys sorted), so that two
+        engines on different cards of a mesh cannot hold one each."""
+        locks = {f"torch:{self.device}": self._lock}
+        for d in () if mesh is None else mesh.devices:
+            locks.setdefault(f"torch:{d}", device_lock(f"torch:{d}"))
+        stack = ExitStack()
+        for key in sorted(locks):
+            stack.enter_context(locks[key])
+        return stack
+
+    def _sharded_counter(self, mesh=None):
+        """The sharded count transducer over the mesh (ref. :1644-1666,
+        ``parallel/sharded_count.py``), or False: a mesh of one device, a
+        plan with no count transducer, or one wider than the phase-1 gate
+        (``Phase1TooWide``).  Built once a mesh."""
+        mesh = mesh or self._mesh()
+        if mesh is None:
+            return False
+        shc = self._sharded_sc.get(mesh.devices)
+        if shc is None:
+            shc = False
+            sc = self._count_scanner()
+            if sc:
+                try:
+                    shc = ShardedGoCount(sc.cd, mesh)
+                except Phase1TooWide:
+                    shc = False
+            self._sharded_sc[mesh.devices] = shc
+        return shc
+
+    def _sharded_starts(self, rev, data: np.ndarray):
+        """Every match start as ``_all_starts`` gives them, from the mesh
+        (ref. :2526-2571): the unanchored reverse DFA's flags over the
+        flipped corpus, zero-padded to a multiple of the mesh size,
+        sharded with each shard's ends compacted into a buffer of
+        max(4096, n // 256) slots (``shard.make_sharded_ends``); the start
+        at 0 from one anchored forward walk on the host.  None when out of
+        scope: a mesh of one device, n < 2^16, or a shard whose ends
+        overflow its buffer."""
+        n = len(data)
+        mesh = self._mesh()
+        if mesh is None or n < 1 << 16:
+            return None
+        cap = max(4096, n // 256)
+        fn, built = self._sharded_ends.get(mesh.devices, (None, 0))
+        if fn is None or cap > built:
+            # a larger corpus needs a larger buffer than the cached fn's
+            fn = shard.make_sharded_ends(mesh, rev.tables, cap)
+            self._sharded_ends[mesh.devices] = (fn, cap)
+        else:
+            cap = built
+        flipped = device_corpus_flipped(data, self.device)
+        pad = -n % mesh.size
+        if pad:
+            flipped = torch.cat([flipped, flipped.new_zeros(pad)])
+        pos, cnts = fn(flipped)
+        over, m = torch.stack([(cnts > cap).any().long(),
+                               (pos < n).sum()]).tolist()
+        if over:
+            return None
+        at0 = int(anchored_last_end(self._dense("fwd_anch_break"), data,
+                                    0) >= 0)
+        if m + at0 > self.MAX_DEVICE_SPANS:
+            raise ValueError(f"{m + at0} match starts exceed the device "
+                             f"span limit ({self.MAX_DEVICE_SPANS})")
+        starts = torch.full((_bucket(m + at0, 16),), n, dtype=torch.int32,
+                            device=self.device)
+        # flag at flipped offset j: a match start at n - j; ascending
+        starts[at0:at0 + m] = n - pos[pos < n].flip(0).to(self.device)
+        if at0:
+            starts[0] = 0
+        return starts, m + at0, torch.ones((), dtype=torch.bool,
+                                           device=self.device)
 
     def _count_by_spans(self, data: np.ndarray) -> Optional[int]:
         """A nullable plan outside the transducer's gate, or a BITSET_NFA
@@ -768,7 +879,7 @@ class BatchEngine:
         kind, args = route
         fp = _fingerprint(data)
         known = self._spans_cnt_cache.get(fp) if defer_ok else None
-        with self._lock:
+        with self._locks(self._mesh() if kind == "full_scan" else None):
             if kind == "line":
                 spans, cnt, ok = self._line_shape_spans_dev(args, data,
                                                             known, fp)
@@ -1021,12 +1132,16 @@ class BatchEngine:
 
     def _all_starts(self, rev, data: np.ndarray):
         """(starts [cap] int32 ascending with n past the count, count, ok)
-        of every match start (ref. ``_all_starts``, batch.py:2584-2600,
-        without its multi-device hook): K9 over the unanchored reverse DFA
-        on the flipped corpus, whose flag at flipped offset j is a match
-        start at n - j, compacted by ``_compact_starts``; the EOI flag at
-        the flipped corpus's end is a start at 0.  One sync for the flag
-        count and the exit state."""
+        of every match start (ref. ``_all_starts``, batch.py:2584-2600):
+        the multi-device hook ``_sharded_starts`` when a mesh serves the
+        corpus, else K9 over the unanchored reverse DFA on the flipped
+        corpus, whose flag at flipped offset j is a match start at n - j,
+        compacted by ``_compact_starts``; the EOI flag at the flipped
+        corpus's end is a start at 0.  One sync for the flag count and the
+        exit state."""
+        st = self._sharded_starts(rev, data)
+        if st is not None:
+            return st
         n = len(data)
         geom = plan_geometry(n)
         scan = rev.scan_device(device_corpus_flipped(data, self.device),

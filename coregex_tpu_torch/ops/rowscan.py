@@ -23,11 +23,14 @@ Kernels (``csrc/row_scan.cu``):
                       where it fits (mode "byte"), else the class-indexed
                       one in shared ("class") or global memory ("global")
   cgx_rows_rev_start  per-row match starts for known ends: the reverse
-                      anchored pass of the two-pass find, one row a thread
-                      read back in aligned 16-byte chunks, the
-                      class-indexed table in shared memory where it fits
-                      (``RowTables.shared``); ref. ``_rows_rev_scan``
-                      (:90-127)
+                      anchored pass of the two-pass find; ref.
+                      ``_rows_rev_scan`` (:90-127).  A block answers the
+                      rows of its tile of 512 with no end or an empty walk
+                      at once and ranks the others by min(end, L),
+                      longest first; its warps claim 32 ranked rows at a
+                      time, each lane walking its row back in aligned
+                      16-byte chunks (the walks are short: no stages), in
+                      the same three table modes
 The plain versions, for CPU tensors, are the reference's column-lockstep
 scans in torch.  The reverse pass's entry states (the reverse DFA's start
 for the byte at each end, ref. :159-178, a Python loop over B there) are
@@ -93,17 +96,11 @@ BYTE_SMEM = 48 << 10    # the byte-indexed table where a block's shared
 MODES = ("global", "class", "byte")   # cgx_rows_match's mode numbers
 
 
-def smem_bytes(S: int, C: int, shared_tables: bool) -> int:
-    """Dynamic shared memory of a cgx_rows_rev_start launch (row_scan.cu's
-    smem_bytes)."""
-    return 4 * 256 + ((4 * S * C + (S + 15) // 16 * 16) if shared_tables
-                      else 0)
-
-
 def match_smem_bytes(S: int, C: int, mode: str) -> int:
     """Dynamic shared memory of a cgx_rows_match launch in a table mode
     (row_scan.cu's match_smem_bytes): the warps' stages, match_eoi's
-    column, the table."""
+    column, the table.  cgx_rows_rev_start takes the same less the
+    stages, so a mode that fits the one fits the other."""
     b = STAGE_BYTES + (S + 15) // 16 * 16
     if mode == "byte":
         return b + S * BYTE_ROW
@@ -124,9 +121,9 @@ class RowTables:
     """A dense DFA's tables on `device` for the row kernels: delta and
     match_on packed as delta << 1 | match_on [S, C] int32, match_eoi's SOT
     column [S] uint8, classes [256] int32, starts [4] int32, and where it
-    fits the byte-indexed tbl_b [S, BYTE_ROW] uint8 (``byte_table``).  ``mode`` is cgx_rows_match's table mode, the
-    first of ``modes`` (those these tables allow); ``shared`` says whether
-    cgx_rows_rev_start holds the class-indexed table in shared memory."""
+    fits the byte-indexed tbl_b [S, BYTE_ROW] uint8 (``byte_table``).
+    ``mode`` is the row kernels' table mode, the first of ``modes`` (those
+    these tables allow)."""
 
     def __init__(self, dense: DenseDFA, device):
         self.device = torch.device(device)
@@ -147,8 +144,6 @@ class RowTables:
         self.stop_dead = bool((dense.delta[DEAD] == DEAD).all()
                               and not dense.match_on[DEAD].any()
                               and not eoi[DEAD])
-        # past shared memory the kernels read the tables from global memory
-        self.shared = smem_bytes(S, C, True) <= SMEM_LIMIT
         self.tbl_b = None
         if S <= BYTE_MAX_S and match_smem_bytes(S, C, "byte") <= BYTE_SMEM:
             self.tbl_b = torch.from_numpy(
@@ -243,13 +238,17 @@ def _check_chunks(rows) -> None:
                          "pack_rows' matrix)")
 
 
+def _check_mode(tb: RowTables) -> None:
+    if tb.mode not in tb.modes:
+        raise ValueError(f"table mode {tb.mode!r} not among {tb.modes}")
+
+
 def rows_match_cuda(tb: RowTables, rows, lens):
     """cgx_rows_match on tb's tables in tb.mode; rows_match_plain's
     outputs."""
     _check(tb, rows, [("lens", lens)])
     _check_chunks(rows)
-    if tb.mode not in tb.modes:
-        raise ValueError(f"table mode {tb.mode!r} not among {tb.modes}")
+    _check_mode(tb)
     B, L = (int(x) for x in rows.shape)
     found = torch.empty(B, dtype=torch.bool, device=tb.device)
     last = torch.empty(B, dtype=torch.int32, device=tb.device)
@@ -264,16 +263,18 @@ def rows_match_cuda(tb: RowTables, rows, lens):
 
 
 def rows_rev_cuda(tb: RowTables, rows, ends, s0):
-    """cgx_rows_rev_start on tb's tables; rows_rev_plain's output."""
+    """cgx_rows_rev_start on tb's tables in tb.mode; rows_rev_plain's
+    output."""
     _check(tb, rows, [("ends", ends), ("s0", s0)])
     _check_chunks(rows)
+    _check_mode(tb)
     B, L = (int(x) for x in rows.shape)
     starts = torch.empty(B, dtype=torch.int32, device=tb.device)
     p = _build.ptr
     with torch.cuda.device(tb.device):
         rc = _build.lib().cgx_rows_rev_start(
-            p(tb.tbl), p(tb.eoi), p(tb.classes), tb.S, tb.C,
-            int(tb.stop_dead), int(tb.shared), p(rows), B, L, p(ends),
+            p(tb.tbl), p(tb.eoi), p(tb.classes), p(tb.tbl_b), tb.S, tb.C,
+            int(tb.stop_dead), MODES.index(tb.mode), p(rows), B, L, p(ends),
             p(s0), p(starts), _build.stream(tb.device))
     _build.check(rc, "rows_rev_start")
     return starts

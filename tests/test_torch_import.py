@@ -4,9 +4,11 @@ not even its host modules.  A subprocess blocks `import jax` and `import
 coregex_tpu` with a meta-path finder that raises, imports the package,
 runs CPU counts and find_alls (a nullable pattern, an overlapping
 literal set and a BITSET_NFA pattern among them), is_match and find_index
-calls, captures (find_all_submatch_index, replace_all) and row batches
-(is_match_batch, find_index_batch) against Python's re, and checks that
-neither entered sys.modules."""
+calls, captures (find_all_submatch_index, replace_all), row batches
+(is_match_batch, find_index_batch) and the multi-device layer (one
+ShardedGoCount.count and one make_sharded_ends on a virtual mesh of four
+CPU devices) against Python's re, and checks that neither entered
+sys.modules."""
 
 import os
 import pathlib
@@ -87,6 +89,21 @@ assert eng._batch_rows_ok()
 assert eng.find_index_batch([b"x 1.2", b"no", b"3.4"]) == [(2, 5), None,
                                                             (0, 3)]
 assert eng.is_match_batch([b"x 1.2", b"no"]) == [True, False]
+# the multi-device layer on a virtual mesh of 4 CPU devices
+from coregex_tpu_torch.ops.dfa_scan import DFATables
+from coregex_tpu_torch.parallel import shard
+from coregex_tpu_torch.parallel.sharded_count import ShardedGoCount
+mesh = shard.Mesh(["cpu"] * 4)
+arr = np.frombuffer(text, dtype=np.uint8)
+be = ct.compile(r"\d+\.\d+", device="cpu").batch_engine()
+# flag j: a match ends at boundary j
+exp = [m.end() for m in re.finditer(rb"\d+\.\d+", text)]
+assert ShardedGoCount(be._count_scanner().cd, mesh).count(arr) == len(exp)
+n = len(arr) // 4 * 4
+pos, cnt = shard.make_sharded_ends(
+    mesh, DFATables.from_dense(be._dense("fwd_all")), 4096)(arr[:n])
+ends = pos[pos < n].tolist()
+assert int(cnt.sum()) == len(ends) > 0 and set(exp) <= set(ends)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "coregex_tpu"))
 assert not bad, bad

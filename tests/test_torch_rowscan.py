@@ -131,9 +131,9 @@ def test_tables_and_wrapper_contract():
     np.testing.assert_array_equal(tb.tbl.numpy() >> 1, eng.fwd.delta)
     np.testing.assert_array_equal((tb.tbl.numpy() & 1) > 0,
                                   eng.fwd.match_on)
-    assert tb.stop_dead and tb.shared
+    assert tb.stop_dead and tb.mode in tb.modes
     # past shared memory the kernels read the tables from global memory
-    assert not rs.smem_bytes(20000, 16, True) <= rs.SMEM_LIMIT
+    assert not rs.match_smem_bytes(20000, 16, "class") <= rs.SMEM_LIMIT
     rows = torch.zeros((8, 8), dtype=torch.uint8)
     lens = torch.zeros(8, dtype=torch.int32)
     with pytest.raises(ValueError):
@@ -195,18 +195,23 @@ def test_smem_and_mode_choice_follow_the_kernel():
     # 128 states would leave room for fewer blocks an SM than BYTE_SMEM
     assert rs.match_smem_bytes(106, 9, "byte") <= rs.BYTE_SMEM < \
         rs.match_smem_bytes(rs.BYTE_MAX_S, 9, "byte")
-    # the reverse kernel's shared memory is as before
-    assert rs.smem_bytes(7, 3, True) == 1024 + 84 + 16
+    # the reverse kernel takes the same tables with no stages: the modes
+    # that fit the forward kernel fit it too
+    assert "match_smem_bytes(a.t.S, a.t.C, kMode, kStageBytes)" in text
+    assert "match_smem_bytes(a.t.S, a.t.C, kMode, 0)" in text
     for pattern, mode in ((r"\d+\.\d+", "byte"), (BIG, "class")):
         tb = rs.RowTables(ct.compile(pattern, device="cpu").fwd, "cpu")
-        assert tb.mode == mode and tb.shared
+        assert tb.mode == mode
     # a DFA of 20,000 states and 16 classes: global memory for both
     assert rs.match_smem_bytes(20000, 16, "class") > rs.SMEM_LIMIT
     tb = rs.RowTables(ct.compile(r"\d+", device="cpu").fwd, "cpu")
     tb.mode = "wide"
+    rows, vec = (torch.zeros((8, 16), dtype=torch.uint8),
+                 torch.zeros(8, dtype=torch.int32))
     with pytest.raises(ValueError, match="table mode"):
-        rs.rows_match_cuda(tb, torch.zeros((8, 16), dtype=torch.uint8),
-                           torch.zeros(8, dtype=torch.int32))
+        rs.rows_match_cuda(tb, rows, vec)
+    with pytest.raises(ValueError, match="table mode"):
+        rs.rows_rev_cuda(tb, rows, vec, vec)
 
 
 @pytest.mark.parametrize("pattern", PATTERNS)

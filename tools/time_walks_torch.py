@@ -4,13 +4,14 @@ shapes, for one checkout's kernels or for variants of their sources, on
 one GPU.
 
     python3 tools/time_walks_torch.py [--root CHECKOUT] [--sources DIR]
-        [--what onepass,rows,rev] [--reps N] [NAME=DEFINES ...]
+        [--what onepass,rows,rev] [--reps N] [--live] [NAME=DEFINES ...]
 
 The shapes: ``cgx_onepass_extract`` on every span of chip_smoke.CAPTURES'
 patterns over the 1536 MiB bench corpus (``find_all_spans_device``'s
 spans, as phase 3 gives them), ``cgx_rows_match`` of
 chip_smoke.ROW_PATTERNS on the first 2^20 lines packed to [2^20, 256],
-and ``cgx_rows_rev_start`` from that scan's ends.  ``rows`` also times
+and ``cgx_rows_rev_start`` from that scan's ends (with ``--live`` also
+over the rows that have an end only, compacted).  ``rows`` also times
 the forward scan on the same rows ordered by the bytes their walks need
 (chip_smoke.row_walk_need), which shows what a warp loses to its longest
 row; the order is a measurement only, the kernel's outputs follow its
@@ -89,6 +90,7 @@ def main():
     ap.add_argument("--what", default="onepass,rows,rev")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--out")
+    ap.add_argument("--live", action="store_true")
     ap.add_argument("variants", nargs="*", default=["kernel="])
     a = ap.parse_args()
     root = os.path.abspath(a.root)
@@ -205,8 +207,19 @@ def main():
             if "rev" in what:
                 ends = torch.where(found, last, -1)
                 s0 = rs.rev_start_states(rb.rev, rt, lt, ends)
+                # a checkout whose reverse kernel takes the table modes
+                rev_modes = rb.rev if hasattr(rs, "_check_mode") else None
                 timed(f"rows_rev_start {name} {int(found.sum())} ends",
-                      None, lambda: rs.rows_rev_cuda(rb.rev, rt, ends, s0))
+                      rev_modes,
+                      lambda: rs.rows_rev_cuda(rb.rev, rt, ends, s0))
+                if a.live:
+                    live = ends >= 0
+                    rl, el, sl = (x[live].contiguous() for x in
+                                  (rt, ends, s0))
+                    timed(f"rows_rev_start {name} live rows only "
+                          f"({rl.shape[0]} rows)", rev_modes,
+                          lambda: rs.rows_rev_cuda(rb.rev, rl, el, sl))
+                    del rl, el, sl
             del rt, lt, found, last
             torch.cuda.empty_cache()
 
