@@ -81,8 +81,10 @@ Phases (any failure exits non-zero before the final line):
                reverse scan also from edge ends (0, L, on and beside
                16-byte boundaries) and from none; the all-entries
                transfer walk (cgx_transfer_walk) in both modes, on the
-               4 MiB sample for the 13 bench patterns and on the whole
-               corpus in MESH_SHARDS shards for ip, with its rate of
+               4 MiB sample for the 13 bench patterns, on the whole
+               corpus in MESH_SHARDS shards for ip, and on 256 MiB in
+               MESH_SHARDS shards for quote parity, a random permutation
+               table of 64 states and multi_literal32, with its rate of
                table steps
   4. e2e     - the public API on a 1536 MiB log corpus (the JAX package's
                bench corpus), in eight runs, each with the launch counts
@@ -2632,18 +2634,60 @@ def virtual_mesh(D: int):
     return Mesh([DEVICE] * D)
 
 
-def transfer_kernels(compare, base: bytes, corpus: np.ndarray) -> None:
-    """cgx_transfer_walk against transfer_walk_plain in both modes (the
-    DFA mode over the unanchored forward DFA's match table, the count mode
-    over the count transducer's table): on the 4 MiB sample for the 13
-    bench patterns as one shard, and on the whole corpus cut into
-    MESH_SHARDS shards of a virtual mesh on the card for TRANSFER_MAIN, the
-    split sub_lanes picks each time; with the rate of table steps (S x n
-    over the kernel's time)."""
+TRANSFER_EXTRA_MIB = 256   # the walk's other tables: on 256 MiB in 4 shards
+TRANSFER_EXTRA = ("quote_parity", "perm64", "multi_literal32")
+
+
+def transfer_tables(name: str, mode: int):
+    """(packed, segmap) of the transfer walk for a pattern of PATTERNS (or
+    "quote_parity") on DEVICE: the unanchored forward DFA's match table in
+    the DFA mode, the count transducer's table in the count mode; "perm64"
+    is a random permutation table of 64 states (one permutation and an
+    emission of 0 or 1 a byte, seed 18), whose walkers never merge."""
     import torch
     import coregex_tpu_torch as ct
     from coregex_tpu_torch.ops import transfer_scan as ts
     from coregex_tpu_torch.ops.dfa_scan import DFATables, MatchTables
+    if name == "perm64":
+        rng = np.random.default_rng(18)
+        delta = np.argsort(rng.random((256, 64)), axis=1).T
+        packed = delta * 32 + rng.integers(0, 2, (64, 256))
+        return (torch.from_numpy(packed.astype(np.int32)).to(DEVICE),
+                torch.arange(256, dtype=torch.int32, device=DEVICE))
+    pattern = QUOTES if name == "quote_parity" else PATTERNS[name]
+    be = ct.compile(pattern, device=DEVICE).batch_engine()
+    if mode == ts.MODE_DFA:
+        t = MatchTables(DFATables.from_dense(be._dense("fwd_all")), DEVICE)
+    else:
+        t = be._count_scanner().dcd
+    return t.packed, t.segmap
+
+
+def transfer_data(name: str, corpus: np.ndarray, mib: int):
+    """The walk's input for `name` on DEVICE: the first `mib` MiB of the
+    corpus, or for quote parity quote_corpus()'s period (a quote every 300
+    bytes) repeated to that length; a multiple of MESH_SHARDS bytes."""
+    import torch
+    n = (min(mib << 20, len(corpus)) // MESH_SHARDS) * MESH_SHARDS
+    if name == "quote_parity":
+        period = quote_corpus()[:300]
+        return torch.from_numpy(np.resize(period, n)).to(DEVICE)
+    return torch.from_numpy(corpus[:n]).to(DEVICE)
+
+
+def transfer_kernels(compare, base: bytes, corpus: np.ndarray) -> None:
+    """cgx_transfer_walk against transfer_walk_plain in both modes (the
+    DFA mode over the unanchored forward DFA's match table, the count mode
+    over the count transducer's table): on the 4 MiB sample for the 13
+    bench patterns as one shard, on the whole corpus cut into MESH_SHARDS
+    shards of a virtual mesh on the card for TRANSFER_MAIN, and on
+    TRANSFER_EXTRA_MIB MiB in MESH_SHARDS shards for TRANSFER_EXTRA (quote
+    parity, whose two live walkers never merge; a random permutation table
+    of 64 states, whose walkers stay 64; multi_literal32, 112 and 149
+    states), the split sub_lanes picks each time; with the rate of table
+    steps (S x n over the kernel's time)."""
+    import torch
+    from coregex_tpu_torch.ops import transfer_scan as ts
 
     t_start = time.perf_counter()
     dev = torch.device(DEVICE)
@@ -2652,30 +2696,26 @@ def transfer_kernels(compare, base: bytes, corpus: np.ndarray) -> None:
     small = torch.from_numpy(np.frombuffer(sample, np.uint8).copy()).to(dev)
 
     def case(name, mode, data, D, headline):
-        be = ct.compile(PATTERNS[name], device=DEVICE).batch_engine()
-        if mode == ts.MODE_DFA:
-            t = MatchTables(DFATables.from_dense(be._dense("fwd_all")),
-                            DEVICE)
-        else:
-            t = be._count_scanner().dcd
-        S = int(t.packed.shape[0])
+        packed, segmap = transfer_tables(name, mode)
+        S = int(packed.shape[0])
         m = int(data.shape[0]) // D
-        G = ts.sub_lanes(S, m, D)
+        G = ts.sub_lanes(m, D)
         kind = ts.COUNTERS[mode].name
         ms = compare(kind, f"{name} {int(data.shape[0]) / 2 ** 20:.0f} MiB "
                            f"D={D}",
-                     lambda: ts.transfer_walk_cuda(t.packed, t.segmap, data,
-                                                   m, D, G),
-                     lambda: ts.transfer_walk_plain(t.packed, t.segmap,
-                                                    data, m, D, G),
+                     lambda: ts.transfer_walk_cuda(packed, segmap, data, m,
+                                                   D, G),
+                     lambda: ts.transfer_walk_plain(packed, segmap, data, m,
+                                                    D, G),
                      headline=headline,
-                     in_bytes=int(data.shape[0]) + nbytes(t.packed,
-                                                          t.segmap))
+                     in_bytes=int(data.shape[0]) + nbytes(packed, segmap))
         steps = S * int(data.shape[0])
         print(f"[kernels] {kind:14} {name}: S={S} NSEG="
-              f"{int(t.packed.shape[1])}, {D} shard(s) x G={G} pieces of "
-              f"{ts.piece_len(m, G)} bytes, {S * D * G} walkers, {steps} "
-              f"table steps: {steps / ms / 1e9:.2f} G steps/ms (at "
+              f"{int(packed.shape[1])}, {D} shard(s) x G={G} pieces of "
+              f"{ts.piece_len(m, G)} bytes in {ts.SUB} sub-pieces of "
+              f"{ts.sub_len(ts.piece_len(m, G))}, "
+              f"{int(ts.silent_states(packed).sum())} silent state(s), "
+              f"{steps} table steps: {steps / ms / 1e9:.2f} G steps/ms (at "
               f"{time.perf_counter() - t_start:.1f} s)", flush=True)
         if headline:
             SLICE_MS[(kind, name)] = ms
@@ -2684,11 +2724,15 @@ def transfer_kernels(compare, base: bytes, corpus: np.ndarray) -> None:
         for name, _ in CONFIGS:
             case(name, mode, small, 1, False)
     del small
-    big = torch.from_numpy(corpus[:len(corpus) // MESH_SHARDS
-                                  * MESH_SHARDS]).to(dev)
+    big = transfer_data(TRANSFER_MAIN, corpus, len(corpus) >> 20)
     for mode in (ts.MODE_DFA, ts.MODE_COUNT):
         case(TRANSFER_MAIN, mode, big, MESH_SHARDS, True)
     del big
+    for name in TRANSFER_EXTRA:
+        data = transfer_data(name, corpus, TRANSFER_EXTRA_MIB)
+        for mode in (ts.MODE_DFA, ts.MODE_COUNT):
+            case(name, mode, data, MESH_SHARDS, False)
+        del data
     torch.cuda.empty_cache()
     print(f"[kernels] transfer walk: {time.perf_counter() - t_start:.1f} s")
 
@@ -2858,16 +2902,20 @@ def phase_e2e_multi(base: bytes, arr: np.ndarray):
             torch.distributed.destroy_process_group()
         shutil.rmtree(tmp, ignore_errors=True)
     # the probe's three phases
-    be = ct.compile(PATTERNS[TRANSFER_MAIN], device=DEVICE).batch_engine()
-    cd = be._count_scanner().cd
-    r = ShardedPhaseProbe(cd, meshes[D]).measure(dev, reps=3)
-    if n % D == 0 and r["count"] != ShardedGoCount(cd, meshes[D]).count(dev):
-        fail(f"probe count {r['count']} differs from the sharded count")
-    print(f"[multi] ShardedPhaseProbe {TRANSFER_MAIN} on {D} shards: phase 1 "
-          f"{r['phase1_scan'] * 1e3:.3f} ms, collective "
-          f"{r['collective'] * 1e3:.3f} ms, phase 2 "
-          f"{r['phase2_fold'] * 1e3:.3f} ms (count {r['count']}); kernels "
-          f"(phase 3): transfer_walk "
+    for name in (TRANSFER_MAIN, "multi_literal32"):
+        be = ct.compile(PATTERNS[name], device=DEVICE).batch_engine()
+        cd = be._count_scanner().cd
+        r = ShardedPhaseProbe(cd, meshes[D]).measure(dev, reps=3)
+        if n % D == 0 and r["count"] != ShardedGoCount(
+                cd, meshes[D]).count(dev):
+            fail(f"{name}: probe count {r['count']} differs from the "
+                 f"sharded count")
+        print(f"[multi] ShardedPhaseProbe {name} on {D} shards: phase 1 "
+              f"{r['phase1_scan'] * 1e3:.3f} ms, collective "
+              f"{r['collective'] * 1e3:.3f} ms, phase 2 "
+              f"{r['phase2_fold'] * 1e3:.3f} ms (count {r['count']})",
+              flush=True)
+    print(f"[multi] kernels (phase 3) on {TRANSFER_MAIN}: transfer_walk "
           f"{SLICE_MS[('transfer_walk', TRANSFER_MAIN)]:.3f} ms, "
           f"transfer_count "
           f"{SLICE_MS[('transfer_count', TRANSFER_MAIN)]:.3f} ms",

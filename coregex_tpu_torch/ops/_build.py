@@ -76,7 +76,7 @@ _SIGNATURES = {
     "cgx_rows_rev_start": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _P,
                            _P, _P, _P],
     "cgx_transfer_walk": [_P, _I, _I, _P, _P, ctypes.c_longlong,
-                          ctypes.c_longlong, _I, _I, _P, _P, _P],
+                          ctypes.c_longlong, _I, _I, _P, _P, _P, _P, _P],
 }
 
 _lock = threading.Lock()

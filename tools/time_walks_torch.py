@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-r"""Device time of the capture and row walks at chip_smoke.py's phase 3
-shapes, for one checkout's kernels or for variants of their sources, on
-one GPU.
+r"""Device time of the capture, row and transfer walks at chip_smoke.py's
+phase 3 shapes, for one checkout's kernels or for variants of their
+sources, on one GPU.
 
     python3 tools/time_walks_torch.py [--root CHECKOUT] [--sources DIR]
-        [--what onepass,rows,rev] [--reps N] [--live] [NAME=DEFINES ...]
+        [--what onepass,rows,rev,transfer] [--reps N] [--live]
+        [--one-walker W,...] [NAME=DEFINES ...]
 
 The shapes: ``cgx_onepass_extract`` on every span of chip_smoke.CAPTURES'
 patterns over the 1536 MiB bench corpus (``find_all_spans_device``'s
@@ -15,18 +16,30 @@ over the rows that have an end only, compacted).  ``rows`` also times
 the forward scan on the same rows ordered by the bytes their walks need
 (chip_smoke.row_walk_need), which shows what a warp loses to its longest
 row; the order is a measurement only, the kernel's outputs follow its
-rows.
+rows.  ``transfer`` times ``cgx_transfer_walk`` at the split the
+checkout's ``sub_lanes`` picks: ip over the 1536 MiB corpus in 4 shards in
+both modes (the DFA mode over the forward DFA's match table, the count
+mode over the count transducer's), version and multi_literal32 in the
+count mode there, and chip_smoke.TRANSFER_EXTRA (quote parity, a random
+permutation table of 64 states, multi_literal32) on 256 MiB in 4 shards
+in both modes; each line also gives ``compose``'s time over the walk's
+maps (the tree of phase 1) and S x n table steps a ms.  ``--one-walker``
+also times each variant at G = ``sub_lanes(1, m, D, W)`` for each W (an
+ablation hook that walks one entry a piece reads at that split as one
+walker a lane), and the tree over random [D, G, S] maps of that G at S =
+10 and 112.
 
 ``--root`` imports coregex_tpu_torch from another checkout, an unpacked
 earlier commit say; this script's own chip_smoke.py builds the corpus and
-the rows.  Each NAME=DEFINES builds the checkout's ``onepass_scan.cu``
-and ``row_scan.cu`` (or the copies in ``--sources``, scratch copies with
--D ablation hooks say) with nvcc, the package's flags plus the -D
-defines (space-separated, none after a bare ``NAME=``), into its own
-library under ``--out`` (default the package's ignored
-``_build/time_walks``; with nvcc's register report), so that variants
-are timed in one process on one corpus.  A variant's sources must take
-the checkout's wrappers' C arguments.  Where a checkout's tables offer several table modes
+the rows.  Each NAME=DEFINES builds the checkout's ``onepass_scan.cu``,
+``row_scan.cu`` and ``transfer_scan.cu`` (or the copies of them in
+``--sources``, scratch copies with -D ablation hooks say) with nvcc, the
+package's flags plus the -D defines (space-separated, none after a bare
+``NAME=``), into its own library under ``--out`` (default the package's
+ignored ``_build/time_walks``; with nvcc's register report), so that
+variants are timed in one process on one corpus.  A variant's sources
+must take the checkout's wrappers' C arguments.  Where a checkout's
+tables offer several table modes
 (``modes``: the byte-indexed and class-indexed shared tables, global
 memory), each is timed.  Every variant is timed twice, the variants in
 turn and then in reverse order, each reading the mean of ``--reps``
@@ -39,27 +52,32 @@ card's name and power limit.  Imports no jax.
 import argparse
 import ctypes
 import importlib.util
+import inspect
 import os
 import subprocess
 import sys
 import time
 
 OWN = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCES = ("onepass_scan.cu", "row_scan.cu")
-ENTRIES = ("cgx_onepass_extract", "cgx_rows_match", "cgx_rows_rev_start")
+SOURCES = ("onepass_scan.cu", "row_scan.cu", "transfer_scan.cu")
+ENTRIES = ("cgx_onepass_extract", "cgx_rows_match", "cgx_rows_rev_start",
+           "cgx_transfer_walk")
 
 
-def build(variants, sources, out, tag, nvcc, flags, arch):
-    """Start one nvcc a variant and source; returns a function that waits
+def build(variants, sources, csrc, out, tag, nvcc, flags, arch):
+    """Start one nvcc a variant and source (from `sources` where it holds
+    the file, else the checkout's `csrc`); returns a function that waits
     for them, links each variant and returns {name: library path}."""
     procs = []
+    paths = [os.path.join(sources, s) if os.path.exists(
+        os.path.join(sources, s)) else os.path.join(csrc, s)
+        for s in SOURCES]
     for name, defs in variants:
         objs = [os.path.join(out, f"{tag}_{name}.{s}.o") for s in SOURCES]
         procs.append((name, objs, [subprocess.Popen(
-            [nvcc, *flags, "-Xptxas", "-v", "-c", *defs, "-o", o,
-             os.path.join(sources, s)], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True)
-            for s, o in zip(SOURCES, objs)]))
+            [nvcc, *flags, "-Xptxas", "-v", "-c", *defs, "-o", o, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, o in zip(paths, objs)]))
 
     def wait():
         libs = {}
@@ -87,10 +105,11 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=OWN)
     ap.add_argument("--sources")
-    ap.add_argument("--what", default="onepass,rows,rev")
+    ap.add_argument("--what", default="onepass,rows,rev,transfer")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--out")
     ap.add_argument("--live", action="store_true")
+    ap.add_argument("--one-walker", default="")
     ap.add_argument("variants", nargs="*", default=["kernel="])
     a = ap.parse_args()
     root = os.path.abspath(a.root)
@@ -120,9 +139,11 @@ def main():
     tag = os.path.basename(root.rstrip("/"))
     sources = sources or _build.CSRC
     t0 = time.perf_counter()
-    wait = build(variants, sources, out, tag, _build._nvcc(), _build.FLAGS,
-                 _build.ARCH)
-    main_lib = _build.lib()           # the checkout's library: the spans
+    wait = build(variants, sources, _build.CSRC, out, tag, _build._nvcc(),
+                 _build.FLAGS, _build.ARCH)
+    # the checkout's library, for the spans (the transfer walk alone needs
+    # none: its first variant stands in)
+    main_lib = _build.lib() if set(what) - {"transfer"} else None
     libs = {}
     for name, so in wait().items():
         lib = ctypes.CDLL(so)
@@ -131,6 +152,8 @@ def main():
             f.argtypes = _build._SIGNATURES[fn]
             f.restype = ctypes.c_int
         libs[name] = lib
+    main_lib = main_lib or libs[variants[0][0]]
+    _build._lib = main_lib
     print(f"[time_walks] {len(libs)} variant(s) of {sources}/"
           f"{{{','.join(SOURCES)}}} built in "
           f"{time.perf_counter() - t0:.1f} s (root {root})", flush=True)
@@ -160,6 +183,7 @@ def main():
             _build._lib = main_lib
             if first is None or mode == chosen:
                 first = ref
+                timed.ms = ms
             tm = "" if mode is None else f" {mode}" + (
                 " (chosen)" if mode == chosen else "")
             print(f"[time_walks] {label}{tm}: " + "  ".join(
@@ -222,6 +246,64 @@ def main():
                     del rl, el, sl
             del rt, lt, found, last
             torch.cuda.empty_cache()
+    if "transfer" in what:
+        transfer(cs, a, torch, timed, variants)
+
+
+def transfer(cs, a, torch, timed, variants):
+    """The transfer walk's cases (see the module's docstring)."""
+    from coregex_tpu_torch.ops import transfer_scan as ts
+    D = cs.MESH_SHARDS
+    corpus = cs.bench_corpus(cs.build_base())
+    ones = [int(w) for w in a.one_walker.split(",") if w]
+    gen = torch.Generator(device=cs.DEVICE).manual_seed(18)
+
+    def tree_ms(G, S):
+        F = torch.randint(0, S, (D * G, S), generator=gen, device=cs.DEVICE,
+                          dtype=torch.int32)
+        E = torch.randint(0, 3, (D * G, S), generator=gen, device=cs.DEVICE,
+                          dtype=torch.int32)
+        return cs.cuda_ms(lambda: ts.compose(F, E, D), a.reps)
+
+    cases = [("ip", m, None) for m in (ts.MODE_DFA, ts.MODE_COUNT)]
+    cases += [(nm, ts.MODE_COUNT, None) for nm in ("version",
+                                                   "multi_literal32")]
+    cases += [(nm, m, cs.TRANSFER_EXTRA_MIB) for nm in cs.TRANSFER_EXTRA
+              for m in (ts.MODE_DFA, ts.MODE_COUNT)
+              if not (nm == "perm64" and m == ts.MODE_COUNT)]
+    old_rule = "S" in inspect.signature(ts.sub_lanes).parameters
+
+    def split(S, m, walkers=None):
+        """G as the checkout's sub_lanes picks it (a rule before the
+        merging walk also takes S)."""
+        args = (S, m, D) if old_rule else (m, D)
+        return ts.sub_lanes(*args, *([walkers] if walkers else []))
+
+    big = cs.transfer_data("ip", corpus, len(corpus) >> 20)
+    for name, mode, mib in cases:
+        packed, segmap = cs.transfer_tables(name, mode)
+        data = big if mib is None else cs.transfer_data(name, corpus, mib)
+        S, n = int(packed.shape[0]), int(data.shape[0])
+        m = n // D
+        mname = ("dfa", "count")[mode]
+        for G in [split(S, m)] + [split(1, m, w) for w in ones]:
+            label = (f"transfer {name} {mname} S={S} "
+                     f"{n / 2 ** 20:.0f} MiB D={D} G={G}")
+            F, E = timed(label, None, lambda: ts.transfer_walk_cuda(
+                packed, segmap, data, m, D, G))
+            t = cs.cuda_ms(lambda: ts.compose(F, E, D), a.reps)
+            best = min(timed.ms[variants[0][0]])
+            print(f"[time_walks]   compose {t:.4f} ms over [{D * G}, "
+                  f"{int(F.shape[1])}] maps; {S * n / best / 1e9:.2f} G "
+                  f"table steps/ms", flush=True)
+            del F, E
+        del data
+        torch.cuda.empty_cache()
+    for w in ones:
+        G = split(1, int(big.shape[0]) // D, w)
+        print(f"[time_walks] compose over random [{D}, {G}, S] maps: "
+              + "  ".join(f"S={S} {tree_ms(G, S):.4f} ms"
+                          for S in (10, 112)), flush=True)
 
 
 if __name__ == "__main__":
