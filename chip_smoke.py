@@ -54,7 +54,13 @@ Phases (any failure exits non-zero before the final line):
                corpus, K4's chain over its flag words and the window scan
                forward from every match start (about 55M) at W = 64 in
                both forms (with the sector floor of the bytes the lanes
-               read); the
+               read); the ends form over fwd_anch_all, the
+               leftmost-longest table, from every POSIX match start of
+               `\d+?\.\d+?\.\d+?\.\d+?` on the whole corpus at W = 64,
+               and from one lane of 16 that lives through the base's
+               first MiB with its newlines made spaces (`a.*?b`) at
+               W = 64 x 4^k, the round loop's end there against the host
+               walk; the
                single-pass compaction (K10) on the compaction rig's mask
                (256 MiB at density 1/200, seed 11) at R = 128, at R = 256
                with two payloads under cond_dma + skip_empty, and at
@@ -87,7 +93,7 @@ Phases (any failure exits non-zero before the final line):
                table of 64 states and multi_literal32, with its rate of
                table steps
   4. e2e     - the public API on a 1536 MiB log corpus (the JAX package's
-               bench corpus), in eight runs, each with the launch counts
+               bench corpus), in nine runs, each with the launch counts
                set to 0 before it and read after it.  Earlier slices: count for
                the 13 bench patterns and for `0\.0` (whose hits overlap,
                so K6 hands over to K7, with K7's repair passes printed),
@@ -166,14 +172,27 @@ Phases (any failure exits non-zero before the final line):
                (the Engine's _sharded_starts hook) against the tiled
                oracle, make_sharded_ends against the single-device
                starts, distributed_count in a world of one process under
-               NCCL, the phase probe's three times
+               NCCL, the phase probe's three times.
+               Leftmost-longest (phase_e2e_posix, compile_posix): count
+               and device find_all of the POSIX patterns (`\b\d+\b`,
+               the lazy ip, `a.*?b`, email, `[a-q][^u-z]{13}x`,
+               `err|error|errors`, `([a-z]{2,3})+`) at 1536 MiB against
+               an oracle that is not the port (re on the pattern, on its
+               greedy form for the lazy ones, on the set longest first,
+               and each `[a-z]+` run cut to its longest prefix that
+               `(?:[a-z]{2,3})+` fully matches), tiled, the tiling checked
+               on two tiles; each with its route, match starts and
+               window rounds, one warm find_all's launches, host_routes
+               and find_all_index on two tiles, its count and find_all
+               walls beside the leftmost-first engine's
   5. routes  - every kernel K1-K7 was launched in the first run, K1-K4 and
                K8 in the second, K9 and the window scan's ends form in the
                third, K4 and K10 in the fourth, K9, the ends form, K4 and
                K8 in the fifth, the bitset scan, the ends form and K4 in
                the sixth, the OnePass walk, both row scans and K2-K4 in
                the seventh, the transfer walk in both modes, K9 and K8
-               in the eighth, and no call was declined to the host loop but
+               in the eighth, K9, the ends form, K4 and the bitset scan in
+               the ninth, and no call was declined to the host loop but
                the nullable find_index (the reference's FALLBACK, by
                design)
 
@@ -308,6 +327,20 @@ CAPTURE_API_MIB = 256
 CAPTURE_TEMPLATE = (b"[$2:$1]", rb"[\2:\1]")    # Go's form, re's form
 ROWS = 1 << 20
 ROW_PATTERNS = [("digits_dot", r"\d+\.\d+"), ("word_error", r"\berror\b")]
+# the leftmost-longest slice (compile_posix): (name, pattern, the pattern of
+# re's oracle, or None for the ([c]{m,k})+ run oracle, posix_run_spans);
+# count and find_all at CORPUS_MIB, the leftmost-first walls beside; the
+# window scan's ends form over fwd_anch_all on POSIX_WINDOW's starts
+POSIX = [("word_digits", r"\b\d+\b", r"\b\d+\b"),
+         ("lazy_ip", r"\d+?\.\d+?\.\d+?\.\d+?", r"\d+\.\d+\.\d+\.\d+"),
+         ("lazy_ab", r"a.*?b", r"a.*b"),
+         ("email", r"[\w.+-]+@[\w.-]+\.[\w.-]+",
+          r"[\w.+-]+@[\w.-]+\.[\w.-]+"),
+         ("nfa_u_z", r"[a-q][^u-z]{13}x", r"[a-q][^u-z]{13}x"),
+         ("err_set", r"err|error|errors", r"errors|error|err"),
+         ("lower_plus", r"([a-z]{2,3})+", None)]
+POSIX_WINDOW = "lazy_ip"
+POSIX_LONG_LANE = "lazy_ab"     # the lane that lives for several rounds
 SLICE_MS = {}   # phase 3's kernel ms of the slice's shapes, for phase 4
 MESH_SHARDS = 4     # shards of the virtual mesh on the one card
 TRANSFER_MAIN = "ip"    # the transfer walk's whole-corpus pattern
@@ -898,6 +931,8 @@ def phase_kernels(base: bytes, corpus: np.ndarray):
     window_edge_cases(compare, rev.mt, data, g)
     # the general find_all's shapes, the window scan's headline among them
     general_kernels(compare, data, corpus)
+    # the leftmost-longest general route's ends form over fwd_anch_all
+    posix_kernels(compare, base, data, corpus)
     # the bitset-NFA scan on the sample, then timed on the whole corpus
     bitset_kernels(compare, results, sample, data)
     del data
@@ -1137,6 +1172,72 @@ def general_kernels(compare, data, corpus: np.ndarray) -> None:
             lambda: dfa_scan.window_ends_plain(*eargs, alive_u8=True),
             headline=True, in_bytes=reads + nbytes(st, *eargs[:4]))
     del wargs, eargs, st, edge
+    torch.cuda.empty_cache()
+
+
+def posix_kernels(compare, base: bytes, data, corpus: np.ndarray) -> None:
+    """The window scan's ends form over fwd_anch_all, the table of the
+    leftmost-longest general route, against its plain version: forward
+    from every match start of POSIX_WINDOW's POSIX engine on the whole
+    corpus at W = 64 (the path's first round, one lane a start), with the
+    bytes its lanes must read; then one live lane of 16, the others parked
+    at n, from the first `a` of the base's first MiB with its newlines made
+    spaces, under POSIX_LONG_LANE's table at W = 64 x 4^k, and the round
+    loop (dfa_scan.window_ends) from that lane against the host walk of the
+    same table (search.anchored_last_end)."""
+    import torch
+    import coregex_tpu_torch as ct
+    from coregex_tpu_torch.dfa.search import anchored_last_end
+    from coregex_tpu_torch.ops import dfa_scan
+    pattern = {nm: p for nm, p, _ in POSIX}
+    be = ct.compile_posix(pattern[POSIX_WINDOW], device=DEVICE) \
+        .batch_engine()
+    route = be._full_scan_route()
+    if route is None or be._verify_kind() != "fwd_anch_all":
+        fail(f"posix {POSIX_WINDOW}: no general route over fwd_anch_all")
+    rev, fwd_mt = route
+    starts, m, ok = be._all_starts(rev, corpus)
+    if not bool(ok):
+        fail(f"posix {POSIX_WINDOW}: the match starts' compaction failed")
+    st = starts[:m].contiguous()
+    del starts
+    eargs = dfa_scan.window_args(fwd_mt, data, st, None, be.END_WINDOW)
+    reads = window_reads(*eargs)
+    print(f"[kernels] window_ends {m} POSIX starts of {POSIX_WINDOW}: "
+          f"fwd_anch_all [{fwd_mt.S}, {fwd_mt.NSEG}], {reads} corpus bytes "
+          f"read at W={be.END_WINDOW}", flush=True)
+    compare("window_ends", f"{m} POSIX starts W={be.END_WINDOW} "
+            f"fwd_anch_all {CORPUS_MIB} MiB",
+            lambda: dfa_scan.window_ends_cuda(*eargs, alive_u8=True),
+            lambda: dfa_scan.window_ends_plain(*eargs, alive_u8=True),
+            in_bytes=reads + nbytes(st, *eargs[:4]))
+    del eargs, st
+    lb = ct.compile_posix(pattern[POSIX_LONG_LANE], device=DEVICE) \
+        .batch_engine()
+    mt = lb._full_scan_route()[1]
+    line = np.frombuffer(base[:1 << 20], np.uint8).copy()
+    line[line == ord("\n")] = ord(" ")
+    d1 = torch.from_numpy(line).to(DEVICE)
+    n1 = len(line)
+    s0 = int(np.flatnonzero(line == ord("a"))[0])
+    one = torch.full((16,), n1, dtype=torch.int32, device=DEVICE)
+    one[0] = s0
+    for k in range(4):
+        W = 64 * 4 ** k
+        a = dfa_scan.window_args(mt, d1, one, None, W)
+        compare("window_ends", f"one POSIX lane of 16 W={W} fwd_anch_all",
+                lambda: dfa_scan.window_ends_cuda(*a),
+                lambda: dfa_scan.window_ends_plain(*a),
+                in_bytes=nbytes(one, *a[:4]) + min(W, n1 - s0))
+    ends, rounds = dfa_scan.window_ends(mt, d1, one[:1].clone(),
+                                        lb.END_WINDOW)
+    want = anchored_last_end(lb._dense("fwd_anch_all"), line, s0)
+    if int(ends[0]) != want or rounds < 5:
+        fail(f"posix {POSIX_LONG_LANE}: the round loop's end "
+             f"{int(ends[0])} in {rounds} rounds != the host walk's {want}")
+    print(f"[kernels] window_ends one POSIX lane over {n1} bytes from {s0}:"
+          f" end {want} in {rounds} rounds equals the host walk", flush=True)
+    del d1, one
     torch.cuda.empty_cache()
 
 
@@ -1769,11 +1870,12 @@ def phase_e2e(base: bytes, arr: np.ndarray):
     return routes
 
 
-def check_find_all(name, be, arr: np.ndarray, exp, kernels=None) -> str:
+def check_find_all(name, be, arr: np.ndarray, exp, kernels=None,
+                   walls=None) -> str:
     """Device find_all of arr (first call, then best of 2) against an
     expected tiled_digest; returns the report, with the repair passes of
     the last call of `kernels` ((label, counter) pairs; K2's and K3's when
-    None)."""
+    None).  The best wall in seconds goes into `walls` under name."""
     import torch
     n = len(arr)
     cnt_e, ss_e, es_e, sidx, samp_e = exp
@@ -1813,6 +1915,8 @@ def check_find_all(name, be, arr: np.ndarray, exp, kernels=None) -> str:
              f"!= oracle ({cnt_e}, True, {ss_e}, {es_e})")
     if not (samp == samp_e).all():
         fail(f"{name}: sampled spans differ from the oracle")
+    if walls is not None:
+        walls[name] = fa_best
     return (f"find_all {cnt} spans digest+64 samples ok  "
             f"{n / fa_best / 1e9:7.2f} GB/s ({fa_best * 1e3:.1f} ms, "
             f"first {fa_first:.2f} s, repair passes "
@@ -2265,6 +2369,111 @@ def phase_e2e_bitset(base: bytes, arr: np.ndarray):
                   f"re ({len(want)} matches, "
                   f"{(time.perf_counter() - t0) * 1e3:.1f} ms)", flush=True)
         routes[f"{name} bitset"] = be.host_routes
+    return routes
+
+
+def posix_run_spans(base: bytes):
+    """The leftmost-longest spans of `([a-z]{2,3})+`: each run of
+    `[a-z]+` cut to its longest prefix that `(?:[a-z]{2,3})+` fully
+    matches (no match fits in what is left of the run)."""
+    plus = re.compile(rb"(?:[a-z]{2,3})+")
+    out = []
+    for r in re.finditer(rb"[a-z]+", base):
+        s, e = r.span()
+        x = next((x for x in range(e - s, 0, -1)
+                  if plus.fullmatch(base, s, s + x)), None)
+        if x is not None:
+            out.append((s, s + x))
+    return out
+
+
+def posix_oracle(oracle, text: bytes):
+    """A POSIX pattern's spans on text: re's on the oracle pattern (its
+    leftmost-first spans are the POSIX pattern's leftmost-longest ones on
+    this corpus), or posix_run_spans."""
+    if oracle is None:
+        return posix_run_spans(text)
+    return [m.span() for m in re.finditer(oracle.encode(), text)]
+
+
+def phase_e2e_posix(base: bytes, arr: np.ndarray):
+    """The leftmost-longest slice through the public API: count and device
+    find_all (first call, then best of 2) of each POSIX pattern through
+    compile_posix on the 1536 MiB corpus against its oracle (posix_oracle
+    on the base tile, tiled, the tiling checked on two tiles), with its
+    route, match starts and window rounds, the launches of each kernel in
+    one warm find_all and find_all_index on two tiles; then the
+    leftmost-first engine's count and find_all walls of the same pattern
+    beside them, a comparison whose launches are not the path's."""
+    import coregex_tpu_torch as ct
+    from coregex_tpu_torch.ops import compact2, dfa_scan, nfa_scan
+
+    B = len(base)
+    reps = len(arr) // B
+    n = len(arr)
+    rng = np.random.default_rng(19)
+    every = [c for c, _, _ in kernel_counters()]
+    kernels = (dfa_scan.MATCH_KERNEL, dfa_scan.WINDOW_ENDS_KERNEL,
+               compact2.COMPACT_KERNEL, nfa_scan.BITSET_KERNEL)
+    routes, walls = {}, {}
+    for name, pattern, oracle in POSIX:
+        spans0 = posix_oracle(oracle, base)
+        if posix_oracle(oracle, base + base) != expand_tiles(spans0, [], B,
+                                                             2):
+            fail(f"posix {name}: the tiled oracle differs from the oracle "
+                 f"on two tiles")
+        eng = ct.compile_posix(pattern, device=DEVICE)
+        be = eng.batch_engine()
+        route = be._spans_route(arr)
+        if route is None:
+            fail(f"posix {name}: find_all is not routed to the device")
+        exp = tiled_digest(spans0, [], B, reps, rng)
+        got, best, first = timed_count(
+            eng, arr, (dfa_scan.MATCH_KERNEL, nfa_scan.BITSET_KERNEL))
+        if got != exp[0]:
+            fail(f"posix {name}: count {got} != oracle {exp[0]}")
+        line = (f"[posix] {name:11} {eng.strategy:13} route {route[0]:9} "
+                f"count {got:>9} ok {n / best / 1e9:6.2f} GB/s "
+                f"({best * 1e3:.1f} ms, first {first:.2f} s) | "
+                + check_find_all(f"posix {name}", be, arr, exp,
+                                 [("K9", dfa_scan.MATCH_KERNEL),
+                                  ("bitset", nfa_scan.BITSET_KERNEL)], walls)
+                + route_stats(be, route))
+        print(line, flush=True)
+        before = [c.launches for c in kernels]
+        be.find_all_spans_device(arr)
+        launched = ", ".join(f"{c.name} {c.launches - b}"
+                             for c, b in zip(kernels, before))
+        got = eng.find_all_index(arr[:2 * B])
+        if (got or []) != expand_tiles(spans0, [], B, 2):
+            fail(f"posix {name}: find_all_index on two tiles differs from "
+                 f"the oracle")
+        routes[f"{name} posix"] = be.host_routes
+        # the leftmost-first engine's walls: a comparison, so its
+        # launches are taken back out of the counts
+        saved = [c.launches for c in every]
+        lf = ct.compile(pattern, device=DEVICE)
+        lf_route = lf.batch_engine()._spans_route(arr)
+        if lf_route is None:
+            fail(f"posix {name}: the leftmost-first find_all declines")
+        lf_count = timed_count(lf, arr)[1]
+        lf_be = lf.batch_engine()
+        lf_be.find_all_spans_device(arr)
+        lf_fa = float("inf")
+        for _ in range(2):
+            t0 = time.perf_counter()
+            r = lf_be.find_all_spans_device(arr, defer_ok=True)
+            int(r[1])
+            lf_fa = min(lf_fa, time.perf_counter() - t0)
+        for c, v in zip(every, saved):
+            c.launches = v
+        fa = walls[f"posix {name}"]
+        print(f"[posix] {name:11} host_routes {be.host_routes}; one warm "
+              f"find_all launches {launched}; find_all_index on two tiles "
+              f"equals the oracle | POSIX count {best * 1e3:.1f} ms, "
+              f"find_all {fa * 1e3:.1f} ms; leftmost-first (route "
+              f"{lf_route[0]}) count {lf_count * 1e3:.1f} ms, find_all "
+              f"{lf_fa * 1e3:.1f} ms", flush=True)
     return routes
 
 
@@ -2923,20 +3132,16 @@ def phase_e2e_multi(base: bytes, arr: np.ndarray):
     return routes
 
 
-def main():
-    card = phase_device()
-    import torch
-    try:
-        import coregex_tpu_torch  # noqa: F401
-    except ImportError as ex:
-        fail(f"cannot import coregex_tpu_torch: {ex}")
+def kernel_counters():
+    """(launch counter, CUDA source, the TPU kernel it replaces) of every
+    kernel, in the order of the JSON line."""
     from coregex_tpu_torch.ops import (compact, compact2, compact_exp,
                                        count_scan, dfa_scan, flag_scan,
                                        line_scan, nfa_scan, onepass_scan,
                                        rowscan, seq_scan, span_scan,
                                        transfer_scan)
     ops = "coregex_tpu/ops/"
-    counters = [
+    return [
         (count_scan.COUNT_KERNEL, "lane_scan.cu", ops + "count_scan.py:211"),
         (span_scan.SPAN_KERNEL, "lane_scan.cu", ops + "span_scan.py:108"),
         (flag_scan.FLAG_KERNEL, "lane_scan.cu", ops + "flag_scan.py:164"),
@@ -2970,6 +3175,16 @@ def main():
         (transfer_scan.TRANSFER_COUNT_KERNEL, "transfer_scan.cu",
          "coregex_tpu/parallel/sharded_count.py:83"),
     ]
+
+
+def main():
+    card = phase_device()
+    import torch
+    try:
+        import coregex_tpu_torch  # noqa: F401
+    except ImportError as ex:
+        fail(f"cannot import coregex_tpu_torch: {ex}")
+    counters = kernel_counters()
     # kernels each run of phase 4 must launch: the earlier slices' path,
     # then the class-run and nullable path (K1 for the `\w*` count, K2/K3
     # for the ip core, K4 for class runs and chains, K8 for `\w*`), then
@@ -2981,8 +3196,11 @@ def main():
     # is_match, the ends form, K4 for the starts and the chain), then the
     # captures and row batches (the OnePass walk, both row scans, K2-K4 for
     # the capture patterns' bidi spans), then the multi-device layer (the
-    # transfer walk in both modes, K9 and K8 for the sharded ends); the
-    # flags form has no caller on a user path (its checks are phase 3's)
+    # transfer walk in both modes, K9 and K8 for the sharded ends), then
+    # leftmost-longest (K9 over the reverse DFA, the ends form over
+    # fwd_anch_all, K4 for the starts and the chain, the bitset scan for
+    # BITSET_NFA's starts); the flags form has no caller on a user path
+    # (its checks are phase 3's)
     paths = [("earlier slices", phase_e2e,
               [c for c, _, _ in counters[:7]]),
              ("class runs and nullable", phase_e2e_class_nullable,
@@ -2998,7 +3216,9 @@ def main():
              ("captures and row batches", phase_e2e_captures_rows,
               [counters[i][0] for i in (13, 14, 15, 1, 2, 3)]),
              ("multi-device", phase_e2e_multi,
-              [counters[i][0] for i in (16, 17, 8, 7)])]
+              [counters[i][0] for i in (16, 17, 8, 7)]),
+             ("leftmost-longest", phase_e2e_posix,
+              [counters[i][0] for i in (8, 11, 3, 12)])]
     build_s = phase_build()
     base = build_base()
     corpus = bench_corpus(base)

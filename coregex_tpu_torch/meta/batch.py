@@ -74,14 +74,35 @@ Routes:
     host reverse scan for END_ANCHORED plans; for BITSET_NFA plans every
     match start from the bitset-NFA scan of the reverse NFA over the
     flipped corpus (``ops/nfa_scan.py``), then the general fallback's ends
-    and chain, or, when ``fwd_anch_break`` overflows or does not fit the
+    and chain, or, when the anchored DFA overflows or does not fit the
     kernels, Go's restart walk over the starts with the Engine's host
     search for the ends (the reference's route for that case); a reverse
     NFA out of the scan's scope (more than 512 range states, more than 4
-    closure groups) declines.  Leftmost-longest plans decline, but
-    END_ANCHORED, whose one match does not depend on the rule.  A limit
-    (find_all_index(t, k)) takes the same routes and keeps the first k
-    spans (the host walk stops after k).
+    closure groups) declines.  A limit (find_all_index(t, k)) takes the
+    same routes and keeps the first k spans (the host walk stops after
+    k).
+  * leftmost-longest (POSIX, ``compile_posix``): find_all, find_all with a
+    limit and count take the find_all routes above, as the reference's
+    do, with the rule in their tables and arithmetic (``_verify_kind``,
+    ref. :345-348): the general fallback serves FULL_SCAN, PREFIX_RUN,
+    PREFIX_SET and INNER plans and BITSET_NFA takes its ends from the
+    anchored all-matches DFA ``fwd_anch_all``, whose last flag from a
+    start is the longest end (the host search's ends, where it overflows,
+    are the longest too); MULTI_LITERAL plans list their literals longest
+    first, so the longest literal wins at a start; ``([c]{m,k})+`` takes
+    each run's longest prefix that splits into m- to k-byte pieces
+    (``_chop_runs_longest``; the reference chops leftmost-first here,
+    ROADMAP F12); the other class runs, literals, line shapes and
+    END_ANCHORED give the same spans under both rules.  Count is the
+    length of the device find_all (ref. :1798-1800).  Still declining:
+    the bidirectional path (its transducer is leftmost-first, so those
+    plans take the general fallback), nullable plans (the plan is HOST,
+    as in the reference), and whatever declines leftmost-first (a DFA
+    that overflows or does not fit, a reverse NFA out of the bitset
+    scan's scope, a ``(?s)`` line shape).  find_first and find_index of a
+    leftmost-longest engine stay on the host, as in the reference
+    (engine.py:238); its captures take their spans from the card and
+    their groups from the PikeVM (the reference's gate, engine.py:423).
   * is_match: True for nullable plans; the host reverse scan for
     END_ANCHORED; one K9 scan over ``fwd_all`` for FULL_SCAN; one forward
     bitset scan for BITSET_NFA when the forward NFA is in the scan's
@@ -112,6 +133,7 @@ engine attributes, so concurrent calls on one engine cannot mix corpora
 
 from __future__ import annotations
 
+import dataclasses
 from contextlib import ExitStack
 from typing import Dict, Optional
 
@@ -187,6 +209,18 @@ def _chop_runs(spans, mn: int, mx: int):
     return torch.stack([s, e - torch.where(r < mn, r, 0)], dim=1)
 
 
+def _chop_runs_longest(spans, mn: int, mx: int):
+    """The leftmost-longest ([c]{m,k})+ match of each maximal run of
+    length L >= m: its longest prefix of x <= L bytes that splits into j
+    pieces of m to k bytes (j*m <= x <= j*k), x = min(L, (L // m) * k),
+    since the ranges for j pieces grow with j; L - x < m, so no further
+    match fits in the run.  The reference applies ``_chop_runs`` here
+    (ROADMAP F12).  Dead rows map to themselves."""
+    s, e = spans[:, 0], spans[:, 1]
+    L = e - s
+    return torch.stack([s, s + torch.minimum(L, L // mn * mx)], dim=1)
+
+
 class BatchEngine:
     """Per-pattern batch plan + device artifacts on one torch device."""
 
@@ -237,9 +271,9 @@ class BatchEngine:
         self.parsed = parsed
         self.ast = ast
         self.longest = longest
-        # (corpus, pos) -> the leftmost-first span at or after pos, or None:
-        # the Engine's host search, for BITSET_NFA ends when the anchored
-        # DFA overflows (ref. :302)
+        # (corpus, pos) -> the leftmost span at or after pos under the
+        # engine's rule, or None: the Engine's host search, for BITSET_NFA
+        # ends when the anchored DFA overflows (ref. :302)
         self.host_find = host_find
         self.device = torch.device(device)
         self.plan: Plan = select(ast, dfas_ok)
@@ -247,6 +281,12 @@ class BatchEngine:
                                               Strategy.ALL_EMPTY):
             self.plan = Plan(Strategy.HOST, "nullable (longest): host",
                              nullable=True)
+        if longest and self.plan.strategy == Strategy.MULTI_LITERAL:
+            # POSIX takes the longest literal at a start, not the first
+            # listed: priority by length, stable (ref. :312-316)
+            self.plan = dataclasses.replace(
+                self.plan, literals=sorted(self.plan.literals, key=len,
+                                           reverse=True))
         self._lock = device_lock(f"torch:{self.device}")
         self.host_routes = 0     # calls declined to the Engine's host loop
         self._host_dense: Dict[str, object] = {}
@@ -274,6 +314,13 @@ class BatchEngine:
         self._sharded_sc = {}
         self._sharded_ends = {}
 
+    def _verify_kind(self) -> str:
+        """The anchored forward DFA whose last flag from a match start is
+        that match's end under the engine's rule (ref. :345-348):
+        break-at-match for leftmost-first, every match kept for
+        leftmost-longest, whose last flag is the longest end."""
+        return "fwd_anch_all" if self.longest else "fwd_anch_break"
+
     def _decline(self, result=None):
         self.host_routes += 1
         return result
@@ -291,9 +338,9 @@ class BatchEngine:
         start, read on the flipped corpus), the unanchored forward DFA
         (``fwd_all``) and its break-at-match form (``fwd_break``: it dies
         right after the leftmost match is complete, so its last flag is the
-        leftmost-first end), and that form anchored (``fwd_anch_break``,
-        the reference's leftmost-first ``_verify_kind``).  Raises
-        DFAOverflow past the state limit."""
+        leftmost-first end), and the anchored forms of both
+        (``fwd_anch_break`` and ``fwd_anch_all``, the two results of
+        ``_verify_kind``).  Raises DFAOverflow past the state limit."""
         if kind in self._host_dense:
             return self._host_dense[kind]
         d = load_dense(self.parsed.pattern, kind)
@@ -307,10 +354,11 @@ class BatchEngine:
                 nfa = compile_nfa(self.parsed, reverse=True)
                 d = determinize(nfa, anchored=False, break_at_match=False,
                                 reverse=True)
-            elif kind in ("fwd_all", "fwd_break", "fwd_anch_break"):
+            elif kind in ("fwd_all", "fwd_break", "fwd_anch_break",
+                          "fwd_anch_all"):
                 nfa = compile_nfa(self.parsed, with_captures=False)
-                d = determinize(nfa, anchored=(kind == "fwd_anch_break"),
-                                break_at_match=(kind != "fwd_all"))
+                d = determinize(nfa, anchored=kind.startswith("fwd_anch"),
+                                break_at_match=kind.endswith("break"))
             else:
                 raise KeyError(kind)
             save_dense(self.parsed.pattern, kind, d)
@@ -475,11 +523,16 @@ class BatchEngine:
         devices (``_mesh``) the multi-device hook ``_sharded_counter``
         counts first, as the reference's count does (:1721-1729): before
         the line, hits and transducer routes, and for nullable plans once
-        their transducer's gate passes (its nullable_count, :1678-1685)."""
+        their transducer's gate passes (its nullable_count, :1678-1685).
+        A leftmost-longest engine counts its device find_all
+        (``_count_by_spans``): the count transducer and the needle counts
+        are leftmost-first."""
         self._check_size(len(data))
         if self.plan.strategy == Strategy.END_ANCHORED:
             sp = self._end_anchored_spans(data)
             return None if sp is None else len(sp)
+        if self.longest:
+            return self._count_by_spans(data)
         mesh = self._mesh()
         with self._locks(mesh):
             route = self._count_route(data)
@@ -574,7 +627,7 @@ class BatchEngine:
                                (pos < n).sum()]).tolist()
         if over:
             return None
-        at0 = int(anchored_last_end(self._dense("fwd_anch_break"), data,
+        at0 = int(anchored_last_end(self._dense(self._verify_kind()), data,
                                     0) >= 0)
         if m + at0 > self.MAX_DEVICE_SPANS:
             raise ValueError(f"{m + at0} match starts exceed the device "
@@ -589,14 +642,16 @@ class BatchEngine:
                                            device=self.device)
 
     def _count_by_spans(self, data: np.ndarray) -> Optional[int]:
-        """A nullable plan outside the transducer's gate, or a BITSET_NFA
-        plan (whose transducer overflows), counts its device find_all when
-        a find_all route serves the corpus (the reference counts the span
-        list of its device find_all, ref. engine.py:337 and batch.py
-        :1798-1799); else None (declined)."""
-        if (self.plan.strategy not in (Strategy.NULLABLE_CORE,
-                                       Strategy.BITSET_NFA)
-                or len(data) > self.SPARSE_SPANS_LIMIT
+        """A nullable plan outside the transducer's gate, a BITSET_NFA plan
+        (whose transducer overflows) or any plan of a leftmost-longest
+        engine counts its device find_all when a find_all route serves the
+        corpus (the reference counts the span list of its device find_all,
+        ref. engine.py:337 and batch.py :1798-1800); else None
+        (declined)."""
+        if ((self.plan.strategy not in (Strategy.NULLABLE_CORE,
+                                        Strategy.BITSET_NFA)
+             and not self.longest)
+                or not 0 < len(data) <= self.SPARSE_SPANS_LIMIT
                 or self._spans_route(data) is None):
             return self._decline()
         return self.find_all_spans_device(data)[1]
@@ -913,7 +968,12 @@ class BatchEngine:
     def _spans_route(self, data: np.ndarray):
         """(kind, args) of the find_all route serving this corpus, or None
         (declined); host work only, the corpus is not uploaded.  Callers
-        check the size limits."""
+        check the size limits.  A leftmost-longest engine takes the same
+        routes but the bidirectional one (its transducer is
+        leftmost-first): its general and BITSET_NFA routes read ends from
+        ``fwd_anch_all``, its literal sets are sorted longest first, its
+        ``([c]{m,k})+`` runs take the longest chop; line shapes and the
+        other class runs give the same spans under both rules."""
         strat = self.plan.strategy
         if strat == Strategy.END_ANCHORED:
             # rule-independent, so leftmost-longest takes it too
@@ -922,8 +982,6 @@ class BatchEngine:
             except DFAOverflow:
                 return None
             return "end_anchored", None
-        if self.longest:
-            return None
         if strat == Strategy.BITSET_NFA:
             route = self._bitset_route()
             return None if route is None else ("bitset", route)
@@ -952,10 +1010,12 @@ class BatchEngine:
     # -- line-shape span path -------------------------------------------------
     def _line_spans_route(self):
         """(mode, lit, prefix, anchored) of the candidate chain, or None
-        (declined): a (?s) part, a newline in the literal or prefix, an
-        empty literal, or leftmost-longest.  Host work only."""
-        if self.longest:
-            return None
+        (declined): a (?s) part, a newline in the literal or prefix, or
+        an empty literal.  Host work only.  Either rule gives the same
+        spans: a match starts at the leftmost position that holds one,
+        and its end is the line's end (a universal suffix) or the end of
+        the line's last literal after that start (none), the longest end
+        under both rules, since the literal holds no newline."""
         sp = self.plan.split
         a_univ, b_empty, b_univ, a_is_empty = self._line_shape_parts(sp)
         if a_univ == UNIV_ANY or b_univ == UNIV_ANY:
@@ -1112,14 +1172,14 @@ class BatchEngine:
     END_WINDOW = 64
 
     def _full_scan_route(self):
-        """(rev_all ChunkScanner, fwd_anch_break MatchTables) of the
-        general find_all, or None (declined: leftmost-longest, a nullable
-        plan, a DFA that overflows or a table too large for the kernels);
-        host work only."""
-        if self.longest or self.plan.nullable:
+        """(rev_all ChunkScanner, MatchTables of ``_verify_kind``) of the
+        general find_all, or None (declined: a nullable plan, a DFA that
+        overflows or a table too large for the kernels); host work
+        only."""
+        if self.plan.nullable:
             return None
         rev = self._chunk_scanner("rev_all")
-        fwd = self._chunk_scanner("fwd_anch_break") if rev else None
+        fwd = self._chunk_scanner(self._verify_kind()) if rev else None
         return None if fwd is None else (rev, fwd.mt)
 
     def _flipped_tiles(self, data: np.ndarray, geom):
@@ -1189,12 +1249,15 @@ class BatchEngine:
 
     def _starts_spans_dev(self, starts, m: int, ok, fwd_mt, data):
         """(spans, count, None) from every match start (ascending, n past
-        the count m, ok their device check): each start's leftmost-first end
-        by the forward window scan over ``fwd_anch_break``
-        (dfa_scan.window_ends), then Go's selection: every match when none
-        overlaps the next start, else the chain walk on the device
-        (span_chain.chain_select), since a non-nullable plan never matches
-        empty.  Syncs: one alive count a window round, the checks.
+        the count m, ok their device check): each start's end by the
+        forward window scan over the ``_verify_kind`` table
+        (dfa_scan.window_ends; the leftmost-first end over
+        ``fwd_anch_break``, the longest over ``fwd_anch_all``), then Go's
+        selection: every match when none overlaps the next start, else the
+        chain walk on the device (span_chain.chain_select), since a
+        non-nullable plan never matches empty.  The next match begins at
+        the first start at or after the previous end under either rule.
+        Syncs: one alive count a window round, the checks.
         ``full_scan_stats`` keeps the last call's start count and window
         rounds."""
         n = len(data)
@@ -1244,16 +1307,17 @@ class BatchEngine:
         return sc
 
     def _bitset_route(self):
-        """(reverse BitsetNFAScanner, fwd_anch_break MatchTables or None)
-        serving a BITSET_NFA plan's find_all and find_first, or None
+        """(reverse BitsetNFAScanner, MatchTables of ``_verify_kind`` or
+        None) serving a BITSET_NFA plan's find_all and find_first, or None
         (declined: the reverse NFA is out of the scan's scope).  Tables
         None: the anchored DFA overflows or does not fit the kernels, and
         the Engine's host search gives the ends (ref. _bitset_spans,
-        :2484-2500).  Host work only."""
+        :2484-2500), the longest on a leftmost-longest engine.  Host work
+        only."""
         rev = self._bitset_scanner("rev")
         if not rev:
             return None
-        fwd = self._chunk_scanner("fwd_anch_break")
+        fwd = self._chunk_scanner(self._verify_kind())
         if fwd is None and self.host_find is None:
             return None
         return rev, (None if fwd is None else fwd.mt)
@@ -1315,9 +1379,9 @@ class BatchEngine:
         return np.array(out, dtype=np.int64).reshape(-1, 2)
 
     def _bitset_first(self, rev, fwd_mt, data: np.ndarray):
-        """The leftmost-first match of a BITSET_NFA plan: Go's match begins
-        at the leftmost start, the last flag of the reverse scan, and ends
-        at that start's window end over ``fwd_anch_break`` (the host
+        """The leftmost match of a BITSET_NFA plan: Go's match begins at
+        the leftmost start, the last flag of the reverse scan, and ends at
+        that start's window end over the ``_verify_kind`` table (the host
         search's with no tables): the span the reference's
         _bitset_spans(limit=1) gives."""
         n = len(data)
@@ -1372,7 +1436,8 @@ class BatchEngine:
         are sparse, else one K4 compaction per unpacked mask (the
         reference's _charclass_dense_pair, :744-758, rebuilds the masks
         from the corpus instead).  [class]+ takes the runs;
-        ([class]{m,k})+ chops each run to its one match (``_chop_runs``);
+        ([class]{m,k})+ chops each run to its one match (``_chop_runs``,
+        or ``_chop_runs_longest`` on a leftmost-longest engine);
         [class]{m,k} splits each run into its matches on the device
         (span_chain.expand_class_runs), validated here.  Every run counted
         holds a match, so a limit >= 0 extracts only the first `limit` runs
@@ -1409,7 +1474,8 @@ class BatchEngine:
                                  f"limit ({self.MAX_DEVICE_SPANS})")
             return spans, total, None
         if not plain:
-            spans = _chop_runs(spans, cc.min, cc.max)
+            chop = _chop_runs_longest if self.longest else _chop_runs
+            spans = chop(spans, cc.min, cc.max)
         if take < cnt:
             cnt = take
             known_cnt = None

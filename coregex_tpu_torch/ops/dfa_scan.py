@@ -439,11 +439,14 @@ def window_ends_round(mt: MatchTables, data, starts, W: int, edge=None,
 
 
 def window_ends(mt: MatchTables, data, starts, W: int = 64, out=None):
-    """The leftmost-first end of the anchored match from each of the m
-    `starts` ([m] int32, ascending or not) under the break-at-match
-    anchored DFA `mt` (ref. ``WindowScanner.ends_for_starts_device``,
-    :591-622): the ends form forward, one lane per start, W bytes, one
-    launch a round; the last flag of a run that ended is its end.  The
+    """The end of the anchored match from each of the m `starts` ([m]
+    int32, ascending or not) under the anchored DFA `mt` (ref.
+    ``WindowScanner.ends_for_starts_device``, :591-622): the last flag of
+    the run, so the table sets the rule (a break-at-match DFA dies after
+    the leftmost-first end; one that keeps every match lives while any
+    thread can go on, and its last flag is the longest end).  The ends
+    form runs forward, one lane per start, W bytes, one launch a round;
+    the last flag of a run that ended is its end (at n, the EOI flag).  The
     lanes still alive are compacted on the device (K4, carrying their
     index and start) and rerun from their starts at 4W, writing their
     ends in place, one sync a round for the alive count, until no lane

@@ -149,15 +149,26 @@ def test_warm_defer_path():
 @pytest.mark.parametrize("pattern,longest", [
     (r"[a-z]{2,5}", False), (r"\w{3,}", False), (r"[\w]+", True)])
 def test_declines_are_counted_before_upload(pattern, longest):
-    """Leftmost-longest class plans decline before the upload and are
-    counted; the leftmost-first {m,k} splits are served on the device."""
+    """Class plans, leftmost-longest ones among them, decline past the span
+    limit before the upload and are counted; within it they are served on
+    the device, equal to the reference (leftmost-longest: its host walk),
+    and the leftmost-first {m,k} splits too."""
     t = _log_corpus(14, 20000)
     corpus_cache.clear()
     eng = ct.compile(pattern, device="cpu", longest=True)
     ref = ref_ct.compile(pattern, longest=True)
-    assert eng.find_all_index(t) == ref.find_all_index(t)
-    assert eng.batch_engine().host_routes == 1
+    ref.batch_threshold = 1 << 30
+    be = eng.batch_engine()
+    be.SPARSE_SPANS_LIMIT = len(t) - 1
+    exp = ref.find_all_index(t)
+    assert eng.find_all_index(t) == exp
+    assert be.host_routes == 1
     assert corpus_cache._entry(_arr(t), "cpu").buf is None
+    del be.SPARSE_SPANS_LIMIT
+    assert be._spans_route(_arr(t))[0] == "charclass"
+    assert eng.find_all_index(t) == exp
+    assert eng.count(t) == len(exp)
+    assert be.host_routes == 1
     if not longest:
         eng = ct.compile(pattern, device="cpu")
         ref = ref_ct.compile(pattern)

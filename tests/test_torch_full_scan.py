@@ -18,8 +18,9 @@ overlapping candidate starts (`aaa@bbb.com`), multi-byte runes beside
 split are also compared as plain functions with the reference's
 ``go_select`` and its host split, on random inputs.  What still declines
 (a BITSET_NFA plan out of the bitset scan's scope, leftmost-longest, a
-reverse DFA that overflows) declines before the upload and gets the
-reference's spans from the host loop."""
+reverse DFA that overflows, a leftmost-longest nullable plan) declines
+before the upload and gets the reference's spans from the host loop; a
+leftmost-longest look pattern takes the general route."""
 
 import numpy as np
 import pytest
@@ -172,19 +173,31 @@ def test_span_limit_raises_on_the_general_route():
     (r"\b[ab]{15}a", False)])
 def test_what_still_declines_does_so_before_upload(ref, pattern, longest):
     """A BITSET_NFA plan whose reverse NFA is out of the bitset scan's
-    scope (515 range states), leftmost-longest and a pattern whose
-    unanchored reverse DFA overflows (`\\b[ab]{15}a`, FULL_SCAN) decline
-    before the upload; the host loop gives the reference's spans."""
+    scope (515 range states), a leftmost-longest nullable plan (its plan
+    is HOST) and a pattern whose unanchored reverse DFA overflows
+    (`\\b[ab]{15}a`, FULL_SCAN) decline before the upload; the host loop
+    gives the reference's spans.  A leftmost-longest look pattern
+    (`\\b\\d+\\b`) is served on the general route, equal to the
+    reference, and declines before the upload only past the span
+    limit."""
     corpus_cache.clear()
     t = CORPORA["log"]
     eng = (ct.compile_posix if longest else ct.compile)(pattern,
                                                         device="cpu")
     be = eng.batch_engine()
+    served = be._spans_route(_arr(t)) is not None
+    assert served == (pattern == r"\b\d+\b")
+    if served:
+        be.SPARSE_SPANS_LIMIT = len(t) - 1
     assert (eng.find_all_index(t) or []) == ref(pattern, "log", longest)
-    assert be._spans_route(_arr(t)) is None
     if be.plan.strategy.name != "HOST":
         assert be.host_routes == 1
     assert corpus_cache._entry(_arr(t), "cpu").buf is None
+    if served:
+        del be.SPARSE_SPANS_LIMIT
+        assert be._spans_route(_arr(t))[0] == "full_scan"
+        assert (eng.find_all_index(t) or []) == ref(pattern, "log", longest)
+        assert be.host_routes == 1
 
 
 @pytest.mark.parametrize("seed", range(6))

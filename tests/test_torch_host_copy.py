@@ -4,7 +4,8 @@ field of the plan, ASTs included) and the same count-transducer and dense
 DFA tables, for the bench patterns, the nullable routes of
 tests/test_nullable_spans.py and the bidirectional patterns of
 tests/test_torch_engine.py (plans also for the BITSET_NFA tier's
-patterns), and the general find_all's automata for its patterns.  Every
+patterns), and the general find_all's automata for its patterns, the
+leftmost-longest ones' too.  Every
 field is compared exactly.  Also pins
 that the copy builds its own native library and keeps its own artifact
 cache keys."""
@@ -127,6 +128,31 @@ def test_full_scan_tables_match_reference(pattern):
     be = ct.compile(pattern, device="cpu").batch_engine()
     ref_be = ref_ct.compile(pattern).batch_engine()
     for kind in ("rev_all", "fwd_anch_break"):
+        ref_be._dense(kind)
+        _same(be._dense(kind), ref_be._host_dense[kind], f"{pattern} {kind}")
+
+
+# the leftmost-longest routes' patterns (tests/test_torch_posix.py's chip
+# run patterns and lazy ones)
+POSIX = [r"\b\d+\b", r"\d+?\.\d+?\.\d+?\.\d+?", r"a.*?b",
+         r"[\w.+-]+@[\w.-]+\.[\w.-]+", r"[a-q][^u-z]{13}x",
+         r"err|error|errors", r"([a-z]{2,3})+", r"[a-z]+?", r"\d+?",
+         r"[a-z]{2,3}?"]
+
+
+@pytest.mark.parametrize("pattern", POSIX)
+def test_posix_tables_match_reference(pattern):
+    """A leftmost-longest engine's plan (literal sets sorted longest
+    first), its verify kind and its tables (``rev_all`` and the anchored
+    all-matches DFA ``fwd_anch_all``) equal the reference POSIX
+    BatchEngine's."""
+    import coregex_tpu as ref_ct
+    import coregex_tpu_torch as ct
+    be = ct.compile_posix(pattern, device="cpu").batch_engine()
+    ref_be = ref_ct.compile_posix(pattern).batch_engine()
+    _same(be.plan, ref_be.plan, pattern)
+    assert be._verify_kind() == ref_be._verify_kind() == "fwd_anch_all"
+    for kind in ("rev_all", "fwd_anch_all"):
         ref_be._dense(kind)
         _same(be._dense(kind), ref_be._host_dense[kind], f"{pattern} {kind}")
 

@@ -224,12 +224,30 @@ def test_warm_defer_path(pattern, kind):
 
 
 def test_leftmost_longest_sets_decline():
-    text = _corpus("ascii")
-    pattern = r"GET|GETS|POST"
-    eng = ct.compile_posix(pattern, device="cpu")
-    assert eng.find_all_index(text) == \
-        ref_ct.compile_posix(pattern).find_all_index(text)
-    assert eng.batch_engine().host_routes == 1
+    """Leftmost-longest literal sets decline past the span limit before
+    the upload; within it they are served with their literals sorted
+    longest first, equal to the reference's host walk, also where hits
+    overlap (`deltalpha`, `abab`)."""
+    for pattern, kind in ((r"GET|GETS|POST", "ascii"),
+                          (r"err|error|errors", "ascii"),
+                          (r"delta|deltalpha|alpha", "deltalpha"),
+                          (r"ab|aba|b", "abab")):
+        text = _corpus(kind)
+        corpus_cache.clear()
+        eng = ct.compile_posix(pattern, device="cpu")
+        ref = ref_ct.compile_posix(pattern)
+        ref.batch_threshold = 1 << 30
+        exp = ref.find_all_index(text)
+        be = eng.batch_engine()
+        be.SPARSE_SPANS_LIMIT = len(text) - 1
+        assert eng.find_all_index(text) == exp
+        assert be.host_routes == 1
+        assert corpus_cache._entry(_arr(text), "cpu").buf is None
+        del be.SPARSE_SPANS_LIMIT
+        assert be._spans_route(_arr(text))[0] == "literal"
+        assert eng.find_all_index(text) == exp
+        assert eng.count(text) == len(exp or [])
+        assert be.host_routes == 1
 
 
 def test_span_limit_raises():
