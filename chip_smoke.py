@@ -93,7 +93,7 @@ Phases (any failure exits non-zero before the final line):
                table of 64 states and multi_literal32, with its rate of
                table steps
   4. e2e     - the public API on a 1536 MiB log corpus (the JAX package's
-               bench corpus), in nine runs, each with the launch counts
+               bench corpus), in ten runs, each with the launch counts
                set to 0 before it and read after it.  Earlier slices: count for
                the 13 bench patterns and for `0\.0` (whose hits overlap,
                so K6 hands over to K7, with K7's repair passes printed),
@@ -184,7 +184,21 @@ Phases (any failure exits non-zero before the final line):
                on two tiles; each with its route, match starts and
                window rounds, one warm find_all's launches, host_routes
                and find_all_index on two tiles, its count and find_all
-               walls beside the leftmost-first engine's
+               walls beside the leftmost-first engine's.
+               Limits (phase_e2e_limits, the corpus cache cleared, the
+               base tiled LIMITS_TILES = 341 times: 2,145,381,040 bytes,
+               2,102,575 under MAX_CORPUS): device find_all of one
+               pattern of each find_all route (LIMITS: class runs and
+               their split, a line shape, the bidirectional path, the
+               general route, BITSET_NFA, a literal and a set, `\w*`,
+               `(error)?`, `x*?`, `.` and `(?s)error.*`) against the tiled
+               oracle, each with its route, output and corpus pieces (`.`,
+               `x*?` and `(error)?` pass 2^30 spans and must take two or
+               more output pieces), host_routes, one warm call's
+               launches and its peak device memory (at most
+               LIMITS_PEAK_GIB = 60 GiB); one count of each count route
+               (K1, K5, K6), the leftmost-longest count of `\b\d+\b` and
+               find_all of email, each against its oracle
   5. routes  - every kernel K1-K7 was launched in the first run, K1-K4 and
                K8 in the second, K9 and the window scan's ends form in the
                third, K4 and K10 in the fourth, K9, the ends form, K4 and
@@ -192,7 +206,9 @@ Phases (any failure exits non-zero before the final line):
                the sixth, the OnePass walk, both row scans and K2-K4 in
                the seventh, the transfer walk in both modes, K9 and K8
                in the eighth, K9, the ends form, K4 and the bitset scan in
-               the ninth, and no call was declined to the host loop but
+               the ninth, K1-K6, K8, K9, the ends form and the bitset
+               scan in the tenth, and no call was declined to the host
+               loop but
                the nullable find_index (the reference's FALLBACK, by
                design)
 
@@ -339,6 +355,42 @@ POSIX = [("word_digits", r"\b\d+\b", r"\b\d+\b"),
          ("nfa_u_z", r"[a-q][^u-z]{13}x", r"[a-q][^u-z]{13}x"),
          ("err_set", r"err|error|errors", r"errors|error|err"),
          ("lower_plus", r"([a-z]{2,3})+", None)]
+# the limits slice: device find_all of one pattern of each find_all route on
+# LIMITS_TILES base tiles (2,145,381,040 bytes, 2,102,575 under MAX_CORPUS),
+# the routes whose totals pass MAX_DEVICE_SPANS (LIMITS_PIECED) in pieces;
+# one count of each count route (K1, K5, K6) and two leftmost-longest calls
+# at the same size; no call's peak device memory may pass LIMITS_PEAK_GIB
+LIMITS_TILES = 341
+LIMITS = [("charclass_w", r"[\w]+"), ("lower2_5", r"[a-z]{2,5}"),
+          ("inner_error", r".*error.*"), ("ip", r"\d+\.\d+\.\d+\.\d+"),
+          ("email", r"[\w.+-]+@[\w.-]+\.[\w.-]+"),
+          ("word_digits", r"\b\d+\b"), ("nfa_u_z", r"[a-q][^u-z]{13}x"),
+          ("literal_error", r"error"),
+          ("http_methods", r"GET|POST|PUT|DELETE|HEAD|OPTIONS|PATCH"),
+          ("word_star", r"\w*"), ("error_opt", r"(error)?"),
+          ("empty_lazy", r"x*?"), ("dot", r"."),
+          ("dotall_error", r"(?s)error.*")]
+LIMITS_PIECED = ("dot", "empty_lazy", "error_opt")
+# each route's densest corpus at the same size, where its result can pass
+# MAX_DEVICE_SPANS (or, for class runs and the general route's `\b\w\b`,
+# come closest: n / 2 runs): (name, pattern, corpus, route, oracle), the
+# corpus "a" (a's), "space" (spaces) or "a_space" ("a " repeated), the
+# oracle (s0, e0, step, count) for the arithmetic spans (s0 + step i, e0 +
+# step i), i < count, count None for n // step (n + 1 with step 1 and an
+# empty span)
+LIMITS_DENSE = [
+    ("class_split_a", r"[a-z]", "a", "charclass", (0, 1, 1, None)),
+    ("literal_a", r"a", "a", "literal", (0, 1, 1, None)),
+    ("overlap_aa", r"aa", "a", "literal", (0, 2, 2, None)),
+    ("general_dot_nb", r".\B", "a", "full_scan", (0, 1, 1, -1)),
+    ("line_first_aa", r"aa.*", "a", "line", "whole"),
+    ("line_last_aa", r".*aa", "a", "line", "whole"),
+    ("k8_word_star", r"\w*", "space", "nullable_k8", (0, 0, 1, None)),
+    ("class_runs_a", r"[a-z]+", "a_space", "charclass", (0, 1, 2, None)),
+    ("general_word_b", r"\b\w\b", "a_space", "full_scan", (0, 1, 2, None)),
+]
+LIMITS_COUNTS = ("ip", "inner_error", "literal_error")    # K1, K5, K6
+LIMITS_PEAK_GIB = 60
 POSIX_WINDOW = "lazy_ip"
 POSIX_LONG_LANE = "lazy_ab"     # the lane that lives for several rounds
 SLICE_MS = {}   # phase 3's kernel ms of the slice's shapes, for phase 4
@@ -2477,6 +2529,218 @@ def phase_e2e_posix(base: bytes, arr: np.ndarray):
     return routes
 
 
+def limits_oracle(name: str, pattern: str, base: bytes, n: int, rng):
+    """The tiled digest of a LIMITS pattern on LIMITS_TILES tiles: the
+    Go-rule oracle of one tile, tiled; `(?s)error.*` matches once, from
+    the first `error` to the end."""
+    B = len(base)
+    if name == "dotall_error":
+        s = base.find(b"error")
+        return tiled_digest([], [(s, n)], B, LIMITS_TILES, rng)
+    inner, tail = tiled_spans(oracle_spans(pattern, base), B, LIMITS_TILES)
+    return tiled_digest(inner, tail, B, LIMITS_TILES, rng)
+
+
+def span_digest(spans, cnt: int, sidx):
+    """(start sum mod 2^32, end sum mod 2^32, the rows at sidx) of the
+    first cnt rows of a device span array, summed 2^26 rows at a time."""
+    import torch
+    ss = es = 0
+    for i in range(0, cnt, 1 << 26):
+        j = min(cnt, i + (1 << 26))
+        ss += int(spans[i:j, 0].sum(dtype=torch.int64))
+        es += int(spans[i:j, 1].sum(dtype=torch.int64))
+    return (ss % M32, es % M32,
+            spans[torch.from_numpy(sidx).to(spans.device)].cpu().numpy())
+
+
+def dense_corpus(kind: str, n: int) -> np.ndarray:
+    """A LIMITS_DENSE corpus of n bytes (n even)."""
+    if kind == "a_space":
+        return np.tile(np.frombuffer(b"a ", dtype=np.uint8), n // 2)
+    return np.full(n, ord("a") if kind == "a" else 0x20, dtype=np.uint8)
+
+
+def dense_oracle(oracle, n: int, rng):
+    """The digest of a LIMITS_DENSE oracle on n bytes: "whole" is the one
+    span (0, n); (s0, e0, step, count) the arithmetic spans, count None
+    for n // step spans (n + 1 when the span is empty), -1 for n - 1."""
+    if oracle == "whole":
+        return tiled_digest([], [(0, n)], 1, 1, rng)
+    s0, e0, step, cnt = oracle
+    if cnt is None:
+        cnt = n + 1 if s0 == e0 else n // step
+    elif cnt < 0:
+        cnt = n + cnt
+    return tiled_digest([(s0, e0)], [], step, cnt, rng)
+
+
+def limits_find_all(name, be, arr: np.ndarray, exp, kernels):
+    """Device find_all of arr (first call, then best of 2), each call's
+    peak device memory since a reset before it; the last call's spans
+    against the expected digest.  Returns (best wall s, first wall s,
+    peak bytes, count, launches of `kernels` in the last call)."""
+    import torch
+    walls, peak = [], 0
+    for _ in range(3):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = [c.launches for c in kernels]
+        t0 = time.perf_counter()
+        r = be.find_all_spans_device(arr, defer_ok=True)
+        if r is None:
+            fail(f"limits {name}: find_all declined")
+        spans, cnt, ok = r
+        cnt = int(cnt)
+        ok = True if ok is None else bool(ok)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        peak = max(peak, torch.cuda.max_memory_allocated())
+        launched = [c.launches - b for c, b in zip(kernels, before)]
+        if len(walls) < 3:
+            del spans, r
+    cnt_e, ss_e, es_e, sidx, samp_e = exp
+    ss, es, samp = span_digest(spans, cnt, sidx)
+    del spans, r
+    if not ok or (cnt, ss, es) != (cnt_e, ss_e, es_e):
+        fail(f"limits {name}: find_all digest ({cnt}, {ok}, {ss}, {es}) "
+             f"!= oracle ({cnt_e}, True, {ss_e}, {es_e})")
+    if not (samp.astype(np.int64) == samp_e).all():
+        fail(f"limits {name}: sampled spans differ from the oracle")
+    return min(walls[1:]), walls[0], peak, cnt, launched
+
+
+def phase_e2e_limits(base: bytes, arr: np.ndarray):
+    """find_all up to MAX_CORPUS through the public API: the corpus cache
+    cleared, the base tiled LIMITS_TILES times (2,145,381,040 bytes), then
+    for each LIMITS pattern (the cache cleared before it, so each call's
+    peak holds only what its route keeps) its route, device find_all
+    (first call, then best of 2) against the tiled oracle with its peak
+    device memory, its output and corpus pieces, host_routes and one warm
+    call's launches; the LIMITS_PIECED patterns must take two or more
+    output pieces, and no call may pass LIMITS_PEAK_GIB.  Then the same
+    for each LIMITS_DENSE pattern on its dense corpus of as many bytes
+    (rounded down to even), against its arithmetic oracle.  Then one count
+    of each count route (LIMITS_COUNTS: K1, K5, K6), the leftmost-longest
+    count of `\\b\\d+\\b` and find_all of email, each against its oracle;
+    the corpus is freed at the end."""
+    import torch
+    import coregex_tpu_torch as ct
+    from coregex_tpu_torch.utils import corpus_cache
+
+    corpus_cache.clear()
+    torch.cuda.empty_cache()
+    B = len(base)
+    big = np.tile(np.frombuffer(base, dtype=np.uint8), LIMITS_TILES)
+    n = len(big)
+    from coregex_tpu_torch.meta.batch import MAX_CORPUS
+    print(f"[limits] corpus {n} bytes = {LIMITS_TILES} tiles of {B}, "
+          f"{MAX_CORPUS - n} under MAX_CORPUS", flush=True)
+    rng = np.random.default_rng(341)
+    every = [c for c, _, _ in kernel_counters()]
+    routes = {}
+    gib = 2 ** 30
+    for name, pattern in LIMITS:
+        corpus_cache.clear()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        exp = limits_oracle(name, pattern, base, n, rng)
+        oracle_s = time.perf_counter() - t0
+        eng = ct.compile(pattern, device=DEVICE)
+        be = eng.batch_engine()
+        route = be._spans_route(big)
+        if route is None:
+            fail(f"limits {name}: find_all is not routed to the device")
+        best, first, peak, cnt, launched = limits_find_all(
+            name, be, big, exp, every)
+        pieces = list(be.pieces)
+        if peak > LIMITS_PEAK_GIB * gib:
+            fail(f"limits {name}: peak device memory {peak / gib:.2f} GiB "
+                 f"passes {LIMITS_PEAK_GIB} GiB")
+        if name in LIMITS_PIECED and pieces[0] < 2:
+            fail(f"limits {name}: {cnt} spans in {pieces[0]} output piece")
+        routes[f"{name} limits"] = be.host_routes
+        used = ", ".join(f"{c.name} {k}" for c, k in zip(every, launched)
+                         if k)
+        print(f"[limits] {name:13} {eng.strategy:13} route {route[0]:9} "
+              f"find_all {cnt:>10} spans digest+64 samples ok  "
+              f"{n / best / 1e9:7.2f} GB/s ({best * 1e3:.1f} ms, first "
+              f"{first:.2f} s), pieces {pieces[0]} output / {pieces[1]} "
+              f"corpus, peak {peak / gib:.2f} GiB, host_routes "
+              f"{be.host_routes}, oracle {oracle_s:.1f} s; one warm "
+              f"call's launches: {used or 'none'}", flush=True)
+        del eng, be
+    corpus_cache.clear()
+    nd = n - n % 2
+    for cname, cpat, kind, want, oracle in LIMITS_DENSE:
+        corpus_cache.clear()
+        torch.cuda.empty_cache()
+        dense = dense_corpus(kind, nd)
+        exp = dense_oracle(oracle, nd, rng)
+        eng = ct.compile(cpat, device=DEVICE)
+        be = eng.batch_engine()
+        route = be._spans_route(dense)
+        if route is None or route[0] != want:
+            fail(f"limits dense {cname}: route {route and route[0]}, not "
+                 f"{want}")
+        best, first, peak, cnt, launched = limits_find_all(
+            f"dense {cname}", be, dense, exp, every)
+        pieces = list(be.pieces)
+        if peak > LIMITS_PEAK_GIB * gib:
+            fail(f"limits dense {cname}: peak device memory "
+                 f"{peak / gib:.2f} GiB passes {LIMITS_PEAK_GIB} GiB")
+        routes[f"{cname} limits dense"] = be.host_routes
+        used = ", ".join(f"{c.name} {k}" for c, k in zip(every, launched)
+                         if k)
+        print(f"[limits] dense {cname:15} {kind:7} route {route[0]:11} "
+              f"find_all {cnt:>10} spans digest+64 samples ok  "
+              f"{nd / best / 1e9:7.2f} GB/s ({best * 1e3:.1f} ms, first "
+              f"{first:.2f} s), pieces {pieces[0]} output / {pieces[1]} "
+              f"corpus, peak {peak / gib:.2f} GiB, host_routes "
+              f"{be.host_routes}; one warm call's launches: "
+              f"{used or 'none'}", flush=True)
+        del eng, be, dense
+    corpus_cache.clear()
+    torch.cuda.empty_cache()
+    for name in LIMITS_COUNTS:
+        pattern = dict(LIMITS)[name]
+        exp = limits_oracle(name, pattern, base, n, rng)[0]
+        eng = ct.compile(pattern, device=DEVICE)
+        got, best, first = timed_count(eng, big)
+        kind = eng.batch_engine()._count_route(big)[0]
+        if got != exp:
+            fail(f"limits {name}: count {got} != oracle {exp}")
+        routes[f"{name} limits count"] = eng.batch_engine().host_routes
+        print(f"[limits] {name:13} count {got:>10} ok via {kind} "
+              f"{n / best / 1e9:7.2f} GB/s ({best * 1e3:.1f} ms, first "
+              f"{first:.2f} s)", flush=True)
+    for name, pattern, oracle in POSIX:
+        if name not in ("word_digits", "email"):
+            continue
+        inner, tail = tiled_spans(posix_oracle(oracle, base), B,
+                                  LIMITS_TILES)
+        exp = tiled_digest(inner, tail, B, LIMITS_TILES, rng)
+        eng = ct.compile_posix(pattern, device=DEVICE)
+        be = eng.batch_engine()
+        if name == "word_digits":
+            got, best, first = timed_count(eng, big)
+            if got != exp[0]:
+                fail(f"limits posix {name}: count {got} != oracle {exp[0]}")
+            what = f"count {got:>10} ok"
+        else:
+            best, first, peak, got, _l = limits_find_all(
+                f"posix {name}", be, big, exp, every)
+            what = (f"find_all {got:>10} spans digest+64 samples ok, peak "
+                    f"{peak / gib:.2f} GiB")
+        routes[f"{name} limits posix"] = be.host_routes
+        print(f"[limits] posix {name:7} {what} {n / best / 1e9:7.2f} GB/s "
+              f"({best * 1e3:.1f} ms, first {first:.2f} s)", flush=True)
+    del big
+    corpus_cache.clear()
+    torch.cuda.empty_cache()
+    return routes
+
+
 def capture_oracle(pattern: str, base: bytes) -> np.ndarray:
     """The capture slots [m, NS] int64 (-1: unset) of re's matches in one
     tile."""
@@ -3218,7 +3482,9 @@ def main():
              ("multi-device", phase_e2e_multi,
               [counters[i][0] for i in (16, 17, 8, 7)]),
              ("leftmost-longest", phase_e2e_posix,
-              [counters[i][0] for i in (8, 11, 3, 12)])]
+              [counters[i][0] for i in (8, 11, 3, 12)]),
+             ("limits at MAX_CORPUS", phase_e2e_limits,
+              [counters[i][0] for i in (0, 1, 2, 3, 4, 5, 7, 8, 11, 12)])]
     build_s = phase_build()
     base = build_base()
     corpus = bench_corpus(base)

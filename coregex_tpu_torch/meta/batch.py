@@ -61,19 +61,26 @@ Routes:
     Go's chain on the device), unless its
     DFAs overflow or do not fit the kernels; the candidate chain for
     LINE_SHAPE plans with newline-free, non-empty literals and no ``(?s)``
-    part; class runs for CHARCLASS plans (two sparse chains, or K4 over
-    the unpacked masks when runs are dense; ``([class]{m,k})+`` chops a
+    part, the at-most-one-match construction of the reference's
+    ``_line_shape_any`` (:2223-2250) for those with a ``(?s)`` part, and
+    the general fallback for the others (a newline in the literal, a
+    line-anchored ``(?s)`` shape), as the reference's
+    ``_line_shape_spans`` falls to ``_full_scan_spans`` (:2201), on valid
+    UTF-8 only (the host loop serves the rest, ROADMAP P4); class
+    runs for CHARCLASS plans (two sparse chains, or K4 over the unpacked
+    masks when runs are dense; ``([class]{m,k})+`` chops a
     run to its match, ``[class]{m,k}`` splits it into its matches); for
     LITERAL and MULTI_LITERAL plans the hit words and their chains (K4 over
     the unpacked masks when hits are dense), with Go's leftmost-first
     selection on the device when hits overlap; for NULLABLE_CORE plans
     two K8 compactions when the core is ``[class]+`` and the corpus ASCII,
     else the core's own route plus the empty fill when that route serves
-    the corpus and the corpus is below DEVICE_SPANS_LIMIT; for ALL_EMPTY
-    plans one K8 compaction of the rune boundaries below that limit; the
-    host reverse scan for END_ANCHORED plans; for BITSET_NFA plans every
-    match start from the bitset-NFA scan of the reverse NFA over the
-    flipped corpus (``ops/nfa_scan.py``), then the general fallback's ends
+    the corpus (past DEVICE_SPANS_LIMIT positions, a corpus piece at a
+    time); for ALL_EMPTY plans one K8 compaction of the rune boundaries
+    (past that limit, a corpus piece at a time); the host reverse scan
+    for END_ANCHORED plans; for BITSET_NFA plans every match start from
+    the bitset-NFA scan of the reverse NFA over the flipped corpus
+    (``ops/nfa_scan.py``), then the general fallback's ends
     and chain, or, when the anchored DFA overflows or does not fit the
     kernels, Go's restart walk over the starts with the Engine's host
     search for the ends (the reference's route for that case); a reverse
@@ -99,7 +106,7 @@ Routes:
     plans take the general fallback), nullable plans (the plan is HOST,
     as in the reference), and whatever declines leftmost-first (a DFA
     that overflows or does not fit, a reverse NFA out of the bitset
-    scan's scope, a ``(?s)`` line shape).  find_first and find_index of a
+    scan's scope).  find_first and find_index of a
     leftmost-longest engine stay on the host, as in the reference
     (engine.py:238); its captures take their spans from the card and
     their groups from the PikeVM (the reference's gate, engine.py:423).
@@ -116,6 +123,17 @@ Routes:
     ``fwd_break`` on growing prefixes, then the window kernel from the end
     backwards, for the others.  Nullable plans decline, as in the
     reference.
+Limits: every find_all route serves corpora up to MAX_CORPUS
+(SPARSE_SPANS_LIMIT); a result past MAX_DEVICE_SPANS spans (2^30, the cap
+of one compaction) is one [T, 2] array filled a piece at a time, each
+piece cut from the running counts of the words or mask it compacts and
+compacted with a cap within the limit, positions absolute; a selection
+that walks from one candidate to the next (Go's chain over overlapping
+hits or matches, a line's first or last candidate) carries its state
+across the seams.  ``pieces`` keeps the last call's output and corpus
+pieces.  The reference's device routes stop at its limit and its host
+pipelines take over.  Past MAX_CORPUS a call raises (positions are
+int32, F6).
 A call outside these routes returns None (find_first returns FALLBACK) and
 the Engine's host loop serves it; each such decline adds one to
 ``host_routes``.  The route is decided on the host, from the plan, its
@@ -123,8 +141,8 @@ tables (a DFA that overflows, or a packed table too large for the kernels'
 shared memory, declines), the core's plan and the corpus's ASCII verdict,
 before the corpus is uploaded.  Once a call is on the device it finishes
 there or raises: the repair fixpoints run until they settle (at most L
-rescans), a table too large for the kernels raises ValueError when it is
-built, and a result over MAX_DEVICE_SPANS spans raises ValueError.
+rescans), and a table too large for the kernels raises ValueError when it
+is built.
 
 Corpus state (the host array, its ASCII verdict) travels as arguments, not
 engine attributes, so concurrent calls on one engine cannot mix corpora
@@ -148,10 +166,10 @@ from ..dfa.search import anchored_last_end, find_rev_start
 from ..nfa.thompson import compile_nfa
 from ..ops.bytescan import (_bucket, _memmem_mask, _multi_literal_scan,
                             _range_mask, first_run_geq, first_set_index,
-                            literal_self_overlaps, mask_count,
-                            table_to_ranges)
-from ..ops.compact import compact_positions
-from ..ops.compact2 import _bucket_up, sparse_positions_words
+                            last_set_index, literal_self_overlaps,
+                            mask_count, table_to_ranges)
+from ..ops.compact import compact_positions_into
+from ..ops.compact2 import _bucket_up, word_pieces
 from ..ops.count_scan import CountScanner, make_word_tiles, plan_geometry
 from ..ops.dfa_scan import (ChunkScanner, DFATables, exit_at_end,
                             flags_count_upto, flags_last, window_ends,
@@ -162,15 +180,19 @@ from ..ops.flag_scan import (FlagResetScanner, ResetFlagTables,
 from ..ops.line_scan import HitsScanner, LineScanner
 from ..ops.nfa_scan import BitsetNFAScanner, LookUnsupported
 from ..ops.seq_scan import MODE_MULTI, SeqScanner, seq_geometry
-from ..ops.span_chain import (MULTI_FUSED_LIMIT, SPARSE_OK, _rune_boundaries,
-                              bidi_assemble, bidi_ends, chain_select,
+from ..ops.span_chain import (MULTI_FUSED_LIMIT, SPARSE_OK, bidi_assemble,
+                              bidi_assemble_pieces, bidi_ends,
+                              bidi_ends_pieces, chain_select_pieces,
                               class_run_words, expand_class_runs,
-                              leftmost_first_spans, line_event_words,
-                              line_spans_candidates, literal_spans_sparse,
-                              literal_words, multi_literal_words,
-                              multi_literal_words_big, nullable_class_masks,
-                              nullable_fill_words, nullable_merge,
-                              pair_spans_sparse, word_positions)
+                              leftmost_first_spans,
+                              line_event_words, line_spans_pieces, literal_lengths,
+                              literal_spans_sparse, literal_words,
+                              multi_literal_words, multi_literal_words_big,
+                              nullable_class_masks, nullable_fill_range,
+                              nullable_merge_into, pair_spans_pieces,
+                              pair_spans_sparse, reset_words,
+                              rune_boundaries_range, word_positions,
+                              word_positions_into)
 from ..ops.span_scan import SpanScanner, to_global
 from ..parallel import shard
 from ..parallel.sharded_count import Phase1TooWide, ShardedGoCount
@@ -178,8 +200,8 @@ from ..syntax.ast import Node, Op
 from ..syntax.parser import Parsed
 from ..utils.artifact_cache import load_dense, save_dense
 from ..utils.corpus_cache import (_fingerprint, corpus_is_ascii,
-                                  corpus_tiles, device_corpus,
-                                  device_corpus_flipped)
+                                  corpus_is_utf8, corpus_tiles,
+                                  device_corpus, device_corpus_flipped)
 from ..utils.device_lock import device_lock
 from . import literal as litmod
 from .literal import UNIV_ANY, UNIV_LINE
@@ -226,39 +248,44 @@ class BatchEngine:
 
     # Span limits for one 80 GB H100 (the reference sized its own,
     # batch.py:484-492, for a 16 GB chip).
-    #  * MAX_DEVICE_SPANS: a cap is an int in cgx_compact, and _bucket
-    #    rounds a total up to a power of two, so totals <= 2^30 keep every
-    #    cap <= 2^30.  A span then holds at most 16 bytes per cap slot on
-    #    the K8 path (two int32 position arrays + the stacked [cap, 2]
-    #    int32 spans), at most 32 bytes per span with the 2x bucketing:
-    #    16 GiB at the cap's 2^30 slots.  The corpus-sized masks beside it
-    #    (member, shifts, run starts and ends, empties, the two K8 masks:
-    #    about 8 bools per corpus byte) add 13 GiB at SPARSE_SPANS_LIMIT.
-    #  * DEVICE_SPANS_LIMIT (corpus bytes of the general nullable path): a
-    #    nullable pattern matches at most once per position plus once at
-    #    n, so n + 1 <= 2^30 keeps its total within MAX_DEVICE_SPANS.  Per
-    #    corpus byte it holds the int32 cover difference and its int32
-    #    running sum, three bool masks and the empty-position words (about
-    #    11 bytes: 11 GiB at 2^30); per cap slot the core spans (8 bytes),
-    #    the empty positions (4), the merged spans (8) and the merge's
-    #    int32 ranks and index arrays (12), 32 bytes: 32 GiB at 2^30.
-    #    With the core's own scan state (word tiles, flipped corpus,
-    #    symbol tiles: about 4 bytes per corpus byte) that is about 47 GiB.
-    #  * The literal route's leftmost-first selection (hits that overlap)
-    #    holds int32 and bool arrays of cap slots: the hit starts, the
-    #    nodes' own indices, the hit ends, the links and the chain marks
-    #    with their scatter target and buffer (about 30 bytes per slot at
-    #    once, span_chain.leftmost_first_spans): 30 GiB at 2^30 slots,
-    #    beside the corpus (1 byte per corpus byte; 2^30 hits need n >
-    #    2^30).  tools/profile_torch.py --limit measures it at the limit.
-    #  * The general find_all (full_scan) holds per start the int32 start,
-    #    the window scan's end, index and alive (no flag bitmap: the ends
-    #    form keeps each lane's last flag), then the chain's ~30 bytes
-    #    per cap slot as above, beside the corpus, its flipped copy and
-    #    the flipped word tiles (about 3 bytes per corpus byte).
-    SPARSE_SPANS_LIMIT = 1600 * 1024 * 1024
+    #  * MAX_DEVICE_SPANS: the largest cap one compaction is given (a cap
+    #    is an int in cgx_compact, and _bucket rounds a total up to a power
+    #    of two, so totals <= 2^30 keep every cap <= 2^30).  It bounds a
+    #    piece, not a result: a result past it is one [T, 2] int32 array
+    #    (8 bytes a span) filled a piece at a time, each piece cut from the
+    #    running counts of the words or mask it compacts.
+    #  * DEVICE_SPANS_LIMIT: the corpus positions of one piece of the
+    #    general nullable path's empty fill and merge (and of ALL_EMPTY's
+    #    boundary mask): per position the int32 cover difference and its
+    #    running sum, three bool masks (about 11 bytes: 11 GiB a piece).
+    #  * CHAIN_PIECE: the candidates of one piece of a chain whose levels
+    #    and selection hold about 30 bytes a candidate (the bidirectional
+    #    chains, Go's selection over overlapping literal hits or general
+    #    matches): 7.5 GiB at 2^28, beside the [T, 2] output (16 GiB at
+    #    2^31 spans).  At 2^30 a piece, `aa` on MAX_CORPUS bytes of `a`
+    #    (2^31 - 34 overlapping hits) peaked at 68.25 GiB.
+    #  * SPARSE_SPANS_LIMIT is MAX_CORPUS: every find_all route measured
+    #    stays under 60 GiB of device memory at 2,145,381,040 bytes (341
+    #    tiles of chip_smoke.build_base), 60 GiB leaving room for a second
+    #    corpus and the CUDA context.  Peaks (torch.cuda.max_memory_allocated,
+    #    the 2 GiB corpus and its cached tiles included; chip_smoke.py's
+    #    limits run on NVIDIA H100 80GB HBM3, 700.00 W, PERF.md section 5),
+    #    on the bench tiles: the literal and line routes 6.0-14.5 GiB, the
+    #    bidirectional path 14.8 (ip, email) and 41.2 (`.`, 2.10G spans in
+    #    8 pieces), the general route 19.8, BITSET_NFA 8.1, the class runs
+    #    and their split 14.5, `\w*` 14.0, ALL_EMPTY 28.0 and `(error)?`
+    #    30.2 (2.14G spans); on each route's densest corpus of that size
+    #    (chip_smoke.LIMITS_DENSE: a's, spaces, "a " repeated): the class
+    #    split 20.8 (2.15G spans), literal words 27.3 (2.15G), overlapping
+    #    hits 30.8, the general route 34.3 (2.15G) and 22.5, line
+    #    candidates 23.5 (2.1G in 2^28 runs), the K8 pair 38.0 (2.15G
+    #    empties), class runs 18.5 (1.07G runs, the most n bytes hold).
+    #    Not measured: the multi-device hook _sharded_starts (a mesh of
+    #    cards).
+    SPARSE_SPANS_LIMIT = MAX_CORPUS
     MAX_DEVICE_SPANS = 2 ** 30
     DEVICE_SPANS_LIMIT = 2 ** 30 - 1
+    CHAIN_PIECE = 2 ** 28
     # plans whose find_all takes the bidirectional path: the bidi branches
     # of the reference's _prefix_family_spans_dev / _inner_family_spans_dev
     # and its FULL_SCAN builder (their candidate and INNER pipelines
@@ -298,8 +325,8 @@ class BatchEngine:
         self._hits_sc = None
         self._seq_sc = None
         self._flag_scanner_cache = {}
-        # per-corpus-fingerprint (total, kind) of the bidi path, or the
-        # candidate total of the line path: sizes warm find_all caps
+        # per-corpus-fingerprint (total, kind) of the bidi path, or (hit
+        # count, selection) of the literal path: sizes warm find_all caps
         # without a count sync
         self._spans_cnt_cache = {}
         self._rev_hint_cache = {}   # corpus fp -> K3 sub-lane entries [k, L]
@@ -309,6 +336,10 @@ class BatchEngine:
         # (match starts, window rounds) of the last general find_all, None
         # before the first
         self.full_scan_stats = None
+        # [output pieces, corpus pieces] of the last device find_all: the
+        # most pieces any of its compactions took, and the corpus pieces of
+        # its fill (1 and 1 within the limits)
+        self.pieces = [1, 1]
         # the multi-device hooks' objects, by mesh devices: ShardedGoCount
         # or False; (make_sharded_ends' fn, its cap)
         self._sharded_sc = {}
@@ -320,6 +351,21 @@ class BatchEngine:
         break-at-match for leftmost-first, every match kept for
         leftmost-longest, whose last flag is the longest end."""
         return "fwd_anch_all" if self.longest else "fwd_anch_break"
+
+    def _note_pieces(self, out: int = 1, corpus: int = 1) -> None:
+        self.pieces = [max(self.pieces[0], out), max(self.pieces[1], corpus)]
+
+    def _chain_piece(self) -> int:
+        """Candidates of one piece of a chain that holds about 30 bytes a
+        candidate (CHAIN_PIECE within the span limit)."""
+        return min(self.MAX_DEVICE_SPANS, self.CHAIN_PIECE)
+
+    def _slots(self, total: int) -> int:
+        """Rows of an array of `total` entries: the power-of-two bucket
+        within the span limit (warm calls reuse its shapes), `total`
+        itself past it."""
+        return _bucket(total, 16) if total <= self.MAX_DEVICE_SPANS \
+            else total
 
     def _decline(self, result=None):
         self.host_routes += 1
@@ -629,10 +675,7 @@ class BatchEngine:
             return None
         at0 = int(anchored_last_end(self._dense(self._verify_kind()), data,
                                     0) >= 0)
-        if m + at0 > self.MAX_DEVICE_SPANS:
-            raise ValueError(f"{m + at0} match starts exceed the device "
-                             f"span limit ({self.MAX_DEVICE_SPANS})")
-        starts = torch.full((_bucket(m + at0, 16),), n, dtype=torch.int32,
+        starts = torch.full((self._slots(m + at0),), n, dtype=torch.int32,
                             device=self.device)
         # flag at flipped offset j: a match start at n - j; ascending
         starts[at0:at0 + m] = n - pos[pos < n].flip(0).to(self.device)
@@ -642,13 +685,14 @@ class BatchEngine:
                                            device=self.device)
 
     def _count_by_spans(self, data: np.ndarray) -> Optional[int]:
-        """A nullable plan outside the transducer's gate, a BITSET_NFA plan
-        (whose transducer overflows) or any plan of a leftmost-longest
-        engine counts its device find_all when a find_all route serves the
-        corpus (the reference counts the span list of its device find_all,
-        ref. engine.py:337 and batch.py :1798-1800); else None
-        (declined)."""
+        """A nullable plan outside the transducer's gate (ALL_EMPTY among
+        them), a BITSET_NFA plan (whose transducer overflows) or any plan
+        of a leftmost-longest engine counts its device find_all when a
+        find_all route serves the corpus (the reference counts the span
+        list of its device find_all, ref. engine.py:337 and batch.py
+        :1798-1800); else None (declined)."""
         if ((self.plan.strategy not in (Strategy.NULLABLE_CORE,
+                                        Strategy.ALL_EMPTY,
                                         Strategy.BITSET_NFA)
              and not self.longest)
                 or not 0 < len(data) <= self.SPARSE_SPANS_LIMIT
@@ -934,10 +978,12 @@ class BatchEngine:
         kind, args = route
         fp = _fingerprint(data)
         known = self._spans_cnt_cache.get(fp) if defer_ok else None
+        self.pieces = [1, 1]
         with self._locks(self._mesh() if kind == "full_scan" else None):
-            if kind == "line":
-                spans, cnt, ok = self._line_shape_spans_dev(args, data,
-                                                            known, fp)
+            if kind == "line_any":
+                spans, cnt, ok = self._line_any_spans_dev(args, data)
+            elif kind == "line":
+                spans, cnt, ok = self._line_shape_spans_dev(args, data)
             elif kind == "bidi":
                 spans, cnt, ok = self._bidi_spans_dev(*args, data, known,
                                                       fp)
@@ -947,7 +993,7 @@ class BatchEngine:
                 spans, cnt, ok = self._bitset_spans_dev(*args, data, limit)
             elif kind == "charclass":
                 spans, cnt, ok = self._charclass_spans_dev(args, data,
-                                                           known, fp, limit)
+                                                           limit)
             elif kind == "all_empty":
                 spans, cnt, ok = self._all_empty_spans_dev(data)
             elif kind == "literal":
@@ -987,7 +1033,20 @@ class BatchEngine:
             return None if route is None else ("bitset", route)
         if strat == Strategy.LINE_SHAPE:
             route = self._line_spans_route()
-            return None if route is None else ("line", route)
+            if route is not None:
+                return "line", route
+            route = self._line_any_route()
+            if route is not None:
+                return "line_any", route
+            # a newline in the literal or the prefix, an empty literal, a
+            # line-anchored (?s) shape: the general fallback, as the
+            # reference's _line_shape_spans falls to _full_scan_spans
+            # (ref. :2201), on valid UTF-8 only (its DFAs are wrong on
+            # invalid UTF-8, ROADMAP P4: the host loop serves that)
+            if not corpus_is_utf8(data, self.device):
+                return None
+            route = self._full_scan_route()
+            return None if route is None else ("full_scan", route)
         if strat in self._BIDI_FAMILIES:
             route = self._bidi_route(corpus_is_ascii(data, self.device))
             if route is not None:
@@ -1002,9 +1061,7 @@ class BatchEngine:
         if strat == Strategy.NULLABLE_CORE:
             return self._nullable_route(data)
         if strat == Strategy.ALL_EMPTY:
-            n = len(data)
-            ok = 4 <= n <= self.DEVICE_SPANS_LIMIT
-            return ("all_empty", None) if ok else None
+            return ("all_empty", None) if len(data) >= 4 else None
         return None
 
     # -- line-shape span path -------------------------------------------------
@@ -1028,37 +1085,84 @@ class BatchEngine:
             return None
         return mode, lit, prefix, bool(sp.line_anchored)
 
-    def _line_shape_spans_dev(self, route, data, known_cnt, fp):
-        """(spans, count, ok) via the candidate chain (ref. batch.py:
-        798-848).  Cold: one sync for the candidate total, one for count
-        and ok (validated here, ok None); warm: the cached candidate total
-        sizes the caps, count and ok stay on the device."""
+    def _line_any_route(self):
+        """(start rule, end rule, literal) of a line shape with a (?s)
+        universal part, which matches at most once (the reference's
+        ``_line_shape_any``, :2223-2250), or None: a line-anchored shape,
+        an empty literal, or a start side that is neither universal nor
+        the literal itself (the general fallback serves those).  The match
+        begins at 0 after a leading (?s).*, else at the first hit ("lit")
+        or its line's start ("bol"); it ends at n before a trailing
+        (?s).*, else at the last hit's end ("lit") or the first newline
+        after it ("eol").  A newline in the literal changes none of these,
+        since each reads the corpus around the hit itself (the reference's
+        candidate lines assume none: F13).  Host work only."""
+        sp = self.plan.split
+        a_univ, b_empty, b_univ, a_is_empty = self._line_shape_parts(sp)
+        lit = bytes(sp.lit)
+        if (not lit or sp.line_anchored or self.plan.nullable
+                or UNIV_ANY not in (a_univ, b_univ)):
+            return None
+        if a_univ == UNIV_ANY:
+            end = ("eoi" if b_univ == UNIV_ANY else "eol"
+                   if b_univ == UNIV_LINE else "lit" if b_empty else None)
+            return None if end is None else ("zero", end, lit)
+        start = ("lit" if a_is_empty else "bol" if a_univ == UNIV_LINE
+                 else None)
+        return None if start is None else (start, "eoi", lit)
+
+    def _line_any_spans_dev(self, route, data):
+        """(spans, count, None) of a _line_any_route shape: the literal's
+        hit mask, its first or last hit, and a newline search beside it;
+        one sync each.  Either rule gives this span: the start is the
+        leftmost one, and the end the farthest the shape reaches from
+        it."""
+        start_rule, end_rule, lit = route
+        n = len(data)
+        dev = device_corpus(data, self.device)
+        hits = _memmem_mask(dev, lit)
+        first = first_set_index(hits)
+        spans = _empty_spans(self.device)
+        if first >= n:
+            return spans, 0, None
+        last = last_set_index(hits) if start_rule == "zero" else first
+        del hits
+        if start_rule == "zero":
+            start = 0
+        elif start_rule == "lit":
+            start = first
+        else:
+            start = last_set_index(dev[:first] == 10) + 1
+        end = last + len(lit)
+        if end_rule == "eoi":
+            end = n
+        elif end_rule == "eol":
+            end += first_set_index(dev[end:] == 10)
+        spans[0, 0], spans[0, 1] = start, end
+        return spans, 1, None
+
+    def _line_shape_spans_dev(self, route, data):
+        """(spans, count, None) via the candidate chain (ref. batch.py:
+        798-848), in runs of at most CHAIN_PIECE candidates
+        (span_chain.line_spans_pieces; one run within it).  Syncs: the
+        candidate total, one a run, the check."""
         mode, lit, prefix, anchored = route
         n = len(data)
         words, cnts = line_event_words(device_corpus(data, self.device),
                                        lit, prefix, anchored)
-        if known_cnt is None:
-            cand_total = int(cnts[1])
-            self._spans_cnt_cache[fp] = cand_total
-        else:
-            cand_total = known_cnt
+        cand_total = int(cnts[1])
         if cand_total == 0:
             return _empty_spans(self.device), 0, None
-        if cand_total > self.MAX_DEVICE_SPANS:
-            raise ValueError(f"{cand_total} candidates exceed the device "
-                             f"span limit ({self.MAX_DEVICE_SPANS})")
-        cap = _bucket(cand_total, 16)
-        spans, cnt_d, ok = line_spans_candidates(
-            list(words), n, cap, mode, anchored, len(lit), len(prefix))
-        if known_cnt is None:
-            if not bool(ok):
-                raise RuntimeError("line-shape span assembly failed its "
-                                   "consistency check")
-            cnt = int(cnt_d)
-            if cnt == 0:
-                return _empty_spans(self.device), 0, None
-            return spans, cnt, None
-        return spans, cnt_d, ok
+        spans, cnt, ok, pieces = line_spans_pieces(
+            list(words), n, cand_total, self._chain_piece(), mode, anchored,
+            len(lit), len(prefix))
+        if not bool(ok):
+            raise RuntimeError("line-shape span assembly failed its "
+                               "consistency check")
+        self._note_pieces(pieces)
+        if cnt == 0:
+            return _empty_spans(self.device), 0, None
+        return spans, cnt, None
 
     # -- bidirectional span path --------------------------------------------
     def _span_scanner(self, ascii_ok: bool):
@@ -1143,15 +1247,16 @@ class BatchEngine:
             total, kind = known_cnt
         if total == 0:
             return _empty_spans(self.device), 0, None
-        if total > self.MAX_DEVICE_SPANS:
-            raise ValueError(f"{total} matches exceed the device span "
-                             f"limit ({self.MAX_DEVICE_SPANS})")
-        capM = _bucket(total + 1, 16)
         nwb = _bucket_up(max(-(-n // 32), 1))
         nwb1 = _bucket_up(max(-(-(n + 1) // 32), 1))
+        Lr, Tr, _W, _Lc = reset_geometry(n)
+        piece = self._chain_piece()
+        if total + 1 > piece:
+            return self._bidi_pieces(rsc, data, fp, fw, gw, total, kind,
+                                     piece, nwb, nwb1, Lr, Tr)
+        capM = _bucket(total + 1, 16)
         ends_c, cntF, rq, rw, okA = bidi_ends(fw, gw, n, total_d, kind_d,
                                               capM, nwb, nwb1)
-        Lr, Tr, _W, _Lc = reset_geometry(n)
         tiles_r = scatter_reset_tiles(self._sym_tiles(rsc, data, Lr, Tr),
                                       rq, Lr, Tr // 4)
         fw_rev, _interf, _conv, rhint = rsc.scan_tiles(
@@ -1166,6 +1271,33 @@ class BatchEngine:
                                    "its consistency check")
             return spans, total, None
         return spans, cnt_d, ok
+
+    def _bidi_pieces(self, rsc, data, fp, fw, gw, total: int, kind: int,
+                     piece: int, nwb: int, nwb1: int, Lr: int, Tr: int):
+        """The bidirectional path past `piece` spans: one [total, 2]
+        output, its ends from the forward chain in pieces
+        (span_chain.bidi_ends_pieces), the reset words and tiles from
+        those ends, the reverse scan, then its starts from the reverse
+        chain in pieces (bidi_assemble_pieces), checked against the ends.
+        Returns (spans, total, None)."""
+        n = len(data)
+        out = torch.empty((total, 2), dtype=torch.int32, device=self.device)
+        pf, okA = bidi_ends_pieces(fw, gw, n, total, kind, nwb, piece,
+                                   out[:, 1])
+        del fw, gw
+        rw = reset_words(out[:, 1], n, nwb1)
+        tiles_r = scatter_reset_tiles(self._sym_tiles(rsc, data, Lr, Tr),
+                                      out[:, 1], Lr, Tr // 4, flip_n=n)
+        fw_rev, _interf, _conv, rhint = rsc.scan_tiles(
+            tiles_r, n, entries_hint=self._rev_hint_cache.get(fp))
+        del tiles_r
+        self._rev_hint_cache[fp] = rhint
+        pr, ok = bidi_assemble_pieces(rw, fw_rev, n, nwb1, piece, out)
+        if not bool(ok & okA):
+            raise RuntimeError("bidirectional span assembly failed its "
+                               "consistency check")
+        self._note_pieces(max(pf, pr))
+        return out, total, None
 
     # -- the general fallback: all starts, their ends, Go's chain -----------
     # first window of the end search (ref. WindowScanner init_window)
@@ -1216,26 +1348,22 @@ class BatchEngine:
         scan of the flipped corpus with cnt flags, each at a flipped offset
         j that is a match start at n - delay - j (K9's flags: delay 0; the
         bitset scan's, whose flag at j is an end at boundary j + 1: delay
-        1), plus a start at 0 when at0: the flag words compacted by K4
-        (``sparse_positions_words``) and read backwards, so the starts come
-        out ascending."""
+        1), plus a start at 0 when at0: the flag words compacted by K4 in
+        pieces of the span limit (``word_positions_into``) and read
+        backwards a piece at a time, so the starts come out ascending."""
         n = scan.n
         m = cnt + at0
-        if m > self.MAX_DEVICE_SPANS:
-            raise ValueError(f"{m} match starts exceed the device span "
-                             f"limit ({self.MAX_DEVICE_SPANS})")
-        cap = _bucket(m, 16)
-        if cnt == 0:
-            jpos = torch.zeros(0, dtype=torch.int32, device=self.device)
-            ok = torch.ones((), dtype=torch.bool, device=self.device)
-        else:
-            jpos, c, ok = sparse_positions_words(to_global(scan.flagw, n),
-                                                 n, _bucket(cnt, 16))
-            ok = ok & (c == cnt)
-            jpos = jpos[:cnt]
-        starts = torch.full((cap,), n, dtype=torch.int32,
+        starts = torch.full((self._slots(m),), n, dtype=torch.int32,
                             device=self.device)
-        starts[at0:m] = n - delay - jpos.flip(0)
+        jpos = torch.empty(cnt, dtype=torch.int32, device=self.device)
+        c, pieces, ok = word_positions_into(
+            to_global(scan.flagw, n), n, jpos, self.MAX_DEVICE_SPANS,
+            dense=cnt / max(n, 1) >= SPARSE_OK, total=cnt)
+        ok = ok & (c == cnt)
+        self._note_pieces(pieces)
+        for i in range(0, cnt, self.MAX_DEVICE_SPANS):
+            j = min(cnt, i + self.MAX_DEVICE_SPANS)
+            starts[at0 + i:at0 + j] = n - delay - jpos[cnt - j:cnt - i].flip(0)
         if at0:
             starts[0] = 0
         return starts, m, ok
@@ -1249,43 +1377,45 @@ class BatchEngine:
 
     def _starts_spans_dev(self, starts, m: int, ok, fwd_mt, data):
         """(spans, count, None) from every match start (ascending, n past
-        the count m, ok their device check): each start's end by the
-        forward window scan over the ``_verify_kind`` table
-        (dfa_scan.window_ends; the leftmost-first end over
+        the count m, ok their device check): the starts in pieces of
+        min(MAX_DEVICE_SPANS, CHAIN_PIECE) (one within the limit), each
+        piece's ends by the forward window scan over the ``_verify_kind``
+        table (dfa_scan.window_ends; the leftmost-first end over
         ``fwd_anch_break``, the longest over ``fwd_anch_all``), then Go's
-        selection: every match when none overlaps the next start, else the
-        chain walk on the device (span_chain.chain_select), since a
-        non-nullable plan never matches empty.  The next match begins at
-        the first start at or after the previous end under either rule.
-        Syncs: one alive count a window round, the checks.
-        ``full_scan_stats`` keeps the last call's start count and window
-        rounds."""
+        selection across the pieces with the last accepted end carried
+        (span_chain.chain_select_pieces): a piece whose matches do not
+        overlap the next start keeps them all, else the chain walk on the
+        device, since a non-nullable plan never matches empty.  The next
+        match begins at the first start at or after the previous end under
+        either rule.  Syncs: one alive count a window round, a few a piece,
+        the checks.  ``full_scan_stats`` keeps the last call's start count
+        and window rounds."""
         n = len(data)
         self.full_scan_stats = (m, 0)
         if m == 0:
             return _empty_spans(self.device), 0, None
-        cap = int(starts.shape[0])
         dev = device_corpus(data, self.device)
-        ends = torch.full((cap,), n, dtype=torch.int32, device=self.device)
-        _e, rounds = window_ends(fwd_mt, dev, starts[:m], self.END_WINDOW,
-                                 out=ends[:m])
-        self.full_scan_stats = (m, rounds)
-        ok = ok & (ends[:m] > starts[:m]).all()
-        disjoint = (ends[:m - 1] <= starts[1:m]).all()
-        ok, disjoint = torch.stack([ok, disjoint]).tolist()
-        if not ok:
+        lim = self._chain_piece()
+        checks = [ok]
+        rounds = [0]
+
+        def pieces():
+            for i in range(0, m, lim):
+                st = starts[i:min(m, i + lim)]
+                en = torch.empty_like(st)
+                _e, r = window_ends(fwd_mt, dev, st, self.END_WINDOW, out=en)
+                rounds[0] = max(rounds[0], r)
+                checks.append((en > st).all())
+                yield st, en
+
+        out = torch.empty((m, 2), dtype=torch.int32, device=self.device)
+        total, ok_c = chain_select_pieces(pieces(), n, out)
+        self.full_scan_stats = (m, rounds[0])
+        if not bool(torch.stack(checks + [ok_c]).all()):
             raise RuntimeError("find_all: a match start without a match "
-                               "end, or a start compaction fault")
-        if disjoint:
-            # no match overlaps the next start: Go keeps them all (the
-            # bulk fast path of the reference's go_select)
-            return torch.stack([starts, ends], dim=1), m, None
-        spans, total, ok_c = chain_select(starts, ends, m, n, cap)
-        del starts, ends
-        if not bool(ok_c):
-            raise RuntimeError("find_all: the chain compaction failed its "
-                               "check")
-        return spans, int(total), None
+                               "end, or a compaction fault")
+        self._note_pieces(-(-m // lim))
+        return out[:total], total, None
 
     # -- the bitset-NFA tier (BITSET_NFA) -------------------------------------
     def _bitset_scanner(self, kind: str):
@@ -1348,7 +1478,7 @@ class BatchEngine:
                                "failed its check")
         sp = self._spans_from_starts_host(data, starts[:m].cpu().numpy(),
                                           limit)
-        spans = torch.zeros((_bucket(len(sp), 16), 2), dtype=torch.int32,
+        spans = torch.zeros((self._slots(len(sp)), 2), dtype=torch.int32,
                             device=self.device)
         spans[:len(sp)] = torch.from_numpy(sp.astype(np.int32))
         return spans, len(sp), None
@@ -1418,73 +1548,75 @@ class BatchEngine:
     def _all_empty_spans_dev(self, data):
         """(spans, count, None) of a pattern whose every match is empty
         (ref. meta/nullable.py:all_empty_spans): an empty match at each
-        rune boundary, one K8 compaction of the boundary mask."""
+        rune boundary.  The [n + 1] boundary mask in corpus pieces of
+        DEVICE_SPANS_LIMIT positions (one within the limit), each
+        compacted by K8 in pieces of the span limit into one output."""
         n = len(data)
-        bound = _rune_boundaries(device_corpus(data, self.device), n)
-        total = int(mask_count(bound))
-        if total > self.MAX_DEVICE_SPANS:
-            raise ValueError(f"{total} matches exceed the device span "
-                             f"limit ({self.MAX_DEVICE_SPANS})")
-        pos, _c = compact_positions(bound, _bucket(total, 16))
-        return torch.stack([pos, pos], dim=1), total, None
+        dev = device_corpus(data, self.device)
+        cuts = list(range(0, n + 1, self.DEVICE_SPANS_LIMIT)) + [n + 1]
+        masks = [rune_boundaries_range(dev, a, b)
+                 for a, b in zip(cuts[:-1], cuts[1:])]
+        counts = torch.stack([mask_count(b) for b in masks]).tolist()
+        total = sum(counts)
+        out = torch.empty((total, 2), dtype=torch.int32, device=self.device)
+        off, pieces = 0, 0
+        ok = torch.ones((), dtype=torch.bool, device=self.device)
+        for a, b, c in zip(cuts, masks, counts):
+            col = out[off:off + c, 0]
+            w, k, okp = compact_positions_into(b, col, self.MAX_DEVICE_SPANS,
+                                               total=c)
+            col += a
+            ok = ok & okp & (w == c)
+            off += c
+            pieces += k
+        del masks
+        # the output's pieces: every compaction of every corpus piece
+        out[:, 1] = out[:, 0]
+        if not bool(ok):
+            raise RuntimeError("rune-boundary compaction failed its check")
+        self._note_pieces(pieces, len(counts))
+        return out, total, None
 
     # -- class runs (CHARCLASS) ----------------------------------------------
-    def _charclass_spans_dev(self, cc, data, known_cnt, fp, limit=-1):
-        """(spans, count, ok) of a CHARCLASS plan (ref. batch.py:710-742
+    def _charclass_spans_dev(self, cc, data, limit=-1):
+        """(spans, count, None) of a CHARCLASS plan (ref. batch.py:710-742
         and :2028-2075): the maximal class runs of length >= min packed to
-        words, one sync for the run count, then two sparse chains when runs
-        are sparse, else one K4 compaction per unpacked mask (the
-        reference's _charclass_dense_pair, :744-758, rebuilds the masks
-        from the corpus instead).  [class]+ takes the runs;
-        ([class]{m,k})+ chops each run to its one match (``_chop_runs``,
-        or ``_chop_runs_longest`` on a leftmost-longest engine);
-        [class]{m,k} splits each run into its matches on the device
-        (span_chain.expand_class_runs), validated here.  Every run counted
-        holds a match, so a limit >= 0 extracts only the first `limit` runs
-        (the reference's bounded take, :2039-2043, which it keeps to min
-        <= 1 because it counts shorter runs too).  Warm: the cached count
-        sizes the caps, count and ok stay on the device."""
+        words, one sync for the run count, then each column compacted
+        (span_chain.pair_spans_pieces: the sparse chain when runs are
+        sparse, else K4 over the unpacked mask; the reference's
+        _charclass_dense_pair, :744-758, rebuilds the masks from the corpus
+        instead), in pieces of the span limit past it.  [class]+ takes the
+        runs; ([class]{m,k})+ chops each run to its one match
+        (``_chop_runs``, or ``_chop_runs_longest`` on a leftmost-longest
+        engine); [class]{m,k} splits each run into its matches on the
+        device (span_chain.expand_class_runs).  Every run counted holds a
+        match, so a limit >= 0 extracts only the first `limit` runs (the
+        reference's bounded take, :2039-2043, which it keeps to min <= 1
+        because it counts shorter runs too)."""
         n = len(data)
         dev = device_corpus(data, self.device)
         plain = cc.min == 1 and cc.max == -1 and not cc.plus
         ranges = table_to_ranges(np.array(cc.table, dtype=bool))
         ws, we, cs_d, _ce = class_run_words(dev, ranges, cc.min)
-        if known_cnt is None:
-            cnt = int(cs_d)
-            self._spans_cnt_cache[fp] = cnt
-        else:
-            cnt = known_cnt
+        cnt = int(cs_d)
         if cnt == 0:
             return _empty_spans(self.device), 0, None
-        if cnt > self.MAX_DEVICE_SPANS:
-            raise ValueError(f"{cnt} runs exceed the device span limit "
-                             f"({self.MAX_DEVICE_SPANS})")
         take = cnt if limit < 0 else min(cnt, limit)
-        spans, _c, ok = pair_spans_sparse(
-            ws, we, n, n, _bucket(take, 16), end_adjust=1,
+        spans, ok, pieces = pair_spans_pieces(
+            ws, we, n, n, cnt, self.MAX_DEVICE_SPANS, end_adjust=1,
             dense=cnt / n >= SPARSE_OK, take=-1 if take == cnt else take)
+        del ws, we
+        self._note_pieces(pieces)
+        if not bool(ok):
+            raise RuntimeError("class-run span assembly failed its "
+                               "consistency check")
         if not (plain or cc.plus):
-            if not bool(ok):
-                raise RuntimeError("class-run span assembly failed its "
-                                   "consistency check")
-            spans, total = expand_class_runs(spans[:take], cc.min, cc.max,
-                                             n, limit)
-            if total > self.MAX_DEVICE_SPANS:
-                raise ValueError(f"{total} matches exceed the device span "
-                                 f"limit ({self.MAX_DEVICE_SPANS})")
+            spans, total = expand_class_runs(spans, cc.min, cc.max, n, limit)
             return spans, total, None
         if not plain:
             chop = _chop_runs_longest if self.longest else _chop_runs
             spans = chop(spans, cc.min, cc.max)
-        if take < cnt:
-            cnt = take
-            known_cnt = None
-        if known_cnt is None:
-            if not bool(ok):
-                raise RuntimeError("class-run span assembly failed its "
-                                   "consistency check")
-            return spans, cnt, None
-        return spans, cs_d, ok
+        return spans, take, None
 
     # -- literals and literal sets (LITERAL, MULTI_LITERAL) -------------------
     def _literal_spans_dev(self, lits, data, known_cnt, fp):
@@ -1520,9 +1652,9 @@ class BatchEngine:
         self._spans_cnt_cache[fp] = (cnt, select)
         if cnt == 0:
             return _empty_spans(self.device), 0, None
-        if cnt > self.MAX_DEVICE_SPANS:
-            raise ValueError(f"{cnt} hits exceed the device span limit "
-                             f"({self.MAX_DEVICE_SPANS})")
+        if cnt > (self._chain_piece() if select else self.MAX_DEVICE_SPANS):
+            return self._literal_pieces(lits, dev, ws, None if single
+                                        else we, cnt, select)
         cap = _bucket(cnt, 16)
         dense = cnt / n >= SPARSE_OK
         if not select:
@@ -1541,6 +1673,8 @@ class BatchEngine:
                                    "consistency check")
             # two hits overlap, yet the set has as many ends as starts
             self._spans_cnt_cache[fp] = (cnt, True)
+            if cnt > self._chain_piece():
+                return self._literal_pieces(lits, dev, ws, we, cnt, True)
         if not single:
             del we
         starts, _c, ok1 = word_positions(ws, n, cap, dense)
@@ -1554,6 +1688,60 @@ class BatchEngine:
             raise RuntimeError("leftmost-first literal selection failed its "
                                "consistency check")
         return spans, int(total), None
+
+    def _literal_pieces(self, lits, dev, ws, we, cnt: int, select: bool):
+        """_literal_spans_dev past the span limit (cnt hits): hits that
+        cannot overlap give their spans column by column in pieces
+        (word_positions_into, pair_spans_pieces); hits that overlap go
+        through Go's selection a piece of CHAIN_PIECE hits at a time, the
+        last accepted end carried (chain_select_pieces), into an output of
+        cnt rows whose first `count` are the spans."""
+        n = int(dev.shape[0])
+        lim = self.MAX_DEVICE_SPANS
+        dense = cnt / n >= SPARSE_OK
+        if not select:
+            if we is None:
+                out = torch.empty((cnt, 2), dtype=torch.int32,
+                                  device=self.device)
+                c, pieces, ok = word_positions_into(ws, n, out[:, 0], lim,
+                                                    dense, total=cnt)
+                out[:, 1] = out[:, 0] + len(lits[0])
+                ok = ok & (c == cnt)
+            else:
+                out, ok, pieces = pair_spans_pieces(ws, we, n, n + 1, cnt,
+                                                    lim, dense=dense)
+            if bool(ok):
+                self._note_pieces(pieces)
+                return out, cnt, None
+            if we is None:
+                raise RuntimeError("literal span chain failed its "
+                                   "consistency check")
+            # two hits overlap, yet the set has as many ends as starts
+            del out
+        checks = []
+        runs = word_pieces(ws, self._chain_piece(), total=cnt)
+
+        def pieces():
+            for w0, w1, c in runs:
+                if c == 0:
+                    continue
+                base = 32 * w0
+                pos, cp, okp = word_positions(ws[w0:w1],
+                                              min(n, 32 * w1) - base,
+                                              _bucket(c, 16), dense)
+                st = pos[:c] + base
+                del pos
+                length, okl = literal_lengths(dev, st, c, lits, c)
+                checks.append(okp & okl & (cp == c))
+                yield st, st + length
+
+        out = torch.empty((cnt, 2), dtype=torch.int32, device=self.device)
+        total, ok_c = chain_select_pieces(pieces(), n, out)
+        if not bool(torch.stack(checks + [ok_c]).all()):
+            raise RuntimeError("leftmost-first literal selection failed its "
+                               "consistency check")
+        self._note_pieces(len(checks))
+        return out[:total], total, None
 
     # -- nullable patterns (NULLABLE_CORE) ------------------------------------
     def _core(self):
@@ -1581,10 +1769,7 @@ class BatchEngine:
         if (core_be.plan.strategy == Strategy.CHARCLASS and cc.min == 1
                 and cc.max == -1 and not cc.plus and ascii_ok):
             return "nullable_k8", cc
-        n = len(data)
-        if n < 4 or n > self.DEVICE_SPANS_LIMIT:
-            return None
-        if core_be._spans_route(data) is None:
+        if len(data) < 4 or core_be._spans_route(data) is None:
             return None
         return "nullable", (core_be, ascii_ok)
 
@@ -1593,48 +1778,104 @@ class BatchEngine:
         (ref. batch.py:589-633): the matches form an aligned mask pair,
         starts = run starts and accepted empties, ends = run ends + 1 and
         the same empties, disjoint and strictly interleaved, so two K8
-        compactions assemble the span list with no sort.  Empties sit at
-        the positions that are neither members nor a run's exclusive end;
-        ASCII makes every position a rune boundary."""
+        compactions, each column in pieces of the span limit, assemble the
+        span list with no sort.  Empties sit at the positions that are
+        neither members nor a run's exclusive end; ASCII makes every
+        position a rune boundary."""
         smask, emask = nullable_class_masks(
             device_corpus(data, self.device), np.array(cc.table, dtype=bool))
         total = int(mask_count(smask))
         if total == 0:
             return _empty_spans(self.device), 0, None
-        if total > self.MAX_DEVICE_SPANS:
-            raise ValueError(f"{total} matches exceed the device span "
-                             f"limit ({self.MAX_DEVICE_SPANS})")
-        cap = _bucket(total, 16)
-        starts, cs = compact_positions(smask, cap)
+        out = torch.empty((total, 2), dtype=torch.int32, device=self.device)
+        cs, ps, ok1 = compact_positions_into(smask, out[:, 0],
+                                             self.MAX_DEVICE_SPANS,
+                                             total=total)
         del smask
-        ends, ce = compact_positions(emask, cap)
+        ce, pe, ok2 = compact_positions_into(
+            emask, out[:, 1], self.MAX_DEVICE_SPANS, take=total, total=total)
         del emask
-        if int(cs) != int(ce):
+        if not bool(ok1 & ok2) or cs != total or ce != total:
             raise RuntimeError("nullable mask pair is not aligned")
-        return torch.stack([starts, ends], dim=1), total, None
+        self._note_pieces(max(ps, pe))
+        return out, total, None
 
     def _nullable_general_spans_dev(self, args, data):
         """(spans, count, None) for general cores and UTF-8 corpora (ref.
         batch.py:635-676): the core's spans from the core engine's own
-        device route, the empty fill as device algebra, one chain
-        compaction of the empty positions and a searchsorted merge."""
+        device route, then the empty fill as device algebra and a merge by
+        rank, a corpus piece of DEVICE_SPANS_LIMIT positions at a time
+        (``_nullable_fill_pieces``; one within the limit), each piece's
+        empty positions compacted in pieces of the span limit, into one
+        output."""
         core_be, ascii_ok = args
-        n = len(data)
         spans_c, cnt_c = core_be.find_all_spans_device(data)
+        self._note_pieces(*core_be.pieces)
         dev = device_corpus(data, self.device)
-        Bw, ne_d = nullable_fill_words(spans_c, cnt_c, dev, ascii_ok)
-        ne = int(ne_d)
-        total = cnt_c + ne
-        if total > self.MAX_DEVICE_SPANS:
-            raise ValueError(f"{total} matches exceed the device span "
-                             f"limit ({self.MAX_DEVICE_SPANS})")
-        if ne == 0:
+        pieces = self._nullable_fill_pieces(spans_c, cnt_c, dev, ascii_ok)
+        ne_all = sum(p[3] for p in pieces)
+        if ne_all == 0:
             return spans_c, cnt_c, None
-        emp_pos, ke, ok = sparse_positions_words(Bw, n + 1, _bucket(ne, 16))
-        del Bw
-        if not bool(ok & (ke == ne)):
-            raise RuntimeError("empty-position chain failed its "
-                               "consistency check")
-        spans, total = nullable_merge(spans_c, cnt_c, emp_pos, ne, n,
-                                      _bucket(total, 16))
-        return spans, total, None
+        total = cnt_c + ne_all
+        self._note_pieces(1, len(pieces))
+        out = torch.empty((total, 2), dtype=torch.int32, device=self.device)
+        ok = torch.ones((), dtype=torch.bool, device=self.device)
+        off = used = 0
+        for a, b, Bw, ne, ci0, ci1 in pieces:
+            dst = out[off:off + (ci1 - ci0) + ne]
+            if ne:
+                emp = torch.empty(ne, dtype=torch.int32, device=self.device)
+                k, p, okp = word_positions_into(Bw, b - a, emp,
+                                                self.MAX_DEVICE_SPANS,
+                                                total=ne)
+                ok = ok & okp & (k == ne)
+                emp += a
+                nullable_merge_into(dst, spans_c[ci0:ci1], emp)
+                del emp
+                used += p
+            else:
+                dst.copy_(spans_c[ci0:ci1])
+            off += int(dst.shape[0])
+        del pieces
+        if not bool(ok):
+            raise RuntimeError("empty-position chain failed its consistency "
+                               "check")
+        # the output's pieces: every empty compaction of every corpus piece
+        self._note_pieces(used)
+        return out, total, None
+
+    def _nullable_fill_pieces(self, spans_c, cnt_c: int, dev,
+                              ascii_ok: bool):
+        """The empty fill of the [n + 1] positions in corpus pieces of
+        about DEVICE_SPANS_LIMIT positions, each cut moved off any core
+        span that crosses it (to its start, or past its end when it
+        starts the piece): [(a, b, empty words of [a, b), empty count,
+        first core span, end core span)], the core spans of a piece those
+        that start in it.  A core span that ends at a piece's start bars
+        an empty match there (nullable_fill_range's `ends`)."""
+        n = int(dev.shape[0])
+        S = spans_c[:cnt_c, 0].contiguous()
+        E = spans_c[:cnt_c, 1].contiguous()
+
+        def rank(x, a: int, b: int):
+            return torch.searchsorted(x, torch.tensor(
+                [a, b], dtype=torch.int32, device=x.device)).tolist()
+
+        out = []
+        a = 0
+        while a < n + 1:
+            b = min(n + 1, a + self.DEVICE_SPANS_LIMIT)
+            if b < n + 1 and cnt_c:
+                i = int(torch.searchsorted(E, torch.tensor(
+                    [b], dtype=torch.int32, device=E.device), right=True)[0])
+                if i < cnt_c:
+                    s_i, e_i = spans_c[i].tolist()
+                    if s_i < b:
+                        b = s_i if s_i > a else e_i
+            ci0, ci1 = rank(S, a, b) if cnt_c else (0, 0)
+            ei0, ei1 = rank(E, a, b) if cnt_c else (0, 0)
+            Bw, ne = nullable_fill_range(dev, a, b, S[ci0:ci1], E[ci0:ci1],
+                                         E[ei0:ei1], ascii_ok)
+            out.append((a, b, Bw, int(ne), ci0, ci1))
+            a = b
+        return out

@@ -3,7 +3,10 @@
 ``_memmem_mask`` (:164), ``literal_self_overlaps`` (:208-215),
 ``_multi_literal_scan`` (:218-238),
 ``table_to_ranges`` (:314), ``_class_mask_from_table`` (:330) and
-``_range_mask`` (:337) of ``coregex_tpu/ops/bytescan.py``."""
+``_range_mask`` (:337) of ``coregex_tpu/ops/bytescan.py``.
+``last_set_index`` and ``piece_cuts`` have no counterpart; the second cuts
+a result past the span limit into pieces that one compaction each can
+hold."""
 
 from __future__ import annotations
 
@@ -21,6 +24,27 @@ def _bucket(x: int, lo: int = 16) -> int:
     return b
 
 
+def piece_cuts(counts: np.ndarray, limit: int, take: int = -1):
+    """Consecutive blocks with `counts` entries each, cut greedily into
+    pieces of at most `limit` entries: [(first block, end block, entries)],
+    in order, covering the blocks up to the one where the running total
+    reaches `take` (all of them when take < 0).  A block that alone holds
+    more than `limit` entries is a piece of its own (callers choose blocks
+    that cannot, or accept that)."""
+    cum = np.concatenate([[0], np.cumsum(counts, dtype=np.int64)])
+    nb = len(counts)
+    if take >= 0:
+        nb = min(nb, int(np.searchsorted(cum, take, side="left")))
+    out = []
+    i = 0
+    while i < nb:
+        j = int(np.searchsorted(cum, cum[i] + limit, side="right")) - 1
+        j = min(max(j, i + 1), nb)
+        out.append((i, j, int(cum[j] - cum[i])))
+        i = j
+    return out
+
+
 def mask_count(mask: torch.Tensor) -> torch.Tensor:
     """Set entries of a mask, as a 0-dim int32 tensor on its device."""
     return mask.sum(dtype=torch.int32)
@@ -35,6 +59,19 @@ def first_set_index(mask: torch.Tensor) -> int:
     m = mask.view(torch.uint8)
     i = torch.argmax(m)          # the first maximal entry
     return int(torch.where(m[i] != 0, i, n))
+
+
+def last_set_index(mask: torch.Tensor, chunk: int = 1 << 24) -> int:
+    """Index of the last set entry of a 1-D bool mask, or -1 when none is
+    set: chunks of `chunk` entries from the end, one sync each, so a late
+    entry costs one chunk's flip, not the mask's."""
+    n = int(mask.shape[0])
+    for hi in range(n, 0, -chunk):
+        lo = max(0, hi - chunk)
+        j = first_set_index(mask[lo:hi].flip(0))
+        if j < hi - lo:
+            return hi - 1 - j
+    return -1
 
 
 def _window_all(mask: torch.Tensor, m: int) -> torch.Tensor:

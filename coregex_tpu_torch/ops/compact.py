@@ -11,13 +11,19 @@ payloads (ordered positions of the set entries), so for CUDA tensors
 ``npay = 0``: one pass over the mask, at any length and byte offset) at
 every size; the reference sends masks below 4 blocks to XLA.  K8 keeps its own entry point and launch count.  For CPU tensors it
 runs the plain scatter version.
+
+``mask_pieces`` and ``compact_positions_into`` have no counterpart: a mask
+with more set entries than one compaction may hold (the span limit) is
+compacted in pieces cut from its running counts, each piece one K8 launch
+with a cap within the limit, written at its offset of one output.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .compact2 import compact_pay_cuda
+from .bytescan import _bucket, piece_cuts
+from .compact2 import PIECE_BLOCK, compact_pay_cuda
 from .count_scan import LaunchCounter
 
 COMPACT_POS_KERNEL = LaunchCounter("compact_positions")
@@ -65,3 +71,49 @@ def compact_positions(mask, cap: int):
     if dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return compact_positions_plain(mask8, cap)
+
+
+def mask_pieces(mask, limit: int, take: int = -1, total: int = -1):
+    """Position ranges of 1-D `mask` cut from its running counts:
+    [(lo, hi, set entries)], each holding at most `limit` set entries, in
+    order, covering the mask up to its `take`-th set entry (all of it when
+    take < 0).  Blocks are a power of two of at most min(limit,
+    PIECE_BLOCK) positions, so no block alone passes the limit.  One sync
+    for the block totals, none when the caller knows the mask's `total`
+    set entries and they fit `limit` (one piece)."""
+    n = int(mask.shape[0])
+    if 0 <= total <= limit:
+        return [(0, n, total)]
+    blk = 1 << (min(limit, PIECE_BLOCK).bit_length() - 1)
+    m8 = mask.view(torch.uint8) if mask.dtype == torch.bool \
+        else (mask != 0).to(torch.uint8)
+    full = n // blk
+    sums = [m8[:full * blk].view(full, blk).sum(1, dtype=torch.int64)]
+    if n > full * blk:
+        sums.append(m8[full * blk:].sum(dtype=torch.int64).reshape(1))
+    blocks = torch.cat(sums).cpu().numpy()
+    return [(b0 * blk, min(b1 * blk, n), c)
+            for b0, b1, c in piece_cuts(blocks, limit, take)]
+
+
+def compact_positions_into(mask, out, limit: int, take: int = -1,
+                           total: int = -1):
+    """The positions of the set entries of 1-D `mask`, ascending, written
+    into `out` (an int32 1-D view, a column of a span array among them):
+    the first `take` of them (all when take < 0), in pieces of at most
+    `limit` entries, each one compact_positions with a cap of at most
+    _bucket(limit).  Returns (entries written, pieces, ok): ok, a device
+    bool, checks each piece's count against its cut.  `total`, where the
+    caller knows it, is the mask's set entries (mask_pieces)."""
+    off = pieces = 0
+    ok = torch.ones((), dtype=torch.bool, device=mask.device)
+    for lo, hi, cf in mask_pieces(mask, limit, take, total):
+        c = cf if take < 0 else min(cf, take - off)
+        if c <= 0:
+            continue
+        pos, cnt = compact_positions(mask[lo:hi], _bucket(cf, 16))
+        ok = ok & (cnt == cf)
+        out[off:off + c] = pos[:c] + lo
+        off += c
+        pieces += 1
+    return off, pieces, ok

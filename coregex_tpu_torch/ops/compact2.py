@@ -20,6 +20,10 @@ not ride the levels as in the reference (whose TPU kernel cannot gather):
 an event's word payload is its word's value, so after level 3 it is one
 gather at ``pos >> 5``.  K4 then routes at most two payloads per level,
 whatever the number of word payloads.
+
+``word_popcounts`` and ``word_pieces`` have no counterpart: they cut event
+words into runs of whole words whose set bits one compaction can hold
+(the reference's results end at its span limit).
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ from typing import NamedTuple
 import torch
 
 from . import _build
-from .bytescan import _bucket
+from .bytescan import _bucket, piece_cuts
 from .count_scan import LaunchCounter
 
 COMPACT_KERNEL = LaunchCounter("compact_pay")
@@ -174,6 +178,42 @@ def pack_words(mask, nw: int):
     x = mask.contiguous().view(torch.uint8).view(torch.int64)
     return ((x * 0x0102040810204080) >> 56).to(torch.uint8).view(
         torch.int32)
+
+
+# positions a block of the piece cut covers: 2^15 blocks at 2^31 positions,
+# so the cut's block totals are a small host array
+PIECE_BLOCK = 1 << 16
+
+
+def word_popcounts(words):
+    """Set bits of each int32 word, as int32 [nw]: a SWAR popcount of each
+    byte (uint8, so shifts are logical), summed four bytes a word."""
+    b = words.contiguous().view(torch.uint8)
+    x = b - ((b >> 1) & 0x55)
+    x = (x & 0x33) + ((x >> 2) & 0x33)
+    x = (x + (x >> 4)) & 0x0F
+    return x.view(-1, 4).sum(1, dtype=torch.int32)
+
+
+def word_pieces(words, limit: int, take: int = -1, total: int = -1):
+    """Runs of whole words of `words` cut from their running popcounts:
+    [(first word, end word, set bits)], each run holding at most `limit`
+    set bits (a single word may hold more when limit < 32), in order,
+    covering the words up to the `take`-th set bit (all when take < 0).
+    One sync for the block totals.  A caller that knows the words' `total`
+    set bits gets the one run of all of them, with no popcount pass, when
+    they fit `limit`."""
+    nw = int(words.shape[0])
+    if 0 <= total <= limit:
+        return [(0, nw, total)]
+    wb = max(1, min(PIECE_BLOCK // 32, limit // 32))
+    pc = word_popcounts(words)
+    nb = -(-nw // wb)
+    if nb * wb != nw:
+        pc = torch.cat([pc, pc.new_zeros(nb * wb - nw)])
+    blocks = pc.view(nb, wb).sum(1, dtype=torch.int64).cpu().numpy()
+    return [(b0 * wb, min(b1 * wb, nw), c)
+            for b0, b1, c in piece_cuts(blocks, limit, take)]
 
 
 def _chain_pay_body(evw, wordpays, n: int, cap: int):

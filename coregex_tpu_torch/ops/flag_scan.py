@@ -99,20 +99,29 @@ def sym_base_tiles(dev, bounds: Tuple[int, ...], L: int, T4: int):
     return make_word_tiles(sym, L, T4)
 
 
-def scatter_reset_tiles(base_tiles, rq, L: int, T4: int):
+# reset positions scattered at once: bounded int64 transients at any count
+_RESET_CHUNK = 1 << 26
+
+
+def scatter_reset_tiles(base_tiles, rq, L: int, T4: int, flip_n=None):
     """Copy of the symbol tiles with +1 (the reset bit; symbols are even,
-    so no carry) at each position of rq.  Entries of rq that are negative
-    or past the tile domain are dropped: the reference's scatter sends
-    the -1 of dead entries to its last tile word instead, a byte no scan
-    reads (ref. scatter_reset_tiles)."""
-    r = rq.to(torch.int64)
-    valid = (r >= 0) & (r < L * T4 * 4)
-    w = r >> 2
-    flat = torch.where(valid, (w % T4) * L + (w // T4), 0)
-    val = torch.where(valid, torch.bitwise_left_shift(
-        torch.ones_like(r), 8 * (r & 3)), 0).to(torch.int32)
+    so no carry) at each position of rq (at flip_n - rq when flip_n is
+    given: the reversed positions of forward ends), _RESET_CHUNK at a
+    time.  Entries of rq that are negative or past the tile domain are
+    dropped: the reference's scatter sends the -1 of dead entries to its
+    last tile word instead, a byte no scan reads (ref.
+    scatter_reset_tiles)."""
     out = base_tiles.clone().reshape(-1)
-    out.index_add_(0, flat, val)
+    for i in range(0, int(rq.shape[0]), _RESET_CHUNK):
+        r = rq[i:i + _RESET_CHUNK].to(torch.int64)
+        if flip_n is not None:
+            r = flip_n - r
+        valid = (r >= 0) & (r < L * T4 * 4)
+        w = r >> 2
+        idx = torch.where(valid, (w % T4) * L + (w // T4), 0)
+        val = torch.where(valid, torch.bitwise_left_shift(
+            torch.ones_like(r), 8 * (r & 3)), 0).to(torch.int32)
+        out.index_add_(0, idx, val)
     return out.reshape(base_tiles.shape)
 
 

@@ -1,16 +1,18 @@
 """Bidirectional span assembly on hit-sized arrays.
 
 Ports from ``coregex_tpu/ops/span_chain.py``: ``_pad_pack`` (:42),
-``line_event_words`` (:253-273), ``_line_cand_spans_jit`` (:343-418) as
-the plain function ``line_cand_spans``, ``line_spans_candidates``
-(:421-435), ``_floor_log2`` (:464), ``cummax_fast`` (:476),
+``line_event_words`` (:253-273), ``_line_cand_spans_jit`` (:343-418) and
+``line_spans_candidates`` (:421-435) as ``_line_select`` and
+``line_spans_pieces`` (in runs of candidates, the line choice carried),
+``_floor_log2`` (:464), ``cummax_fast`` (:476),
 ``_word_lastpos_table`` (:494), ``_ctz32`` (:504), ``_word_nextpos_table``
 (:515), ``inner_flag_arrays_words`` (:603), ``_fit_words`` (:694),
 ``bidi_ends`` (:703-761), ``bidi_assemble`` (:766-804), the class-run
 producers ``class_run_words`` (:72) and ``class_run_masks_dense`` (:97),
 ``pair_spans_sparse`` with ``_pair_spans_jit`` (:966-994), and the nullable
-fill ``_rune_boundaries`` (:835), ``nullable_fill_words`` (:866) and
-``nullable_merge`` (:895), and the literal producers ``literal_words``
+fill ``_rune_boundaries`` (:835), ``nullable_fill_words`` (:866, as
+``nullable_fill_range`` over a range of positions) and ``nullable_merge``
+(:895, as ``nullable_merge_into``), and the literal producers ``literal_words``
 (:63), ``multi_literal_words`` (:117), ``_ml_slice_words`` (:167),
 ``_ml_counts`` (:200), ``multi_literal_words_big`` (:206) and
 ``literal_spans_sparse`` (:933-961).  ``leftmost_first_spans`` has no
@@ -34,6 +36,14 @@ each interval's last flag at or before the next reset is the match start.
 Both sides keep int32 positions, so corpora must stay below 2^31 - 32
 bytes (the caller checks).
 
+Past the span limit (a result that one compaction may not hold) the
+``*_pieces`` / ``*_into`` forms cut the chains into runs of whole words
+(``compact2.word_pieces``), compact each run with a cap within the limit and
+write its share of one output at its offset, positions absolute; a
+selection that walks from one candidate to the next carries its state
+across the seams (the last accepted end, a line's bol).  They have no
+counterpart: the reference's device routes stop at its limit.
+
 Line shapes (``.*lit.*``, ``.*lit``, ``lit.*``, ``(?m)^P.*lit``): only the
 literal's candidates compact; the newline words (and, anchored, the
 line-start-with-prefix words) ride the chain as per-word payloads with
@@ -50,7 +60,7 @@ import torch
 from .bytescan import _bucket, _class_mask_from_table, _memmem_mask, \
     _range_mask, mask_count
 from .compact2 import _bucket_up, compact_pay, pack_words, \
-    sparse_chain_payloads, sparse_positions_words
+    sparse_chain_payloads, sparse_positions_words, word_pieces
 from .span_scan import LOW_MASK
 
 # sparse-chain crossover (hits / n) of the reference (span_chain.py:39):
@@ -227,6 +237,110 @@ def bidi_assemble(ends_c, cntF, rw, fw_rev, n: int, capM: int, nwb1: int):
     return torch.stack([s_a, e_a], dim=1), cntR, ok
 
 
+def bidi_ends_pieces(flagw, firstw, n: int, total: int, kind: int,
+                     nwb: int, limit: int, ends):
+    """bidi_ends past the span limit: the group words cut into runs of at
+    most `limit` groups (word_pieces), one chain each; each group's end is
+    the last flag before the next group's first flag, so a run's first
+    group closes the previous run's last one.  The `total` ends go into
+    `ends` (an int32 [total] view).  Returns (pieces, ok); raises when the
+    groups do not add up to `total` (before writing past it)."""
+    dev = flagw.device
+    fw = _fit_words(flagw, nwb)
+    gw = _fit_words(firstw, nwb)
+    lastflag_w = _word_lastpos_table(fw, nwb)
+    base = torch.arange(nwb, dtype=torch.int32, device=dev) * 32
+    glob_f = torch.where(fw != 0, base + _floor_log2(fw), -1).max()
+    del base
+    low = _table(LOW_MASK, fw)
+    extra = int(kind == _EOI_EXTRA)
+    ok = torch.ones((), dtype=torch.bool, device=dev)
+    g = pieces = 0
+    prev_f = None
+    for w0, w1, c in word_pieces(gw, limit, total=total - extra):
+        if c == 0:
+            continue
+        if g + c + extra > total:
+            raise RuntimeError("bidirectional span assembly: more groups "
+                               "than matches")
+        f_pos, fwi, lfi, cnt, okE = sparse_chain_payloads(
+            gw[w0:w1], [fw[w0:w1], lastflag_w[w0:w1]], _POS_BIG,
+            _bucket(c, 16))
+        f_pos, fwi, lfi = f_pos[:c] + 32 * w0, fwi[:c], lfi[:c]
+        vf = fwi & low[(f_pos & 31).long()]          # bits strictly below
+        lfb = torch.where(vf != 0, (f_pos & ~31) + _floor_log2(vf), lfi)
+        ok = ok & okE & (cnt == c) & (lfb[1:] >= f_pos[:-1]).all()
+        if g:
+            ends[g - 1:g - 1 + c] = lfb
+            ok = ok & (lfb[0] >= prev_f)
+        else:
+            ends[:c - 1] = lfb[1:]
+        prev_f = f_pos[c - 1]
+        g += c
+        pieces += 1
+    if g == 0 or g + extra != total or kind == _EOI_COMPLEX:
+        raise RuntimeError("bidirectional span assembly failed its "
+                           "consistency check")
+    ends[g - 1] = n if kind == _EOI_EXTEND else glob_f
+    ok = ok & (glob_f >= prev_f)
+    if extra:
+        ends[g] = n
+    return pieces, ok
+
+
+def reset_words(ends, n: int, nwb1: int):
+    """bidi_ends' reset words from the match ends: bit n - e for each end
+    e, over nwb1 words, _CHECK_ROWS ends at a time."""
+    m = torch.zeros(nwb1 * 32, dtype=torch.bool, device=ends.device)
+    for i in range(0, int(ends.shape[0]), _CHECK_ROWS):
+        m[(n - ends[i:i + _CHECK_ROWS]).long()] = True
+    return pack_words(m, nwb1)
+
+
+def bidi_assemble_pieces(rw, fw_rev, n: int, nwb1: int, limit: int, out):
+    """bidi_assemble past the span limit: the reset words cut into runs of
+    at most `limit` resets, one chain each.  Reset j (reversed order) is
+    forward match T - 1 - j; its start is the last reverse flag at or
+    before reset j + 1, so a run's first reset gives the previous run's
+    last start.  Fills out[:, 0] (the starts) and checks out[:, 1] (the
+    forward ends) against the resets.  Returns (pieces, ok)."""
+    dev = rw.device
+    T = int(out.shape[0])
+    flagw_r, lastflag_r, glob = inner_flag_arrays_words(
+        _fit_words(fw_rev, nwb1), nwb1)
+    low = _table(LOW_MASK, rw)
+    s_col, e_col = out[:, 0], out[:, 1]
+    ok = torch.ones((), dtype=torch.bool, device=dev)
+    j = pieces = 0
+    prev_r = None
+    for w0, w1, c in word_pieces(rw, limit, total=T):
+        if c == 0:
+            continue
+        if j + c > T:
+            raise RuntimeError("bidirectional span assembly: more resets "
+                               "than matches")
+        r_pos, fwi, lfi, cnt, okR = sparse_chain_payloads(
+            rw[w0:w1], [flagw_r[w0:w1], lastflag_r[w0:w1]], n + 1,
+            _bucket(c, 16))
+        r_pos, fwi, lfi = r_pos[:c] + 32 * w0, fwi[:c], lfi[:c]
+        vf = fwi & low[(r_pos & 31).long() + 1]       # bits 0..bit
+        lfab = torch.where(vf != 0, (r_pos & ~31) + _floor_log2(vf), lfi)
+        ok = ok & okR & (cnt == c) & (lfab[1:] > r_pos[:-1]).all()
+        ok = ok & (e_col[T - j - c:T - j].flip(0) == n - r_pos).all()
+        t0 = 1 if j == 0 else 0
+        if j:
+            ok = ok & (lfab[0] > prev_r)
+        s_col[T - j - c + 1:T - j - t0 + 1] = (n - lfab[t0:]).flip(0)
+        prev_r = r_pos[c - 1]
+        j += c
+        pieces += 1
+    if j != T:
+        raise RuntimeError("bidirectional span assembly failed its "
+                           "consistency check")
+    s_col[0] = n - glob
+    return pieces, ok & (glob > prev_r) & spans_ok(out)
+
+
 # ---------------------------------------------------------------------------
 # Line-shape family on the candidate chain
 # ---------------------------------------------------------------------------
@@ -264,21 +378,33 @@ def line_event_words(dev, lit, prefix, line_anchored: bool):
     return tuple(outs), tuple(cnts)
 
 
-def line_cand_spans(candw, nlw, lspw, n: int, nwb: int, cap: int,
-                    mode: str, anchored: bool, k: int, plen: int):
-    """Candidate-only line extraction: one chain over the candidate words
-    with the newline (and anchored line-start-prefix) words and their
-    position tables as payloads.  Returns (spans [cap, 2], match count,
-    ok) as device tensors."""
-    dev = candw.device
+def _line_tables(nlw, lspw, nwb: int, anchored: bool):
+    """The per-word payloads of the candidate chain: the newline words
+    with their last/next-position tables (and, anchored, the
+    line-start-with-prefix words with theirs)."""
     pays = [nlw, _word_lastpos_table(nlw, nwb), _word_nextpos_table(nlw, nwb)]
     if anchored:
         pays += [lspw, _word_lastpos_table(lspw, nwb)]
+    return pays
+
+
+def _line_select(candw, pays, n: int, cap: int, mode: str, anchored: bool,
+                 k: int, plen: int, base: int = 0, carry=None):
+    """One chain over candidate words `candw` (word 0 at position `base`)
+    with the per-word payloads of _line_tables for the same words: (keep,
+    span starts, span ends, ok, carry) over cap slots, keep marking the
+    candidate each line keeps.  `carry` is a 0-dim int32 device tensor of
+    the candidates on the other side of this run: the largest valid bol
+    before it (first modes), the smallest after it ("bol_to_last"); None
+    when there are none.  The carry returned adds this run's."""
+    dev = candw.device
     out = sparse_chain_payloads(candw, pays, _POS_BIG, cap)
     c_pos, nlw_i, lastnl_i, nextnl_i = out[:4]
     cnt, okc = out[-2], out[-1]
     idx = torch.arange(cap, dtype=torch.int32, device=dev)
     live = idx < cnt
+    if base:
+        c_pos = torch.where(live, c_pos + base, c_pos)
     low = _table(LOW_MASK, candw)
     bitc = (c_pos & 31).long()
     below = low[bitc]                                 # bits < bitc
@@ -301,41 +427,69 @@ def line_cand_spans(candw, nlw, lspw, n: int, nwb: int, cap: int,
         bolv = torch.where(valid, bol, _POS_BIG)
         nxtmin = -torch.flip(cummax_fast(torch.flip(-bolv, [0]), -_POS_BIG),
                              [0])
-        nxtmin = torch.cat([nxtmin[1:], torch.full(
-            (1,), _POS_BIG, dtype=torch.int32, device=dev)])
+        tail = (torch.full((1,), _POS_BIG, dtype=torch.int32, device=dev)
+                if carry is None else carry.reshape(1))
+        # the carry reaches every live slot, not only the last of cap
+        nxtmin = torch.minimum(torch.cat([nxtmin[1:], tail]), tail)
         keep = valid & (bol < nxtmin)
+        carry = torch.minimum(tail[0], bolv.min())
         s_v, e_v = bol, c_pos + k
     else:
         # the first valid candidate of a line
         bolv = torch.where(valid, bol, -1)
-        prevmax = torch.cat([torch.full((1,), -1, dtype=torch.int32,
-                                        device=dev),
-                             cummax_fast(bolv, -1)[:-1]])
+        head = (torch.full((1,), -1, dtype=torch.int32, device=dev)
+                if carry is None else carry.reshape(1))
+        prevmax = torch.maximum(
+            torch.cat([head, cummax_fast(bolv, -1)[:-1]]), head)
         keep = valid & (bol > prevmax)
+        carry = torch.maximum(head[0], bolv.max())
         s_v = c_pos if mode == "first_to_eol" else bol
         e_v = eol
-    _, s_c, e_c, cntm, okc2 = compact_pay(keep, [s_v, e_v], cap)
-    livem = idx < cntm
-    ok = okc & okc2 & torch.where(livem, s_c < e_c, True).all()
-    nxt = torch.cat([s_c[1:], torch.full((1,), _POS_BIG, dtype=torch.int32,
-                                         device=dev)])
-    ok = ok & torch.where(idx < cntm - 1, e_c <= nxt, True).all()
-    e_c = torch.where(livem, e_c, s_c)
-    s_c = torch.where(livem, s_c, n)
-    return torch.stack([s_c, e_c], dim=1), cntm, ok
+    return keep, s_v, e_v, okc, carry
 
 
-def line_spans_candidates(words, n: int, cap: int, mode: str,
-                          anchored: bool, k: int, plen: int):
-    """Line extraction from line_event_words' words (cap bounds the
-    candidates).  Returns (spans [cap, 2], match count, ok) as device
-    tensors."""
+def line_spans_pieces(words, n: int, cand_total: int, limit: int,
+                      mode: str, anchored: bool, k: int, plen: int):
+    """Candidate-only line extraction (ref. line_spans_candidates) from
+    line_event_words' words: one chain over the candidate words with the
+    newline (and anchored line-start-prefix) words and their position
+    tables as payloads (_line_tables), then one compaction of the kept
+    candidates; past `limit` candidates the candidate words are cut into
+    runs of at most `limit` (word_pieces), one chain and one compaction
+    each, the line choice carried across the seams
+    (_line_select's carry): forward for the first candidate of a line,
+    backward for the last ("bol_to_last"), whose runs go from the last.
+    Each run's spans are kept at their own size (a line keeps one span of
+    its many candidates) and joined in order.  Returns (spans [count, 2],
+    count, ok, pieces); one sync a run."""
     nlw, candw = words[0], words[1]
     lspw = words[2] if anchored else candw
     nwb = _bucket_up(max(int(candw.shape[0]), 1))
-    return line_cand_spans(_fit_words(candw, nwb), _fit_words(nlw, nwb),
-                           _fit_words(lspw, nwb), n, nwb, cap, mode,
-                           anchored, k, plen)
+    candw, nlw, lspw = (_fit_words(w, nwb) for w in (candw, nlw, lspw))
+    pays = _line_tables(nlw, lspw, nwb, anchored)
+    dev = candw.device
+    backward = mode == "bol_to_last"
+    runs = word_pieces(candw, limit, total=cand_total)
+    ok = torch.ones((), dtype=torch.bool, device=dev)
+    carry, parts = None, []
+    for w0, w1, c in (reversed(runs) if backward else runs):
+        if c == 0:
+            continue
+        cap = _bucket(c, 16)
+        keep, s_v, e_v, okc, carry = _line_select(
+            candw[w0:w1], [p[w0:w1] for p in pays], n, cap, mode, anchored,
+            k, plen, 32 * w0, carry)
+        _, s_c, e_c, cntm, okk = compact_pay(keep, [s_v, e_v], cap)
+        del keep, s_v, e_v
+        m = int(cntm)
+        ok = ok & okc & okk
+        parts.append(torch.stack([s_c[:m], e_c[:m]], dim=1))
+        del s_c, e_c
+    if backward:
+        parts.reverse()
+    spans = (parts[0] if len(parts) == 1 else torch.cat(parts)) if parts \
+        else torch.empty((0, 2), dtype=torch.int32, device=dev)
+    return spans, int(spans.shape[0]), ok & spans_ok(spans), len(parts)
 
 
 # ---------------------------------------------------------------------------
@@ -408,6 +562,74 @@ def pair_spans_sparse(words_s, words_e, ns: int, ne: int, cap: int,
     return torch.stack([starts, ends], dim=1), cs, ok
 
 
+# rows a check over a pieced span array reads at once
+_CHECK_ROWS = 1 << 26
+# the smallest cap at which word_positions' chain could pass 2^31 entries
+_CHAIN_CAP = 1 << 28
+
+
+def spans_ok(spans, strict: bool = True):
+    """Device bool: every row of `spans` [T, 2] is ordered (start < end,
+    or <= when not strict) and ends at or before the next row starts;
+    read _CHECK_ROWS rows at a time, so its transients stay bounded."""
+    T = int(spans.shape[0])
+    ok = torch.ones((), dtype=torch.bool, device=spans.device)
+    for i in range(0, T, _CHECK_ROWS):
+        j = min(T, i + _CHECK_ROWS)
+        s, e = spans[i:j, 0], spans[i:j, 1]
+        ok = ok & ((s < e) if strict else (s <= e)).all()
+        nxt = spans[i + 1:j + 1, 0]
+        ok = ok & (e[:int(nxt.shape[0])] <= nxt).all()
+    return ok
+
+
+def word_positions_into(words, n: int, out, limit: int, dense: bool = False,
+                        take: int = -1, total: int = -1):
+    """Set-bit positions of bucket-padded words over the [n] domain,
+    ascending, written into `out` (an int32 1-D view, a span column among
+    them): the first `take` (all when take < 0), in runs of whole words
+    of at most `limit` positions (word_pieces), each one word_positions
+    with a cap of at most _bucket(max(limit, 32)).  `total`, where the
+    caller knows it, is the words' set bits (word_pieces).  Returns
+    (positions written, pieces, ok)."""
+    off = pieces = 0
+    ok = torch.ones((), dtype=torch.bool, device=words.device)
+    for w0, w1, cf in word_pieces(words, limit, take, total):
+        c = cf if take < 0 else min(cf, take - off)
+        if c <= 0:
+            continue
+        base = 32 * w0
+        pos, cnt, okp = word_positions(words[w0:w1], min(n, 32 * w1) - base,
+                                       _bucket(cf, 16), dense)
+        ok = ok & okp & (cnt == cf)
+        out[off:off + c] = pos[:c] + base
+        off += c
+        pieces += 1
+    return off, pieces, ok
+
+
+def pair_spans_pieces(words_s, words_e, ns: int, ne: int, total: int,
+                      limit: int, end_adjust: int = 0, dense: bool = False,
+                      take: int = -1):
+    """pair_spans_sparse past the span limit: `total` starts zipped with
+    as many ends, the first `take` pairs when take >= 0, each column
+    compacted in pieces (word_positions_into) into one [count, 2] array.
+    Returns (spans, ok, pieces)."""
+    T = total if take < 0 else min(total, take)
+    out = torch.empty((T, 2), dtype=torch.int32, device=words_s.device)
+    cs, ps, ok1 = word_positions_into(words_s, ns, out[:, 0], limit, dense,
+                                      T, total)
+    ce, pe, ok2 = word_positions_into(words_e, ne, out[:, 1], limit, dense,
+                                      T, total)
+    if end_adjust:
+        out[:, 1] += end_adjust
+    ok = ok1 & ok2 & spans_ok(out) & (cs == T) & (ce == T)
+    if take < 0 and T > limit:
+        # one piece counted every end bit; pieces cut at the T-th do not
+        ok = ok & (popcount_sum(words_e) == T)
+    return out, ok, max(ps, pe)
+
+
 # ---------------------------------------------------------------------------
 # Literals and literal sets
 # ---------------------------------------------------------------------------
@@ -437,8 +659,10 @@ def word_positions(words, n: int, cap: int, dense: bool):
     """Set-bit positions of bucket-padded words over the [n] domain:
     (pos [cap] padded with n, count, ok).  The sparse chain, or, when
     `dense`, one K4 compaction of the unpacked mask (the reference's dense
-    branches compact their rebuilt masks)."""
-    if dense:
+    branches compact their rebuilt masks).  The chain's last level holds 8
+    bits of each of up to min(4 words, cap) live bytes, which passes a
+    compaction's 2^31 entries from cap 2^28 on: such caps take the mask."""
+    if dense or cap >= _CHAIN_CAP:
         return compact_pay(unpack_words(words, n), (), cap)
     return sparse_positions_words(words, n, cap)
 
@@ -546,14 +770,10 @@ def literal_spans_sparse(words, n: int, cap: int, k: int,
     return torch.stack([starts, ends], dim=1), cnt, ok
 
 
-def leftmost_first_spans(dev, starts, cnt, lits, cap: int):
-    """Go's leftmost-first matches of a literal set from ALL its hits,
-    overlapping or not: (spans [cap, 2] with [n, n] past the count, count,
-    ok).  `starts` [cap] are the hit positions ascending (n past `cnt`).
-    The first-listed literal that matches at a start wins (one gather per
-    literal byte), and ``chain_select`` keeps Go's matches among the hits.
-    Every array is int32 or bool of cap (+ 1) entries, about 30 bytes per
-    cap slot live at once with `starts` (BatchEngine's span-limit note)."""
+def literal_lengths(dev, starts, cnt, lits, cap: int):
+    """The length of the first-listed literal of `lits` that matches at
+    each of the cnt hit `starts` [cap] (0 past cnt), one gather per
+    literal byte; ok checks that every hit has one."""
     n = int(dev.shape[0])
     live = torch.arange(cap, dtype=torch.int32, device=dev.device) < cnt
     length = torch.zeros(cap, dtype=torch.int32, device=dev.device)
@@ -564,8 +784,20 @@ def leftmost_first_spans(dev, starts, cnt, lits, cap: int):
             hit &= at == byte
         length = torch.where(hit, len(lit), length)
     del at, hit
-    ok = torch.where(live, length > 0, True).all()
-    del live
+    return length, torch.where(live, length > 0, True).all()
+
+
+def leftmost_first_spans(dev, starts, cnt, lits, cap: int):
+    """Go's leftmost-first matches of a literal set from ALL its hits,
+    overlapping or not: (spans [cap, 2] with [n, n] past the count, count,
+    ok).  `starts` [cap] are the hit positions ascending (n past `cnt`).
+    The first-listed literal that matches at a start wins
+    (``literal_lengths``), and ``chain_select`` keeps Go's matches among
+    the hits.  Every array is int32 or bool of cap (+ 1) entries, about 30
+    bytes per cap slot live at once with `starts` (BatchEngine's
+    span-limit note)."""
+    n = int(dev.shape[0])
+    length, ok = literal_lengths(dev, starts, cnt, lits, cap)
     # a dead hit (start n, length 0) ends at n
     spans, total, ok_c = chain_select(starts, starts + length, cnt, n, cap)
     return spans, total, ok & ok_c
@@ -610,16 +842,60 @@ def chain_select(starts, ends, cnt, n: int, cap: int):
     return torch.stack([s_c, e_c], dim=1), total, ok_c
 
 
+def chain_select_pieces(pieces, n: int, out):
+    """Go's leftmost-first selection (chain_select) over candidate matches
+    that come in pieces: `pieces` yields (starts, ends) int32 device
+    tensors, starts ascending and distinct, each piece's after the
+    previous one's, no match empty.  The next match begins at the first
+    start at or after the previous match's end, so each piece begins its
+    chain at its first start at or after the end carried from the pieces
+    before it (the state the reference's go_select carries in its one
+    pass); a piece whose matches from there are disjoint keeps them all.
+    The selected spans go to `out` in order.  Returns (count, ok); one
+    sync a piece for the disjoint test (and the chain's total where
+    matches overlap), one more for where the carried end falls in each
+    piece after the first that kept spans."""
+    off = 0
+    ok = torch.ones((), dtype=torch.bool, device=out.device)
+    for st, en in pieces:
+        f = 0
+        if off:
+            f = int(torch.searchsorted(st, out[off - 1:off, 1])[0])
+        c = int(st.shape[0]) - f
+        if c <= 0:
+            continue
+        st, en = st[f:], en[f:]
+        if bool((en[:-1] <= st[1:]).all()):
+            out[off:off + c, 0] = st
+            out[off:off + c, 1] = en
+            t = c
+        else:
+            cap = _bucket(c, 16)
+            stp = torch.full((cap,), n, dtype=torch.int32, device=st.device)
+            enp = torch.full((cap,), n, dtype=torch.int32, device=st.device)
+            stp[:c] = st
+            enp[:c] = en
+            spans, total, ok_c = chain_select(stp, enp, c, n, cap)
+            del stp, enp
+            t = int(total)
+            ok = ok & ok_c
+            out[off:off + t] = spans[:t]
+        off += t
+    return off, ok
+
+
 def expand_class_runs(runs, mn: int, mx: int, n: int, limit: int = -1):
     """The matches of [class]{mn,mx} (mx = -1: no upper bound) in the
     maximal class runs `runs` [r, 2] (each of length >= mn): a run of length
     L holds L // mx + (L % mx >= mn) matches, greedy mx-chunks from its
     start and the remainder when it reaches mn, or one match of the whole
     run when mx = -1 (the reference's host split,
-    meta/batch.py:2060-2072).  Expanded on the device with
-    repeat_interleave and position arithmetic; one sync for the total.
-    Returns (spans [cap, 2] with [n, n] past the count, count), at most
-    `limit` matches when limit >= 0."""
+    meta/batch.py:2060-2072).  Expanded on the device: match g lies in the
+    run whose running total first passes g, at index g - (the totals
+    before it) in that run, a searchsorted of _CHECK_ROWS matches at a
+    time, so a run of any length expands in bounded memory; one sync for
+    the total.  Returns (spans [count, 2], count), at most `limit` matches
+    when limit >= 0."""
     d = runs.device
     s, e = runs[:, 0], runs[:, 1]
     if mx < 0:
@@ -627,23 +903,21 @@ def expand_class_runs(runs, mn: int, mx: int, n: int, limit: int = -1):
     else:
         L = e - s
         per = L // mx + (L % mx >= mn).to(torch.int32)
-    every = int(per.sum(dtype=torch.int64))
+    cum = torch.cumsum(per, 0, dtype=torch.int64)
+    every = int(cum[-1]) if int(cum.shape[0]) else 0
     total = every if limit < 0 else min(every, limit)
-    cap = _bucket(total, 16)
-    out = torch.full((cap, 2), n, dtype=torch.int32, device=d)
-    if total == 0:
-        return out, 0
-    run = torch.repeat_interleave(
-        torch.arange(int(runs.shape[0]), device=d), per.long(),
-        output_size=every)[:total]
-    if mx < 0:
-        out[:total] = runs[run]
-        return out, total
-    first = torch.cumsum(per, 0, dtype=torch.int32) - per
-    q = torch.arange(total, dtype=torch.int32, device=d) - first[run]
-    st = s[run] + q * mx
-    out[:total, 0] = st
-    out[:total, 1] = torch.minimum(st + mx, e[run])
+    out = torch.empty((total, 2), dtype=torch.int32, device=d)
+    for i in range(0, total, _CHECK_ROWS):
+        j = min(total, i + _CHECK_ROWS)
+        g = torch.arange(i, j, dtype=torch.int64, device=d)
+        run = torch.searchsorted(cum, g, right=True)
+        if mx < 0:
+            out[i:j] = runs[run]
+            continue
+        q = (g - (cum[run] - per[run])).to(torch.int32)
+        st = s[run] + q * mx
+        out[i:j, 0] = st
+        out[i:j, 1] = torch.minimum(st + mx, e[run])
     return out, total
 
 
@@ -694,44 +968,62 @@ def nullable_class_masks(dev, table):
     return (member & ~prev) | empties, runend1 | empties
 
 
-def nullable_fill_words(spans_c, cnt_c: int, dev, ascii_only: bool):
-    """(empty-position words over the [n+1] domain, padded to the word
-    bucket; empty count as a 0-dim device tensor): rune boundaries minus
-    the positions core spans cover minus core span ends.  Only the cnt_c
-    live core spans are read; the reference marks dead ones with
-    2^30, which lands inside the domain past 2^30 bytes (ROADMAP F2)."""
+def rune_boundaries_range(dev, a: int, b: int):
+    """_rune_boundaries of positions [a, b) of the [n+1] domain (n >= 4):
+    a position's verdict reads the three bytes before it and the
+    continuation bytes of a sequence that starts there, so the slice
+    three bytes wider on either side gives it."""
     n = int(dev.shape[0])
-    S = spans_c[:cnt_c, 0].long()
-    E = spans_c[:cnt_c, 1].long()
+    lo, hi = max(0, a - 3), min(n, b + 3)
+    m = _rune_boundaries(dev[lo:hi], hi - lo)
+    return m if (lo, hi, b) == (a, n, n + 1) else m[a - lo:b - lo].clone()
+
+
+def nullable_fill_range(dev, a: int, b: int, S, E, ends, ascii_only: bool):
+    """The empty fill (ref. nullable_fill_words) over the positions [a, b)
+    of the [n+1] domain (b <= n + 1), cut where no core span crosses:
+    rune boundaries minus the positions core spans cover minus core span
+    ends, as (empty-position words of those b - a positions, padded to the
+    word bucket, positions relative to a; empty count).  S, E are the core
+    spans that start in [a, b) (each ends at or before b), live ones only
+    (the reference marks dead ones with 2^30, which lands inside the domain
+    past 2^30 bytes: ROADMAP F2); `ends` every core span end in [a, b),
+    one of an earlier piece's span at a among them, which Go's rule bars
+    an empty match from (the piece carries it).  Rune boundaries read
+    three bytes on either side."""
+    m = b - a
     if ascii_only:
-        B = torch.ones(n + 1, dtype=torch.bool, device=dev.device)
+        B = torch.ones(m, dtype=torch.bool, device=dev.device)
     else:
-        B = _rune_boundaries(dev, n)
-    diff = torch.zeros(n + 1, dtype=torch.int32, device=dev.device)
-    one = torch.ones(cnt_c, dtype=torch.int32, device=dev.device)
-    diff.index_add_(0, S, one)
-    diff.index_add_(0, E, -one)      # E <= n: core spans end in the corpus
-    B &= torch.cumsum(diff, 0, dtype=torch.int32) == 0
+        B = rune_boundaries_range(dev, a, b)
+    diff = torch.zeros(m + 1, dtype=torch.int32, device=dev.device)
+    one = torch.ones(int(S.shape[0]), dtype=torch.int32, device=dev.device)
+    diff.index_add_(0, (S - a).long(), one)
+    diff.index_add_(0, (E - a).long(), -one)
+    B &= torch.cumsum(diff[:m], 0, dtype=torch.int32) == 0
     del diff
-    B[E] = False
-    return _pad_pack(B, n + 1), mask_count(B)
+    B[(ends - a).long()] = False
+    return _pad_pack(B, m), mask_count(B)
 
 
-def nullable_merge(spans_c, cnt_c: int, emp_pos, ne: int, n: int,
-                   capT: int):
-    """Interleave the cnt_c core spans with the ne empty matches by
-    position (the searchsorted twin of meta/nullable.py:fill_empties).
-    Positions are distinct: an empty match never lies inside or at the
-    start of a core span.  Returns (spans [capT, 2] with [n, n] past the
-    total, total)."""
-    S = spans_c[:cnt_c, 0].contiguous()
-    emp = emp_pos[:ne].contiguous()
-    dev = emp_pos.device
-    pos_core = (torch.arange(cnt_c, dtype=torch.int32, device=dev)
-                + torch.searchsorted(emp, S, out_int32=True))
-    pos_emp = (torch.arange(ne, dtype=torch.int32, device=dev)
-               + torch.searchsorted(S, emp, out_int32=True))
-    out = torch.full((capT, 2), n, dtype=torch.int32, device=dev)
-    out[pos_core] = spans_c[:cnt_c]
-    out[pos_emp] = emp[:, None].expand(ne, 2)
-    return out, cnt_c + ne
+def nullable_merge_into(out, core, emp):
+    """The reference's nullable_merge (the searchsorted twin of
+    meta/nullable.py:fill_empties) into `out` [c + ne, 2]: the c core
+    spans `core` [c, 2] and the ne empty matches at the ascending
+    positions `emp` interleaved by position, each row's index its rank
+    among both, _CHECK_ROWS rows at a time.  Positions are distinct: an
+    empty match never lies inside or at the start of a core span."""
+    dev = out.device
+    S = core[:, 0].contiguous()
+    c, ne = int(S.shape[0]), int(emp.shape[0])
+    for i in range(0, c, _CHECK_ROWS):
+        j = min(c, i + _CHECK_ROWS)
+        pos = (torch.arange(i, j, dtype=torch.int64, device=dev)
+               + torch.searchsorted(emp, S[i:j]))
+        out[pos] = core[i:j]
+    for i in range(0, ne, _CHECK_ROWS):
+        j = min(ne, i + _CHECK_ROWS)
+        e = emp[i:j]
+        pos = (torch.arange(i, j, dtype=torch.int64, device=dev)
+               + torch.searchsorted(S, e))
+        out[pos] = e[:, None].expand(j - i, 2)

@@ -6,9 +6,10 @@ the device buffer, its flipped copy for reverse scans, and the tiles derived
 from them (count/span word tiles, reverse symbol tiles), so everything a
 corpus pins on the device is evicted with it under one bound.
 
-The ASCII verdict is computed on the host, once per entry, before anything
-is uploaded: callers decide from it which tables serve the corpus, and a
-call the device path does not serve never uploads the corpus.
+The ASCII verdict (and, where a route asks for it, the valid-UTF-8 one) is
+computed on the host, once per entry, before anything is uploaded: callers
+decide from it which tables serve the corpus, and a call the device path
+does not serve never uploads the corpus.
 
 Fingerprint contract (ROADMAP F5): the key is ``_fingerprint`` (a copy of
 the reference's, :25-33), which samples 64 bytes plus the first and last 32
@@ -20,6 +21,7 @@ Corpora are treated as immutable during searches.
 
 from __future__ import annotations
 
+import codecs
 import warnings
 from collections import OrderedDict
 from typing import Callable, Hashable
@@ -29,6 +31,7 @@ import torch
 
 _MAX_ENTRIES = 4
 _MAX_TILES = 3      # derived tile sets kept per entry (LRU within the entry)
+_UTF8_CHUNK = 1 << 26   # host bytes one step of the UTF-8 check decodes
 
 
 def _fingerprint(arr: np.ndarray) -> tuple:
@@ -43,10 +46,11 @@ def _fingerprint(arr: np.ndarray) -> tuple:
 
 
 class _Entry:
-    __slots__ = ("ascii", "buf", "flipped", "tiles")
+    __slots__ = ("ascii", "utf8", "buf", "flipped", "tiles")
 
     def __init__(self, ascii_ok: bool):
         self.ascii = ascii_ok
+        self.utf8 = True if ascii_ok else None   # None: not checked yet
         self.buf = None
         self.flipped = None
         self.tiles: "OrderedDict[Hashable, torch.Tensor]" = OrderedDict()
@@ -71,6 +75,24 @@ def corpus_is_ascii(arr: np.ndarray, device) -> bool:
     """Every byte < 0x80; computed on the host once per entry, without
     uploading the corpus."""
     return _entry(arr, device).ascii
+
+
+def corpus_is_utf8(arr: np.ndarray, device) -> bool:
+    """The corpus is valid UTF-8 (every ASCII corpus is); computed on the
+    host once per entry, a chunk at a time, without uploading the
+    corpus."""
+    ent = _entry(arr, device)
+    if ent.utf8 is None:
+        dec = codecs.getincrementaldecoder("utf-8")()
+        flat = np.ascontiguousarray(arr, np.uint8)
+        try:
+            for i in range(0, len(flat), _UTF8_CHUNK):
+                dec.decode(memoryview(flat[i:i + _UTF8_CHUNK]), False)
+            dec.decode(b"", True)
+            ent.utf8 = True
+        except UnicodeDecodeError:
+            ent.utf8 = False
+    return ent.utf8
 
 
 def device_corpus(arr: np.ndarray, device) -> torch.Tensor:

@@ -135,15 +135,18 @@ def test_find_all_matches_reference(pattern, branch):
 
 
 def test_warm_defer_path():
+    """The class-run route has one form, whose one sync for the run count
+    sizes each column (measured faster at 1536 MiB than the form that
+    deferred it on a warm call): cold and warm calls alike return an int
+    count, validated (ok None), and the same spans."""
     t = _log_corpus(13, 20000)
     eng = ct.compile(r"(\w{2,8})+", device="cpu")
     be = eng.batch_engine()
     exp = ref_ct.compile(r"(\w{2,8})+").find_all_index(t)
-    spans, cnt, ok = be.find_all_spans_device(_arr(t), defer_ok=True)
-    assert isinstance(cnt, int) and ok is None and cnt == len(exp)
-    spans, cnt, ok = be.find_all_spans_device(_arr(t), defer_ok=True)
-    assert isinstance(cnt, torch.Tensor) and bool(ok)
-    assert [tuple(r) for r in spans[:int(cnt)].tolist()] == exp
+    for _ in range(2):
+        spans, cnt, ok = be.find_all_spans_device(_arr(t), defer_ok=True)
+        assert isinstance(cnt, int) and ok is None and cnt == len(exp)
+        assert [tuple(r) for r in spans[:cnt].tolist()] == exp
 
 
 @pytest.mark.parametrize("pattern,longest", [
@@ -178,8 +181,14 @@ def test_declines_are_counted_before_upload(pattern, longest):
 
 
 def test_span_limit_raises():
+    """Past MAX_DEVICE_SPANS runs the class-run route no longer raises: it
+    compacts its run starts and ends in pieces of the limit, and gives
+    the reference's spans on the device."""
     t = _log_corpus(15, 20000)
     eng = ct.compile(r"[\w]+", device="cpu")
-    eng.batch_engine().MAX_DEVICE_SPANS = 8
-    with pytest.raises(ValueError, match="span limit"):
-        eng.find_all_index(t)
+    be = eng.batch_engine()
+    be.MAX_DEVICE_SPANS = 8
+    ref = ref_ct.compile(r"[\w]+")
+    ref.batch_threshold = 1 << 30
+    assert eng.find_all_index(t) == ref.find_all_index(t)
+    assert be.host_routes == 0 and be.pieces[0] >= 2

@@ -138,27 +138,28 @@ def test_overlapping_literal_counts_through_k7():
 
 
 def test_line_shape_find_all_routes():
-    """A (?s) line shape declines before upload; a warm call sizes its caps
-    from the cached candidate total; too many candidates raise."""
+    """A (?s) line shape takes its at-most-one-match route on the device;
+    the candidate chain has one form, whose sync for the candidate total
+    sizes it cold and warm alike (measured no slower at 1536 MiB than the
+    form that deferred it on a warm call); past MAX_DEVICE_SPANS
+    candidates the chain goes in pieces."""
     t = _line_corpus(32, 20000)
     eng = ct.compile(r"(?s).*keyword", device="cpu")
     assert eng.batch_engine().plan.strategy.name == "LINE_SHAPE"
+    assert eng.batch_engine()._spans_route(_arr(t))[0] == "line_any"
     assert eng.find_all_index(t) == [m.span() for m in
                                      re.finditer(rb"(?s).*keyword", t)]
-    assert eng.batch_engine().host_routes == 1
-    assert corpus_cache._entry(_arr(t), "cpu").buf is None
+    assert eng.batch_engine().host_routes == 0
     pattern = r".*\.txt"
     be = ct.compile(pattern, device="cpu").batch_engine()
     exp = [m.span() for m in re.finditer(pattern.encode(), t)]
-    spans, cnt, ok = be.find_all_spans_device(_arr(t), defer_ok=True)
-    assert isinstance(cnt, int) and ok is None and cnt == len(exp)
-    spans, cnt, ok = be.find_all_spans_device(_arr(t), defer_ok=True)
-    assert isinstance(cnt, torch.Tensor) and bool(ok)
-    assert [tuple(r) for r in spans[:int(cnt)].tolist()] == exp
+    for _ in range(2):
+        spans, cnt, ok = be.find_all_spans_device(_arr(t), defer_ok=True)
+        assert isinstance(cnt, int) and ok is None and cnt == len(exp)
+        assert [tuple(r) for r in spans[:cnt].tolist()] == exp
     be.MAX_DEVICE_SPANS = 4
-    with pytest.raises(ValueError, match="span limit"):
-        be.find_all_spans(_arr(t))
-    assert be.host_routes == 0
+    assert [tuple(x) for x in be.find_all_spans(_arr(t)).tolist()] == exp
+    assert be.host_routes == 0 and be.pieces[0] >= 2
 
 
 def test_warm_defer_path():
@@ -251,14 +252,17 @@ def test_declines_are_decided_before_upload():
 
 
 def test_span_limit_raises_instead_of_declining():
+    """Past MAX_DEVICE_SPANS matches the bidirectional path neither raises
+    nor declines: its chains go in pieces of the limit, giving re's spans
+    (the reference's, for a pattern with no empty match)."""
     pattern = r"\d+\.\d+\.\d+\.\d+"
     t = _log_corpus(11, 20000)
     eng = ct.compile(pattern, device="cpu")
     be = eng.batch_engine()
     be.MAX_DEVICE_SPANS = 4
-    with pytest.raises(ValueError, match="span limit"):
-        eng.find_all_index(t)
-    assert be.host_routes == 0
+    assert eng.find_all_index(t) == [m.span() for m in
+                                     re.finditer(pattern.encode(), t)]
+    assert be.host_routes == 0 and be.pieces[0] >= 2
 
 
 def test_small_inputs_stay_on_host():

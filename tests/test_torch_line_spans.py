@@ -64,12 +64,14 @@ def test_line_spans_match_re(shape):
         t = _corpus(seed, 6000, tail)
         dev = torch.from_numpy(np.frombuffer(t, np.uint8).copy())
         words, cnts = sc.line_event_words(dev, lit, prefix, anchored)
-        cap = _bucket(int(cnts[1]), 16)
-        spans, cnt, ok = sc.line_spans_candidates(
-            list(words), len(t), cap, mode, anchored, len(lit), len(prefix))
-        assert bool(ok)
-        assert _spans(spans, cnt) == [m.span()
-                                      for m in re.finditer(pattern, t)]
+        exp = [m.span() for m in re.finditer(pattern, t)]
+        # one run of every candidate, then runs whose seams split lines
+        for limit in (1 << 30, 64, 7):
+            spans, cnt, ok, _runs = sc.line_spans_pieces(
+                list(words), len(t), int(cnts[1]), limit, mode, anchored,
+                len(lit), len(prefix))
+            assert bool(ok)
+            assert _spans(spans, cnt) == exp
 
 
 @pytest.mark.parametrize("shape", [SHAPES[0], SHAPES[2], SHAPES[3],
@@ -77,7 +79,7 @@ def test_line_spans_match_re(shape):
                          ids=lambda s: s[4].decode())
 def test_line_spans_match_reference(shape):
     """Words, counts, spans and ok against the reference's fused producer
-    and _line_cand_spans_jit."""
+    and line_spans_candidates (_line_cand_spans_jit)."""
     mode, lit, prefix, anchored, _pattern = shape
     t = _corpus(4, 9000)
     arr = np.frombuffer(t, np.uint8)
@@ -88,12 +90,16 @@ def test_line_spans_match_reference(shape):
     for g, e in zip(words + cnts, ewords + ecnts):
         np.testing.assert_array_equal(_np(g), np.asarray(e))
     cap = _bucket(int(cnts[1]), 16)
-    got = sc.line_spans_candidates(list(words), len(t), cap, mode, anchored,
-                                   len(lit), len(prefix))
-    exp = ref_sc.line_spans_candidates(list(ewords), len(t), cap, mode,
-                                       anchored, len(lit), len(prefix))
-    for g, e in zip(got, exp):
-        np.testing.assert_array_equal(_np(g), np.asarray(e))
+    spans, cnt, ok, runs = sc.line_spans_pieces(
+        list(words), len(t), int(cnts[1]), 1 << 30, mode, anchored, len(lit),
+        len(prefix))
+    e_spans, e_cnt, e_ok = ref_sc.line_spans_candidates(
+        list(ewords), len(t), cap, mode, anchored, len(lit), len(prefix))
+    # one run: the reference's count, ok and live spans (its rows past the
+    # count are padding the port does not keep)
+    assert runs == 1 and cnt == int(e_cnt) > 0
+    assert bool(ok) and bool(e_ok)
+    np.testing.assert_array_equal(_np(spans), np.asarray(e_spans)[:cnt])
 
 
 def test_line_cand_spans_bit31_and_unterminated_line():
@@ -105,9 +111,9 @@ def test_line_cand_spans_bit31_and_unterminated_line():
     nlw[3] = 1 << 4             # newline at 100
     candw[1] = 1 << 2           # candidate at 34 (first line)
     candw[10] = -2 ** 31        # candidate at 351, bit 31 (last line)
-    out = sc.line_cand_spans(torch.from_numpy(candw), torch.from_numpy(nlw),
-                             torch.from_numpy(candw), 400, nwb, 16,
-                             "bol_to_eol", False, 3, 0)
+    out = sc.line_spans_pieces(
+        [torch.from_numpy(nlw), torch.from_numpy(candw)], 400, 2, 16,
+        "bol_to_eol", False, 3, 0)
     assert _spans(out[0], out[1]) == [(0, 100), (101, 400)]
     assert bool(out[2])
 

@@ -251,7 +251,14 @@ def test_leftmost_longest_sets_decline():
 
 
 def test_span_limit_raises():
+    """Past MAX_DEVICE_SPANS hits the literal-set route no longer raises:
+    its start and end words are compacted in pieces of the limit, equal
+    to the reference on the device."""
     eng = ct.compile(r"error|debug", device="cpu")
-    eng.batch_engine().MAX_DEVICE_SPANS = 4
-    with pytest.raises(ValueError, match="span limit"):
-        eng.find_all_index(_corpus("ascii"))
+    be = eng.batch_engine()
+    be.MAX_DEVICE_SPANS = 4
+    ref = ref_ct.compile(r"error|debug")
+    ref.batch_threshold = 1 << 30
+    t = _corpus("ascii")
+    assert eng.find_all_index(t) == ref.find_all_index(t)
+    assert be.host_routes == 0 and be.pieces[0] >= 2

@@ -94,8 +94,11 @@ def test_fill_and_merge_match_reference(core, corpus):
     spans_c[:cnt] = core_spans
     ascii_ok = corpus == "ascii"
     nwb1 = c2._bucket_up(-(-(n + 1) // 32))
-    words, ne = sc.nullable_fill_words(torch.from_numpy(spans_c), cnt,
-                                       torch.from_numpy(d.copy()), ascii_ok)
+    S = torch.from_numpy(spans_c[:cnt, 0].copy())
+    E = torch.from_numpy(spans_c[:cnt, 1].copy())
+    # the engine's fill over the whole [n + 1] domain: one corpus piece
+    words, ne = sc.nullable_fill_range(torch.from_numpy(d.copy()), 0, n + 1,
+                                       S, E, E, ascii_ok)
     rwords, rne = ref_sc.nullable_fill_words(
         jnp.asarray(spans_c), jnp.int32(cnt), jnp.asarray(d), ascii_ok, nwb1)
     np.testing.assert_array_equal(words.numpy(), np.asarray(rwords))
@@ -107,13 +110,15 @@ def test_fill_and_merge_match_reference(core, corpus):
     np.testing.assert_array_equal(emp.numpy(), np.asarray(remp))
     assert int(ke) == int(rke) == ne and bool(ok) and bool(rok)
     capT = 16 * ((cnt + ne) // 16 + 1)
-    spans, total = sc.nullable_merge(torch.from_numpy(spans_c), cnt, emp,
-                                     ne, n, capT)
+    spans = torch.empty((cnt + ne, 2), dtype=torch.int32)
+    sc.nullable_merge_into(spans, torch.from_numpy(spans_c[:cnt].copy()),
+                           emp[:ne].contiguous())
     rspans, rtotal = ref_sc.nullable_merge(
         jnp.asarray(spans_c), jnp.int32(cnt), remp, jnp.int32(ne),
         jnp.int32(n), capT)
-    np.testing.assert_array_equal(spans.numpy(), np.asarray(rspans))
-    assert total == int(rtotal) == cnt + ne
+    assert int(rtotal) == cnt + ne
+    np.testing.assert_array_equal(spans.numpy(),
+                                  np.asarray(rspans)[:cnt + ne])
 
 
 @pytest.mark.parametrize("pattern,route", SERVED)
@@ -172,22 +177,31 @@ def test_leftmost_longest_stays_on_host():
 
 
 def test_limits_decline_or_raise():
+    """Past DEVICE_SPANS_LIMIT the general nullable path no longer
+    declines: it fills and merges a corpus piece at a time; past
+    MAX_DEVICE_SPANS spans neither route raises: each compacts in pieces
+    of the limit.  Every answer is the reference's, on the device."""
     c = _corpora()
     eng = ct.compile(r"\w*", device="cpu")
     be = eng.batch_engine()
     be.DEVICE_SPANS_LIMIT = 1000          # the general path only
     assert eng.find_all_index(c["utf8"]) == ref_spans(r"\w*", c["utf8"])
-    assert be.host_routes == 1
+    assert be.host_routes == 0 and be.pieces[1] >= 2
     assert eng.find_all_index(c["ascii"]) == go_spans(r"\w*", c["ascii"])
-    assert be.host_routes == 1
+    assert be.host_routes == 0
     be.MAX_DEVICE_SPANS = 100
     for t in (c["ascii"], _log_corpus(25, 17000)):
-        with pytest.raises(ValueError, match="span limit"):
-            be.find_all_spans_device(_arr(t))
-    gen = ct.compile(r"(\d+\.\d+\.\d+\.\d+)?", device="cpu").batch_engine()
+        spans, cnt = be.find_all_spans_device(_arr(t))
+        assert [tuple(x) for x in spans[:cnt].tolist()] == go_spans(r"\w*", t)
+        assert be.pieces[0] >= 2
+    pattern = r"(\d+\.\d+\.\d+\.\d+)?"
+    gen = ct.compile(pattern, device="cpu").batch_engine()
     gen.MAX_DEVICE_SPANS = 100
-    with pytest.raises(ValueError, match="span limit"):
-        gen.find_all_spans_device(_arr(c["ascii"]))
+    spans, cnt = gen.find_all_spans_device(_arr(c["ascii"]))
+    assert [tuple(x) for x in spans[:cnt].tolist()] == \
+        ref_spans(pattern, c["ascii"])
+    assert gen.pieces[0] >= 2
+    assert be.host_routes == gen.host_routes == 0
 
 
 @pytest.mark.parametrize("pattern", [p for p, _ in SERVED] + [r"[\w]+"])

@@ -2,7 +2,7 @@
 """Where the time of coregex_tpu_torch's device find_all goes, on one GPU.
 
     python3 tools/profile_torch.py [--single | --count] [name ...]
-    python3 tools/profile_torch.py --limit
+    python3 tools/profile_torch.py --limit [name ... | aa]
 
 Builds the JAX package's bench corpus as chip_smoke.py does (the 6 MiB
 base tile, seed 7, tiled to 1536 MiB, or to the largest whole-tile corpus
@@ -21,9 +21,12 @@ come from chip_smoke.PATTERNS (the bench, class-run, nullable, literal,
 general find_all and BITSET_NFA patterns; the general slice's sizes as
 chip_smoke's GENERAL gives them); default: the class-run and nullable
 patterns.  With
---limit it profiles the literal route's leftmost-first selection at the span
-limit instead: `aa` on MAX_DEVICE_SPANS + 1 bytes of `a`, whose
-MAX_DEVICE_SPANS hits all overlap.  Needs a CUDA card; imports no jax.
+--limit it profiles each find_all route at its largest size instead: one
+pattern of each route (chip_smoke.LIMITS, or the names given) on
+chip_smoke.LIMITS_TILES base tiles (2,145,381,040 bytes), the corpus cache
+cleared before each, then the literal route's leftmost-first selection
+in pieces: `aa` on MAX_CORPUS bytes of `a`, whose 2^31 - 34 hits all
+overlap.  Needs a CUDA card; imports no jax.
 """
 
 import os
@@ -126,18 +129,44 @@ def profile_call(label, call, card):
     sys.stdout.flush()
 
 
-def limit():
-    """The selection at the span limit: MAX_DEVICE_SPANS hits of `aa`, of
-    which Go keeps every other one."""
+def limit(names):
+    """Each LIMITS route at LIMITS_TILES tiles, then the selection past the
+    span limit: MAX_CORPUS bytes of `a`, whose hits of `aa` all overlap;
+    Go keeps every other one."""
     import torch
 
     import coregex_tpu_torch as ct
-    from coregex_tpu_torch.meta.batch import BatchEngine
+    from coregex_tpu_torch.meta.batch import MAX_CORPUS
+    from coregex_tpu_torch.utils import corpus_cache
 
     if not torch.cuda.is_available():
         chip_smoke.fail("torch.cuda.is_available() is false")
     card = chip_smoke.phase_device()
-    n = BatchEngine.MAX_DEVICE_SPANS + 1
+    base = chip_smoke.build_base()
+    big = np.tile(np.frombuffer(base, dtype=np.uint8),
+                  chip_smoke.LIMITS_TILES)
+    for name, pattern in chip_smoke.LIMITS:
+        if names and name not in names:
+            continue
+        corpus_cache.clear()
+        torch.cuda.empty_cache()
+        be = ct.compile(pattern, device="cuda").batch_engine()
+
+        def call():
+            spans, cnt = be.find_all_spans_device(big)
+            int(spans[:16].sum())
+            return (f"{cnt} spans, route {be._spans_route(big)[0]}, pieces "
+                    f"{be.pieces[0]} output / {be.pieces[1]} corpus")
+
+        profile_call(f"limit {name} ({pattern}) find_all on {len(big)} "
+                     f"bytes", call, card)
+        del be
+    del big
+    corpus_cache.clear()
+    torch.cuda.empty_cache()
+    if names and "aa" not in names:
+        return
+    n = MAX_CORPUS
     arr = np.full(n, ord("a"), dtype=np.uint8)
     be = ct.compile("aa", device="cuda").batch_engine()
 
@@ -145,7 +174,7 @@ def limit():
         spans, cnt = be.find_all_spans_device(arr)
         if cnt != n // 2 or spans[cnt - 1].tolist() != [n - 3, n - 1]:
             chip_smoke.fail(f"aa on {n} bytes of a: {cnt} spans")
-        return f"{cnt} spans"
+        return f"{cnt} spans, pieces {be.pieces[0]} output"
 
     profile_call(f"limit (aa) find_all on {n} bytes of a", call, card)
 
@@ -153,7 +182,7 @@ def limit():
 if __name__ == "__main__":
     args = sys.argv[1:]
     if "--limit" in args:
-        limit()
+        limit([a for a in args if a != "--limit"])
         sys.exit(0)
     single, count = "--single" in args, "--count" in args
     names = [a for a in args if a not in ("--single", "--count")]
