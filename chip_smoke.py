@@ -91,9 +91,15 @@ Phases (any failure exits non-zero before the final line):
                corpus in MESH_SHARDS shards for ip, and on 256 MiB in
                MESH_SHARDS shards for quote parity, a random permutation
                table of 64 states and multi_literal32, with its rate of
-               table steps
+               table steps; the reset scan (cgx_reset_scan) on the whole
+               corpus at its geometry (segments of 2^29 bytes, L =
+               65,536 lanes of 8192 bytes, W = 1024) from the first of
+               two subsets of POSIX ip's candidates, pass 0 of every
+               segment and a repair pass, and the reset-flag walk (K3) in
+               its interference mode over email's suffix DFA with a reset
+               at every candidate + k, at the reset geometry's split
   4. e2e     - the public API on a 1536 MiB log corpus (the JAX package's
-               bench corpus), in ten runs, each with the launch counts
+               bench corpus), in eleven runs, each with the launch counts
                set to 0 before it and read after it.  Earlier slices: count for
                the 13 bench patterns and for `0\.0` (whose hits overlap,
                so K6 hands over to K7, with K7's repair passes printed),
@@ -198,7 +204,27 @@ Phases (any failure exits non-zero before the final line):
                launches and its peak device memory (at most
                LIMITS_PEAK_GIB = 60 GiB); one count of each count route
                (K1, K5, K6), the leftmost-longest count of `\b\d+\b` and
-               find_all of email, each against its oracle
+               find_all of email, each against its oracle.  M5 and invalid
+               UTF-8 (phase_e2e_m5, run before the limits): the candidate
+               and INNER pipelines of the M5 patterns (POSIX ip, version,
+               email, url, `[A-Z]+ \d+` under both rules, and POSIX
+               `[a-z]+ [^ ]{20,60}x` and `[a-z]+ error [^ ]{8,30}[a-z]`,
+               which only M5 serves) called directly at 1536 MiB, the
+               general fallback beside them where it serves, both
+               against the tiled oracle (re, held to the POSIX host walk
+               on the base's first 64 KiB) with their walls, then count
+               and find_all through the public API, which must take M5
+               where the general fallback declines; `[a-z]+ [^
+               ]{20,60}x` again on exactly 1536 MiB; the candidate
+               pipeline over `[a-q][^u-z]{13}x`'s reverse bitset starts
+               beside its own route (a finding, not routed); then `[^
+               \n]+` and `.\d` counted and found on the base with an
+               invalid byte every 997 bytes, tiled to 1536 MiB, against
+               Go's decoding, and `[^ \n]+` on the base with words in
+               2-, 3- and 4-byte characters, with the decoder pass that
+               finds it valid.  The limits run also finds `[a-z]+ [^
+               ]{20,60}x` on as many of its tiles as keep the candidates
+               under the pipeline's limit, with its peak device memory
   5. routes  - every kernel K1-K7 was launched in the first run, K1-K4 and
                K8 in the second, K9 and the window scan's ends form in the
                third, K4 and K10 in the fourth, K9, the ends form, K4 and
@@ -206,9 +232,10 @@ Phases (any failure exits non-zero before the final line):
                the sixth, the OnePass walk, both row scans and K2-K4 in
                the seventh, the transfer walk in both modes, K9 and K8
                in the eighth, K9, the ends form, K4 and the bitset scan in
-               the ninth, K1-K6, K8, K9, the ends form and the bitset
-               scan in the tenth, and no call was declined to the host
-               loop but
+               the ninth, the reset scan, K3, K4, K8 and the ends form in
+               the M5 run, K1-K6, K8, K9, the ends form and the bitset
+               scan in the limits run, and no call was declined to the
+               host loop but
                the nullable find_index (the reference's FALLBACK, by
                design)
 
@@ -393,6 +420,46 @@ LIMITS_COUNTS = ("ip", "inner_error", "literal_error")    # K1, K5, K6
 LIMITS_PEAK_GIB = 60
 POSIX_WINDOW = "lazy_ip"
 POSIX_LONG_LANE = "lazy_ab"     # the lane that lives for several rounds
+# the candidate and INNER pipelines (M5): (name, pattern, posix, the
+# pattern of re's oracle); each runs behind the bidirectional path where
+# the reference sends it (POSIX ip, version, email and url, [A-Z]+ \d+),
+# with the general fallback timed beside it where that serves too, then
+# through the public API; M5_SCAN is the reset scan's headline (its
+# candidates at the main path's geometry) and M5_INNER K3's interference
+# mode's
+M5 = [("ip", r"\d+\.\d+\.\d+\.\d+", True, r"\d+\.\d+\.\d+\.\d+"),
+      ("version", r"\d+.\d+.\d+", True, r"\d+.\d+.\d+"),
+      ("email", r"[\w.+-]+@[\w.-]+\.[\w.-]+", True,
+       r"[\w.+-]+@[\w.-]+\.[\w.-]+"),
+      ("url", r"\w+://[^\s]+", True, r"\w+://[^\s]+"),
+      ("upper_digits", r"[A-Z]+ \d+", True, r"[A-Z]+ \d+"),
+      ("upper_digits_lf", r"[A-Z]+ \d+", False, r"[A-Z]+ \d+"),
+      ("run_gap_x", r"[a-z]+ [^ ]{20,60}x", True, r"[a-z]+ [^ ]{20,60}x"),
+      ("inner_gap", r"[a-z]+ error [^ ]{8,30}[a-z]", True,
+       r"[a-z]+ error [^ ]{8,30}[a-z]")]
+# also found on exactly CORPUS_MIB MiB (a length the reset scan's lanes fill
+# exactly) and on the limits corpus, with its peak device memory
+M5_WHOLE = "run_gap_x"
+M5_SCAN = "ip"
+M5_INNER = "email"
+# BITSET_NFA keeps its route; the candidate pipeline over its reverse
+# bitset scan's starts is timed beside it, as a finding
+M5_BITSET = ("nfa_u_z", r"[a-q][^u-z]{13}x")
+M5_CHECK_BYTES = 1 << 16   # re's oracle held to the POSIX host walk there
+# one corpus with invalid UTF-8 at CORPUS_MIB: the base with single bytes
+# Go decodes as U+FFFD written in (a lead byte before ASCII, 0xFF, a lone
+# continuation byte) every INVALID_STEP bytes, counted and found against
+# Go's decoding (Python's decoder gives each such byte one U+FFFD too)
+INVALID_STEP = 997
+INVALID_BYTES = (0xC3, 0xFF, 0x80, 0xE2, 0xF0)
+INVALID_PATTERNS = [("nonspace", r"[^ \n]+"), ("dot_digit", r".\d")]
+# one valid multi-byte corpus at CORPUS_MIB: words of the base written in
+# 2-, 3- and 4-byte characters; its first call pays the decoder pass
+# that finds it valid, and nothing else of the normalization
+VALID_WORDS = [(b"lorem", "lørem"), (b"dolor", "dolör"), (b"amet", "amét"),
+               (b"gamma", "γάμμα"), (b"delta42", "δέλτα42"),
+               (b"fox", "狐"), (b"lazy", "怠惰"), (b"dog", "🐕")]
+VALID_PATTERN = ("nonspace", r"[^ \n]+")
 SLICE_MS = {}   # phase 3's kernel ms of the slice's shapes, for phase 4
 MESH_SHARDS = 4     # shards of the virtual mesh on the one card
 TRANSFER_MAIN = "ip"    # the transfer walk's whole-corpus pattern
@@ -993,6 +1060,8 @@ def phase_kernels(base: bytes, corpus: np.ndarray):
     capture_row_kernels(compare, base, corpus)
     # the all-entries transfer walk of the sharded scans, both modes
     transfer_kernels(compare, base, corpus)
+    # the candidate pipeline's reset scan and K3's interference mode
+    m5_kernels(compare, corpus)
 
     # K10 on the compaction rig's mask (256 MiB at density 1/200, seed 11)
     # at its three row counts: R = 128 with no payload, R = 256 with two
@@ -1290,6 +1359,101 @@ def posix_kernels(compare, base: bytes, data, corpus: np.ndarray) -> None:
     print(f"[kernels] window_ends one POSIX lane over {n1} bytes from {s0}:"
           f" end {want} in {rounds} rounds equals the host walk", flush=True)
     del d1, one
+    torch.cuda.empty_cache()
+
+
+def m5_kernels(compare, corpus: np.ndarray) -> None:
+    """The reset scan (cgx_reset_scan) against reset_scan_plain on the
+    whole corpus at the main path's geometry: the first reset subset of
+    M5_SCAN's candidates (every second run start through the sieve, as
+    _interleaved_ends' K = 2 gives it), one pass a segment of SEG_LIMIT
+    bytes (L = 65,536 lanes of T = 8192 with a 1024-byte warmup), the
+    three segments' passes compared together and timed as one scan, then a
+    repair pass (entries from the previous lanes' exits, no warmup) on the
+    first segment; bound: the packed bytes read and the flag words and lane
+    states written.  Then K3 in its interference mode (flag_pre_reset
+    False) over M5_INNER's suffix DFA from a reset at each candidate + k,
+    at the reset geometry's lane_split, against its plain version."""
+    import torch
+    import coregex_tpu_torch as ct
+    from coregex_tpu_torch.ops import count_scan as cs
+    from coregex_tpu_torch.ops import dfa_scan, flag_scan, span_chain
+    from coregex_tpu_torch.ops.bytescan import table_to_ranges
+    from coregex_tpu_torch.ops.compact import compact_positions
+    pats = {nm: (p, posix) for nm, p, posix, _o in M5}
+    data = torch.from_numpy(corpus).to(DEVICE)
+    n = len(corpus)
+    p, posix = pats[M5_SCAN]
+    be = ct.compile_posix(p, device=DEVICE).batch_engine()
+    sc = be._reset_scanner()
+    if sc is None:
+        fail(f"m5 {M5_SCAN}: no reset scanner")
+    smask, cnt = be._prefix_run_candidates_mask(data)
+    cand, _c = compact_positions(smask, int(cnt) + 16)
+    mask = torch.zeros(n, dtype=torch.bool, device=DEVICE)
+    mask[cand[:int(cnt)][0::2].long()] = True
+    packed = sc.packed(data, mask)
+    del smask, cand, mask
+    L, T, W = dfa_scan.reset_plan_geometry(sc.SEG_LIMIT)
+    seg = L * T
+    segs = []
+    for off in range(0, n, seg):
+        m = min(n, off + seg) - off
+        Lk = L if m == seg else -(-m // T)
+        buf = torch.zeros(Lk * T, dtype=torch.uint8, device=DEVICE)
+        buf[:m] = packed[off:off + m]
+        ent = torch.zeros(Lk, dtype=torch.int32, device=DEVICE)
+        offs = torch.zeros(Lk, dtype=torch.int32, device=DEVICE)
+        offs[0] = W
+        segs.append((sc.tbl, sc.starts, buf, Lk, T, W, ent, offs))
+    del packed
+    S, C = (int(x) for x in sc.tbl.shape)
+    print(f"[kernels] reset_scan  {M5_SCAN} POSIX: {int(cnt)} candidates, "
+          f"K = 2 subset 0; table [{S}, {C}]; {len(segs)} segments of "
+          f"L={L} T={T} W={W}", flush=True)
+
+    def run(fn):
+        return tuple(x for a in segs for x in fn(*a))
+
+    compare("reset_scan", f"{M5_SCAN} pass 0 {CORPUS_MIB} MiB",
+            lambda: run(dfa_scan.reset_scan_cuda),
+            lambda: run(dfa_scan.reset_scan_plain), reps=5, headline=True,
+            in_bytes=sum(int(a[2].shape[0]) for a in segs)
+            + nbytes(sc.tbl, sc.starts))
+    a = segs[0]
+    _fw, ex, _sy, _it = dfa_scan.reset_scan_cuda(*a)
+    want = torch.cat([ex.new_zeros(1), ex[:-1]])
+    full = torch.full_like(a[7], W)
+    rep_args = a[:6] + (want, full)
+    compare("reset_scan", f"{M5_SCAN} repair pass "
+            f"{int(a[2].shape[0]) / 2 ** 20:.0f} MiB",
+            lambda: dfa_scan.reset_scan_cuda(*rep_args),
+            lambda: dfa_scan.reset_scan_plain(*rep_args),
+            in_bytes=nbytes(*rep_args[:3], *rep_args[6:]))
+    del segs, a, rep_args
+    # K3's interference mode at the main path's geometry
+    p, posix = pats[M5_INNER]
+    be = ct.compile_posix(p, device=DEVICE).batch_engine()
+    (table, m, _M), fsc = be._inner_route()
+    lit = bytes(be.plan.split.lit)
+    syms = span_chain.inner_cand_symbols(
+        data, table_to_ranges(table), lit, m, fsc.byte_bounds())[3]
+    Lr, Tr, Wr, _ = flag_scan.reset_geometry(n)
+    k = cs.lane_split(Tr, Wr)
+    tiles = cs.make_word_tiles(syms, Lr, Tr // 4)
+    del syms
+    lanes = torch.arange(Lr, dtype=torch.int64, device=DEVICE)
+    offs = torch.zeros(Lr, dtype=torch.int32, device=DEVICE)
+    offs[0] = Wr
+    fargs = (fsc.tables.packed_full, None, tiles, Wr // 4,
+             torch.full((k, Lr), flag_scan.DEAD, dtype=torch.int32,
+                        device=DEVICE), offs,
+             (n + 1 - lanes * Tr).clamp(0, Tr).to(torch.int32))
+    compare("flag_scan", f"interference mode {M5_INNER} suffix k={k}",
+            lambda: cs.lane_walk_cuda(cs.MODE_FLAG, *fargs),
+            lambda: cs.lane_walk_plain(cs.MODE_FLAG, *fargs),
+            in_bytes=nbytes(*fargs))
+    del fargs, tiles, data
     torch.cuda.empty_cache()
 
 
@@ -2529,6 +2693,285 @@ def phase_e2e_posix(base: bytes, arr: np.ndarray):
     return routes
 
 
+def invalid_base(base: bytes) -> bytes:
+    """The base tile with a byte Go decodes as U+FFFD every INVALID_STEP
+    bytes (cycling INVALID_BYTES; a lead byte stays before an ASCII byte,
+    so each decodes alone), none in a tile's last line: tiles join
+    without joining a sequence."""
+    b = bytearray(base)
+    last = base.rfind(b"\n", 0, len(base) - 1)
+    for i, p in enumerate(range(INVALID_STEP, last, INVALID_STEP)):
+        b[p] = INVALID_BYTES[i % len(INVALID_BYTES)]
+    return bytes(b)
+
+
+def go_oracle(pattern: str, text: bytes):
+    """Go's spans of a non-nullable pattern on text whose only non-ASCII
+    bytes decode alone as U+FFFD: Python's decoder gives each one U+FFFD,
+    so character offsets are byte offsets, and re's ASCII classes are
+    Go's."""
+    s = text.decode("utf-8", errors="replace")
+    if len(s) != len(text):
+        fail("the invalid UTF-8 oracle's text has a multi-byte character")
+    return [m.span() for m in re.finditer(pattern, s, re.ASCII)]
+
+
+def utf8_oracle(pattern: str, text: bytes):
+    """re's spans (ASCII classes, as Go's) of a non-nullable pattern on
+    valid UTF-8 text, in bytes."""
+    s = text.decode("utf-8")
+    b = np.frombuffer(text, np.uint8)
+    offs = np.append(np.flatnonzero((b & 0xC0) != 0x80), len(b))
+    return [(int(offs[m.start()]), int(offs[m.end()]))
+            for m in re.finditer(pattern, s, re.ASCII)]
+
+
+def phase_e2e_m5(base: bytes, arr: np.ndarray):
+    """The candidate and INNER pipelines (M5) and invalid UTF-8 on the
+    1536 MiB corpus.  For each M5 pattern: its oracle (re, held to the
+    port's POSIX host walk on the base's first M5_CHECK_BYTES, then tiled,
+    the tiling checked on two tiles), the M5 pipeline called directly
+    (_candidate_spans_dev or _inner_spans_dev, first call, then best of
+    2) and the general fallback beside it where that serves the plan,
+    both against the oracle's digest, then count and find_all through the
+    public API with the route taken and host_routes (a pattern the
+    general fallback declines must take its M5 route); M5_WHOLE again on
+    exactly CORPUS_MIB MiB.  M5_BITSET's
+    candidates from its reverse bitset scan through
+    _spans_from_candidate_mask, timed beside its own route (not routed).
+    Then INVALID_PATTERNS
+    on the invalid corpus (invalid_base tiled) through the public count and
+    find_all against go_oracle, with the normalization's first-call cost,
+    and VALID_PATTERN on the valid multi-byte corpus against utf8_oracle,
+    with the decoder pass's cost (which must return the corpus itself).
+    It must launch the reset scan, K3, K4, K8 and the window scan's ends
+    form."""
+    import torch
+    import coregex_tpu_torch as ct
+    from coregex_tpu_torch.utils import corpus_cache
+
+    B = len(base)
+    reps = len(arr) // B
+    n = len(arr)
+    rng = np.random.default_rng(23)
+    routes = {}
+
+    def best_wall(fn):
+        t0 = time.perf_counter()
+        r = fn()
+        first = time.perf_counter() - t0
+        best = float("inf")
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = fn()
+            if r is not None and r[1] is not None:
+                int(r[1])
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        return r, best, first
+
+    def digest_ok(label, r, exp):
+        if r is None:
+            return "declined"
+        spans, cnt = r[0], int(r[1])
+        cnt_e, ss_e, es_e, sidx, samp_e = exp
+        ss = int(spans[:cnt, 0].sum(dtype=torch.int64)) % M32
+        es = int(spans[:cnt, 1].sum(dtype=torch.int64)) % M32
+        samp = spans[torch.from_numpy(sidx).to(DEVICE)].cpu().numpy()
+        if (cnt, ss, es) != (cnt_e, ss_e, es_e) or not (samp == samp_e).all():
+            fail(f"m5 {label}: digest ({cnt}, {ss}, {es}) != oracle "
+                 f"({cnt_e}, {ss_e}, {es_e})")
+        return f"{cnt} spans ok"
+
+    for name, pattern, posix, oracle in M5:
+        comp = ct.compile_posix if posix else ct.compile
+        spans0 = [m.span() for m in re.finditer(oracle.encode(), base)]
+        if [m.span() for m in re.finditer(oracle.encode(), base + base)] \
+                != expand_tiles(spans0, [], B, 2):
+            fail(f"m5 {name}: the tiled oracle differs on two tiles")
+        head = base[:base.rfind(b"\n", 0, M5_CHECK_BYTES) + 1]
+        host = comp(pattern, device="cpu")
+        host.batch_threshold = 1 << 40
+        if (host.find_all_index(head) or []) != [
+                sp for sp in spans0 if sp[1] <= len(head)]:
+            fail(f"m5 {name}: re's oracle differs from the host walk on "
+                 f"{len(head)} bytes")
+        exp = tiled_digest(spans0, [], B, reps, rng)
+        eng = comp(pattern, device=DEVICE)
+        be = eng.batch_engine()
+        route = be._spans_route(arr)
+        if route is None:
+            fail(f"m5 {name}: find_all is not routed to the device")
+        line = f"[m5] {name:15} {eng.strategy:10} route {route[0]}"
+        m5 = be._m5_route()
+        if m5 is None:
+            fail(f"m5 {name}: the M5 pipeline declines")
+        kind, args = m5
+        run = (lambda: be._inner_spans_dev(args, arr)) if kind == "inner" \
+            else (lambda: be._candidate_spans_dev(args, arr))
+        r, best, first = best_wall(run)
+        line += (f" | {kind} {digest_ok(name, r, exp)} "
+                 f"{best * 1e3:.2f} ms (first {first:.2f} s)")
+        general = be._full_scan_route()
+        if general is not None:
+            r, gbest, gfirst = best_wall(
+                lambda: be._full_scan_spans_dev(*general, arr))
+            line += (f" | full_scan {digest_ok(name, r, exp)} "
+                     f"{gbest * 1e3:.2f} ms (first {gfirst:.2f} s, "
+                     f"{gbest / best:.3f}x M5)")
+        else:
+            line += " | full_scan declines"
+        print(line, flush=True)
+        got, cbest, _f = timed_count(eng, arr)
+        if got != exp[0]:
+            fail(f"m5 {name}: count {got} != oracle {exp[0]}")
+        bulk = ""
+        if kind == "candidate" and be.plan.strategy.name == "PREFIX_RUN" \
+                and be._chunk_scanner(be._verify_kind()) is not None:
+            # the reference's bulk count, beside the count the port takes
+            r, bbest, _bf = best_wall(
+                lambda: (None, be._prefix_run_count_device(arr)))
+            if r[1] is not None and r[1] != exp[0]:
+                fail(f"m5 {name}: bulk count {r[1]} != oracle {exp[0]}")
+            bulk = f", bulk count {r[1]} {bbest * 1e3:.1f} ms"
+        line = (f"[m5] {name:15} count {got} ({cbest * 1e3:.1f} ms{bulk}) | "
+                + check_find_all(f"m5 {name}", be, arr, exp, []))
+        print(line + f" | route {be.route}, host_routes {be.host_routes}",
+              flush=True)
+        if general is None and be.route != kind:
+            fail(f"m5 {name}: the general fallback declines, but find_all "
+                 f"took {be.route}, not {kind}")
+        routes[f"{name} m5"] = be.host_routes
+    # M5_WHOLE on exactly CORPUS_MIB MiB: newlines (no space, no x) fill
+    # the corpus up, so the spans stay the tiled oracle's
+    name, pattern, posix, oracle = [m for m in M5 if m[0] == M5_WHOLE][0]
+    whole = CORPUS_MIB * 2 ** 20
+    if not 0 < whole - n < B:
+        fail(f"m5 {name}: {n} bytes is not a part tile under {whole}")
+    corpus_cache.clear()
+    xarr = np.concatenate([arr, np.full(whole - n, 10, np.uint8)])
+    spans0 = [m.span() for m in re.finditer(oracle.encode(), base)]
+    exp = tiled_digest(spans0, [], B, reps, rng)
+    eng = (ct.compile_posix if posix else ct.compile)(pattern, device=DEVICE)
+    be = eng.batch_engine()
+    got, cbest, _f = timed_count(eng, xarr)
+    if got != exp[0]:
+        fail(f"m5 {name} whole: count {got} != oracle {exp[0]}")
+    line = (f"[m5] {name:15} {whole} bytes: count {got} ({cbest * 1e3:.1f} "
+            f"ms) | " + check_find_all(f"m5 {name} whole", be, xarr, exp,
+                                       []))
+    print(line + f" | route {be.route}, host_routes {be.host_routes}",
+          flush=True)
+    if be.route != "candidate":
+        fail(f"m5 {name} whole: find_all took {be.route}")
+    routes[f"{name} m5 whole"] = be.host_routes
+    del xarr
+    corpus_cache.clear()
+    # the leftmost-longest slice's other patterns: no M5 route to time
+    plans = []
+    for name, pattern, _o in POSIX:
+        be = ct.compile_posix(pattern, device=DEVICE).batch_engine()
+        if be._m5_route() is None:
+            plans.append(f"{name} ({be.plan.strategy.name})")
+    print(f"[m5] no M5 route, so the general or own route alone: "
+          f"{', '.join(plans)}", flush=True)
+    # BITSET_NFA: its route, and the candidate pipeline over the same
+    # reverse bitset scan's starts (not routed)
+    name, pattern = M5_BITSET
+    spans0 = [m.span() for m in re.finditer(pattern.encode(), base)]
+    exp = tiled_digest(spans0, [], B, reps, rng)
+    be = ct.compile(pattern, device=DEVICE).batch_engine()
+    rev, fwd_mt = be._bitset_route()
+    sc = be._reset_scanner()
+    if sc is None:
+        fail(f"m5 {name}: no reset scanner over its anchored DFA")
+
+    def candidates():
+        from coregex_tpu_torch.ops.span_chain import unpack_words
+        from coregex_tpu_torch.ops.span_scan import to_global
+        scan = be._bitset_rev_scan(rev, arr)
+        fr = unpack_words(to_global(scan.flagw, n), n)
+        smask = torch.flip(fr, [0])   # a flag at flipped j: start n-1-j
+        cnt = int(smask.sum())
+        return be._spans_from_candidate_mask(
+            sc, corpus_cache.device_corpus(arr, DEVICE), n, smask, cnt)
+
+    r, best, first = best_wall(candidates)
+    line = (f"[m5] {name:15} bitset_nfa candidates over the reverse bitset "
+            f"starts {digest_ok(name, r, exp)} {best * 1e3:.2f} ms (first "
+            f"{first:.2f} s)")
+    r, bbest, bfirst = best_wall(
+        lambda: be._bitset_spans_dev(rev, fwd_mt, arr))
+    print(line + f" | bitset route {digest_ok(name, r, exp)} "
+          f"{bbest * 1e3:.2f} ms (first {bfirst:.2f} s, {bbest / best:.3f}x"
+          f" the candidates)", flush=True)
+    # invalid UTF-8 at full size
+    ibase = invalid_base(base)
+    iarr = np.tile(np.frombuffer(ibase, np.uint8), reps)
+    n_bad = reps * sum(a != b for a, b in zip(ibase, base))
+    corpus_cache.clear()
+    for name, pattern in INVALID_PATTERNS:
+        spans0 = go_oracle(pattern, ibase)
+        if go_oracle(pattern, ibase + ibase) != expand_tiles(spans0, [], B,
+                                                              2):
+            fail(f"invalid {name}: the tiled oracle differs on two tiles")
+        exp = tiled_digest(spans0, [], B, reps, rng)
+        eng = ct.compile(pattern, device=DEVICE)
+        be = eng.batch_engine()
+        got, cbest, cfirst = timed_count(eng, iarr)
+        if got != exp[0]:
+            fail(f"invalid {name}: count {got} != Go's {exp[0]}")
+        line = (f"[invalid] {name:9} {n} bytes, {n_bad} invalid: count "
+                f"{got} ({cbest * 1e3:.1f} ms, first "
+                f"{cfirst:.2f} s with the normalization) | "
+                + check_find_all(f"invalid {name}", be, iarr, exp))
+        got = eng.find_all_index(iarr[:2 * B].tobytes())
+        if (got or []) != expand_tiles(spans0, [], B, 2):
+            fail(f"invalid {name}: find_all_index on two tiles differs")
+        print(line + f" | route {be.route}, host_routes {be.host_routes}",
+              flush=True)
+        routes[f"{name} invalid"] = be.host_routes
+    del iarr
+    # valid multi-byte text at full size: the decoder pass alone
+    vbase = base
+    for w, u in VALID_WORDS:
+        vbase = vbase.replace(w, u.encode())
+    vreps = len(arr) // len(vbase)
+    varr = np.tile(np.frombuffer(vbase, np.uint8), vreps)
+    n_multi = vreps * sum(ord(u) > 127 for u in vbase.decode())
+    corpus_cache.clear()
+    t0 = time.perf_counter()
+    same = corpus_cache.go_bytes(varr, DEVICE) is varr
+    gate_s = time.perf_counter() - t0
+    if not same:
+        fail("valid UTF-8: the normalization copied a valid corpus")
+    corpus_cache.clear()
+    name, pattern = VALID_PATTERN
+    spans0 = utf8_oracle(pattern, vbase)
+    if utf8_oracle(pattern, vbase + vbase) != expand_tiles(
+            spans0, [], len(vbase), 2):
+        fail(f"valid {name}: the tiled oracle differs on two tiles")
+    exp = tiled_digest(spans0, [], len(vbase), vreps, rng)
+    eng = ct.compile(pattern, device=DEVICE)
+    be = eng.batch_engine()
+    got, cbest, cfirst = timed_count(eng, varr)
+    if got != exp[0]:
+        fail(f"valid {name}: count {got} != oracle {exp[0]}")
+    line = (f"[valid] {name:9} {len(varr)} bytes, {n_multi} multi-byte "
+            f"characters: decoder pass {gate_s:.2f} s (the corpus itself); "
+            f"count {got} ({cbest * 1e3:.1f} ms, first {cfirst:.2f} s with "
+            f"the decoder pass) | "
+            + check_find_all(f"valid {name}", be, varr, exp))
+    print(line + f" | route {be.route}, host_routes {be.host_routes}",
+          flush=True)
+    routes[f"{name} valid"] = be.host_routes
+    del varr
+    corpus_cache.clear()
+    torch.cuda.empty_cache()
+    return routes
+
+
 def limits_oracle(name: str, pattern: str, base: bytes, n: int, rng):
     """The tiled digest of a LIMITS pattern on LIMITS_TILES tiles: the
     Go-rule oracle of one tile, tiled; `(?s)error.*` matches once, from
@@ -2623,7 +3066,9 @@ def phase_e2e_limits(base: bytes, arr: np.ndarray):
     (rounded down to even), against its arithmetic oracle.  Then one count
     of each count route (LIMITS_COUNTS: K1, K5, K6), the leftmost-longest
     count of `\\b\\d+\\b` and find_all of email, each against its oracle;
-    the corpus is freed at the end."""
+    then M5_WHOLE's find_all (the candidate pipeline) on as many tiles as
+    keep its candidates under _DEV_FILTER_LIMIT, with its candidate count
+    and peak device memory; the corpus is freed at the end."""
     import torch
     import coregex_tpu_torch as ct
     from coregex_tpu_torch.utils import corpus_cache
@@ -2735,6 +3180,38 @@ def phase_e2e_limits(base: bytes, arr: np.ndarray):
         routes[f"{name} limits posix"] = be.host_routes
         print(f"[limits] posix {name:7} {what} {n / best / 1e9:7.2f} GB/s "
               f"({best * 1e3:.1f} ms, first {first:.2f} s)", flush=True)
+    # the candidate pipeline at its _DEV_FILTER_LIMIT: as many tiles as
+    # keep the candidates under it (past it the pipeline declines)
+    name, pattern, posix, oracle = [m for m in M5 if m[0] == M5_WHOLE][0]
+    corpus_cache.clear()
+    torch.cuda.empty_cache()
+    eng = (ct.compile_posix if posix else ct.compile)(pattern, device=DEVICE)
+    be = eng.batch_engine()
+    one = torch.from_numpy(np.frombuffer(base, np.uint8).copy()).to(DEVICE)
+    per_tile = int(be._prefix_run_candidates_mask(one)[1])
+    del one
+    tiles = min(LIMITS_TILES, be._DEV_FILTER_LIMIT // per_tile)
+    sub = big[:tiles * B]
+    inner, tail = tiled_spans(
+        [m.span() for m in re.finditer(oracle.encode(), base)], B, tiles)
+    exp = tiled_digest(inner, tail, B, tiles, rng)
+    best, first, peak, got, _l = limits_find_all(f"m5 {name}", be, sub, exp,
+                                                 every)
+    if be.route != "candidate":
+        fail(f"limits m5 {name}: find_all took {be.route}")
+    if peak > LIMITS_PEAK_GIB * gib:
+        fail(f"limits m5 {name}: peak device memory {peak / gib:.2f} GiB "
+             f"passes {LIMITS_PEAK_GIB} GiB")
+    cand = int(be._prefix_run_candidates_mask(
+        corpus_cache.device_corpus(sub, DEVICE))[1])
+    routes[f"{name} limits m5"] = be.host_routes
+    print(f"[limits] m5 {name} {tiles} tiles ({len(sub)} bytes; "
+          f"{LIMITS_TILES} hold {LIMITS_TILES * per_tile} candidates and "
+          f"decline) find_all {got:>10} spans digest+64 samples ok, {cand} "
+          f"candidates ({cand / be._DEV_FILTER_LIMIT:.4f} of the limit), "
+          f"peak {peak / gib:.2f} GiB {len(sub) / best / 1e9:7.2f} GB/s "
+          f"({best * 1e3:.1f} ms, first {first:.2f} s)", flush=True)
+    del sub
     del big
     corpus_cache.clear()
     torch.cuda.empty_cache()
@@ -3438,6 +3915,9 @@ def kernel_counters():
          "coregex_tpu/parallel/shard.py:37"),
         (transfer_scan.TRANSFER_COUNT_KERNEL, "transfer_scan.cu",
          "coregex_tpu/parallel/sharded_count.py:83"),
+        # the candidate pipeline's reset scan: a lax.scan in a while_loop,
+        # no Pallas kernel
+        (dfa_scan.RESET_KERNEL, "reset_scan.cu", ops + "dfa_scan.py:685"),
     ]
 
 
@@ -3463,8 +3943,11 @@ def main():
     # transfer walk in both modes, K9 and K8 for the sharded ends), then
     # leftmost-longest (K9 over the reverse DFA, the ends form over
     # fwd_anch_all, K4 for the starts and the chain, the bitset scan for
-    # BITSET_NFA's starts); the flags form has no caller on a user path
-    # (its checks are phase 3's)
+    # BITSET_NFA's starts), then M5 and invalid UTF-8 (the reset scan for
+    # the candidates, K3 in its interference mode for INNER suffixes, K4
+    # and K8 for their compactions, the ends form for the PREFIX_RUN bulk
+    # count); the flags form has no caller on a user path (its checks are
+    # phase 3's)
     paths = [("earlier slices", phase_e2e,
               [c for c, _, _ in counters[:7]]),
              ("class runs and nullable", phase_e2e_class_nullable,
@@ -3483,6 +3966,8 @@ def main():
               [counters[i][0] for i in (16, 17, 8, 7)]),
              ("leftmost-longest", phase_e2e_posix,
               [counters[i][0] for i in (8, 11, 3, 12)]),
+             ("M5 pipelines and invalid UTF-8", phase_e2e_m5,
+              [counters[i][0] for i in (18, 2, 3, 7, 11)]),
              ("limits at MAX_CORPUS", phase_e2e_limits,
               [counters[i][0] for i in (0, 1, 2, 3, 4, 5, 7, 8, 11, 12)])]
     build_s = phase_build()

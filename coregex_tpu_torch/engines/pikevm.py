@@ -1,5 +1,6 @@
 # Copy of coregex_tpu/engines/pikevm.py for coregex_tpu_torch,
-# which imports nothing of coregex_tpu; changes are noted where made.
+# which imports nothing of coregex_tpu; changes are noted where made
+# (unanchored seeds only at rune starts).
 """PikeVM: Thompson NFA simulation with capture slots.
 
 The universal correctness backstop (reference analogue: nfa/pikevm.go —
@@ -17,6 +18,13 @@ from typing import List, Optional, Tuple
 from ..nfa.nfa import NFA, Kind, Look, is_word_byte
 
 Slots = Tuple[int, ...]
+
+# Unanchored seeds skip continuation bytes (0x80-0xBF): on text normalized
+# to Go's decoding (utils.utf8.go_normalize, every invalid byte 0xFF) such a
+# byte lies inside a valid sequence, where Go's search never starts a
+# match, and where a class holding U+FFFD (whose NFA takes 0x80-0xC1 as one
+# invalid character) could otherwise start one (a change of the port: the
+# reference seeds at every byte).
 
 
 class PikeVM:
@@ -115,7 +123,9 @@ class PikeVM:
             if curr:
                 pass
             # seed a new thread for unanchored search (lowest priority)
-            if matched is None and (pos == start or not anchored):
+            if matched is None and (pos == start or (
+                    not anchored and (pos >= n
+                                      or not 0x80 <= text[pos] <= 0xBF))):
                 # build into a fresh queue preserving existing priority
                 seed_q: List[Tuple[int, Slots]] = []
                 seed_on: set = set(t[0] for t in curr)
@@ -248,7 +258,8 @@ class StreamPikeVM:
         on_q: set = set()
         for sid, slots in self._pending:
             self._add(curr, on_q, sid, slots, cur)
-        if self.matched is None:
+        if self.matched is None and (cur is None
+                                     or not 0x80 <= cur <= 0xBF):
             # unanchored restart seed at lowest priority
             self._add(curr, on_q, self.vm.nfa.start_anchored,
                       self._init_slots, cur)

@@ -24,21 +24,37 @@ split of ``_charclass_spans`` (:2028-2075), ALL_EMPTY's spans
 (``_bitset_scanner``, ``_bitset_starts`` as ``_bitset_rev_scan`` with
 ``_compact_starts``, ``_bitset_is_match``, ``_bitset_spans``,
 ``_bitset_nfa_spans_dev`` and ``_spans_from_starts_host``, :2385-2522 and
-:1308-1335) and the multi-device hooks (``_sharded_counter`` :1644-1666,
-``_sharded_starts`` :2526-2571, over ``..parallel``).  The
+:1308-1335), the multi-device hooks (``_sharded_counter`` :1644-1666,
+``_sharded_starts`` :2526-2571, over ``..parallel``) and the candidate and
+INNER pipelines (M5: ``_sieve_ranges`` :421, ``_class_run_prefix`` :851,
+``_inner_spans_dev`` :878, ``_interleaved_ends`` :1191, ``_flags_with_eoi``
+:1273 folded into it, ``_candidate_spans_dev`` :1285,
+``_spans_from_candidate_mask`` :1337, ``_note_prefilter_counts`` :1387,
+``_prefix_run_table`` and ``_prefix_run_candidates_mask`` :1949-1963,
+``_prefix_run_count_device`` :2001).  The
 port builds on its own copy of the host pipeline (``..dfa``, ``..nfa``,
 ``.strategy``, ``.literal``) and imports nothing of ``coregex_tpu``.
 
 Routes:
+  * every entry point reads the corpus as Go decodes it: each byte that
+    starts no valid UTF-8 sequence is one U+FFFD, held as 0xFF
+    (``corpus_cache.go_bytes``, once per corpus; ``_go``), so the routes'
+    tables, host replays and device buffers see the same bytes (ROADMAP
+    P4; the reference stops at a valid lead byte that lacks its
+    continuation bytes, F14).
   * count, in the reference's order (:1740-1790): END_ANCHORED plans scan
     back from the end on the host; K5 (LineScanner) for a LINE_SHAPE or
     line-set FULL_SCAN plan that ``_line_shape_args`` accepts; K6
     (HitsScanner) for LITERAL and MULTI_LITERAL plans, and K7 (SeqScanner,
     MODE_MULTI) when K6 finds two hits overlapping; otherwise the count
     transducer (the nullable transducer, behind its UTF-8 gate, for
-    nullable plans).  A nullable plan outside that gate, and a BITSET_NFA
-    plan (whose transducer overflows), counts its device find_all, as the
-    reference counts its span list.  The reference's class-run, memmem
+    nullable plans).  A nullable plan outside that gate, a BITSET_NFA plan
+    (whose transducer overflows) and a PREFIX_RUN plan with no transducer
+    count their device find_all, as the reference counts its span list;
+    such a PREFIX_RUN plan that no find_all route serves takes the bulk
+    count (window ends from every candidate run start,
+    ``_prefix_run_count_device``, ref. :1791-1794), which the reference
+    tries first.  The reference's class-run, memmem
     and multi-literal XLA counts are not ported; the transducer gives the
     same counts.  Unlike the reference, these routes
     run on every device (its scanners run only on a TPU backend) and a
@@ -53,20 +69,25 @@ Routes:
     raises where the reference retires it.
   * find_all: the bidirectional span path for PREFIX_RUN, PREFIX_SET,
     FULL_SCAN and INNER plans whose count transducer is spans_simple with
-    no EOI_COMPLEX state and that have no look; the general fallback for
-    the other plans of those four families (``_full_scan_spans_dev``: K9
-    over the unanchored reverse DFA for every match start, sharded over
-    the mesh with each shard's starts compacted where a mesh of several
-    devices serves the corpus, the forward window scan for their ends,
-    Go's chain on the device), unless its
-    DFAs overflow or do not fit the kernels; the candidate chain for
+    no EOI_COMPLEX state and that have no look; behind it, the general
+    fallback for the other plans of those four families
+    (``_full_scan_spans_dev``: K9 over the unanchored reverse DFA for every
+    match start, sharded over the mesh with each shard's starts compacted
+    where a mesh of several devices serves the corpus, the forward window
+    scan for their ends, Go's chain on the device), unless its DFAs
+    overflow or do not fit the kernels; where it declines a PREFIX_RUN,
+    PREFIX_SET or INNER plan, under either rule, the M5 pipeline (the
+    candidate pipeline: run starts through the offset sieve, or prefix
+    literal hits, verified by interleaved reset scans, ``csrc/reset_scan.cu``;
+    the INNER pipeline: a class-run prefix, the literal and K3's
+    interference-mode scan of the suffix), which is 7-14x slower on the
+    card where both serve; the candidate chain for
     LINE_SHAPE plans with newline-free, non-empty literals and no ``(?s)``
     part, the at-most-one-match construction of the reference's
     ``_line_shape_any`` (:2223-2250) for those with a ``(?s)`` part, and
     the general fallback for the others (a newline in the literal, a
     line-anchored ``(?s)`` shape), as the reference's
-    ``_line_shape_spans`` falls to ``_full_scan_spans`` (:2201), on valid
-    UTF-8 only (the host loop serves the rest, ROADMAP P4); class
+    ``_line_shape_spans`` falls to ``_full_scan_spans`` (:2201); class
     runs for CHARCLASS plans (two sparse chains, or K4 over the unpacked
     masks when runs are dense; ``([class]{m,k})+`` chops a
     run to its match, ``[class]{m,k}`` splits it into its matches); for
@@ -165,25 +186,31 @@ from ..dfa.determinize import DFAOverflow, determinize, determinize_py
 from ..dfa.search import anchored_last_end, find_rev_start
 from ..nfa.thompson import compile_nfa
 from ..ops.bytescan import (_bucket, _memmem_mask, _multi_literal_scan,
-                            _range_mask, first_run_geq, first_set_index,
-                            last_set_index, literal_self_overlaps,
-                            mask_count, table_to_ranges)
-from ..ops.compact import compact_positions_into
-from ..ops.compact2 import _bucket_up, word_pieces
+                            _range_mask, bulk_count, first_run_geq,
+                            first_set_index, last_set_index,
+                            literal_self_overlaps, mask_count,
+                            prefix_run_candidates, table_to_ranges)
+from ..ops.compact import compact_positions, compact_positions_into
+from ..ops.compact2 import (_bucket_up, compact_pay, sparse_chain_payloads,
+                            word_pieces)
 from ..ops.count_scan import CountScanner, make_word_tiles, plan_geometry
-from ..ops.dfa_scan import (ChunkScanner, DFATables, exit_at_end,
-                            flags_count_upto, flags_last, window_ends,
-                            window_ends_round)
+from ..ops.dfa_scan import (ChunkScanner, DFATables, ResetScanner,
+                            exit_at_end, flags_count_upto, flags_last,
+                            window_ends, window_ends_round)
 from ..ops.flag_scan import (FlagResetScanner, ResetFlagTables,
                              reset_geometry, scatter_reset_tiles,
                              sym_base_tiles)
 from ..ops.line_scan import HitsScanner, LineScanner
 from ..ops.nfa_scan import BitsetNFAScanner, LookUnsupported
 from ..ops.seq_scan import MODE_MULTI, SeqScanner, seq_geometry
-from ..ops.span_chain import (MULTI_FUSED_LIMIT, SPARSE_OK, bidi_assemble,
-                              bidi_assemble_pieces, bidi_ends,
+from ..ops.sieve import offset_byte_ranges
+from ..ops.span_chain import (MULTI_FUSED_LIMIT, SPARSE_OK, _shift_words,
+                              bidi_assemble, bidi_assemble_pieces, bidi_ends,
                               bidi_ends_pieces, chain_select_pieces,
                               class_run_words, expand_class_runs,
+                              inner_assemble, inner_cand_arrays,
+                              inner_cand_symbols, inner_flag_arrays_words,
+                              reset_interval_ends,
                               leftmost_first_spans,
                               line_event_words, line_spans_pieces, literal_lengths,
                               literal_spans_sparse, literal_words,
@@ -198,10 +225,11 @@ from ..parallel import shard
 from ..parallel.sharded_count import Phase1TooWide, ShardedGoCount
 from ..syntax.ast import Node, Op
 from ..syntax.parser import Parsed
+from ..dfa.dense import CTX_NL, CTX_OTHER, CTX_WORD
 from ..utils.artifact_cache import load_dense, save_dense
 from ..utils.corpus_cache import (_fingerprint, corpus_is_ascii,
-                                  corpus_is_utf8, corpus_tiles,
-                                  device_corpus, device_corpus_flipped)
+                                  corpus_tiles, device_corpus,
+                                  device_corpus_flipped, go_bytes)
 from ..utils.device_lock import device_lock
 from . import literal as litmod
 from .literal import UNIV_ANY, UNIV_LINE
@@ -294,7 +322,7 @@ class BatchEngine:
                       Strategy.FULL_SCAN, Strategy.INNER)
 
     def __init__(self, parsed: Parsed, ast: Node, dfas_ok: bool, device,
-                 longest: bool = False, host_find=None):
+                 longest: bool = False, host_find=None, stats=None):
         self.parsed = parsed
         self.ast = ast
         self.longest = longest
@@ -344,6 +372,14 @@ class BatchEngine:
         # or False; (make_sharded_ends' fn, its cap)
         self._sharded_sc = {}
         self._sharded_ends = {}
+        # the candidate and INNER pipelines (M5): the engine's Stats (the
+        # prefilter counters), the offset sieve and ResetScanners by kind
+        # (ref. :327-329)
+        self.stats = stats
+        self._sieve = None
+        self._reset_sc = {}
+        # the route that served the last device find_all
+        self.route = None
 
     def _verify_kind(self) -> str:
         """The anchored forward DFA whose last flag from a match start is
@@ -367,6 +403,15 @@ class BatchEngine:
         return _bucket(total, 16) if total <= self.MAX_DEVICE_SPANS \
             else total
 
+    def _go(self, data: np.ndarray) -> np.ndarray:
+        """The corpus as every matcher reads it, each byte that Go decodes
+        as a width-1 RuneError set to 0xFF (``corpus_cache.go_bytes``,
+        once per corpus): the entry points take it first, so the routes'
+        host replays and device buffers see the same bytes.  A corpus
+        past MAX_CORPUS is left for ``_check_size`` to refuse."""
+        return go_bytes(data, self.device) if 0 < len(data) <= MAX_CORPUS \
+            else data
+
     def _decline(self, result=None):
         self.host_routes += 1
         return result
@@ -386,7 +431,9 @@ class BatchEngine:
         right after the leftmost match is complete, so its last flag is the
         leftmost-first end), and the anchored forms of both
         (``fwd_anch_break`` and ``fwd_anch_all``, the two results of
-        ``_verify_kind``).  Raises DFAOverflow past the state limit."""
+        ``_verify_kind``), and the anchored DFAs of an INNER split's suffix
+        (``fwd_suffix``, ``fwd_suffix_all``).  Raises DFAOverflow past the
+        state limit."""
         if kind in self._host_dense:
             return self._host_dense[kind]
         d = load_dense(self.parsed.pattern, kind)
@@ -405,6 +452,15 @@ class BatchEngine:
                 nfa = compile_nfa(self.parsed, with_captures=False)
                 d = determinize(nfa, anchored=kind.startswith("fwd_anch"),
                                 break_at_match=kind.endswith("break"))
+            elif kind in ("fwd_suffix", "fwd_suffix_all"):
+                # the anchored DFA of an INNER split's suffix: its run from
+                # each reset gives a candidate's end (leftmost-first: the
+                # last flag before it dies; leftmost-longest: every flag)
+                sub = Parsed(self.plan.split.suffix_ast, 0, [],
+                             self.parsed.pattern + "<suffix>")
+                nfa = compile_nfa(sub, with_captures=False)
+                d = determinize(nfa, anchored=True,
+                                break_at_match=(kind == "fwd_suffix"))
             else:
                 raise KeyError(kind)
             save_dense(self.parsed.pattern, kind, d)
@@ -574,6 +630,7 @@ class BatchEngine:
         (``_count_by_spans``): the count transducer and the needle counts
         are leftmost-first."""
         self._check_size(len(data))
+        data = self._go(data)
         if self.plan.strategy == Strategy.END_ANCHORED:
             sp = self._end_anchored_spans(data)
             return None if sp is None else len(sp)
@@ -686,19 +743,25 @@ class BatchEngine:
 
     def _count_by_spans(self, data: np.ndarray) -> Optional[int]:
         """A nullable plan outside the transducer's gate (ALL_EMPTY among
-        them), a BITSET_NFA plan (whose transducer overflows) or any plan
-        of a leftmost-longest engine counts its device find_all when a
-        find_all route serves the corpus (the reference counts the span
-        list of its device find_all, ref. engine.py:337 and batch.py
-        :1798-1800); else None (declined)."""
+        them), a BITSET_NFA plan (whose transducer overflows), a PREFIX_RUN
+        plan with no transducer or any plan of a leftmost-longest engine
+        counts its device find_all when a find_all route serves the corpus
+        (the reference counts the span list of its device find_all, ref.
+        engine.py:337 and batch.py :1798-1800); where none does, a
+        PREFIX_RUN plan takes the bulk count (``_prefix_run_count``); else
+        None (declined)."""
         if ((self.plan.strategy not in (Strategy.NULLABLE_CORE,
                                         Strategy.ALL_EMPTY,
-                                        Strategy.BITSET_NFA)
+                                        Strategy.BITSET_NFA,
+                                        Strategy.PREFIX_RUN)
              and not self.longest)
-                or not 0 < len(data) <= self.SPARSE_SPANS_LIMIT
-                or self._spans_route(data) is None):
+                or not 0 < len(data) <= self.SPARSE_SPANS_LIMIT):
             return self._decline()
-        return self.find_all_spans_device(data)[1]
+        if self._spans_route(data) is None:
+            c = self._prefix_run_count(data)
+            return self._decline() if c is None else c
+        r = self.find_all_spans_device(data)
+        return None if r is None else r[1]
 
     # -- single match (is_match, find_first) ------------------------------
     # find_first's first forward prefix (ref. :1893); each miss scans a
@@ -758,6 +821,7 @@ class BatchEngine:
         depend on the match rule, so a leftmost-longest engine takes the
         same routes."""
         n = len(data)
+        data = self._go(data)
         strat = self.plan.strategy
         if strat in (Strategy.NULLABLE_CORE, Strategy.ALL_EMPTY):
             return True
@@ -795,6 +859,7 @@ class BatchEngine:
         engine.py:238); ``is_match`` asks for any, and reads only whether
         a span came back."""
         n = len(data)
+        data = self._go(data)
         strat = self.plan.strategy
         if n == 0 or strat in (Strategy.NULLABLE_CORE, Strategy.ALL_EMPTY,
                                Strategy.HOST):
@@ -949,7 +1014,8 @@ class BatchEngine:
         if limit == 0:
             return np.empty((0, 2), dtype=np.int64)
         if self.plan.strategy == Strategy.END_ANCHORED:
-            sp = self._end_anchored_spans(data)
+            self.route = "end_anchored"
+            sp = self._end_anchored_spans(self._go(data))
             return sp if sp is None or limit < 0 else sp[:limit]
         r = self.find_all_spans_device(data, limit=limit)
         if r is None:
@@ -972,6 +1038,7 @@ class BatchEngine:
         if n == 0 or n > self.SPARSE_SPANS_LIMIT:
             return self._decline(None)
         self._check_size(n)
+        data = self._go(data)
         route = self._spans_route(data)
         if route is None:
             return self._decline(None)
@@ -979,7 +1046,8 @@ class BatchEngine:
         fp = _fingerprint(data)
         known = self._spans_cnt_cache.get(fp) if defer_ok else None
         self.pieces = [1, 1]
-        with self._locks(self._mesh() if kind == "full_scan" else None):
+        with self._locks(self._mesh() if kind in ("full_scan", "m5")
+                         else None):
             if kind == "line_any":
                 spans, cnt, ok = self._line_any_spans_dev(args, data)
             elif kind == "line":
@@ -989,6 +1057,13 @@ class BatchEngine:
                                                       fp)
             elif kind == "full_scan":
                 spans, cnt, ok = self._full_scan_spans_dev(*args, data)
+            elif kind == "m5":
+                kind, m5 = args
+                r = (self._inner_spans_dev if kind == "inner"
+                     else self._candidate_spans_dev)(m5, data)
+                if r is None:
+                    return self._decline(None)
+                spans, cnt, ok = r
             elif kind == "bitset":
                 spans, cnt, ok = self._bitset_spans_dev(*args, data, limit)
             elif kind == "charclass":
@@ -1009,6 +1084,7 @@ class BatchEngine:
             else:
                 spans, cnt, ok = self._nullable_general_spans_dev(
                     args, data)
+        self.route = kind
         return (spans, cnt, ok) if defer_ok else (spans, cnt)
 
     def _spans_route(self, data: np.ndarray):
@@ -1041,18 +1117,18 @@ class BatchEngine:
             # a newline in the literal or the prefix, an empty literal, a
             # line-anchored (?s) shape: the general fallback, as the
             # reference's _line_shape_spans falls to _full_scan_spans
-            # (ref. :2201), on valid UTF-8 only (its DFAs are wrong on
-            # invalid UTF-8, ROADMAP P4: the host loop serves that)
-            if not corpus_is_utf8(data, self.device):
-                return None
+            # (ref. :2201)
             route = self._full_scan_route()
             return None if route is None else ("full_scan", route)
         if strat in self._BIDI_FAMILIES:
             route = self._bidi_route(corpus_is_ascii(data, self.device))
             if route is not None:
                 return "bidi", route
-            route = self._full_scan_route()
-            return None if route is None else ("full_scan", route)
+            general = self._full_scan_route()
+            if general is not None:
+                return "full_scan", general
+            m5 = self._m5_route()
+            return None if m5 is None else ("m5", m5)
         if strat == Strategy.CHARCLASS:
             return "charclass", self.plan.charclass
         if strat in (Strategy.LITERAL, Strategy.MULTI_LITERAL):
@@ -1416,6 +1492,357 @@ class BatchEngine:
                                "end, or a compaction fault")
         self._note_pieces(-(-m // lim))
         return out[:total], total, None
+
+    # -- the candidate and INNER pipelines (M5) -------------------------------
+    # Behind the bidirectional path, for PREFIX_RUN, PREFIX_SET and INNER
+    # plans under either rule (ref. _prefix_family_spans_dev and
+    # _inner_family_spans_dev, :1089-1114), after the general fallback: the
+    # reference tries M5 first, but on the card at 1536 MiB the general
+    # fallback was 7-14x faster on every family (PERF.md section 5,
+    # chip_smoke.py's M5 run, NVIDIA H100 80GB HBM3, 700.00 W: POSIX ip 14.3
+    # ms against the candidate pipeline's 191.3, version 41.0 against 324.1,
+    # `[A-Z]+ \d+` 14.5 against 171.6; POSIX email 23.1 against the INNER
+    # pipeline's 166.3, url 23.9 against 206.9), so M5 serves the plans
+    # whose general tables the kernels cannot take (a reverse DFA that
+    # overflows: POSIX `[a-z]+ [^ ]{20,60}x`, 578.5 ms).  The general
+    # fallback never declines a call it takes, so nothing falls from it to
+    # M5 at run time.  The reference's prefilter tracker retires its
+    # pipelines into its full scan, which the general fallback is here;
+    # with that first, there is nothing to retire, and the counts go to
+    # the engine's Stats only.
+    # candidates past it decline (ref. :1189, 2^24 for a 16 GB chip),
+    # re-derived for 80 GB: `[a-z]+ [^ ]{20,60}x` has about one run start
+    # in 7.5 bytes, so it reaches the limit at about 2 GB of corpus, where
+    # its find_all peaks well under the card's memory (chip_smoke.py's
+    # limits run, PERF.md section 5)
+    _DEV_FILTER_LIMIT = 1 << 28
+
+    def _m5_route(self):
+        """("candidate", ResetScanner) for PREFIX_RUN and PREFIX_SET plans,
+        ("inner", (class-run shape, suffix FlagResetScanner or None)) for
+        INNER ones, or None (declined: a nullable plan, and each pipeline's
+        own gates).  Host work only."""
+        if self.plan.nullable:
+            return None
+        strat = self.plan.strategy
+        if strat == Strategy.INNER:
+            r = self._inner_route()
+            return None if r is None else ("inner", r)
+        if strat in (Strategy.PREFIX_RUN, Strategy.PREFIX_SET):
+            sc = self._reset_scanner()
+            return None if sc is None else ("candidate", sc)
+        return None
+
+    def _reset_scanner(self):
+        """Lazy ResetScanner over the ``_verify_kind`` DFA, or None (out of
+        scope: a look in the pattern, whose flag at n the scan cannot decide
+        (ref. _flags_with_eoi, :1273-1283); more than 32 table columns; a
+        DFA that overflows).  Host work only."""
+        kind = self._verify_kind()
+        sc = self._reset_sc.get(kind)
+        if sc is None:
+            sc = False
+            if not litmod.has_looks(self.ast):
+                try:
+                    sc = ResetScanner(self._dense(kind), self.device)
+                except (DFAOverflow, ValueError):
+                    sc = False
+            self._reset_sc[kind] = sc
+        return sc or None
+
+    def _sieve_ranges(self):
+        """The offset byte-range sieve from the anchored DFA, cached (ref.
+        :421-429)."""
+        if self._sieve is None:
+            self._sieve = offset_byte_ranges(self._dense(self._verify_kind()))
+        return self._sieve
+
+    def _prefix_run_table(self) -> np.ndarray:
+        return np.array(self.plan.prefix_run.table, dtype=bool)
+
+    def _prefix_run_candidates_mask(self, dev):
+        """(mask, count) of the run-start candidates, sharpened by the sieve
+        (ref. :1952-1963)."""
+        return prefix_run_candidates(
+            dev, table_to_ranges(self._prefix_run_table()),
+            tuple(tuple(r) for r in self._sieve_ranges()))
+
+    def _candidate_spans_dev(self, sc, data):
+        """(spans, count, None) of a PREFIX_RUN or PREFIX_SET plan, or None
+        (declined; ref. :1285-1306): candidate starts on the device (the
+        run starts through the sieve, or every hit of a prefix literal),
+        then ``_spans_from_candidate_mask``."""
+        n = len(data)
+        dev = device_corpus(data, self.device)
+        if self.plan.strategy == Strategy.PREFIX_RUN:
+            smask, cnt = self._prefix_run_candidates_mask(dev)
+        else:
+            smask = None
+            for lit in self.plan.prefix_lits:
+                m = _memmem_mask(dev, bytes(lit))
+                smask = m if smask is None else smask | m
+            cnt = mask_count(smask)
+        return self._spans_from_candidate_mask(sc, dev, n, smask, int(cnt))
+
+    def _spans_from_candidate_mask(self, sc, dev, n: int, smask, cnt: int):
+        """The candidate mask's tail (ref. :1337-1385): the verified
+        (start, end) pairs (``_interleaved_ends``), then Go's selection,
+        ``span_chain.chain_select`` where they overlap (the exact chain the
+        reference's ``go_select_device`` iterates to, with no round limit).
+        Declines past _DEV_FILTER_LIMIT candidates and where the
+        verification declines.  For PREFIX_RUN, Go restarts after a match
+        that ends inside a class run at a position that is no candidate; a
+        match there would start at that very position (a leading [c]+
+        takes the run's bytes before any later start), so the window scan
+        looks from each such end and the pipeline declines if one matches
+        (the reference's span path does not look, :1337-1385; its count
+        path declines at every such end, :2024-2026).  Returns (spans,
+        count, None) or None."""
+        if cnt == 0:
+            return _empty_spans(self.device), 0, None
+        if cnt > self._DEV_FILTER_LIMIT:
+            return None
+        r = self._interleaved_ends(sc, dev, n, smask, cnt)
+        if r is None:
+            return None
+        fs, fe, kept = r
+        self._note_prefilter_counts(kept, cnt)
+        if kept == 0:
+            return _empty_spans(self.device), 0, None
+        out = torch.empty((kept, 2), dtype=torch.int32, device=self.device)
+        total, ok = chain_select_pieces([(fs, fe)], n, out)
+        if not bool(ok):
+            raise RuntimeError("candidate pipeline: a compaction fault")
+        out = out[:total]
+        if self.plan.strategy == Strategy.PREFIX_RUN and total:
+            e = out[:, 1]
+            tbl = torch.as_tensor(self._prefix_run_table(), device=dev.device)
+            ei = e.clamp(1, max(n - 1, 1)).long()
+            mid = (e > 0) & (e < n) & tbl[dev[ei].long()] \
+                & tbl[dev[ei - 1].long()]
+            nmid = int(mid.sum())
+            if nmid:
+                fwd = self._chunk_scanner(self._verify_kind())
+                if fwd is None:
+                    return None
+                _p, restart, _c, _ok = compact_pay(mid, [e],
+                                                   _bucket(nmid, 16))
+                ends, _r = window_ends(fwd.mt, dev, restart[:nmid].clone(),
+                                       self.END_WINDOW)
+                if bool((ends >= 0).any()):
+                    return None
+        return out, total, None
+
+    def _interleaved_ends(self, sc, dev, n: int, smask, cnt: int):
+        """Verified (starts, ends, kept) of the candidates (ref. :1191-1271):
+        K interleaved reset scans, subset j resetting at every K-th
+        candidate from the j-th, so each candidate's anchored run gets about
+        K candidate spacings of room in one contiguous pass.  A run still
+        alive at its subset's next reset trips the interference flag and K
+        escalates (2, 4, 16; 4, 16 where candidates are denser than one in
+        48 bytes); interference at 16, or a scan that does not converge,
+        declines (None).  A candidate whose run never flags is dropped (Go
+        skips it).  The candidates come out of one K8 compaction, a subset
+        is every K-th of them, each run's end is the last flag inside its
+        interval (``span_chain.reset_interval_ends``) and the verified pairs
+        one K4 compaction: no corpus-sized int32 array.  Each scan reads
+        n + 1 positions, the last a pad byte whose flag is the match at n
+        (the reference's ``_flags_with_eoi``, :1273-1283; the DFA has no
+        look).  Syncs: one a scan."""
+        cap = _bucket(cnt, 16)
+        cand, _c = compact_positions(smask, cap)
+        cand = cand[:cnt]
+        base = sc.packed(dev, pad=1)   # the flag at n from the pad byte
+        spacing = n // max(cnt, 1)
+        for K in ((2, 4, 16) if spacing >= 48 else (4, 16)):
+            ends = torch.full((cnt,), -1, dtype=torch.int32,
+                              device=dev.device)
+            for j in range(min(K, cnt)):
+                r = cand[j::K]
+                packed = base.clone()
+                packed[r.long()] |= 1
+                fw, _ex, conv, interf, _g = sc.scan_packed(packed)
+                del packed
+                if not conv:
+                    return None
+                if interf:
+                    break
+                ends[j::K] = reset_interval_ends(fw.reshape(-1), r, n)
+            else:
+                keep = ends >= 0
+                _p, fs, fe, kept, _ok = compact_pay(keep, [cand, ends], cap)
+                kept = int(kept)
+                return fs[:kept], fe[:kept], kept
+        return None
+
+    def _note_prefilter_counts(self, hits: int, seen: int) -> None:
+        """The prefilter tracker's counts (ref. :1387-1400): verified and
+        seen candidates, into the engine's Stats."""
+        if self.stats is not None:
+            self.stats.prefilter_hits += hits
+            self.stats.prefilter_misses += seen - hits
+
+    @staticmethod
+    def _class_run_prefix(prefix_ast, lit: bytes):
+        """(table [256], m, M) when prefix_ast is [class]{m,M} followed by
+        the literal, with m >= 1 and lit[0] outside the class: the viable
+        starts of a match are the members of the run right before each
+        literal hit, every suffix of it of m to M bytes (ref. :851-876).
+        None otherwise."""
+        node = litmod._uncap(prefix_ast)
+        if node.op != Op.CONCAT or len(node.subs) != 2:
+            return None
+        rep, tail = litmod._uncap(node.subs[0]), node.subs[1]
+        if tail.op != Op.LITERAL or bytes(bytearray(tail.runes)) != lit:
+            return None
+        if rep.op == Op.PLUS and rep.greedy:
+            m, M = 1, -1
+        elif rep.op == Op.REPEAT and rep.greedy and rep.min >= 1:
+            m, M = rep.min, rep.max
+        else:
+            return None
+        if m > 16:
+            return None
+        t = litmod.ascii_class_table(litmod._uncap(rep.subs[0]))
+        if t is None or t[lit[0]]:
+            return None
+        return np.array(t, dtype=bool), m, M
+
+    def _inner_route(self):
+        """(class-run shape, suffix FlagResetScanner or None) of an INNER
+        plan's pipeline, or None (declined as the reference's
+        ``_inner_spans_dev`` declines, :908-939: more than one literal, a
+        prefix that is no class run, a nullable suffix, a look in the
+        suffix, more than 64 table columns or a suffix DFA that overflows).
+        The suffix scan resets in the context of the literal's last byte.
+        Host work only."""
+        sp = self.plan.split
+        if len(sp.lits) != 1:
+            return None
+        shape = self._class_run_prefix(sp.prefix_ast, bytes(sp.lit))
+        if shape is None:
+            return None
+        if sp.suffix_ast.op == Op.EMPTY:
+            return shape, None
+        if litmod.is_nullable(sp.suffix_ast) or \
+                litmod.has_looks(sp.suffix_ast):
+            return None
+        kind = "fwd_suffix_all" if self.longest else "fwd_suffix"
+        b = sp.lit[-1]
+        rctx = (CTX_WORD if (48 <= b <= 57 or 65 <= b <= 90 or b == 95
+                             or 97 <= b <= 122)
+                else CTX_NL if b == 10 else CTX_OTHER)
+        fsc = self._flag_scanner_cache.get((kind, rctx))
+        if fsc is None:
+            try:
+                fsc = FlagResetScanner(self._dense(kind), rctx, self.device)
+            except (DFAOverflow, ValueError):
+                fsc = False
+            self._flag_scanner_cache[(kind, rctx)] = fsc
+        return (shape, fsc) if fsc else None
+
+    def _inner_spans_dev(self, route, data):
+        """(spans, count, None) of an INNER plan with a class-run prefix, or
+        None (declined; ref. :878-996): one pass builds the candidate words
+        (literal hits with m members before them), the member words with
+        each word's last nonmember, and the suffix scan's symbols with a
+        reset at each candidate + k; K3 in its interference mode scans the
+        suffix from every reset; two payload chains (K4) carry the words to
+        the candidates and the resets; ``inner_assemble`` gives each
+        candidate its [smin, smax] start range and end and runs the
+        flexible Go selection.  Declines on more than MAX_DEVICE_SPANS
+        candidates and where the check fails: a reset met a live suffix
+        run (interference), or the selection did not settle.  Syncs: the
+        candidate count, the check."""
+        (table, m, M), fsc = route
+        lit = bytes(self.plan.split.lit)
+        k = len(lit)
+        n = len(data)
+        dev = device_corpus(data, self.device)
+        ranges = table_to_ranges(table)
+        if fsc is not None:
+            candw, mw, lastnm_w, syms, cnt_d = inner_cand_symbols(
+                dev, ranges, lit, m, fsc.byte_bounds())
+        else:
+            candw, mw, lastnm_w, _rm, cnt_d = inner_cand_arrays(
+                dev, ranges, lit, m)
+        cnt = int(cnt_d)
+        if cnt == 0:
+            return _empty_spans(self.device), 0, None
+        if cnt > self.MAX_DEVICE_SPANS:
+            return None
+        cap = _bucket(cnt, 16)
+        c_pos, mw_i, lastnm_i, cntA, okA = sparse_chain_payloads(
+            candw, [mw, lastnm_w], n, cap)
+        no = torch.zeros((), dtype=torch.bool, device=self.device)
+        if fsc is None:
+            live = torch.arange(cap, dtype=torch.int32,
+                                device=self.device) < cntA
+            spans, nsel, ok = inner_assemble(
+                c_pos, mw_i, lastnm_i, c_pos, mw_i, lastnm_i, cntA, cntA,
+                okA, 0, ~no, no, n, cap, k, m, M, b_empty=True,
+                fixed_ends=torch.where(live, c_pos + k, 0))
+        else:
+            fw_raw, interf, conv, _h = fsc.scan_words_syms(syms, n)
+            del syms
+            nwb1 = _bucket_up(max(-(-(n + 1) // 32), 1))
+            flagw, lastflag_w, glob_lf = inner_flag_arrays_words(fw_raw,
+                                                                 nwb1)
+            rw = _shift_words(candw, k, nwb1)
+            r_pos, flagw_i, lastflag_i, cntB, okB = sparse_chain_payloads(
+                rw, [flagw, lastflag_w], n + 1, cap)
+            spans, nsel, ok = inner_assemble(
+                c_pos, mw_i, lastnm_i, r_pos, flagw_i, lastflag_i, cntA,
+                cntB, okA & okB, glob_lf,
+                torch.as_tensor(bool(conv), device=self.device)
+                & (interf == 0), no, n, cap, k, m, M)
+        nsel, okh = torch.stack([nsel.to(torch.int64),
+                                 ok.to(torch.int64)]).tolist()
+        if not okh:
+            return None
+        if nsel == 0:
+            return _empty_spans(self.device), 0, None
+        return spans, nsel, None
+
+    def _prefix_run_count(self, data: np.ndarray) -> Optional[int]:
+        """The count of a PREFIX_RUN plan that has no count transducer (or
+        under leftmost-longest) where no find_all route serves the corpus
+        (a look or more than 32 columns keep the candidate pipeline off a
+        plan whose reverse DFA overflows, as POSIX `[a-z]+ [^ ]{20,60}x\\b`):
+        ``_prefix_run_count_device`` when the anchored tables fit the
+        window scan, else None (decided before the upload).  The reference
+        tries it before its find_all (:1791-1794); on the card the find_all
+        counts faster (POSIX ip at 1536 MiB: 14 ms against 92, PERF.md
+        section 5), so the port counts the find_all wherever one serves."""
+        if (self.plan.strategy != Strategy.PREFIX_RUN
+                or self._chunk_scanner(self._verify_kind()) is None):
+            return None
+        with self._lock:
+            return self._prefix_run_count_device(data)
+
+    def _prefix_run_count_device(self, data: np.ndarray) -> Optional[int]:
+        """The bulk count of a PREFIX_RUN plan (ref. :2001-2026): every
+        candidate start's anchored end by the window scan's ends form, then
+        ``bytescan.bulk_count``; None where the candidates are denser than
+        one in six bytes, or where Go's selection would drop a candidate or
+        restart inside a run (the caller counts the find_all)."""
+        n = len(data)
+        dev = device_corpus(data, self.device)
+        smask, cnt = self._prefix_run_candidates_mask(dev)
+        cnt = int(cnt)
+        if cnt == 0:
+            return 0
+        if cnt > max(n // 6, 1024):
+            return None
+        starts, _c = compact_positions(smask, _bucket(cnt, 16))
+        starts = starts[:cnt]
+        ends, _r = window_ends(self._chunk_scanner(self._verify_kind()).mt,
+                               dev, starts, self.END_WINDOW)
+        tbl = torch.as_tensor(self._prefix_run_table(), device=dev.device)
+        count, overlap, pending = torch.stack(
+            [x.to(torch.int64) for x in bulk_count(starts, ends, dev, tbl,
+                                                    n)]).tolist()
+        return None if overlap or pending else count
 
     # -- the bitset-NFA tier (BITSET_NFA) -------------------------------------
     def _bitset_scanner(self, kind: str):

@@ -21,7 +21,17 @@ What differs from the reference:
     too: ``_batch_captures`` (ref. :418-443) through the port's
     OnePassScanner (ops/onepass_scan.py) and the row batches (ref.
     :687-732) through its RowBatch (ops/rowscan.py); neither probes for
-    jax, since the device is explicit.
+    jax, since the device is explicit;
+  * invalid UTF-8 (ROADMAP P4; the reference's matchers stop at a valid
+    lead byte that lacks its continuation bytes, F14): every matcher, on
+    the host and on the device, reads the text as Go decodes it, each byte
+    that starts no valid sequence one U+FFFD of width 1, which the bytes
+    the matchers read hold as 0xFF (``_go``: ``utils.utf8.go_normalize``,
+    through the corpus cache at batch sizes; a row of a batch on its own;
+    a stream with three bytes of lookahead across each chunk seam).  Only
+    positions come from that copy: every byte a call returns or copies
+    into its output (matches, groups, replace_all's and split's text) is
+    the caller's.  A str is valid UTF-8 and skips the pass.
 
 The device is explicit: "cpu" runs the kernels' plain torch versions,
 "cuda" runs the CUDA kernels.  Nothing picks it by probing for a GPU.
@@ -41,7 +51,7 @@ from ..dfa.determinize import DFAOverflow, determinize
 from ..engines.pikevm import PikeVM
 from ..nfa.thompson import compile_nfa
 from ..syntax.parser import Parsed, parse
-from ..utils.utf8 import go_rune_width
+from ..utils.utf8 import StreamNormalizer, go_normalize, go_rune_width
 from .strategy import Strategy
 
 Bytes = Union[bytes, bytearray, memoryview, np.ndarray, str]
@@ -167,7 +177,8 @@ class Engine:
                                       dfas_ok=self.fwd is not None,
                                       device=self.device,
                                       longest=self.longest,
-                                      host_find=self._find_span_host)
+                                      host_find=self._find_span_host,
+                                      stats=self.stats)
         return self._batch
 
     @property
@@ -178,6 +189,18 @@ class Engine:
     @property
     def strategy_reason(self) -> str:
         return self.batch_engine().plan.reason
+
+    def _go(self, data: Bytes, arr: np.ndarray) -> np.ndarray:
+        """The bytes every matcher reads: `arr` with each byte that Go
+        decodes as a width-1 RuneError set to 0xFF (`arr` itself when it
+        is valid UTF-8; a str always is).  At batch sizes through the
+        corpus cache, so a corpus pays the pass once."""
+        if isinstance(data, str):
+            return arr
+        if len(arr) >= self.batch_threshold:
+            from ..utils.corpus_cache import go_bytes
+            return go_bytes(arr, self.device)
+        return go_normalize(arr)
 
     def _use_batch(self, arr: np.ndarray) -> bool:
         if len(arr) < self.batch_threshold:
@@ -240,6 +263,7 @@ class Engine:
     def is_match(self, data: Bytes) -> bool:
         """Regexp.Match / MatchString (regex.go:282,295 analogue)."""
         arr = _as_array(data)
+        arr = self._go(data, arr)
         if self._use_batch(arr):
             with self._timed_scan(arr):
                 r = self.batch_engine().is_match(arr)
@@ -266,12 +290,12 @@ class Engine:
     def find_index(self, data: Bytes) -> Optional[Tuple[int, int]]:
         """Regexp.FindIndex: [start, end) byte offsets or None."""
         arr = _as_array(data)
-        return self._find_span(arr)
+        return self._find_span(self._go(data, arr))
 
     def find(self, data: Bytes) -> Optional[bytes]:
         """Regexp.Find: matched bytes or None."""
         arr = _as_array(data)
-        m = self._find_span(arr)
+        m = self._find_span(self._go(data, arr))
         if m is None:
             return None
         return arr[m[0]:m[1]].tobytes()
@@ -313,12 +337,12 @@ class Engine:
     def find_all_index(self, data: Bytes, n: int = -1
                        ) -> Optional[List[Tuple[int, int]]]:
         arr = _as_array(data)
-        out = self._all_spans(arr, n)
+        out = self._all_spans(self._go(data, arr), n)
         return out or None
 
     def find_all(self, data: Bytes, n: int = -1) -> Optional[List[bytes]]:
         arr = _as_array(data)
-        spans = self._all_spans(arr, n)
+        spans = self._all_spans(self._go(data, arr), n)
         if not spans:
             return None
         return [arr[s:e].tobytes() for s, e in spans]
@@ -335,6 +359,7 @@ class Engine:
         nullable transducer), so the reference's second nullable_count
         attempt after a decline would only repeat it."""
         arr = _as_array(data)
+        arr = self._go(data, arr)
         if len(arr) >= self.batch_threshold:
             be = self.batch_engine()
             if be.plan.strategy != Strategy.HOST or (
@@ -347,7 +372,8 @@ class Engine:
 
     def finditer(self, data: Bytes) -> Iterator[Tuple[int, int]]:
         """Iterator over spans (regex.go:1485 AllIndex analogue)."""
-        yield from self._all_spans(_as_array(data))
+        arr = _as_array(data)
+        yield from self._all_spans(self._go(data, arr))
 
     # -- captures --------------------------------------------------------
     @property
@@ -407,11 +433,12 @@ class Engine:
 
     def find_submatch_index(self, data: Bytes
                             ) -> Optional[List[Optional[Tuple[int, int]]]]:
-        return self._submatch_at(_as_array(data), 0)
+        arr = _as_array(data)
+        return self._submatch_at(self._go(data, arr), 0)
 
     def find_submatch(self, data: Bytes) -> Optional[List[Optional[bytes]]]:
         arr = _as_array(data)
-        g = self._submatch_at(arr, 0)
+        g = self._submatch_at(self._go(data, arr), 0)
         if g is None:
             return None
         return [None if sp is None else arr[sp[0]:sp[1]].tobytes()
@@ -449,6 +476,7 @@ class Engine:
 
     def find_all_submatch_index(self, data: Bytes, n: int = -1):
         arr = _as_array(data)
+        arr = self._go(data, arr)
         spans = self._all_spans(arr, n)
         if not spans:
             return None
@@ -484,16 +512,18 @@ class Engine:
             repl_b = bytes(repl)
         out = bytearray()
         last = 0
-        spans = self._all_spans(arr, -1)
+        g = self._go(data, arr)
+        spans = self._all_spans(g, -1)
         text = bytes(arr.tobytes())
         # $-free templates never read groups: skip capture extraction
         need_caps = b"$" in repl_b
-        batched = self._batch_captures(arr, spans) if need_caps \
+        batched = self._batch_captures(g, spans) if need_caps \
             else [()] * len(spans)
+        gtext = text if g is arr else bytes(g.tobytes())
         for (s, e), m in zip(spans, batched):
             out += text[last:s]
             if need_caps and m is None:
-                m = self._captures_in_span(arr, text, (s, e))
+                m = self._captures_in_span(g, gtext, (s, e))
             out += self._expand(repl_b, text, m)
             last = e
         out += text[last:]
@@ -509,7 +539,7 @@ class Engine:
         out = bytearray()
         last = 0
         text = bytes(arr.tobytes())
-        for s, e in self._all_spans(arr, -1):
+        for s, e in self._all_spans(self._go(data, arr), -1):
             out += text[last:s]
             out += repl_b
             last = e
@@ -521,7 +551,7 @@ class Engine:
         out = bytearray()
         last = 0
         text = bytes(arr.tobytes())
-        for s, e in self._all_spans(arr, -1):
+        for s, e in self._all_spans(self._go(data, arr), -1):
             out += text[last:s]
             r = fn(text[s:e])
             out += r.encode("utf-8") if isinstance(r, str) else bytes(r)
@@ -601,7 +631,7 @@ class Engine:
             # Go: non-empty expression on empty input -> [""]
             return [b""]
         text = bytes(arr.tobytes())
-        spans = self._all_spans(arr, -1)
+        spans = self._all_spans(self._go(data, arr), -1)
         out: List[bytes] = []
         beg = 0
         end = 0
@@ -701,8 +731,17 @@ class Engine:
 
     @staticmethod
     def _row_bytes(texts: Sequence[Bytes]) -> List[bytes]:
-        return [t if isinstance(t, bytes) else _as_array(t).tobytes()
-                for t in texts]
+        """Each row as the matchers read it, normalized on its own
+        (go_normalize; a row's end is its text's end); an ASCII row or a
+        str as it is."""
+        out = []
+        for t in texts:
+            if isinstance(t, str):
+                t = t.encode("utf-8")
+            elif not (isinstance(t, bytes) and t.isascii()):
+                t = go_normalize(_as_array(t)).tobytes()
+            out.append(t)
+        return out
 
     def is_match_batch(self, texts: Sequence[Bytes]) -> List[bool]:
         """Match one pattern against many independent strings in a single
@@ -744,18 +783,18 @@ class Engine:
         fwd = self.fwd
         s = int(fwd.starts[CTX_SOT])
         delta, match_on, classes = fwd.delta, fwd.match_on, fwd.classes
+        norm = StreamNormalizer()
         while True:
             buf = reader.read(chunk_size)
-            if not buf:
-                break
-            arr = np.frombuffer(buf, dtype=np.uint8)
-            cls = classes[arr]
-            for c in cls:
+            arr = norm.feed(buf) if buf else norm.finish()
+            for c in classes[arr]:
                 if match_on[s, c]:
                     return True
                 s = delta[s, c]
                 if s == DEAD:
                     return False
+            if not buf:
+                break
         return bool(fwd.match_eoi[s, CTX_SOT])
 
     def _stream_search(self, reader, chunk_size: int):
@@ -766,11 +805,17 @@ class Engine:
         machine one rune at a time without buffering)."""
         from ..engines.pikevm import StreamPikeVM
         sm = StreamPikeVM(self.pikevm, longest=self.longest)
+        norm = StreamNormalizer()
         while True:
             buf = reader.read(chunk_size)
             if not buf:
                 break
-            m = sm.feed(bytes(buf))
+            m = sm.feed(norm.feed(buf).tobytes())
+            if m is not None or sm.done:
+                return sm.matched
+        rest = norm.finish()
+        if len(rest):
+            m = sm.feed(rest.tobytes())
             if m is not None or sm.done:
                 return sm.matched
         return sm.finish()

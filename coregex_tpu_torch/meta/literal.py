@@ -41,6 +41,8 @@ def exact_literals(node: Node) -> Optional[List[bytes]]:
         b = _rune_bytes(node.runes)
         return None if b is None or len(b) > MAX_LIT_LEN else [b]
     if op == Op.CHAR_CLASS:
+        if holds_invalid(node.ranges):
+            return None
         chars = []
         for lo, hi in node.ranges:
             if hi - lo + 1 > MAX_CLASS_EXPAND:
@@ -429,6 +431,13 @@ def has_end_anchor(node: Node) -> bool:
     return False
 
 
+def holds_invalid(ranges) -> bool:
+    """Whether a class holds U+FFFD, and so matches each invalid byte as one
+    character (nfa/thompson.py): no finite literal set describes it (a
+    change of the port; the reference expands it to EF BF BD)."""
+    return any(lo <= 0xFFFD <= hi for lo, hi in ranges)
+
+
 def _lead_bytes_of_range(lo: int, hi: int, out: set) -> None:
     """Add every possible UTF-8 lead byte of runes in [lo, hi] to `out`.
     Over-approximation is sound here (the set is used for rejection)."""
@@ -465,6 +474,11 @@ def first_bytes(node: Node, budget: int = 200) -> Optional[set]:
                 return None
             return {b[0]}
         if op == Op.CHAR_CLASS:
+            if holds_invalid(n.ranges):
+                # an invalid byte (0x80-0xC1 among them) starts a match:
+                # a skip to such a byte could land inside a valid rune (a
+                # change of the port)
+                return None
             out: set = set()
             for lo, hi in n.ranges:
                 _lead_bytes_of_range(lo, hi, out)

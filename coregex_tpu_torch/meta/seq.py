@@ -29,6 +29,7 @@ from dataclasses import dataclass
 from typing import List, Optional
 
 from ..syntax.ast import Node, Op
+from .literal import holds_invalid
 
 MAX_LITS = 64          # overflow → minimize, then poison
 MAX_LIT_LEN = 16       # longer literals are cut (still exact candidates
@@ -212,6 +213,8 @@ def _rune_bytes(runes) -> Optional[bytes]:
 
 
 def _class_seq(node: Node) -> Seq:
+    if holds_invalid(node.ranges):
+        return Seq.infinite()
     chars: List[int] = []
     for lo, hi in node.ranges:
         if hi - lo + 1 > MAX_CLASS_EXPAND:

@@ -3,7 +3,11 @@
 ``_memmem_mask`` (:164), ``literal_self_overlaps`` (:208-215),
 ``_multi_literal_scan`` (:218-238),
 ``table_to_ranges`` (:314), ``_class_mask_from_table`` (:330) and
-``_range_mask`` (:337) of ``coregex_tpu/ops/bytescan.py``.
+``_range_mask`` (:337) of ``coregex_tpu/ops/bytescan.py``, and two
+functions of ``coregex_tpu/meta/batch.py``: the PREFIX_RUN candidate mask
+and count (``_prefix_run_cand_kernel_factory``, :229-249, one jit there,
+torch ops in one pass here) as ``prefix_run_candidates``, and
+``_bulk_count_kernel`` (:168-189) as ``bulk_count``.
 ``last_set_index`` and ``piece_cuts`` have no counterpart; the second cuts
 a result past the span limit into pieces that one compaction each can
 hold."""
@@ -176,3 +180,39 @@ def _class_mask_from_table(data: torch.Tensor, table: np.ndarray):
     """Membership via range compares: the 256-entry table is decomposed
     into its byte ranges on the host."""
     return _range_mask(data, table_to_ranges(table))
+
+
+def prefix_run_candidates(data: torch.Tensor, cls_ranges, sieve):
+    """(mask [n] bool, count 0-dim int32) of a PREFIX_RUN plan's candidate
+    starts: the first byte of each maximal run of the leading class,
+    sharpened by the offset byte-range sieve (``ops/sieve.py``; no sieve
+    when it is empty)."""
+    from .sieve import sieve_mask
+    mask = _range_mask(data, cls_ranges)
+    smask = mask.clone()
+    smask[1:] &= ~mask[:-1]
+    if sieve:
+        smask &= sieve_mask(data, sieve)
+    return smask, mask_count(smask)
+
+
+def bulk_count(starts, ends, data, class_tbl, n: int):
+    """(count, overlap, pending) as 0-dim device tensors: the matches of
+    PREFIX_RUN candidates `starts` (ascending) with their anchored ends
+    (-1: no match).  overlap: Go's selection would drop a candidate (a
+    start before a previous end); pending: a match ends inside a class run,
+    where a restart could begin a match that is not a candidate.
+    `class_tbl` is the class's [256] bool table on the device."""
+    from .span_chain import cummax_fast
+    valid = ends >= 0
+    e = torch.where(valid, ends, -1).to(torch.int32)
+    prevmax = torch.cat([e.new_full((1,), -1), cummax_fast(e, -1)[:-1]])
+    overlap = (valid & (starts < prevmax)).any()
+    if n < 2:
+        in_cls = torch.zeros_like(valid)
+    else:
+        ei = e.clamp(1, n - 1).long()
+        in_cls = (class_tbl[data[ei].long()]
+                  & class_tbl[data[ei - 1].long()])
+    pending = (valid & (e > 0) & (e < n) & in_cls).any()
+    return valid.sum(dtype=torch.int32), overlap, pending

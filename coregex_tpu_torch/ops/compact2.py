@@ -216,6 +216,11 @@ def word_pieces(words, limit: int, take: int = -1, total: int = -1):
             for b0, b1, c in piece_cuts(blocks, limit, take)]
 
 
+# the chain's last level compacts 8 entries a byte: at most 2^27 bytes (2^30
+# entries) a compaction
+_L3_ROWS = 1 << 27
+
+
 def _chain_pay_body(evw, wordpays, n: int, cap: int):
     """Event words + P per-WORD int32 payload arrays -> (pos[cap],
     pay0[cap], ..., cnt, ok): every event inherits its word's payloads,
@@ -236,7 +241,26 @@ def _chain_pay_body(evw, wordpays, n: int, cap: int):
     j8 = torch.arange(8, dtype=torch.int32, device=dev)[None, :]
     m3 = live3 & (((bu_c[:, None] >> j8) & 1) != 0)
     pos3 = bbase_c[:, None] + j8
-    _, pos, cnt, ok3 = compact_pay(m3.reshape(-1), [pos3.reshape(-1)], cap)
+    rows = int(m3.shape[0])
+    if rows <= _L3_ROWS:
+        _, pos, cnt, ok3 = compact_pay(m3.reshape(-1), [pos3.reshape(-1)],
+                                       cap)
+    else:
+        # 8 entries a byte pass the compaction's 2^31 - 1 entries at a cap
+        # of 2^28: the bytes go _L3_ROWS at a time, in order (one sync each)
+        pos = torch.full((cap,), n, dtype=torch.int32, device=dev)
+        total, ok3 = 0, torch.ones((), dtype=torch.bool, device=dev)
+        for r0 in range(0, rows, _L3_ROWS):
+            r1 = min(rows, r0 + _L3_ROWS)
+            _, p, c, okc = compact_pay(m3[r0:r1].reshape(-1),
+                                       [pos3[r0:r1].reshape(-1)], cap)
+            c = int(c)
+            take = max(0, min(c, cap - total))
+            pos[total:total + take] = p[:take]
+            total += c
+            ok3 = ok3 & okc
+        cnt = torch.tensor(total, dtype=torch.int32, device=dev)
+        ok3 = ok3 & (cnt <= cap)
     live_o = torch.arange(cap, device=dev) < cnt
     pays = []
     if wordpays:

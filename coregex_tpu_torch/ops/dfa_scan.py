@@ -477,3 +477,210 @@ def window_ends(mt: MatchTables, data, starts, W: int = 64, out=None):
                                                _bucket(n_alive, 16))
         todo, cur = todo[:n_alive], cur[:n_alive]
         W *= 4
+
+
+# ---------------------------------------------------------------------------
+# The reset scan (ref. _chunk_scan_reset :685-778, ResetScanner :781-849)
+# ---------------------------------------------------------------------------
+
+RESET_KERNEL = LaunchCounter("reset_scan")
+
+
+def reset_plan_geometry(n: int) -> Tuple[int, int, int]:
+    """(L, T, W) of the reset scan: the reference's ``_plan_geometry`` (:191)
+    with its 1024-byte chunks, up to 65,536 lanes and a warmup of 1024
+    bytes (a reset inside the warmup syncs the lane exactly)."""
+    from .count_scan import size_bucket
+    if n <= 2048:
+        return 1, size_bucket(max(n, 1)), 0
+    nb = size_bucket(n)
+    lanes = min(65536, max(1, -(-nb // 1024)))
+    lanes = min(1 << (lanes - 1).bit_length(), 65536)
+    T = -(-nb // lanes)
+    return lanes, T, min(1024, max(T // 2, 1))
+
+
+def reset_scan_plain(tbl, starts, packed, L: int, T: int, W: int, entries,
+                     offsets):
+    """One pass of the reset scan, the kernel's plain version: every lane
+    a torch step a byte (the reference's body_w and body_m, :738-751).
+    `tbl` [S, C] int32 delta << 1 | match; `packed` [L * T] uint8 of
+    segment << 3 | ctx << 1 | reset.  Returns (flag words [L, ceil(T / 32)]
+    position-major, exits [L], sync [L], interference counts [L])."""
+    chunks = packed.reshape(L, T).long()
+    st = starts.long()
+    C = int(tbl.shape[1])
+    flat = tbl.reshape(-1).long()
+    s = entries.long().clone()
+    lanes = torch.arange(L, device=packed.device)
+    prev = chunks[(lanes - 1) % L]
+    offs = offsets.long()
+    for t in range(W):
+        x = prev[:, T - W + t]
+        s_pre = torch.where((x & 1) == 1, st[(x >> 1) & 3], s)
+        s = torch.where(t >= offs, flat[s_pre * C + (x >> 3)] >> 1, s)
+    sync = s.clone()
+    words = torch.empty((L, -(-T // 32)), dtype=torch.int64,
+                        device=packed.device)
+    word = torch.zeros(L, dtype=torch.int64, device=packed.device)
+    interf = torch.zeros(L, dtype=torch.int64, device=packed.device)
+    for t in range(T):
+        x = chunks[:, t]
+        rs = (x & 1) == 1
+        interf += rs & (s != DEAD)
+        s_pre = torch.where(rs, st[(x >> 1) & 3], s)
+        v = flat[s_pre * C + (x >> 3)]
+        word |= (v & 1) << (t & 31)
+        s = v >> 1
+        if t & 31 == 31 or t == T - 1:
+            words[:, t >> 5] = word
+            word.zero_()
+    words = (words - ((words >> 31) << 32)).to(torch.int32)
+    return (words, s.to(torch.int32), sync.to(torch.int32),
+            interf.to(torch.int32))
+
+
+def reset_scan_cuda(tbl, starts, packed, L: int, T: int, W: int, entries,
+                    offsets):
+    """cgx_reset_scan (csrc/reset_scan.cu): reset_scan_plain's contract on
+    CUDA tensors."""
+    dev = packed.device
+    for name, t, dt in (("tbl", tbl, torch.int32), ("starts", starts,
+                        torch.int32), ("packed", packed, torch.uint8),
+                        ("entries", entries, torch.int32),
+                        ("offsets", offsets, torch.int32)):
+        if t.device != dev or t.dtype != dt or not t.is_contiguous():
+            raise ValueError(f"reset scan: {name} must be a contiguous "
+                             f"{dt} tensor on {dev}")
+    if int(packed.shape[0]) != L * T or tuple(entries.shape) != (L,) \
+            or tuple(offsets.shape) != (L,) or int(starts.shape[0]) != 4:
+        raise ValueError("reset scan: shapes do not match the geometry")
+    S, C = (int(x) for x in tbl.shape)
+    TW = -(-T // 32)
+    fw = torch.empty((TW, L), dtype=torch.int32, device=dev)
+    exits, sync, interf = (torch.empty(L, dtype=torch.int32, device=dev)
+                           for _ in range(3))
+    with torch.cuda.device(dev):
+        _build.check(_build.lib().cgx_reset_scan(
+            _build.ptr(packed), L, T, W, _build.ptr(tbl), S, C,
+            _build.ptr(starts), _build.ptr(entries), _build.ptr(offsets),
+            _build.ptr(fw), _build.ptr(exits), _build.ptr(sync),
+            _build.ptr(interf), _build.stream(dev)), "cgx_reset_scan")
+    return fw.t().contiguous(), exits, sync, interf
+
+
+class ResetScanner:
+    """Contiguous anchored runs restarted at marked positions (ref.
+    ``ResetScanner``, :781-849): the verification engine of the candidate
+    pipeline (``meta/batch.py`` ``_interleaved_ends``).  The corpus goes
+    through once in lane chunks, the anchored DFA restarting at each reset
+    position (the start state of the context before it), so each
+    candidate's ends come out of one contiguous pass.  The kernel runs on
+    CUDA tensors (counted on RESET_KERNEL), the plain version on CPU ones.
+
+    Scope gate as the reference's: at most 32 table columns (the segment
+    and the reset's context share a byte), else ValueError.  Corpora past
+    SEG_LIMIT bytes go a segment at a time, each segment's lane 0 entering
+    from the previous segment's last exit, so positions stay int32."""
+
+    SEG_LIMIT = 1 << 29
+
+    def __init__(self, dfa: DenseDFA, device, max_repair: int = 4):
+        self.device = torch.device(device)
+        self.max_repair = max_repair
+        t = DFATables.from_dense(dfa)
+        if t.delta.shape[1] > 32:
+            raise ValueError("reset scan packs class+aux in u8: C <= 32")
+        self.tbl = device_table(t.delta * 2 + t.match_on.astype(np.int32),
+                                self.device)
+        self.starts = device_table(t.host_starts, self.device)
+        self.bounds = tuple(int(b) for b in t.bounds if int(b) < 256)
+
+    def packed(self, data, reset_mask=None, pad: int = 0):
+        """The scan's input byte a position: segment << 3 | ctx << 1 |
+        reset, ctx the context of the byte before (CTX_SOT at 0); with no
+        reset_mask, the reset bits are 0 (a caller that scans several
+        reset sets builds this once and sets them in copies).  `pad` zero
+        bytes follow the corpus's: a scan over one of them gives the flag
+        at n, which a look-free DFA sets whatever the byte."""
+        n = int(data.shape[0])
+        out = torch.zeros(n + pad, dtype=torch.uint8, device=data.device)
+        body = out[:n]
+        for b in self.bounds:
+            body += (data >= b).to(torch.uint8)
+        body <<= 3
+        body[:1] |= CTX_SOT << 1
+        if n > 1:
+            body[1:] |= _byte_ctx(data[:-1]).to(torch.uint8) << 1
+        if reset_mask is not None:
+            body |= reset_mask.to(torch.uint8)
+        return out
+
+    def _pass(self, packed, L, T, W, entries, offsets):
+        args = (self.tbl, self.starts, packed, L, T, W, entries, offsets)
+        if packed.device.type == "cuda":
+            out = reset_scan_cuda(*args)
+            RESET_KERNEL.launches += 1
+            return out
+        if packed.device.type != "cpu":
+            raise ValueError(f"unsupported device {packed.device}")
+        return reset_scan_plain(*args)
+
+    def _scan_one(self, packed, entry: int, L: int, T: int, W: int):
+        """One segment: pass 0 from DEAD lanes (lane 0 from `entry`, its
+        warmup skipped), then the reference's repair (:771-776): rescans
+        from the previous lanes' exits, no warmup, while any lane's sync
+        disagrees, at most max_repair times (one sync each)."""
+        dev = packed.device
+        if int(packed.shape[0]) == L * T:
+            buf = packed
+        else:
+            buf = torch.zeros(L * T, dtype=torch.uint8, device=dev)
+            buf[:int(packed.shape[0])] = packed
+        entries = torch.full((L,), DEAD, dtype=torch.int32, device=dev)
+        entries[0] = entry
+        offsets = torch.zeros(L, dtype=torch.int32, device=dev)
+        offsets[0] = W
+        fw, exits, sync, interf = self._pass(buf, L, T, W, entries, offsets)
+        first = torch.full((1,), entry, dtype=torch.int32, device=dev)
+        full_w = torch.full((L,), W, dtype=torch.int32, device=dev)
+        for _ in range(self.max_repair + 1):
+            want = torch.cat([first, exits[:-1]])
+            if not bool((want != sync).any()):
+                return fw, exits, True, int(interf.sum()) > 0
+            if _ == self.max_repair:
+                break
+            fw, exits, sync, interf = self._pass(buf, L, T, W, want, full_w)
+        return fw, exits, False, int(interf.sum()) > 0
+
+    def scan_device(self, data, reset_mask):
+        """(flag words [L, ceil(T / 32)] int32, exits [L], converged,
+        interfered, (L, T)) over the corpus: bit t of lane l's words is the
+        anchored run's match flag at position l * T + t (a match ends
+        there), lanes of all segments in order.  interfered: a reset met a
+        live state (a run may have been cut short)."""
+        return self.scan_packed(self.packed(data, reset_mask))
+
+    def scan_packed(self, packed):
+        """scan_device over the corpus's packed bytes (``packed``)."""
+        n = int(packed.shape[0])
+        if n <= self.SEG_LIMIT:
+            L, T, W = reset_plan_geometry(n)
+            fw, ex, cv, inf = self._scan_one(packed, DEAD, L, T, W)
+            return fw, ex, cv, inf, (L, T)
+        L, T, W = reset_plan_geometry(self.SEG_LIMIT)
+        seg = L * T
+        fws, exs = [], []
+        cv_all, inf_all, entry = True, False, DEAD
+        for off in range(0, n, seg):
+            m = min(n, off + seg) - off
+            Lk = L if m == seg else -(-m // T)
+            fw, ex, cv, inf = self._scan_one(packed[off:off + m], entry, Lk,
+                                             T, min(W, T))
+            fws.append(fw)
+            exs.append(ex)
+            cv_all &= cv
+            inf_all |= inf
+            entry = int(ex[Lk - 1])
+        fw = torch.cat(fws)
+        return fw, torch.cat(exs), cv_all, inf_all, (int(fw.shape[0]), T)

@@ -2,9 +2,13 @@
 
 Ports ``coregex_tpu/ops/flag_scan.py``: ``ResetFlagTables`` (:49-104,
 including ``flag_pre_reset``) as ``ResetFlagTables.from_host``;
-``reset_geometry``, ``_sym_base_tiles`` and ``scatter_reset_tiles``
-(:122-157); ``_flag_full`` with the entries hint (:296-411);
-``FlagResetScanner.scan_tiles``.
+``reset_symbols`` (:112-119), ``reset_geometry``, ``_sym_base_tiles`` and
+``scatter_reset_tiles`` (:122-157); ``_flag_full`` with the entries hint
+(:296-411); ``FlagResetScanner.scan_tiles``, ``scan_words`` (:435) and
+``scan_words_syms`` (:440).  ``flag_pre_reset=False`` is the interference
+mode: a reset that meets a live state counts, so the INNER pipeline
+(``meta/batch.py`` ``_inner_spans_dev``) learns that a suffix run was cut
+short and declines.
 
 The reset bit moves into the alphabet: symbol = 2*segment + reset, and
 
@@ -79,6 +83,19 @@ class ResetFlagTables:
                     match[s_flag].astype(np.int32)
                     | ((rs and s != DEAD and not flag_pre_reset) << 1))
         return cls(de * 32 + ee, t.bounds, device)
+
+
+def reset_symbols(dev, rmask, bounds: Tuple[int, ...]):
+    """uint8 symbol stream 2 * segment + reset of a corpus, with 32 pad
+    symbols appended so that position n (the EOI flag) always exists."""
+    sym = torch.zeros(int(dev.shape[0]) + 32, dtype=torch.uint8,
+                      device=dev.device)
+    n = int(dev.shape[0])
+    for b in bounds:
+        sym[:n] += (dev >= b).to(torch.uint8)
+    sym[:n] *= 2
+    sym[:n] += rmask.to(torch.uint8)
+    return sym
 
 
 def reset_geometry(n: int):
@@ -172,6 +189,21 @@ class FlagResetScanner:
     def byte_bounds(self) -> Tuple[int, ...]:
         """Byte segment boundaries for the symbol build."""
         return tuple(int(b) for b in self.tables.bounds if 0 < int(b) < 256)
+
+    def scan_words(self, dev, rmask):
+        """scan_words_syms over the corpus's symbols with resets at
+        `rmask` (reset_symbols)."""
+        return self.scan_words_syms(
+            reset_symbols(dev, rmask, self.byte_bounds()),
+            int(dev.shape[0]))
+
+    def scan_words_syms(self, syms, n: int, entries_hint=None):
+        """scan_tiles over a prebuilt symbol stream of n + 32 symbols
+        (reset_symbols, or a producer's fused build): its word tiles
+        under reset_geometry(n)."""
+        L, T, _W, _Lc = reset_geometry(n)
+        return self.scan_tiles(make_word_tiles(syms, L, T // 4), n,
+                               entries_hint)
 
     def scan_tiles(self, tiles, n: int, entries_hint=None):
         """Scan prebuilt symbol word tiles under reset_geometry(n), k =

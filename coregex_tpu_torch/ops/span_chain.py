@@ -14,8 +14,11 @@ fill ``_rune_boundaries`` (:835), ``nullable_fill_words`` (:866, as
 ``nullable_fill_range`` over a range of positions) and ``nullable_merge``
 (:895, as ``nullable_merge_into``), and the literal producers ``literal_words``
 (:63), ``multi_literal_words`` (:117), ``_ml_slice_words`` (:167),
-``_ml_counts`` (:200), ``multi_literal_words_big`` (:206) and
-``literal_spans_sparse`` (:933-961).  ``leftmost_first_spans`` has no
+``_ml_counts`` (:200), ``multi_literal_words_big`` (:206),
+``literal_spans_sparse`` (:933-961), and the INNER candidate pipeline's
+``_shift_words`` (:145), ``inner_cand_symbols`` (:529),
+``inner_cand_arrays`` (:557), ``inner_flag_arrays`` (:583) and
+``inner_assemble`` (:622-690).  ``leftmost_first_spans`` has no
 counterpart: the reference hands overlapping literal hits to its host loop.
 Its tail, ``chain_select``, is the chain walk of the reference's host
 ``go_select`` (meta/batch.py:122-144) on the device, which the general
@@ -490,6 +493,166 @@ def line_spans_pieces(words, n: int, cand_total: int, limit: int,
     spans = (parts[0] if len(parts) == 1 else torch.cat(parts)) if parts \
         else torch.empty((0, 2), dtype=torch.int32, device=dev)
     return spans, int(spans.shape[0]), ok & spans_ok(spans), len(parts)
+
+
+# ---------------------------------------------------------------------------
+# The INNER candidate pipeline (class-run prefix, literal, suffix)
+# ---------------------------------------------------------------------------
+
+def _u32_to_i32(x):
+    """int64 values in [0, 2^32) -> the int32 words with those bits."""
+    return (x - ((x >> 31) << 32)).to(torch.int32)
+
+
+def _shift_words(win, k: int, out_len: int):
+    """[out_len] words holding bit p + k for each bit p of `win` (ref.
+    :145-165, its uint32 logical shifts through int64)."""
+    dev = win.device
+    wu = win.to(torch.int64) & 0xFFFFFFFF
+    woff, bs = k // 32, k % 32
+    out = torch.zeros(out_len, dtype=torch.int32, device=dev)
+    a = _u32_to_i32((wu << bs) & 0xFFFFFFFF)
+    m = max(0, min(int(a.shape[0]), out_len - woff))
+    out[woff:woff + m] = a[:m]
+    if bs:
+        b = _u32_to_i32(wu >> (32 - bs))
+        m = max(0, min(int(b.shape[0]), out_len - woff - 1))
+        out[woff + 1:woff + 1 + m] |= b[:m]
+    return out
+
+
+def _inner_masks(dev, ranges, lit, m: int):
+    """(member [n], candidates [n]) of an INNER plan's class-run prefix:
+    the literal's hits with at least m members right before them and
+    room for a reset bit after them (c + k < n: a non-empty suffix cannot
+    match at the end)."""
+    n = int(dev.shape[0])
+    k = len(lit)
+    member = _range_mask(dev, ranges)
+    valid = _memmem_mask(dev, lit)
+    for j in range(1, m + 1):
+        if j < n:
+            valid[j:] &= member[:-j]
+        valid[:min(j, n)] = False
+    valid[max(0, n - k):] = False
+    return member, valid
+
+
+def _inner_words(member, valid, n: int):
+    nwb = _bucket_up(max(-(-n // 32), 1))
+    candw = _pad_pack(valid, n)
+    mw = _pad_pack(member, n)
+    lastnm_w = _word_lastpos_table(_pad_pack(~member, n), nwb)
+    return candw, mw, lastnm_w
+
+
+def inner_cand_arrays(dev, ranges, lit, m: int):
+    """(candw, mw, lastnm_w, rmask [n] bool, candidate count) (ref.
+    :557-580): the candidate words, the member words and each word's last
+    nonmember position before it, and the reset mask (each candidate + k,
+    where the suffix's anchored run starts)."""
+    n = int(dev.shape[0])
+    k = len(lit)
+    member, valid = _inner_masks(dev, ranges, lit, m)
+    rmask = torch.zeros(n, dtype=torch.bool, device=dev.device)
+    if k < n:
+        rmask[k:] = valid[:-k]
+    return (*_inner_words(member, valid, n), rmask, mask_count(valid))
+
+
+def inner_cand_symbols(dev, ranges, lit, m: int, bounds):
+    """inner_cand_arrays fused with the suffix flag scan's symbol build
+    (ref. :529-554): (candw, mw, lastnm_w, symbols uint8 [n + 32] of
+    2 * segment + reset, candidate count)."""
+    n = int(dev.shape[0])
+    k = len(lit)
+    member, valid = _inner_masks(dev, ranges, lit, m)
+    sym = torch.zeros(n + 32, dtype=torch.uint8, device=dev.device)
+    for b in bounds:
+        sym[:n] += (dev >= b).to(torch.uint8)
+    sym[:n] *= 2
+    if k < n:
+        sym[k:n] += valid[:n - k].to(torch.uint8)
+    return (*_inner_words(member, valid, n), sym, mask_count(valid))
+
+
+def inner_flag_arrays(flag, eoi_flag):
+    """(flagw over the [n + 1] domain, lastflag_w, global last flag) from
+    a suffix scan's per-position flags and its EOI acceptance (ref.
+    :583-598)."""
+    n = int(flag.shape[0])
+    flag1 = torch.cat([flag, torch.as_tensor(eoi_flag, dtype=torch.bool,
+                                             device=flag.device).reshape(1)])
+    nwb1 = _bucket_up(max(-(-(n + 1) // 32), 1))
+    return inner_flag_arrays_words(_pad_pack(flag1, n + 1), nwb1)
+
+
+def reset_interval_ends(flagw, resets, n: int):
+    """The end of the anchored run from each reset: the last flag strictly
+    inside (r_i, r_{i+1}) (past the last reset, the last flag of all), or
+    -1 where that interval holds no flag.  `flagw`: position-major flag
+    words of a reset scan over at least n + 1 positions (bits past n are
+    ignored); `resets` [c] int32 ascending.  The reference's
+    ``_interleaved_ends`` (meta/batch.py:1232-1244) finds these with corpus
+    -sized running minima; here each reset reads its word and the words'
+    last-flag table, as ``inner_assemble`` does."""
+    if int(resets.shape[0]) == 0:
+        return resets.clone()
+    nw = int(flagw.shape[0])
+    base = torch.arange(nw, dtype=torch.int64, device=flagw.device) * 32
+    fw = flagw & _table(LOW_MASK, flagw)[(n + 1 - base).clamp(0, 32)]
+    lastflag_w = _word_lastpos_table(fw, nw)
+    top = torch.where(fw != 0, base.to(torch.int32) + _floor_log2(fw), -1)
+    w = (resets >> 5).long()
+    vf = fw[w] & _table(LOW_MASK, fw)[(resets & 31).long()]
+    lf = torch.where(vf != 0, (resets & ~31) + _floor_log2(vf), lastflag_w[w])
+    ends = torch.cat([lf[1:], top.max().reshape(1)])
+    return torch.where(ends > resets, ends, -1)
+
+
+def inner_assemble(c_pos, mw_i, lastnm_i, r_pos, flagw_i, lastflag_i,
+                   cntA, cntB, okAB, glob_lf, conv, interf, n: int,
+                   cap: int, k: int, m: int, M: int, b_empty: bool = False,
+                   fixed_ends=None):
+    """Per candidate (smin, smax, end) from the chained payloads, the
+    flexible Go selection (span_kernels.go_select_flex's rounds) and one
+    K4 compaction of the selected spans (ref. :622-690).  smin: after the
+    last nonmember before the candidate (at most M members back); smax:
+    m members back; end: the suffix's last flag strictly inside (r_i,
+    r_{i+1}), the global last flag (with the EOI bit at n) for the last
+    candidate.  b_empty: no suffix, every candidate verified with
+    `fixed_ends`.  Returns (spans [cap, 2], selected count, ok)."""
+    from .span_kernels import _go_select_flex_round
+    d = c_pos.device
+    low = _table(LOW_MASK, c_pos)
+    idx = torch.arange(cap, dtype=torch.int32, device=d)
+    live = idx < cntA
+    v = (~mw_i) & low[(c_pos & 31).long()]
+    lastnm = torch.where(v != 0, (c_pos & ~31) + _floor_log2(v), lastnm_i)
+    smin = lastnm + 1
+    if M != -1:
+        smin = torch.maximum(smin, c_pos - M)
+    smax = c_pos - m
+    if b_empty:
+        ends = fixed_ends
+        verified = live
+    else:
+        vf = flagw_i & low[(r_pos & 31).long()]
+        lf_here = torch.where(vf != 0, (r_pos & ~31) + _floor_log2(vf),
+                              lastflag_i)
+        ends = torch.cat([lf_here[1:], lf_here.new_zeros(1)])
+        ends = torch.where(idx == cntA - 1, glob_lf, ends)
+        verified = live & (ends > r_pos)
+    smax_sel = torch.where(verified, smax, -2)
+    sel, stable, starts = _go_select_flex_round(smin, smax_sel, ends,
+                                                verified, 24)
+    sel = sel & verified
+    _, s_c, e_c, nsel, okc = compact_pay(sel, [starts, ends], cap)
+    livem = idx < nsel
+    e_c = torch.where(livem, e_c, s_c)
+    s_c = torch.where(livem, s_c, n)
+    ok = okAB & okc & stable & (cntA == cntB) & conv & ~interf
+    return torch.stack([s_c, e_c], dim=1), nsel, ok
 
 
 # ---------------------------------------------------------------------------

@@ -204,6 +204,12 @@ class _Parser:
         return self._literal_char(ord(c))
 
     def _literal_char(self, cp: int) -> Node:
+        if cp == 0xFFFD:
+            # Go's matchers compare decoded runes, and every invalid byte
+            # decodes to U+FFFD, so a literal U+FFFD matches each of them as
+            # the class [\x{FFFD}] does (nfa/thompson.py); the reference
+            # compiles the three bytes EF BF BD alone (change of the port)
+            return cls([(cp, cp)])
         if self.flags & FOLD:
             orbit = foldmod.fold_orbit(cp)
             if len(orbit) > 1:

@@ -98,7 +98,12 @@ def _words(rng, nw, dens):
 
 @pytest.mark.parametrize("P", [0, 1, 2])
 @pytest.mark.parametrize("nw", [100, 3000])
-def test_sparse_chain_payloads_matches_reference(P, nw):
+@pytest.mark.parametrize("l3", [None, 7], ids=["one_block", "blocks"])
+def test_sparse_chain_payloads_matches_reference(P, nw, l3, monkeypatch):
+    """`l3` patches the rows of the last level's blocks (2^27 bytes: a cap
+    of 2^28 would pass the compaction's 2^31 - 1 entries in one)."""
+    if l3:
+        monkeypatch.setattr(c2, "_L3_ROWS", l3)
     rng = np.random.default_rng(60 + P + nw)
     words, bits = _words(rng, nw, 0.004)
     assert (words < 0).any()

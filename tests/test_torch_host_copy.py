@@ -199,3 +199,27 @@ def test_artifact_cache_keys_are_namespaced(tmp_path):
     assert ref_cache.load_dense(r"\d+x", "fwd:False", str(tmp_path)) is None
     back = artifact_cache.load_dense(r"\d+x", "fwd:False", str(tmp_path))
     np.testing.assert_array_equal(back.delta, dfa.delta)
+
+
+# a literal U+FFFD: the port compiles it as the class [\x{FFFD}], which
+# matches each invalid byte (Go compares decoded runes), and keeps such a
+# class out of literal sets; the reference compiles the three bytes EF BF
+# BD.  (pattern, its class form)
+FFFD = [(r"\x{FFFD}", r"[\x{FFFD}]"), (r"a\x{FFFD}b", r"a[\x{FFFD}]b"),
+        ("�+", "[�]+")]
+
+
+@pytest.mark.parametrize("pattern,as_class", FFFD,
+                         ids=["lone", "inside", "plus"])
+def test_literal_fffd_differs_from_reference(pattern, as_class):
+    """The pinned differences: the port's AST is the reference's AST of
+    the class form, and the port plans no literal or prefix set where the
+    reference does (LITERAL, PREFIX_SET); patterns without U+FFFD plan
+    alike (test_plan_matches_reference)."""
+    ast = parser.parse(pattern).ast
+    _same(ast, ref_parser.parse(as_class).ast, "ast")
+    assert ref_parser.parse(pattern).ast != ref_parser.parse(as_class).ast
+    got = strategy.select(ast, True).strategy.value
+    exp = ref_strategy.select(ref_parser.parse(pattern).ast, True)
+    assert got == "full_scan"
+    assert exp.strategy.value in ("literal", "prefix_set")

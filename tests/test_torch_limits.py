@@ -39,6 +39,7 @@ from coregex_tpu_torch.meta import batch
 from coregex_tpu_torch.utils import corpus_cache
 
 from test_torch_engine import _arr, _log_corpus
+from test_torch_invalid_utf8 import go_spans
 
 torch.set_num_threads(1)
 
@@ -259,24 +260,23 @@ def test_sparse_limit_is_max_corpus():
 
 @pytest.mark.parametrize("pattern", [r"x\n.*", r"r x\n.*", r"a\nb.*"])
 def test_line_shape_fallback_declines_on_invalid_utf8(pattern):
-    """The general fallback's DFAs are wrong on invalid UTF-8 (ROADMAP
-    P4), so a line shape that would take it declines on such a corpus
-    before the upload, and the host loop answers: the reference engine's
-    host walk, which the port's host loop copies (both stop reading a
-    line at its bad byte, where re and Go read on: P4)."""
+    """A line shape that takes the general fallback no longer declines on
+    invalid UTF-8 (ROADMAP P4, repaired): every matcher reads the corpus as
+    Go decodes it, so the device route serves it, with Go's answer (the
+    Go-rule oracle of test_torch_invalid_utf8; the reference's host walk
+    stops reading a line at its bad byte, F14)."""
     corpus_cache.clear()
     t = F13_CORPUS.replace(b"abc\n", b"a\xc3\n", 300) + b"ab\xc3"
     eng = ct.compile(pattern, device="cpu")
     eng.batch_threshold = 0
     be = eng.batch_engine()
     assert be.plan.strategy.name == "LINE_SHAPE"
-    assert be._spans_route(_arr(t)) is None
+    assert be._spans_route(_arr(t))[0] == "full_scan"
     got = eng.find_all_index(t)
-    assert be.host_routes == 1
-    assert corpus_cache._entry(_arr(t), "cpu").buf is None
+    assert be.host_routes == 0
     host = ct.compile(pattern, device="cpu")
     host.batch_threshold = 1 << 30
-    assert (got or []) == (host.find_all_index(t) or []) == ref_spans(
+    assert (got or []) == (host.find_all_index(t) or []) == go_spans(
         pattern, t)
     # the same shape on valid UTF-8 keeps its device route
     v = t.replace(b"\xc3", "é".encode())
