@@ -91,11 +91,15 @@ Phases (any failure exits non-zero before the final line):
                corpus in MESH_SHARDS shards for ip, and on 256 MiB in
                MESH_SHARDS shards for quote parity, a random permutation
                table of 64 states and multi_literal32, with its rate of
-               table steps; the reset scan (cgx_reset_scan) on the whole
-               corpus at its geometry (segments of 2^29 bytes, L =
-               65,536 lanes of 8192 bytes, W = 1024) from the first of
-               two subsets of POSIX ip's candidates, pass 0 of every
-               segment and a repair pass, and the reset-flag walk (K3) in
+               table steps; the reset scan (cgx_lane_reset) on the whole
+               corpus in one launch a pass at the main path's split (L =
+               8192 lanes of 196,608 bytes, k = 64) from the first of two
+               subsets of the candidates of POSIX ip (a 16 x 8 table in
+               shared memory) and of run_gap_x (1024 x 32, one 1024-thread
+               block an SM), pass 0 and a sub-lane and a lane repair pass
+               from perturbed exits, and on 4 MiB for a table past shared
+               memory (M5_GLOBAL's 2048 x 32, read from global memory),
+               and the reset-flag walk (K3) in
                its interference mode over email's suffix DFA with a reset
                at every candidate + k, at the reset geometry's split
   4. e2e     - the public API on a 1536 MiB log corpus (the JAX package's
@@ -437,11 +441,16 @@ M5 = [("ip", r"\d+\.\d+\.\d+\.\d+", True, r"\d+\.\d+\.\d+\.\d+"),
       ("run_gap_x", r"[a-z]+ [^ ]{20,60}x", True, r"[a-z]+ [^ ]{20,60}x"),
       ("inner_gap", r"[a-z]+ error [^ ]{8,30}[a-z]", True,
        r"[a-z]+ error [^ ]{8,30}[a-z]")]
-# also found on exactly CORPUS_MIB MiB (a length the reset scan's lanes fill
-# exactly) and on the limits corpus, with its peak device memory
+# also found on exactly CORPUS_MIB MiB (a length plan_geometry's lanes fill
+# exactly, so the reset scan's pad byte starts the next size bucket) and on
+# the limits corpus, with its peak device memory
 M5_WHOLE = "run_gap_x"
 M5_SCAN = "ip"
 M5_INNER = "email"
+# the reset scan's kernel checks also take run_gap_x's 1024 x 32 table
+# (one block an SM) and, on 4 MiB, a table past shared memory
+M5_WIDE = "run_gap_x"
+M5_GLOBAL = ("run_gap_x120", r"[a-z]+ [^ ]{20,120}x")
 # BITSET_NFA keeps its route; the candidate pipeline over its reverse
 # bitset scan's starts is timed beside it, as a finding
 M5_BITSET = ("nfa_u_z", r"[a-q][^u-z]{13}x")
@@ -735,7 +744,8 @@ def phase_kernels(base: bytes, corpus: np.ndarray):
                 continue
             args = split_args(d, data, (L, T, W), tiles, k)
             print(f"[kernels] {kind:11} {label}: table [{d.S}, {d.NSEG}], "
-                  f"{cs.resident_warps(mode, d.S, d.NSEG)} resident warps "
+                  f"{cs.resident_warps(mode, d.S, d.NSEG)[0]} resident "
+                  f"warps "
                   f"an SM")
             compare(kind, label,
                     lambda: cs.lane_walk_cuda(mode, *args),
@@ -755,7 +765,8 @@ def phase_kernels(base: bytes, corpus: np.ndarray):
         print(f"[kernels] flag_scan   {label}: reset geometry "
               f"L={symt.shape[1]} T={4 * symt.shape[0]}, split k={fk}, "
               f"table [{S}, {C}], "
-              f"{cs.resident_warps(cs.MODE_FLAG, S, C)} resident warps an SM")
+              f"{cs.resident_warps(cs.MODE_FLAG, S, C)[0]} resident warps "
+              f"an SM")
         compare("flag_scan", label,
                 lambda: cs.lane_walk_cuda(cs.MODE_FLAG, *fargs),
                 lambda: cs.lane_walk_plain(cs.MODE_FLAG, *fargs),
@@ -997,7 +1008,7 @@ def phase_kernels(base: bytes, corpus: np.ndarray):
         mt = match_tables(name, kind)
         print(f"[kernels] match_scan  {label}: split k={k}, {k * L} walkers "
               f"of {T // k} bytes, table [{mt.S}, {mt.NSEG}], "
-              f"{cs.resident_warps(cs.MODE_MATCH, mt.S, mt.NSEG)} resident "
+              f"{cs.resident_warps(cs.MODE_MATCH, mt.S, mt.NSEG)[0]} resident "
               f"warps an SM")
         compare("match_scan", label,
                 lambda: cs.lane_walk_cuda(cs.MODE_MATCH, *args),
@@ -1363,74 +1374,81 @@ def posix_kernels(compare, base: bytes, data, corpus: np.ndarray) -> None:
 
 
 def m5_kernels(compare, corpus: np.ndarray) -> None:
-    """The reset scan (cgx_reset_scan) against reset_scan_plain on the
-    whole corpus at the main path's geometry: the first reset subset of
-    M5_SCAN's candidates (every second run start through the sieve, as
-    _interleaved_ends' K = 2 gives it), one pass a segment of SEG_LIMIT
-    bytes (L = 65,536 lanes of T = 8192 with a 1024-byte warmup), the
-    three segments' passes compared together and timed as one scan, then a
-    repair pass (entries from the previous lanes' exits, no warmup) on the
-    first segment; bound: the packed bytes read and the flag words and lane
-    states written.  Then K3 in its interference mode (flag_pre_reset
-    False) over M5_INNER's suffix DFA from a reset at each candidate + k,
-    at the reset geometry's lane_split, against its plain version."""
+    """The reset scan (cgx_lane_reset, the lane walk's reset mode) against
+    its plain version at the main path's geometry: the first reset subset
+    of a pattern's candidates (every second run start through the sieve,
+    as _interleaved_ends' K = 2 gives it) scattered into the pad-byte word
+    tiles, pass 0 over the whole corpus in one launch, then a sub-lane and
+    a lane repair pass from exits of which a tenth are random states, for
+    M5_SCAN (timed: the kernels line's headline) and M5_WIDE at the same
+    size, and on the first 4 MiB for M5_GLOBAL, whose table the kernel
+    reads from global memory; bound: the tiles and tables read, the flag
+    words and sub-lane outputs written.  Then K3 in its interference mode
+    (flag_pre_reset False) over M5_INNER's suffix DFA from a reset at each
+    candidate + k, at the reset geometry's lane_split, against its plain
+    version."""
     import torch
     import coregex_tpu_torch as ct
     from coregex_tpu_torch.ops import count_scan as cs
-    from coregex_tpu_torch.ops import dfa_scan, flag_scan, span_chain
+    from coregex_tpu_torch.ops import flag_scan, span_chain
     from coregex_tpu_torch.ops.bytescan import table_to_ranges
     from coregex_tpu_torch.ops.compact import compact_positions
     pats = {nm: (p, posix) for nm, p, posix, _o in M5}
+    pats[M5_GLOBAL[0]] = (M5_GLOBAL[1], True)
     data = torch.from_numpy(corpus).to(DEVICE)
     n = len(corpus)
-    p, posix = pats[M5_SCAN]
-    be = ct.compile_posix(p, device=DEVICE).batch_engine()
-    sc = be._reset_scanner()
-    if sc is None:
-        fail(f"m5 {M5_SCAN}: no reset scanner")
-    smask, cnt = be._prefix_run_candidates_mask(data)
-    cand, _c = compact_positions(smask, int(cnt) + 16)
-    mask = torch.zeros(n, dtype=torch.bool, device=DEVICE)
-    mask[cand[:int(cnt)][0::2].long()] = True
-    packed = sc.packed(data, mask)
-    del smask, cand, mask
-    L, T, W = dfa_scan.reset_plan_geometry(sc.SEG_LIMIT)
-    seg = L * T
-    segs = []
-    for off in range(0, n, seg):
-        m = min(n, off + seg) - off
-        Lk = L if m == seg else -(-m // T)
-        buf = torch.zeros(Lk * T, dtype=torch.uint8, device=DEVICE)
-        buf[:m] = packed[off:off + m]
-        ent = torch.zeros(Lk, dtype=torch.int32, device=DEVICE)
-        offs = torch.zeros(Lk, dtype=torch.int32, device=DEVICE)
+
+    def reset_args(name, d):
+        """The scan's pass-0 arguments on d's first K = 2 subset, with
+        its table."""
+        p, posix = pats[name]
+        be = (ct.compile_posix if posix else ct.compile)(
+            p, device=DEVICE).batch_engine()
+        sc = be._reset_scanner()
+        if sc is None:
+            fail(f"m5 {name}: no reset scanner")
+        m = int(d.shape[0])
+        smask, cnt = be._prefix_run_candidates_mask(d)
+        cand, _c = compact_positions(smask, int(cnt) + 16)
+        del smask
+        base = sc.tiles(sc.packed(d, pad=1))
+        L, T, W = sc.geometry(m + 1)
+        k = cs.lane_split(T, W)
+        tiles = flag_scan.scatter_reset_tiles(base, cand[:int(cnt)][0::2],
+                                              L, T // 4)
+        del base, cand
+        offs = torch.zeros(L, dtype=torch.int32, device=DEVICE)
         offs[0] = W
-        segs.append((sc.tbl, sc.starts, buf, Lk, T, W, ent, offs))
-    del packed
-    S, C = (int(x) for x in sc.tbl.shape)
-    print(f"[kernels] reset_scan  {M5_SCAN} POSIX: {int(cnt)} candidates, "
-          f"K = 2 subset 0; table [{S}, {C}]; {len(segs)} segments of "
-          f"L={L} T={T} W={W}", flush=True)
+        lim = (m + 1 - torch.arange(L, device=DEVICE, dtype=torch.int64)
+               * T).clamp(0, T).to(torch.int32)
+        S, C = (int(x) for x in sc.walk.packed.shape)
+        warps, threads = cs.resident_warps(cs.MODE_RESET, S, C)
+        print(f"[kernels] reset_scan  {name} POSIX: {int(cnt)} candidates, "
+              f"K = 2 subset 0; table [{S}, {C}] "
+              f"({'shared' if S * C * 4 <= cs.SMEM_LIMIT else 'global'} "
+              f"memory), "
+              f"{warps} resident warps an SM in blocks of {threads}; "
+              f"L={L} T={T} W={W} k={k}: one launch a pass", flush=True)
+        return sc.walk, (sc.walk.packed, sc.walk.segmap, tiles, W // 4,
+                         torch.full((k, L), cs.DEAD, dtype=torch.int32,
+                                    device=DEVICE), offs, lim)
 
-    def run(fn):
-        return tuple(x for a in segs for x in fn(*a))
-
-    compare("reset_scan", f"{M5_SCAN} pass 0 {CORPUS_MIB} MiB",
-            lambda: run(dfa_scan.reset_scan_cuda),
-            lambda: run(dfa_scan.reset_scan_plain), reps=5, headline=True,
-            in_bytes=sum(int(a[2].shape[0]) for a in segs)
-            + nbytes(sc.tbl, sc.starts))
-    a = segs[0]
-    _fw, ex, _sy, _it = dfa_scan.reset_scan_cuda(*a)
-    want = torch.cat([ex.new_zeros(1), ex[:-1]])
-    full = torch.full_like(a[7], W)
-    rep_args = a[:6] + (want, full)
-    compare("reset_scan", f"{M5_SCAN} repair pass "
-            f"{int(a[2].shape[0]) / 2 ** 20:.0f} MiB",
-            lambda: dfa_scan.reset_scan_cuda(*rep_args),
-            lambda: dfa_scan.reset_scan_plain(*rep_args),
-            in_bytes=nbytes(*rep_args[:3], *rep_args[6:]))
-    del segs, a, rep_args
+    for name, d, headline in ((M5_SCAN, data, True), (M5_WIDE, data, False),
+                              (M5_GLOBAL[0], data[:4 << 20], False)):
+        walk, args = reset_args(name, d)
+        label = f"{name} {int(d.shape[0]) / 2 ** 20:.0f} MiB"
+        compare("reset_scan", f"{label} pass 0",
+                lambda: cs.lane_walk_cuda(cs.MODE_RESET, *args),
+                lambda: cs.lane_walk_plain(cs.MODE_RESET, *args),
+                headline=headline, in_bytes=nbytes(*args))
+        run = repair_case(cs.MODE_RESET, walk, args)
+        for whole in (False, True):
+            compare("reset_scan",
+                    f"{label} {'lane' if whole else 'sub-lane'} pass",
+                    lambda: run(cs.lane_repair_cuda, whole),
+                    lambda: run(cs.lane_repair_plain, whole), reps=2)
+        del args, run
+        torch.cuda.empty_cache()
     # K3's interference mode at the main path's geometry
     p, posix = pats[M5_INNER]
     be = ct.compile_posix(p, device=DEVICE).batch_engine()
@@ -2748,6 +2766,7 @@ def phase_e2e_m5(base: bytes, arr: np.ndarray):
     form."""
     import torch
     import coregex_tpu_torch as ct
+    from coregex_tpu_torch.ops import dfa_scan
     from coregex_tpu_torch.utils import corpus_cache
 
     B = len(base)
@@ -2810,9 +2829,17 @@ def phase_e2e_m5(base: bytes, arr: np.ndarray):
         kind, args = m5
         run = (lambda: be._inner_spans_dev(args, arr)) if kind == "inner" \
             else (lambda: be._candidate_spans_dev(args, arr))
+        rk = dfa_scan.RESET_KERNEL
+        l0 = rk.launches
+        reset_passes(rk)
         r, best, first = best_wall(run)
         line += (f" | {kind} {digest_ok(name, r, exp)} "
                  f"{best * 1e3:.2f} ms (first {first:.2f} s)")
+        if kind == "candidate":
+            # best_wall makes three calls
+            line += (f", reset scan {(rk.launches - l0) / 3:.1f} launches "
+                     f"and {rk.sub_passes / 3:.1f}+{rk.lane_passes / 3:.1f}"
+                     f" repair passes a call")
         general = be._full_scan_route()
         if general is not None:
             r, gbest, gfirst = best_wall(
@@ -3917,7 +3944,7 @@ def kernel_counters():
          "coregex_tpu/parallel/sharded_count.py:83"),
         # the candidate pipeline's reset scan: a lax.scan in a while_loop,
         # no Pallas kernel
-        (dfa_scan.RESET_KERNEL, "reset_scan.cu", ops + "dfa_scan.py:685"),
+        (dfa_scan.RESET_KERNEL, "lane_scan.cu", ops + "dfa_scan.py:685"),
     ]
 
 

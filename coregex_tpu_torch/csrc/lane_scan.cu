@@ -1,5 +1,6 @@
-// Lane-walk kernels K1-K3 and K9: the corpus splits into L lanes of T bytes
-// and each lane walks its bytes through a packed transition table.
+// Lane-walk kernels K1-K3, K9 and the reset scan: the corpus splits into L
+// lanes of T bytes and each lane walks its bytes through a packed
+// transition table.
 //
 // Replaces four Pallas kernels of the JAX package:
 //   K1 count_scan.py:_count_kernel  value = delta*32 + emit
@@ -10,6 +11,21 @@
 //                                   match scan (the TPU kernel reads a
 //                                   4-byte class per corpus byte; here the
 //                                   word tiles and the byte map, as K1)
+// and one lax.scan loop with no Pallas kernel:
+//   reset dfa_scan.py:_chunk_scan_reset (:685, repaired by a while_loop at
+//                                   :771, behind ResetScanner :781)
+//                                   value = delta*32 + match over an S x C
+//                                   table (C <= 32); each byte is
+//                                   column << 3 | ctx << 1 | reset, ctx the
+//                                   context of the byte before.  A reset
+//                                   counts interference when the state is
+//                                   live (not DEAD = 0), then restarts at
+//                                   starts[ctx] (kept in registers); the
+//                                   flag is the match bit.  The restart
+//                                   stays a branch in the walker, not a
+//                                   2C-column table as K3's (its 4 starts
+//                                   differ, and run_gap_x's 1024 x 32
+//                                   table would pass shared memory)
 // The TPU kernels walk a select tree over a row/column-merged table because
 // Mosaic has no dynamic gather; here the packed table sits in shared memory
 // and each byte costs one or two shared-memory loads.
@@ -27,8 +43,12 @@
 // warming up over the W bytes before it; the repair passes then fix the
 // k-times more seams, walking only the sub-lanes (or, after a few passes,
 // whole lanes) whose entry differs from their predecessor's exit.  The
-// tables are small, so blocks stay resident by registers, not shared
-// memory.
+// tables of K1-K3 and K9 are small, so blocks stay resident by registers,
+// not shared memory.  The reset mode's table may not be: past shared
+// memory it is read from global memory (L1 and L2 hold it), and where it
+// leaves room for one block an SM (run_gap_x's 128 KiB) the launch takes
+// the block size, 128 to 1024 threads, that keeps the most walkers
+// resident (block_threads).
 //
 // Device-memory traffic is one read of the word tiles (plus n/16 bytes of
 // flag words for K2/K3): sub-lane (j, l) reads words j*T4/k .. of lane l,
@@ -45,6 +65,7 @@
 //   K9: counts = set flags of the sub-lane, aux [k, L] = the sub-lane-local
 //   position of its last set flag (-1 if none), so callers need no pass
 //   over the words
+//   reset: counts = resets that met a live state; segmap = starts [4]
 // First pass: sub-lane (j, l) steps the W4 words before its own first word
 // (j = 0: lane l-1's last W4 words, lane 0 reading lane L-1's, which its
 // offset of W skips; the offset skips warmup position p < offsets[l] for
@@ -55,8 +76,8 @@
 // Repair passes read `prev`, the previous pass's exits, and write `exits`
 // (a second buffer).  A sub-lane is unsettled when it is real (limit > 0)
 // and its sync differs from the previous sub-lane's exit (`first`, the
-// true start state, for sub-lane (0, 0); DEAD for K3, whose reverse scan
-// holds no run before its first reset).  kSub: each unsettled sub-lane
+// true start state, for sub-lane (0, 0); DEAD for K3 and the reset mode,
+// which hold no run before their first reset).  kSub: each unsettled sub-lane
 // walks its words from that exit, with no warmup.  kLane: each lane holding
 // an unsettled sub-lane walks whole from the previous lane's exit, writing
 // every sub-lane's sync, counts, exits and flag groups.  Settled ones, and
@@ -73,23 +94,44 @@ namespace {
 using cgx::count_walker;
 using cgx::sub_limit;
 
-enum Mode { kCount = 0, kSpan = 1, kFlag = 2, kMatch = 3 };
+enum Mode { kCount = 0, kSpan = 1, kFlag = 2, kMatch = 3, kReset = 4 };
 enum Pass { kFirst = 0, kSub = 1, kLane = 2 };
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 128;       // a block of K1-K3 and K9
+constexpr int kMaxThreads = 1024;   // the reset mode's largest block
+// the most dynamic shared memory a block takes (count_scan.SMEM_LIMIT)
+constexpr size_t kSmemLimit = 232448;
 
-template <int MODE>
+// The walk's table: in shared memory (SMEM) or global memory.
+template <int MODE, bool SMEM>
 struct Table {
   const int32_t* tbl;
   const int32_t* seg;
   int nseg;
+  int st0, st1, st2, st3;   // reset mode: the start state by context
 
-  __device__ __forceinline__ int step(int s, int b) const {
-    return tbl[s * nseg + (MODE == kFlag ? b : seg[b])];
+  __device__ __forceinline__ int load(int i) const {
+    return SMEM ? tbl[i] : __ldg(tbl + i);
+  }
+
+  // The packed value at byte b from state s.  The reset mode first
+  // restarts at the start state of b's context when b's reset bit is set,
+  // adding 1 to hit when the run it cuts is live.
+  __device__ __forceinline__ int step(int s, int b, int& hit) const {
+    if (MODE == kReset) {
+      if (b & 1) {
+        hit += s != 0;
+        const int c = (b >> 1) & 3;
+        s = c == 0 ? st0 : c == 1 ? st1 : c == 2 ? st2 : st3;
+      }
+      return load(s * nseg + (b >> 3));
+    }
+    return load(s * nseg + (MODE == kFlag ? b : seg[b]));
   }
 };
 
-// One packed value's outputs at bit `bit` of its group.
+// One packed value's outputs at bit `bit` of its group (the reset mode's
+// count is step's `hit`).
 template <int MODE>
 __device__ __forceinline__ void take(int v, int bit, int& cnt, uint32_t& fw,
                                      uint32_t& gw) {
@@ -111,8 +153,8 @@ __device__ __forceinline__ void take(int v, int bit, int& cnt, uint32_t& fw,
 // (counted from group g0), writing each group's flag words; returns the
 // exit state.  `last` is the walk-local position of the last set flag
 // (kMatch).
-template <int MODE>
-__device__ __forceinline__ int walk(const Table<MODE>& t,
+template <int MODE, class Tb>
+__device__ __forceinline__ int walk(const Tb& t,
                                     const int32_t* __restrict__ tiles, int L,
                                     int l, int g0, int G, int lim, int s,
                                     int& cnt, int& last,
@@ -130,7 +172,7 @@ __device__ __forceinline__ int walk(const Table<MODE>& t,
         for (int j = 0; j < 8; ++j) {
 #pragma unroll
           for (int k = 0; k < 4; ++k) {
-            const int v = t.step(s, (w[j] >> (8 * k)) & 255);
+            const int v = t.step(s, (w[j] >> (8 * k)) & 255, cnt);
             take<MODE>(v, j * 4 + k, cnt, fw, gw);
             s = v >> 5;
           }
@@ -141,7 +183,7 @@ __device__ __forceinline__ int walk(const Table<MODE>& t,
 #pragma unroll
           for (int k = 0; k < 4; ++k) {
             if (g * 32 + j * 4 + k < lim) {
-              const int v = t.step(s, (w[j] >> (8 * k)) & 255);
+              const int v = t.step(s, (w[j] >> (8 * k)) & 255, cnt);
               take<MODE>(v, j * 4 + k, cnt, fw, gw);
               s = v >> 5;
             }
@@ -161,8 +203,9 @@ __device__ __forceinline__ int walk(const Table<MODE>& t,
   return s;
 }
 
-template <int MODE, int PASS>
-__global__ void __launch_bounds__(kThreads) lane_walk_kernel(
+template <int MODE, int PASS, bool SMEM>
+__global__ void __launch_bounds__(MODE == kReset ? kMaxThreads : kThreads)
+lane_walk_kernel(
     const int32_t* __restrict__ packed, int S, int nseg,
     const int32_t* __restrict__ segmap, const int32_t* __restrict__ tiles,
     int T4, int L, int W4, int k, const int32_t* __restrict__ entries,
@@ -172,9 +215,18 @@ __global__ void __launch_bounds__(kThreads) lane_walk_kernel(
     int32_t* __restrict__ flagw, int32_t* __restrict__ aux,
     int32_t* __restrict__ walked) {
   extern __shared__ int32_t smem[];
-  Table<MODE> t{smem, smem + S * nseg, nseg};
-  for (int i = threadIdx.x; i < S * nseg; i += blockDim.x) smem[i] = packed[i];
-  if (MODE != kFlag) {
+  Table<MODE, SMEM> t{SMEM ? smem : packed, smem + S * nseg, nseg, 0, 0, 0,
+                      0};
+  if (SMEM) {
+    for (int i = threadIdx.x; i < S * nseg; i += blockDim.x)
+      smem[i] = packed[i];
+  }
+  if (MODE == kReset) {
+    t.st0 = segmap[0];
+    t.st1 = segmap[1];
+    t.st2 = segmap[2];
+    t.st3 = segmap[3];
+  } else if (MODE != kFlag) {
     for (int i = threadIdx.x; i < 256; i += blockDim.x)
       smem[S * nseg + i] = segmap[i];
   }
@@ -233,11 +285,13 @@ __global__ void __launch_bounds__(kThreads) lane_walk_kernel(
     const int off = j == 0 ? offsets[l] : 0;
     const int src = j == 0 ? (l == 0 ? L - 1 : l - 1) : l;
     const int w0 = (j == 0 ? T4 : j * G * 8) - W4;
+    int unused = 0;
     for (int tw = 0; tw < W4; ++tw) {
       const uint32_t w = (uint32_t)tiles[(size_t)(w0 + tw) * L + src];
 #pragma unroll
       for (int b = 0; b < 4; ++b) {
-        if (tw * 4 + b >= off) s = t.step(s, (w >> (8 * b)) & 255) >> 5;
+        if (tw * 4 + b >= off)
+          s = t.step(s, (w >> (8 * b)) & 255, unused) >> 5;
       }
     }
   }
@@ -249,38 +303,64 @@ __global__ void __launch_bounds__(kThreads) lane_walk_kernel(
   if (MODE == kMatch) aux[i] = last;
 }
 
-template <int MODE>
+template <int MODE, bool SMEM>
 size_t smem_bytes(int S, int nseg) {
+  if (MODE == kReset) return SMEM ? (size_t)S * nseg * sizeof(int32_t) : 0;
   return (size_t)(S * nseg + (MODE == kFlag ? 0 : 256)) * sizeof(int32_t);
 }
 
-template <int MODE, int PASS>
+// Threads a block: kThreads, or for the reset mode the smallest power of
+// two from kThreads to kMaxThreads whose blocks keep the most threads of
+// an SM resident (a table that leaves room for one block an SM gets
+// kMaxThreads).  The kernel's shared-memory attribute must be set.
+// Returns 0 if the occupancy calculator fails.
+template <int MODE, int PASS, bool SMEM>
+int block_threads(size_t smem, int* blocks) {
+  int best = 0, most = 0;
+  for (int th = kThreads; th <= (MODE == kReset ? kMaxThreads : kThreads);
+       th *= 2) {
+    int b = 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &b, lane_walk_kernel<MODE, PASS, SMEM>, th, smem) != cudaSuccess)
+      return 0;
+    if (b * th > most) {
+      most = b * th;
+      best = th;
+      if (blocks) *blocks = b;
+    }
+  }
+  return best;
+}
+
+template <int MODE, int PASS, bool SMEM>
 int launch(const int32_t* packed, int S, int nseg, const int32_t* segmap,
            const int32_t* tiles, int T4, int L, int W4, int k,
            const int32_t* entries, const int32_t* offsets,
            const int32_t* limits, int first, const int32_t* prev,
            int32_t* counts, int32_t* exits, int32_t* sync, int32_t* flagw,
            int32_t* aux, int32_t* walked, void* stream) {
-  const size_t smem = smem_bytes<MODE>(S, nseg);
-  auto kernel = lane_walk_kernel<MODE, PASS>;
+  const size_t smem = smem_bytes<MODE, SMEM>(S, nseg);
+  auto kernel = lane_walk_kernel<MODE, PASS, SMEM>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
+  const int threads = block_threads<MODE, PASS, SMEM>(smem, nullptr);
+  if (threads == 0) return (int)cudaErrorInvalidConfiguration;
   const cudaStream_t st = (cudaStream_t)stream;
   if (PASS != kFirst) {
     e = cudaMemsetAsync(walked, 0, sizeof(int32_t), st);
     if (e != cudaSuccess) return (int)e;
   }
   const long long walkers = PASS == kLane ? L : (long long)k * L;
-  const int blocks = (int)((walkers + kThreads - 1) / kThreads);
-  kernel<<<blocks, kThreads, smem, st>>>(
+  const int blocks = (int)((walkers + threads - 1) / threads);
+  kernel<<<blocks, threads, smem, st>>>(
       packed, S, nseg, segmap, tiles, T4, L, W4, k, entries, offsets, limits,
       first, prev, counts, exits, sync, flagw, aux, walked);
   return (int)cudaGetLastError();
 }
 
-// K1-K3 and K9 dispatch over the pass
-template <int MODE>
+// K1-K3, K9 and the reset mode dispatch over the pass
+template <int MODE, bool SMEM = true>
 int launch_split(int pass, const int32_t* packed, int S, int nseg,
                  const int32_t* segmap, const int32_t* tiles, int T4, int L,
                  int W4, int k, const int32_t* entries, const int32_t* offsets,
@@ -288,20 +368,30 @@ int launch_split(int pass, const int32_t* packed, int S, int nseg,
                  int32_t* counts, int32_t* exits, int32_t* sync,
                  int32_t* flagw, int32_t* aux, int32_t* walked, void* stream) {
 #define CGX_LAUNCH(P)                                                        \
-  return launch<MODE, P>(packed, S, nseg, segmap, tiles, T4, L, W4, k,        \
-                         entries, offsets, limits, first, prev, counts, exits, \
-                         sync, flagw, aux, walked, stream)
+  return launch<MODE, P, SMEM>(packed, S, nseg, segmap, tiles, T4, L, W4, k,  \
+                               entries, offsets, limits, first, prev, counts, \
+                               exits, sync, flagw, aux, walked, stream)
   if (pass == kFirst) CGX_LAUNCH(kFirst);
   if (pass == kSub) CGX_LAUNCH(kSub);
   CGX_LAUNCH(kLane);
 #undef CGX_LAUNCH
 }
 
-template <int MODE>
-int occupancy(int S, int nseg, int* blocks) {
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, lane_walk_kernel<MODE, kFirst>, kThreads,
-      smem_bytes<MODE>(S, nseg));
+// Whether the reset mode's [S, nseg] table sits in shared memory.
+bool reset_smem(int S, int nseg) {
+  return (size_t)S * nseg * sizeof(int32_t) <= kSmemLimit;
+}
+
+template <int MODE, bool SMEM = true>
+int occupancy(int S, int nseg, int* blocks, int* threads) {
+  const size_t smem = smem_bytes<MODE, SMEM>(S, nseg);
+  cudaError_t e = cudaFuncSetAttribute(
+      lane_walk_kernel<MODE, kFirst, SMEM>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  *blocks = 0;
+  *threads = block_threads<MODE, kFirst, SMEM>(smem, blocks);
+  return *threads == 0 ? (int)cudaErrorInvalidConfiguration : 0;
 }
 
 }  // namespace
@@ -366,13 +456,41 @@ int cgx_lane_match(int pass, const int32_t* packed, int S, int nseg,
                               stream);
 }
 
-// Resident blocks of kThreads threads per SM for a K1 (mode 0), K2 (mode
-// 1), K3 (mode 2) or K9 (mode 3) pass-0 launch on an [S, nseg] table.
-int cgx_lane_occupancy(int mode, int S, int nseg, int* blocks) {
-  if (mode == kCount) return occupancy<kCount>(S, nseg, blocks);
-  if (mode == kSpan) return occupancy<kSpan>(S, nseg, blocks);
-  if (mode == kFlag) return occupancy<kFlag>(S, nseg, blocks);
-  return occupancy<kMatch>(S, nseg, blocks);
+// The reset scan: as K3 over bytes column << 3 | ctx << 1 | reset with
+// the start states `starts` [4] in registers, the [S, nseg] table (nseg
+// <= 32) in shared memory or, past kSmemLimit, global memory, writing the
+// flag words and counting the resets that met a live state.
+int cgx_lane_reset(int pass, const int32_t* packed, int S, int nseg,
+                   const int32_t* starts, const int32_t* tiles, int T4, int L,
+                   int W4, int k, const int32_t* entries,
+                   const int32_t* offsets, const int32_t* limits, int first,
+                   const int32_t* prev, int32_t* counts, int32_t* exits,
+                   int32_t* sync, int32_t* flagw, int32_t* walked,
+                   void* stream) {
+  if (S < 1 || nseg < 1 || nseg > 32) return (int)cudaErrorInvalidValue;
+  if (reset_smem(S, nseg))
+    return launch_split<kReset, true>(pass, packed, S, nseg, starts, tiles,
+                                      T4, L, W4, k, entries, offsets, limits,
+                                      first, prev, counts, exits, sync, flagw,
+                                      nullptr, walked, stream);
+  return launch_split<kReset, false>(pass, packed, S, nseg, starts, tiles, T4,
+                                     L, W4, k, entries, offsets, limits,
+                                     first, prev, counts, exits, sync, flagw,
+                                     nullptr, walked, stream);
+}
+
+// Resident blocks per SM, and the threads of each, of a K1 (mode 0), K2
+// (mode 1), K3 (mode 2), K9 (mode 3) or reset (mode 4) pass-0 launch on
+// an [S, nseg] table.
+int cgx_lane_occupancy(int mode, int S, int nseg, int* blocks,
+                       int* threads) {
+  if (mode == kCount) return occupancy<kCount>(S, nseg, blocks, threads);
+  if (mode == kSpan) return occupancy<kSpan>(S, nseg, blocks, threads);
+  if (mode == kFlag) return occupancy<kFlag>(S, nseg, blocks, threads);
+  if (mode == kMatch) return occupancy<kMatch>(S, nseg, blocks, threads);
+  if (reset_smem(S, nseg))
+    return occupancy<kReset, true>(S, nseg, blocks, threads);
+  return occupancy<kReset, false>(S, nseg, blocks, threads);
 }
 
 const char* cgx_error_string(int e) {

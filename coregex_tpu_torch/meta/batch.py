@@ -78,7 +78,8 @@ Routes:
     overflow or do not fit the kernels; where it declines a PREFIX_RUN,
     PREFIX_SET or INNER plan, under either rule, the M5 pipeline (the
     candidate pipeline: run starts through the offset sieve, or prefix
-    literal hits, verified by interleaved reset scans, ``csrc/reset_scan.cu``;
+    literal hits, verified by interleaved reset scans (the lane walk's
+    reset mode, ``csrc/lane_scan.cu``);
     the INNER pipeline: a class-run prefix, the literal and K3's
     interference-mode scan of the suffix), which is 7-14x slower on the
     card where both serve; the candidate chain for
@@ -1648,26 +1649,28 @@ class BatchEngine:
         one K4 compaction: no corpus-sized int32 array.  Each scan reads
         n + 1 positions, the last a pad byte whose flag is the match at n
         (the reference's ``_flags_with_eoi``, :1273-1283; the DFA has no
-        look).  Syncs: one a scan."""
+        look).  The reset-free word tiles are built once a call, and each
+        subset scatters its reset bits into a copy.  Syncs: one a repair
+        pass, one a scan."""
         cap = _bucket(cnt, 16)
         cand, _c = compact_positions(smask, cap)
         cand = cand[:cnt]
-        base = sc.packed(dev, pad=1)   # the flag at n from the pad byte
+        n1 = n + 1                     # the flag at n from the pad byte
+        base = sc.tiles(sc.packed(dev, pad=1))
+        L, T4 = int(base.shape[1]), int(base.shape[0])
         spacing = n // max(cnt, 1)
         for K in ((2, 4, 16) if spacing >= 48 else (4, 16)):
             ends = torch.full((cnt,), -1, dtype=torch.int32,
                               device=dev.device)
             for j in range(min(K, cnt)):
                 r = cand[j::K]
-                packed = base.clone()
-                packed[r.long()] |= 1
-                fw, _ex, conv, interf, _g = sc.scan_packed(packed)
-                del packed
+                fw, conv, interf, _st = sc.scan_tiles(
+                    scatter_reset_tiles(base, r, L, T4), n1)
                 if not conv:
                     return None
                 if interf:
                     break
-                ends[j::K] = reset_interval_ends(fw.reshape(-1), r, n)
+                ends[j::K] = reset_interval_ends(fw, r, n)
             else:
                 keep = ends >= 0
                 _p, fs, fe, kept, _ok = compact_pay(keep, [cand, ends], cap)

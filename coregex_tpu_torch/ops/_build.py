@@ -33,7 +33,7 @@ SOURCES = ("lane_scan.cu", "compact.cu", "needle_scan.cu",
            "window_scan.cu", "compact_exp.cu", "nfa_scan.cu",
            "nfa_scan_part1.cu", "nfa_scan_part2.cu", "nfa_scan_part3.cu",
            "nfa_scan_part4.cu", "onepass_scan.cu", "row_scan.cu",
-           "transfer_scan.cu", "reset_scan.cu")
+           "transfer_scan.cu")
 HEADERS = ("compact_common.cuh", "split_common.cuh")  # included; hashed too
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
@@ -45,7 +45,10 @@ _SIGNATURES = {
                        _I, _P, _P, _P, _P, _P, _P],
     "cgx_lane_span": [_I, _P, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P,
                       _I, _P, _P, _P, _P, _P, _P, _P, _P],
-    "cgx_lane_occupancy": [_I, _I, _I, ctypes.POINTER(ctypes.c_int)],
+    "cgx_lane_reset": [_I, _P, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P,
+                       _I, _P, _P, _P, _P, _P, _P, _P],
+    "cgx_lane_occupancy": [_I, _I, _I, ctypes.POINTER(ctypes.c_int),
+                           ctypes.POINTER(ctypes.c_int)],
     "cgx_lane_flag": [_I, _P, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P, _I,
                       _P, _P, _P, _P, _P, _P, _P],
     "cgx_lane_match": [_I, _P, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P,
@@ -77,8 +80,6 @@ _SIGNATURES = {
                            _P, _P, _P],
     "cgx_transfer_walk": [_P, _I, _I, _P, _P, ctypes.c_longlong,
                           ctypes.c_longlong, _I, _I, _P, _P, _P, _P, _P],
-    "cgx_reset_scan": [_P, _I, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P,
-                       _P, _P],
 }
 
 _lock = threading.Lock()

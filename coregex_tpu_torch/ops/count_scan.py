@@ -17,9 +17,10 @@ the previous sub-lane's exit, until none does, so the result equals the
 sequential scan's.  It runs on the host around the launches: one
 ``.item()`` sync per pass.
 
-The lane walk itself is shared with the span scan (K2), the flag scan (K3)
-and the match scan (K9, ``dfa_scan.ChunkScanner``), each split and repaired
-as K1 (K9 with a dead cut, see :func:`split_fixpoint`): :func:`lane_walk`
+The lane walk itself is shared with the span scan (K2), the flag scan (K3),
+the match scan (K9, ``dfa_scan.ChunkScanner``) and the reset scan
+(``MODE_RESET``, ``dfa_scan.ResetScanner``), each split and repaired as K1
+(K9 with a dead cut, see :func:`split_fixpoint`): :func:`lane_walk`
 launches ``csrc/lane_scan.cu`` for CUDA tensors and
 runs :func:`lane_walk_plain`, the reference's ``impl="gather"`` loop, for CPU
 tensors.  The TPU kernel's ``packed_rc`` row/column merge only served the
@@ -39,17 +40,19 @@ import torch
 import torch.nn.functional as F
 
 from ..dfa.countdfa import CountDFA
-from ..dfa.dense import CTX_NL, CTX_OTHER, CTX_SOT, CTX_WORD
+from ..dfa.dense import CTX_NL, CTX_OTHER, CTX_SOT, CTX_WORD, DEAD
 from . import _build
 
-MODE_COUNT, MODE_SPAN, MODE_FLAG, MODE_MATCH = 0, 1, 2, 3
-# K1-K3 and K9 launches: pass 0 (with warmup), a pass over the unsettled
+# MODE_RESET walks bytes column << 3 | ctx << 1 | reset and takes the four
+# start states in the byte map's place (dfa_scan.ResetScanner)
+MODE_COUNT, MODE_SPAN, MODE_FLAG, MODE_MATCH, MODE_RESET = 0, 1, 2, 3, 4
+# lane walk launches: pass 0 (with warmup), a pass over the unsettled
 # sub-lanes, a pass over the lanes holding one (csrc/lane_scan.cu's Pass)
 PASS_FIRST, PASS_SUB, PASS_LANE = 0, 1, 2
-THREADS = 128       # threads a block (lane_scan.cu's kThreads)
 
 # a block stages the packed table (plus the 256-entry byte map) in shared
-# memory; an H100 block can hold at most this many bytes
+# memory; an H100 block can hold at most this many bytes (past it the
+# reset mode reads its table from global memory)
 SMEM_LIMIT = 232448
 # most sub-lanes a lane for K1-K3, K5, K6 and K9 (lane_split): 64 sub-lanes
 # of 3 KiB
@@ -208,24 +211,36 @@ class LaunchCounter:
 COUNT_KERNEL = LaunchCounter("count_scan")
 
 
-def _cols(seg, w, k):
+def _step(mode, tbl, seg, nseg, s, w, k):
+    """Byte k of words w from states s: (packed values, or for MODE_RESET
+    (values, the resets that met a live run)).  MODE_RESET restarts at
+    seg[ctx], seg holding the four start states, where the byte's reset
+    bit is set."""
     b = ((w >> (8 * k)) & 255).long()
-    return b if seg is None else seg[b]
+    if mode != MODE_RESET:
+        return tbl[s * nseg + (b if seg is None else seg[b])], None
+    rs = (b & 1) == 1
+    hit = rs & (s != DEAD)
+    s = torch.where(rs, seg[(b >> 1) & 3], s)
+    return tbl[s * nseg + (b >> 3)], hit
 
 
-def _walk_plain(mode, tbl, seg, nseg, word, steps: int, s, lim):
+def _walk_plain(mode, tbl, seg, nseg, word, steps: int, s, lim,
+                words: bool = True):
     """Walk M columns from states s (int64 [M]) over `steps` words, word(t)
     giving word t of every column, positions >= lim [M] frozen.  Returns
     (counts int64, exit states int64, flag words [steps/8, M] or None, aux):
     aux is the first-flag words of MODE_SPAN, the walk-local position of
-    the last set flag (-1 if none) of MODE_MATCH, else None."""
+    the last set flag (-1 if none) of MODE_MATCH, else None.  words=False
+    builds no flag words."""
     M = int(s.shape[0])
     dev = s.device
     cnt = torch.zeros(M, dtype=torch.int64, device=dev)
-    emit_words = mode != MODE_COUNT
+    emit_words = mode != MODE_COUNT and words
     flagw = torch.zeros((steps // 8, M), dtype=torch.int32, device=dev) \
         if emit_words else None
-    firstw = torch.zeros_like(flagw) if mode == MODE_SPAN else None
+    firstw = torch.zeros_like(flagw) if mode == MODE_SPAN and words \
+        else None
     last = torch.full((M,), -1, dtype=torch.int32, device=dev) \
         if mode == MODE_MATCH else None
     live_len = int(lim.max()) if M else 0
@@ -233,13 +248,15 @@ def _walk_plain(mode, tbl, seg, nseg, word, steps: int, s, lim):
         w = word(t)
         for k in range(4):
             live = (t * 4 + k) < lim
-            v = tbl[s * nseg + _cols(seg, w, k)]
+            v, hit = _step(mode, tbl, seg, nseg, s, w, k)
             if mode == MODE_COUNT:
                 e = v & 31
             elif mode == MODE_SPAN:
                 e = (v >> 2) & 7
             elif mode == MODE_FLAG:
                 e = (v >> 1) & 1
+            elif mode == MODE_RESET:
+                e = hit.long()
             else:
                 e = v & 1
                 last = torch.where(live & (e == 1), t * 4 + k, last)
@@ -248,7 +265,7 @@ def _walk_plain(mode, tbl, seg, nseg, word, steps: int, s, lim):
             if emit_words:
                 fb = torch.where(live, v & 1, 0).to(torch.int32)
                 flagw[t // 8] |= fb << sh
-            if mode == MODE_SPAN:
+            if firstw is not None:
                 gb = torch.where(live, (v >> 1) & 1, 0).to(torch.int32)
                 firstw[t // 8] |= gb << sh
             s = torch.where(live, v >> 5, s)
@@ -271,7 +288,9 @@ def lane_walk_plain(mode: int, packed, segmap, tiles, W4: int, entries,
     the first three [k, L]; flagw is [T4/8, L] int32 words (None for
     MODE_COUNT); aux is the first-flag words [T4/8, L] of MODE_SPAN, the
     sub-lane-local position of each sub-lane's last set flag [k, L] (-1 if
-    none) of MODE_MATCH, else None.  MODE_MATCH counts set flags."""
+    none) of MODE_MATCH, else None.  MODE_MATCH counts set flags,
+    MODE_RESET the resets that met a live run (segmap: the start states
+    [4])."""
     T4, L = (int(x) for x in tiles.shape)
     k = int(entries.shape[0])
     T4k = T4 // k
@@ -293,7 +312,7 @@ def lane_walk_plain(mode: int, packed, segmap, tiles, W4: int, entries,
     for tw in range(W4):
         w = warm(tw)
         for b in range(4):
-            nxt = tbl[s * nseg + _cols(seg, w, b)] >> 5
+            nxt = _step(mode, tbl, seg, nseg, s, w, b)[0] >> 5
             s = torch.where((tw * 4 + b) >= off, nxt, s)
     sync = s.to(torch.int32)
     cnt, s, flagw, aux = _walk_plain(
@@ -330,36 +349,47 @@ def unsettled(exits, sync, limits, first: int, T: int):
 MAP_COLUMNS = 1 << 24   # the most walkers _lane_entries' exit maps take
 
 
-def _lane_entries(tbl, seg, nseg, tv, lim, first, S: int):
+def _lane_entries(mode, tbl, seg, nseg, tv, lim, want, S: int):
     """The state each sub-lane enters with when every lane walks its k
-    sub-lanes in order from first [L] (a sub-lane past the corpus passes
+    sub-lanes in order from want[0] [L] (a sub-lane past the corpus passes
     its entry through): [k, L] int64.  Each sub-lane's exit as a function
-    of its entry comes from walking it from all S states at once
-    (MODE_COUNT: no flag words; its counts are not read), and the entries
-    from composing those maps along the lanes: T/k torch steps, not T.
-    Past MAP_COLUMNS walkers (S x k x L), or at k = 1, the sub-lanes walk
-    one after another instead."""
+    of its entry comes from walking it from all S states at once (no flag
+    words; its counts are not read), and the entries from composing those
+    maps along the lanes: T/k torch steps, not T.  Past MAP_COLUMNS
+    walkers (S x k x L) the entries are a fixpoint instead: from the guess
+    `want` [k, L] (the previous pass's exits), every sub-lane walks from
+    its entry and each entry becomes its predecessor's exit, until none
+    changes.  Round r makes sub-lane r exact, so at most k rounds; a lane
+    whose seams settle within a sub-lane takes two or three."""
     k, T4k, L = (int(x) for x in tv.shape)
     dev = tv.device
-    s = first.long()
-    entry = torch.empty((k, L), dtype=torch.int64, device=dev)
-    if k > 1 and S * k * L <= MAP_COLUMNS:
+    entry = want.long().clone()
+    if k == 1:
+        return entry
+    # the step alone matters: MODE_COUNT's emissions are the cheapest
+    mode = MODE_RESET if mode == MODE_RESET else MODE_COUNT
+    if S * k * L <= MAP_COLUMNS:
         _, ex, _, _ = _walk_plain(
-            MODE_COUNT, tbl, seg, nseg,
+            mode, tbl, seg, nseg,
             lambda t: tv[:, t].reshape(-1).repeat(S), T4k,
             torch.arange(S, device=dev).repeat_interleave(k * L),
-            lim.reshape(-1).repeat(S))
+            lim.reshape(-1).repeat(S), words=False)
         exit_of = ex.view(S, k, L)
         cols = torch.arange(L, device=dev)
+        s = entry[0]
         for j in range(k):
             entry[j] = s
             s = exit_of[s, j, cols]
         return entry
-    for j in range(k - 1):
-        entry[j] = s
-        _, s, _, _ = _walk_plain(MODE_COUNT, tbl, seg, nseg,
-                                 lambda t: tv[j, t], T4k, s, lim[j])
-    entry[k - 1] = s
+    for _ in range(k):
+        _, ex, _, _ = _walk_plain(mode, tbl, seg, nseg,
+                                  lambda t: tv[:, t].reshape(-1), T4k,
+                                  entry.reshape(-1), lim.reshape(-1),
+                                  words=False)
+        nxt = torch.cat([entry[:1], ex.view(k, L)[:-1]])
+        if torch.equal(nxt, entry):
+            break
+        entry = nxt
     return entry
 
 
@@ -409,7 +439,7 @@ def lane_repair_plain(mode: int, whole: bool, packed, segmap, tiles,
         # a lane walks from want[0] through its k sub-lanes in order
         lanes = bad.any(dim=0)
         sel = lanes[None, :].expand(k, L)
-        entry = _lane_entries(tbl, seg, nseg, tv, lim, want[0],
+        entry = _lane_entries(mode, tbl, seg, nseg, tv, lim, want,
                               int(packed.shape[0]))
         c, s2, fw, a = walk(entry)
         walked.fill_(int(lanes.sum()))
@@ -439,7 +469,12 @@ def _check_lane_args(mode, packed, segmap, tiles, W4, entries, offsets,
     if packed.dim() != 2:
         raise ValueError("packed must be [S, NSEG]")
     S, nseg = (int(x) for x in packed.shape)
-    if not table_fits(S, nseg):
+    if mode == MODE_RESET:
+        # the kernel reads a table past shared memory from global memory
+        if nseg > 32:
+            raise ValueError(f"reset table [{S}, {nseg}]: at most 32 "
+                             f"columns")
+    elif not table_fits(S, nseg):
         raise ValueError(f"packed table [{S}, {nseg}] exceeds the "
                          f"{SMEM_LIMIT}-byte shared-memory limit")
     if entries.dim() != 2 or int(entries.shape[1]) != L:
@@ -452,8 +487,9 @@ def _check_lane_args(mode, packed, segmap, tiles, W4, entries, offsets,
     for name, t in (("offsets", offsets), ("limits", limits)):
         if tuple(t.shape) != (L,):
             raise ValueError(f"{name} must have shape ({L},)")
-    if segmap is not None and tuple(segmap.shape) != (256,):
-        raise ValueError("segmap must have shape (256,)")
+    seg_len = 4 if mode == MODE_RESET else 256
+    if segmap is not None and tuple(segmap.shape) != (seg_len,):
+        raise ValueError(f"segmap must have shape ({seg_len},)")
     if T4 % 8 or not 0 <= W4 <= T4 // k:
         raise ValueError(f"bad tile geometry T4={T4} W4={W4} k={k}")
 
@@ -495,6 +531,11 @@ def lane_walk_cuda(mode: int, packed, segmap, tiles, W4: int, entries,
                 PASS_FIRST, p(packed), S, nseg, p(segmap), p(tiles), T4, L,
                 W4, k, p(entries), p(offsets), p(limits), 0, None, p(counts),
                 p(exits), p(sync), p(flagw), p(aux), None, st)
+        elif mode == MODE_RESET:
+            rc = lib.cgx_lane_reset(
+                PASS_FIRST, p(packed), S, nseg, p(segmap), p(tiles), T4, L,
+                W4, k, p(entries), p(offsets), p(limits), 0, None, p(counts),
+                p(exits), p(sync), p(flagw), None, st)
         else:
             rc = lib.cgx_lane_flag(
                 PASS_FIRST, p(packed), S, nseg, p(tiles), T4, L, W4, k,
@@ -507,8 +548,8 @@ def lane_walk_cuda(mode: int, packed, segmap, tiles, W4: int, entries,
 def lane_repair_cuda(mode: int, whole: bool, packed, segmap, tiles,
                      first: int, limits, prev, exits, counts, sync, flagw,
                      aux, walked):
-    """Launch one repair pass of csrc/lane_scan.cu (K1, K2, K3 or K9); same
-    in-place outputs as lane_repair_plain."""
+    """Launch one repair pass of csrc/lane_scan.cu (K1, K2, K3, K9 or the
+    reset scan); same in-place outputs as lane_repair_plain."""
     _check_lane_args(mode, packed, segmap, tiles, 1, prev, limits, limits)
     for name, t in (("exits", exits), ("counts", counts), ("sync", sync)):
         if (t.shape != prev.shape or t.dtype != torch.int32
@@ -539,6 +580,11 @@ def lane_repair_cuda(mode: int, whole: bool, packed, segmap, tiles,
                 how, p(packed), S, nseg, p(segmap), p(tiles), T4, L, 0, k,
                 None, None, p(limits), first, p(prev), p(counts), p(exits),
                 p(sync), p(flagw), p(aux), p(walked), st)
+        elif mode == MODE_RESET:
+            rc = lib.cgx_lane_reset(
+                how, p(packed), S, nseg, p(segmap), p(tiles), T4, L, 0, k,
+                None, None, p(limits), first, p(prev), p(counts), p(exits),
+                p(sync), p(flagw), p(walked), st)
         else:
             rc = lib.cgx_lane_flag(
                 how, p(packed), S, nseg, p(tiles), T4, L, 0, k, None, None,
@@ -575,14 +621,16 @@ def lane_repair(mode: int, counter: LaunchCounter, whole: bool, *args):
         raise ValueError(f"unsupported device {tiles.device}")
 
 
-def resident_warps(mode: int, S: int, nseg: int) -> int:
-    """Warps of a K1 (MODE_COUNT), K2 (MODE_SPAN), K3 (MODE_FLAG) or K9
-    (MODE_MATCH) pass 0 on an [S, nseg] table that one SM holds at once
-    (the CUDA occupancy calculator)."""
-    blocks = ctypes.c_int(0)
+def resident_warps(mode: int, S: int, nseg: int) -> Tuple[int, int]:
+    """(warps that one SM holds at once, threads a block) of a lane walk's
+    pass 0 on an [S, nseg] table (the CUDA occupancy calculator; the block
+    size is the launch's own: 128, or for MODE_RESET the one that keeps
+    the most walkers resident)."""
+    blocks, threads = ctypes.c_int(0), ctypes.c_int(0)
     _build.check(_build.lib().cgx_lane_occupancy(
-        mode, S, nseg, ctypes.byref(blocks)), "lane_scan")
-    return blocks.value * THREADS // 32
+        mode, S, nseg, ctypes.byref(blocks), ctypes.byref(threads)),
+        "lane_scan")
+    return blocks.value * threads.value // 32, threads.value
 
 
 def count_lanes(packed, segmap, tiles, W4, entries, offsets, limits):
@@ -633,10 +681,11 @@ def first_pass_inputs(starts, data_u8, n: int, L: int, T: int, W: int,
 def split_fixpoint(mode: int, counter: LaunchCounter, d: "DeviceCountDFA",
                    tiles, W: int, entries0, offsets0, limits,
                    max_repair: int, dead: Optional[int] = None):
-    """K1, K2, K3 or K9 over the sub-lanes of entries0 [k, L], repaired
-    until every real sub-lane's sync equals the previous sub-lane's exit
-    (d.sot for sub-lane (0, 0)).  d holds the walk's tables: packed, segmap
-    (None for K3) and sot.  W = 0 walks pass 0 with no warmup.  Returns
+    """K1, K2, K3, K9 or the reset scan over the sub-lanes of entries0 [k,
+    L], repaired until every real sub-lane's sync equals the previous
+    sub-lane's exit (d.sot for sub-lane (0, 0)).  d holds the walk's
+    tables: packed, segmap (None for K3, the start states for the reset
+    scan) and sot.  W = 0 walks pass 0 with no warmup.  Returns
     ((counts, exits, sync, flagw, aux), converged), the first three [k, L].
 
     Pass 0 walks every sub-lane after its warmup.  Each repair pass walks

@@ -38,6 +38,11 @@ Ports from ``coregex_tpu/ops/dfa_scan.py``:
   the ends form forward from every start, one launch a round, the lanes
   still alive compacted by K4 and rerun at four times the window until
   none lives.
+* ``_chunk_scan_reset`` (:685-778), a ``lax.scan`` in a ``while_loop``
+  repair with no Pallas kernel, behind ``ResetScanner`` (:781-849): the
+  lane walk in ``MODE_RESET`` (``cgx_lane_reset``), split and repaired as
+  K9, in one launch a pass where the reference goes a 2^29-byte segment
+  at a time.
 
 The lanes freeze at their limit, so every flag lies below n.  The
 reference also counts the flag at n, which the first NUL pad byte raises;
@@ -59,11 +64,11 @@ from ..dfa.dense import CTX_SOT, DEAD, DenseDFA
 from . import _build
 from .compact2 import compact_pay, pack_words
 from .bytescan import _bucket
-from .count_scan import (MODE_MATCH, SUB_PASSES, LaunchCounter, _byte_ctx,
-                         device_table, first_pass_inputs, lane_split,
-                         make_word_tiles, plan_geometry, require_fits,
-                         segment_map, settled, split_fixpoint, state_at_end,
-                         table_fits)
+from .count_scan import (MODE_MATCH, MODE_RESET, SUB_PASSES, LaunchCounter,
+                         _byte_ctx, device_table, first_pass_inputs,
+                         lane_split, make_word_tiles, plan_geometry,
+                         require_fits, segment_map, settled, split_fixpoint,
+                         state_at_end, table_fits)
 from .span_chain import _floor_log2
 from .span_scan import to_global
 
@@ -486,104 +491,40 @@ def window_ends(mt: MatchTables, data, starts, W: int = 64, out=None):
 RESET_KERNEL = LaunchCounter("reset_scan")
 
 
-def reset_plan_geometry(n: int) -> Tuple[int, int, int]:
-    """(L, T, W) of the reset scan: the reference's ``_plan_geometry`` (:191)
-    with its 1024-byte chunks, up to 65,536 lanes and a warmup of 1024
-    bytes (a reset inside the warmup syncs the lane exactly)."""
-    from .count_scan import size_bucket
-    if n <= 2048:
-        return 1, size_bucket(max(n, 1)), 0
-    nb = size_bucket(n)
-    lanes = min(65536, max(1, -(-nb // 1024)))
-    lanes = min(1 << (lanes - 1).bit_length(), 65536)
-    T = -(-nb // lanes)
-    return lanes, T, min(1024, max(T // 2, 1))
-
-
-def reset_scan_plain(tbl, starts, packed, L: int, T: int, W: int, entries,
-                     offsets):
-    """One pass of the reset scan, the kernel's plain version: every lane
-    a torch step a byte (the reference's body_w and body_m, :738-751).
-    `tbl` [S, C] int32 delta << 1 | match; `packed` [L * T] uint8 of
-    segment << 3 | ctx << 1 | reset.  Returns (flag words [L, ceil(T / 32)]
-    position-major, exits [L], sync [L], interference counts [L])."""
-    chunks = packed.reshape(L, T).long()
-    st = starts.long()
-    C = int(tbl.shape[1])
-    flat = tbl.reshape(-1).long()
-    s = entries.long().clone()
-    lanes = torch.arange(L, device=packed.device)
-    prev = chunks[(lanes - 1) % L]
-    offs = offsets.long()
-    for t in range(W):
-        x = prev[:, T - W + t]
-        s_pre = torch.where((x & 1) == 1, st[(x >> 1) & 3], s)
-        s = torch.where(t >= offs, flat[s_pre * C + (x >> 3)] >> 1, s)
-    sync = s.clone()
-    words = torch.empty((L, -(-T // 32)), dtype=torch.int64,
-                        device=packed.device)
-    word = torch.zeros(L, dtype=torch.int64, device=packed.device)
-    interf = torch.zeros(L, dtype=torch.int64, device=packed.device)
-    for t in range(T):
-        x = chunks[:, t]
-        rs = (x & 1) == 1
-        interf += rs & (s != DEAD)
-        s_pre = torch.where(rs, st[(x >> 1) & 3], s)
-        v = flat[s_pre * C + (x >> 3)]
-        word |= (v & 1) << (t & 31)
-        s = v >> 1
-        if t & 31 == 31 or t == T - 1:
-            words[:, t >> 5] = word
-            word.zero_()
-    words = (words - ((words >> 31) << 32)).to(torch.int32)
-    return (words, s.to(torch.int32), sync.to(torch.int32),
-            interf.to(torch.int32))
-
-
-def reset_scan_cuda(tbl, starts, packed, L: int, T: int, W: int, entries,
-                    offsets):
-    """cgx_reset_scan (csrc/reset_scan.cu): reset_scan_plain's contract on
-    CUDA tensors."""
-    dev = packed.device
-    for name, t, dt in (("tbl", tbl, torch.int32), ("starts", starts,
-                        torch.int32), ("packed", packed, torch.uint8),
-                        ("entries", entries, torch.int32),
-                        ("offsets", offsets, torch.int32)):
-        if t.device != dev or t.dtype != dt or not t.is_contiguous():
-            raise ValueError(f"reset scan: {name} must be a contiguous "
-                             f"{dt} tensor on {dev}")
-    if int(packed.shape[0]) != L * T or tuple(entries.shape) != (L,) \
-            or tuple(offsets.shape) != (L,) or int(starts.shape[0]) != 4:
-        raise ValueError("reset scan: shapes do not match the geometry")
-    S, C = (int(x) for x in tbl.shape)
-    TW = -(-T // 32)
-    fw = torch.empty((TW, L), dtype=torch.int32, device=dev)
-    exits, sync, interf = (torch.empty(L, dtype=torch.int32, device=dev)
-                           for _ in range(3))
-    with torch.cuda.device(dev):
-        _build.check(_build.lib().cgx_reset_scan(
-            _build.ptr(packed), L, T, W, _build.ptr(tbl), S, C,
-            _build.ptr(starts), _build.ptr(entries), _build.ptr(offsets),
-            _build.ptr(fw), _build.ptr(exits), _build.ptr(sync),
-            _build.ptr(interf), _build.stream(dev)), "cgx_reset_scan")
-    return fw.t().contiguous(), exits, sync, interf
+class ResetWalk(NamedTuple):
+    """The tables split_fixpoint walks for the reset scan: the packed [S,
+    C] table (delta*32 + match), the four start states in the byte map's
+    place, DEAD as the state before the first sub-lane (no run precedes
+    the first reset)."""
+    packed: torch.Tensor
+    segmap: torch.Tensor
+    sot: int = DEAD
 
 
 class ResetScanner:
     """Contiguous anchored runs restarted at marked positions (ref.
     ``ResetScanner``, :781-849): the verification engine of the candidate
     pipeline (``meta/batch.py`` ``_interleaved_ends``).  The corpus goes
-    through once in lane chunks, the anchored DFA restarting at each reset
-    position (the start state of the context before it), so each
-    candidate's ends come out of one contiguous pass.  The kernel runs on
-    CUDA tensors (counted on RESET_KERNEL), the plain version on CPU ones.
+    through once, the anchored DFA restarting at each reset position (the
+    start state of the context before it), so each candidate's ends come
+    out of one contiguous pass.
+
+    The scan is the lane walk in ``MODE_RESET`` (``csrc/lane_scan.cu``
+    ``cgx_lane_reset`` on CUDA tensors, counted on RESET_KERNEL; the plain
+    walk on CPU ones) over word tiles of the packed bytes under
+    ``plan_geometry``, k = ``lane_split(T, W)`` sub-lanes a lane, each
+    entering DEAD after its warmup, repaired by ``split_fixpoint``: one
+    launch a pass over the whole corpus, positions int32 up to
+    MAX_CORPUS.  The reference's geometry (1024-byte lanes, a 1024-byte
+    warmup, segments of 2^29 bytes) and its rescans of every lane are not
+    kept; settled flags do not depend on the geometry.  At most
+    max_repair passes (the reference's 4) repair: past them the scan
+    reports converged False and the caller declines, as the reference's
+    does.
 
     Scope gate as the reference's: at most 32 table columns (the segment
-    and the reset's context share a byte), else ValueError.  Corpora past
-    SEG_LIMIT bytes go a segment at a time, each segment's lane 0 entering
-    from the previous segment's last exit, so positions stay int32."""
-
-    SEG_LIMIT = 1 << 29
+    and the reset's context share a byte), else ValueError.  A table past
+    shared memory runs from global memory."""
 
     def __init__(self, dfa: DenseDFA, device, max_repair: int = 4):
         self.device = torch.device(device)
@@ -591,9 +532,10 @@ class ResetScanner:
         t = DFATables.from_dense(dfa)
         if t.delta.shape[1] > 32:
             raise ValueError("reset scan packs class+aux in u8: C <= 32")
-        self.tbl = device_table(t.delta * 2 + t.match_on.astype(np.int32),
-                                self.device)
-        self.starts = device_table(t.host_starts, self.device)
+        self.walk = ResetWalk(
+            device_table(t.delta * 32 + t.match_on.astype(np.int32),
+                         self.device),
+            device_table(t.host_starts, self.device))
         self.bounds = tuple(int(b) for b in t.bounds if int(b) < 256)
 
     def packed(self, data, reset_mask=None, pad: int = 0):
@@ -616,71 +558,43 @@ class ResetScanner:
             body |= reset_mask.to(torch.uint8)
         return out
 
-    def _pass(self, packed, L, T, W, entries, offsets):
-        args = (self.tbl, self.starts, packed, L, T, W, entries, offsets)
-        if packed.device.type == "cuda":
-            out = reset_scan_cuda(*args)
-            RESET_KERNEL.launches += 1
-            return out
-        if packed.device.type != "cpu":
-            raise ValueError(f"unsupported device {packed.device}")
-        return reset_scan_plain(*args)
+    @staticmethod
+    def geometry(n1: int) -> Tuple[int, int, int]:
+        """(L, T, W) of a scan over n1 positions."""
+        L, T, W, _Lc = plan_geometry(n1)
+        return L, T, W
 
-    def _scan_one(self, packed, entry: int, L: int, T: int, W: int):
-        """One segment: pass 0 from DEAD lanes (lane 0 from `entry`, its
-        warmup skipped), then the reference's repair (:771-776): rescans
-        from the previous lanes' exits, no warmup, while any lane's sync
-        disagrees, at most max_repair times (one sync each)."""
-        dev = packed.device
-        if int(packed.shape[0]) == L * T:
-            buf = packed
-        else:
-            buf = torch.zeros(L * T, dtype=torch.uint8, device=dev)
-            buf[:int(packed.shape[0])] = packed
-        entries = torch.full((L,), DEAD, dtype=torch.int32, device=dev)
-        entries[0] = entry
-        offsets = torch.zeros(L, dtype=torch.int32, device=dev)
-        offsets[0] = W
-        fw, exits, sync, interf = self._pass(buf, L, T, W, entries, offsets)
-        first = torch.full((1,), entry, dtype=torch.int32, device=dev)
-        full_w = torch.full((L,), W, dtype=torch.int32, device=dev)
-        for _ in range(self.max_repair + 1):
-            want = torch.cat([first, exits[:-1]])
-            if not bool((want != sync).any()):
-                return fw, exits, True, int(interf.sum()) > 0
-            if _ == self.max_repair:
-                break
-            fw, exits, sync, interf = self._pass(buf, L, T, W, want, full_w)
-        return fw, exits, False, int(interf.sum()) > 0
+    def tiles(self, packed):
+        """Word tiles of packed bytes (``packed``) under the geometry of
+        their length; reset bits scatter into copies of reset-free ones
+        (``flag_scan.scatter_reset_tiles``: bit 0 of a reset-free byte is
+        0, so +1 never carries)."""
+        L, T, _W = self.geometry(int(packed.shape[0]))
+        return make_word_tiles(packed, L, T // 4)
+
+    def scan_tiles(self, tiles, n1: int):
+        """Scan word tiles of n1 packed bytes (``tiles``).  Returns (flag
+        words [L*T/32] int32 position-major, bit p the anchored run's match
+        flag at position p, bits >= n1 clear; converged; interfered: a
+        reset met a live run, which may have been cut short; the state
+        after position n1 - 1, a 0-dim tensor)."""
+        L, T, W = self.geometry(n1)
+        k = lane_split(T, W)
+        dev = tiles.device
+        lanes = torch.arange(L, dtype=torch.int64, device=dev)
+        entries0 = torch.full((k, L), DEAD, dtype=torch.int32, device=dev)
+        offsets0 = torch.zeros(L, dtype=torch.int32, device=dev)
+        offsets0[0] = W
+        limits = (n1 - lanes * T).clamp(0, T).to(torch.int32)
+        (cnts, exits, _sync, fw, _aux), conv = split_fixpoint(
+            MODE_RESET, RESET_KERNEL, self.walk, tiles, W, entries0,
+            offsets0, limits, self.max_repair)
+        return (to_global(fw, n1), conv, bool(cnts.sum() > 0),
+                state_at_end(exits, n1, L, T))
 
     def scan_device(self, data, reset_mask):
-        """(flag words [L, ceil(T / 32)] int32, exits [L], converged,
-        interfered, (L, T)) over the corpus: bit t of lane l's words is the
-        anchored run's match flag at position l * T + t (a match ends
-        there), lanes of all segments in order.  interfered: a reset met a
-        live state (a run may have been cut short)."""
-        return self.scan_packed(self.packed(data, reset_mask))
-
-    def scan_packed(self, packed):
-        """scan_device over the corpus's packed bytes (``packed``)."""
-        n = int(packed.shape[0])
-        if n <= self.SEG_LIMIT:
-            L, T, W = reset_plan_geometry(n)
-            fw, ex, cv, inf = self._scan_one(packed, DEAD, L, T, W)
-            return fw, ex, cv, inf, (L, T)
-        L, T, W = reset_plan_geometry(self.SEG_LIMIT)
-        seg = L * T
-        fws, exs = [], []
-        cv_all, inf_all, entry = True, False, DEAD
-        for off in range(0, n, seg):
-            m = min(n, off + seg) - off
-            Lk = L if m == seg else -(-m // T)
-            fw, ex, cv, inf = self._scan_one(packed[off:off + m], entry, Lk,
-                                             T, min(W, T))
-            fws.append(fw)
-            exs.append(ex)
-            cv_all &= cv
-            inf_all |= inf
-            entry = int(ex[Lk - 1])
-        fw = torch.cat(fws)
-        return fw, torch.cat(exs), cv_all, inf_all, (int(fw.shape[0]), T)
+        """scan_tiles over the corpus with resets at `reset_mask` [n]:
+        (flag words over the n positions, converged, interfered, the state
+        after the corpus)."""
+        n = int(data.shape[0])
+        return self.scan_tiles(self.tiles(self.packed(data, reset_mask)), n)

@@ -3,7 +3,8 @@ the CPU.
 
 The reset scan's plain version (``dfa_scan.ResetScanner``, the counterpart
 of ``_chunk_scan_reset``) against the reference's ``ResetScanner`` with
-``impl="gather"`` on random DFAs and reset masks, one segment and several;
+``impl="gather"`` on random DFAs and reset masks, at the scan's own
+geometry and at a small forced one of many lanes;
 K3's interference mode (``scan_words_syms``) against the reference's; the
 sieve, the PREFIX_RUN candidates and bulk count, the INNER producers,
 ``inner_assemble`` and the Go selections against theirs; the two pipelines
@@ -20,6 +21,7 @@ import torch
 import jax.numpy as jnp
 
 import coregex_tpu as ref_ct
+from coregex_tpu.dfa.dense import DEAD
 from coregex_tpu.dfa.dense import DenseDFA as RefDense
 from coregex_tpu.meta import batch as ref_batch
 from coregex_tpu.ops import flag_scan as ref_fs
@@ -94,30 +96,57 @@ def _unpack(fw, T: int):
     return bits.reshape(fw.shape[0], -1)[:, :T].astype(bool)
 
 
-@pytest.mark.parametrize("S,nb,n,dens,seg", [
+def _ref_reset(rd, data, mask):
+    """The reference's ResetScanner (impl="gather") on data: its scan at
+    its own geometry, (flags [n], converged, interfered), and its walk of
+    the corpus as one lane with no warmup, which needs no repair: (flags
+    [n], interfered, the state after the corpus)."""
+    ref = RefResetScanner(DeviceDFA.from_dense(rd), impl="gather")
+    jd, jm = jnp.asarray(data), jnp.asarray(mask)
+    n = len(data)
+    rf, _rex, rcv, rinf, _g = ref.scan_device(jd, jm)
+    ef, eex, ecv, einf = ref._scan_one(jd, ref._aux(jd, jm),
+                                       jnp.int32(DEAD), 1, n, 0)
+    assert bool(ecv)
+    return ((np.asarray(rf).reshape(-1)[:n], bool(rcv), bool(rinf)),
+            (np.asarray(ef)[0], bool(einf), int(eex[0])))
+
+
+@pytest.mark.parametrize("S,nb,n,dens,geom", [
     (3, 2, 100, 0.1, None), (9, 7, 3000, 0.02, None),
     (40, 20, 20000, 0.005, None), (12, 31, 9000, 0.3, None),
-    (20, 9, 9000, 0.01, 4096)],
-    ids=["one_lane", "sparse", "wide", "dense_32_columns", "segments"])
-def test_reset_scan_plain_matches_reference(S, nb, n, dens, seg):
-    """Flags, exits, converged and interfered equal the reference's
-    ResetScanner (impl="gather") exactly; `seg` patches SEG_LIMIT on both
-    so the corpus goes a segment at a time."""
+    (20, 9, 9000, 0.01, (64, 256, 16))],
+    ids=["one_lane", "sparse", "wide", "dense_32_columns", "many_lanes"])
+def test_reset_scan_plain_matches_reference(monkeypatch, S, nb, n, dens,
+                                            geom):
+    """Every flag bit, interfered and the state at n equal the reference's
+    ResetScanner (impl="gather"), and the scan converges wherever the
+    reference's does.  The port's lanes and exits are no longer the
+    reference's: it walks plan_geometry's lanes, split into lane_split's
+    sub-lanes and repaired by split_fixpoint, in one pass over the corpus
+    where the reference takes 1024-byte lanes a 2^29-byte segment at a
+    time.  So the flags, interference and state are held to the
+    reference's walk of the corpus as one lane, which is exact, and to its
+    own scan where that converges; `geom` forces a small geometry of
+    many lanes and sub-lanes (64 lanes of 256 bytes, a 16-byte warmup, 4
+    sub-lanes a lane)."""
     rng = np.random.default_rng(S * 1000 + n)
     rd, pd = _rand_dfa(rng, S, nb)
     data = rng.integers(0, 256, n).astype(np.uint8)
     mask = rng.random(n) < dens
-    ref = RefResetScanner(DeviceDFA.from_dense(rd), impl="gather")
-    port = ResetScanner(pd, "cpu")
-    if seg:
-        ref.SEG_LIMIT = port.SEG_LIMIT = seg
-    rf, rex, rcv, rinf, (L, T) = ref.scan_device(jnp.asarray(data),
-                                                 jnp.asarray(mask))
-    fw, ex, cv, inf, geom = port.scan_device(_t(data), _t(mask))
-    assert geom == (L, T)
-    _eq(_unpack(fw, T), rf)
-    _eq(ex, rex)
-    assert (cv, inf) == (bool(rcv), bool(rinf))
+    if geom:
+        monkeypatch.setattr(ResetScanner, "geometry",
+                            staticmethod(lambda n1: geom))
+    (rf, rcv, rinf), (ef, einf, estate) = _ref_reset(rd, data, mask)
+    fw, cv, inf, state = ResetScanner(pd, "cpu").scan_device(_t(data),
+                                                            _t(mask))
+    bits = _unpack(fw.reshape(1, -1), n)[0]
+    _eq(bits, ef)
+    assert inf == einf and int(state) == estate
+    assert cv or not rcv
+    if rcv:
+        _eq(bits, rf)
+        assert inf == rinf
 
 
 def test_reset_scan_gate():
@@ -430,25 +459,33 @@ def test_posix_prefix_run_bulk_count_through_count():
     assert be.host_routes == 0
 
 
-@pytest.mark.parametrize("n,seg_limit", [(1 << 15, None), (2 << 12, 1 << 12),
-                                         (6 << 10, 1 << 12)],
+@pytest.mark.parametrize("n,whole", [(1 << 21, 1 << 21),
+                                     ((1 << 21) - 1, 1 << 21),
+                                     ((3 << 21) - 1, 3 << 21)],
                          ids=["pow2", "whole_segments", "whole_lanes"])
-def test_candidate_pipeline_at_whole_geometry_lengths(monkeypatch, n,
-                                                      seg_limit):
-    """Lengths the reset scan's lanes fill exactly (a power of two; whole
-    segments; a last segment of whole lanes): the scan's pad byte still
-    gives the flag at n, so the pipeline serves, equal to the reference's
-    host walk."""
+def test_candidate_pipeline_at_whole_geometry_lengths(n, whole):
+    """Lengths the lanes fill exactly (`whole` = L x T of plan_geometry):
+    n itself, the corpus's own geometry (2 MiB: 8192 lanes of 256 bytes),
+    and n + 1, the reset scan's (2 MiB and 6 MiB: the pad byte is the last
+    position of the last lane).  The scan's pad byte still gives the flag
+    at n, so the pipeline serves, equal to re's spans (the pattern's
+    leftmost-first and leftmost-longest spans agree), which the
+    reference's host walk gives on the first 32 KiB."""
+    import re
+    from coregex_tpu_torch.ops.count_scan import plan_geometry
     pattern = r"[A-Z]+ \d+"
-    if seg_limit is not None:
-        monkeypatch.setattr(ResetScanner, "SEG_LIMIT", seg_limit)
-    text = (CORPUS * 2)[:n - 8] + b" ABC 123"
+    L, T, _W, _Lc = plan_geometry(whole)
+    assert L * T == whole
+    text = (CORPUS * (n // len(CORPUS) + 1))[:n - 8] + b" ABC 123"
     assert len(text) == n
     corpus_cache.clear()
     _eng, be, _rbe = _engines(pattern, True)
     host = ref_ct.compile_posix(pattern)
     host.batch_threshold = 1 << 30
-    exp = host.find_all_index(text) or []
+    exp = [m.span() for m in re.finditer(pattern.encode(), text)]
+    head = 1 << 15
+    assert (host.find_all_index(text[:head]) or []) == [
+        sp for sp in exp if sp[1] <= head]
     m5 = be._m5_route()
     got = be._candidate_spans_dev(m5[1], _arr(text))
     assert got is not None
