@@ -101,9 +101,19 @@ Phases (any failure exits non-zero before the final line):
                memory (M5_GLOBAL's 2048 x 32, read from global memory),
                and the reset-flag walk (K3) in
                its interference mode over email's suffix DFA with a reset
-               at every candidate + k, at the reset geometry's split
+               at every candidate + k, at the reset geometry's split; then
+               the global-memory instances of K1, K2, K3, K9 and both
+               window forms (big_table_kernels: pass 0 at the main path's
+               split on the whole corpus, the repair passes on 4 MiB), on
+               the headline tables padded with unreachable rows past
+               shared memory (the same walk in both instances, timed side
+               by side) and on tables past shared memory: KW400's and
+               KW_HUGE's count, span, fwd_all and anchored forward tables
+               (the window forms from their first 2^26 match starts),
+               KWL300's reverse flag table, INNER60's suffix table in
+               K3's interference mode
   4. e2e     - the public API on a 1536 MiB log corpus (the JAX package's
-               bench corpus), in eleven runs, each with the launch counts
+               bench corpus), in twelve runs, each with the launch counts
                set to 0 before it and read after it.  Earlier slices: count for
                the 13 bench patterns and for `0\.0` (whose hits overlap,
                so K6 hands over to K7, with K7's repair passes printed),
@@ -123,8 +133,9 @@ Phases (any failure exits non-zero before the final line):
                `(\d+\.\d+\.\d+\.\d+)?` and `(?m)(^/.*\.php)?` at the
                largest whole-tile corpus the span limits admit, against
                the Go-rule oracle (re's matches less each empty match that
-               abuts the previous one; the tiling checked on two tiles);
-               find_all_index on a one- or two-tile slice.  Single match:
+               abuts the previous one; the tiling checked across the seam
+               of a tile and the next tile's first MiB); find_all_index on
+               the corpus's first MiB.  Single match:
                is_match and find_index (first call, then best of 2) of the
                13 bench patterns, `\s\d\s`, `(a|b)+c`, `\s\d+\s` and `a\b`
                (FULL_SCAN; the last two match the bench corpus),
@@ -152,7 +163,7 @@ Phases (any failure exits non-zero before the final line):
                and `a{0,3}` at the span limits' corpus and of `x*?`
                (ALL_EMPTY) on a SLICE_MIB slice, against the tiled oracle
                (Python's `\b` is Go's on ASCII), with find_all_index on
-               one or two tiles; the launches of each kernel in one warm
+               the first MiB; the launches of each kernel in one warm
                find_all of each; find_all_index(t, 3) and (t, 2^20) of one
                pattern of each route against the oracle's first spans.
                BITSET_NFA (forward DFAs past the state limit): count and
@@ -171,7 +182,7 @@ Phases (any failure exits non-zero before the final line):
                1536 MiB against re's group spans on one tile, tiled, with
                the extraction's kernel ms, its ok=False spans and the peak
                device memory; find_all_submatch_index and replace_all with
-               "[$2:$1]" on 256 MiB against re; is_match_batch and
+               "[$2:$1]" on 64 MiB against re; is_match_batch and
                find_index_batch of `\d+\.\d+` and `\berror\b` on 2^20
                lines against re per row, with the share of pack_rows.
                Multi-device (phase_e2e_multi, a virtual mesh of
@@ -228,7 +239,19 @@ Phases (any failure exits non-zero before the final line):
                2-, 3- and 4-byte characters, with the decoder pass that
                finds it valid.  The limits run also finds `[a-z]+ [^
                ]{20,60}x` on as many of its tiles as keep the candidates
-               under the pipeline's limit, with its peak device memory
+               under the pipeline's limit, with its peak device memory.
+               Tables past shared memory (phase_e2e_big_tables, run
+               before the limits): the BIG keyword lists (400 and 200
+               words, `\b`, ` \w+`, `(?i)`, `\s\d+`, POSIX, groups, a
+               1000-word list whose count transducer has 3,980 states,
+               300 lowercase words on the bidirectional route) and POSIX
+               `[a-z]+ error [^ ]{8,60}[a-z]` (INNER) on the base's first
+               MiB tiled to the corpus size, ASCII and with multi-byte
+               words: each route's tables (past shared memory, their
+               instance), count, find_all, find_all_submatch_index on 64
+               KiB, is_match and find_index on early, late and no-match
+               corpora against re (POSIX: held to the host walk), the
+               global instances' launches, host_routes 0
   5. routes  - every kernel K1-K7 was launched in the first run, K1-K4 and
                K8 in the second, K9 and the window scan's ends form in the
                third, K4 and K10 in the fourth, K9, the ends form, K4 and
@@ -237,8 +260,10 @@ Phases (any failure exits non-zero before the final line):
                the seventh, the transfer walk in both modes, K9 and K8
                in the eighth, K9, the ends form, K4 and the bitset scan in
                the ninth, the reset scan, K3, K4, K8 and the ends form in
-               the M5 run, K1-K6, K8, K9, the ends form and the bitset
-               scan in the limits run, and no call was declined to the
+               the M5 run, the global-memory instances of K1, K2, K3, K9
+               and the ends form in the big-table run, K1-K6, K8, K9, the
+               ends form and the bitset scan in the limits run, and no
+               call was declined to the
                host loop but
                the nullable find_index (the reference's FALLBACK, by
                design)
@@ -252,6 +277,7 @@ import re
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -370,7 +396,7 @@ BITSET_HOST_ENDS = ("nfa_ab_host", r"(a|b)*a(a|b){15}")
 # batches on the first ROWS lines of the tiled bench corpus
 CAPTURES = [("ip_groups", r"(\d+)\.(\d+)\.(\d+)\.(\d+)"),
             ("kv_groups", r"([a-z]+)=(\d+)")]
-CAPTURE_API_MIB = 256
+CAPTURE_API_MIB = 64
 CAPTURE_TEMPLATE = (b"[$2:$1]", rb"[\2:\1]")    # Go's form, re's form
 ROWS = 1 << 20
 ROW_PATTERNS = [("digits_dot", r"\d+\.\d+"), ("word_error", r"\berror\b")]
@@ -469,6 +495,44 @@ VALID_WORDS = [(b"lorem", "lørem"), (b"dolor", "dolör"), (b"amet", "amét"),
                (b"gamma", "γάμμα"), (b"delta42", "δέλτα42"),
                (b"fox", "狐"), (b"lazy", "怠惰"), (b"dog", "🐕")]
 VALID_PATTERN = ("nonspace", r"[^ \n]+")
+# Tables past shared memory (ROADMAP P5): lists of hundreds of keywords,
+# whose DFAs of 1,000-4,000 states over 60-90 byte segments pack into
+# 0.3-1.2 MB, past the 232,448 bytes a block's shared memory takes, so K1,
+# K2, K3, K9 and the window scan read them from global memory.  A list is
+# the base tile's distinct words (every whitespace-separated token,
+# escaped; with `lower`, its lowercase words only: a list of lowercase
+# words packs into 34 segments and fits), then seeded random lowercase
+# words of 4-9 letters.  KW_HUGE's count transducer has at least
+# BIG_HUGE_STATES states (its DFAs about 1 MB on the card, which L1 cannot
+# hold; its minimized count table 0.7 MB); KWL300 takes the
+# bidirectional route (K2 and K3) and INNER60 the INNER pipeline (K3's
+# interference mode over its 1024 x 64 suffix table).  The e2e run tiles
+# the base's first BIG_CUT bytes (re with 400 alternatives takes about a
+# second a MiB) to the corpus size, ASCII and with VALID_WORDS' 2-4-byte
+# characters
+BIG = [("KW400", (400, False), r"\b(?:{})\b", False),
+       ("KW400_FIELD", (400, False), r"\b(?:{}) \w+", False),
+       ("KWI200", (200, False), r"(?i)(?:{})\s\d+", False),
+       ("KWI200_POSIX", (200, False), r"(?i)(?:{})\s\d+", True),
+       ("KWI200_CAP", (200, False), r"(?i)((?:{}))\s(\d+)", False),
+       ("KW_HUGE", (1000, False), r"\b(?:{})\b", False),
+       ("KWL300", (300, True), r"(?i)(?:{})\s\d+", False),
+       ("INNER60", None, r"[a-z]+ error [^ ]{8,60}[a-z]", True)]
+BIG_SEED = 23
+BIG_HUGE_STATES = 3000
+BIG_CUT = 1 << 20
+# find_all_submatch_index through the API on the tile's first
+# BIG_API_BYTES (past the Engine's 16 KiB batch threshold, so the spans
+# come from the card); re's POSIX spans are held to the port's host walk
+# on its first BIG_POSIX_CHECK (the host walk of a 200-word list takes
+# about 50 ms a match)
+BIG_API_BYTES = 20 << 10
+BIG_POSIX_CHECK = 4 << 10
+# phase 3: the global instances on these tables, and on the headline
+# tables padded with unreachable rows past shared memory (the same walk in
+# both instances); the window scan on the first BIG_WINDOW_STARTS starts
+BIG_KERNELS = ("KW400", "KW_HUGE")
+BIG_WINDOW_STARTS = 1 << 26
 SLICE_MS = {}   # phase 3's kernel ms of the slice's shapes, for phase 4
 MESH_SHARDS = 4     # shards of the virtual mesh on the one card
 TRANSFER_MAIN = "ip"    # the transfer walk's whole-corpus pattern
@@ -494,6 +558,7 @@ LONGEST = 2 ** 31 - 1   # the longest mask cgx_compact takes
 HBM_BYTES_PER_MS = 3.35e9   # H100 SXM: 3.35 TB/s
 OPS_PER_MS = 67e9           # H100 SXM: 67 TFLOP/s outside the tensor cores
 M32 = 1 << 32
+API_BYTES = 1 << 20     # the class-run and nullable find_all_index check
 
 
 def oracle_spans(pattern: str, base: bytes):
@@ -1073,6 +1138,9 @@ def phase_kernels(base: bytes, corpus: np.ndarray):
     transfer_kernels(compare, base, corpus)
     # the candidate pipeline's reset scan and K3's interference mode
     m5_kernels(compare, corpus)
+    # the global-memory instances of K1, K2, K3, K9 and the window scan on
+    # tables past shared memory
+    big_table_kernels(compare, base, corpus)
 
     # K10 on the compaction rig's mask (256 MiB at density 1/200, seed 11)
     # at its three row counts: R = 128 with no payload, R = 256 with two
@@ -1472,6 +1540,255 @@ def m5_kernels(compare, corpus: np.ndarray) -> None:
             lambda: cs.lane_walk_plain(cs.MODE_FLAG, *fargs),
             in_bytes=nbytes(*fargs))
     del fargs, tiles, data
+    torch.cuda.empty_cache()
+
+
+def big_cut(base: bytes) -> bytes:
+    """The base's first BIG_CUT bytes, to the last full line."""
+    return base[:base.rfind(b"\n", 0, BIG_CUT) + 1]
+
+
+def big_words(tile: bytes, n: int, lower: bool):
+    """n words: the tile's distinct words (lower: its lowercase words,
+    else every whitespace-separated token, escaped), then seeded random
+    lowercase words of 4-9 letters."""
+    if lower:
+        out = sorted({w.decode() for w in re.findall(rb"[a-z]+", tile)})
+    else:
+        out = sorted({re.escape(w.decode()) for w in tile.split()})
+    rng = np.random.default_rng(BIG_SEED)
+    seen = set(out)
+    while len(out) < n:
+        w = "".join(chr(97 + int(c)) for c in
+                    rng.integers(0, 26, int(rng.integers(4, 10))))
+        if w not in seen:
+            seen.add(w)
+            out.append(w)
+    return out[:n]
+
+
+def big_patterns(tile: bytes):
+    """(name, pattern, POSIX) of each BIG entry, its words from `tile`."""
+    return [(name, tmpl if words is None else
+             tmpl.format("|".join(big_words(tile, *words))), posix)
+            for name, words, tmpl, posix in BIG]
+
+
+def padded(t, rows: int):
+    """t [S, ...] with zero rows appended to `rows` rows: a table whose
+    extra states no walk reaches."""
+    import torch
+    return torch.cat([t, t.new_zeros((rows - t.shape[0], *t.shape[1:]))])
+
+
+def big_table_kernels(compare, base: bytes, corpus: np.ndarray) -> None:
+    """The global-memory instances of K1, K2, K3 (and its interference
+    mode), K9 and both window-scan forms against their plain versions at
+    the main path's shape (1536 MiB, k = 64), with the two repair passes
+    of K1, K2, K3 and K9 on a 4 MiB sample at its split: first the
+    headline tables (ip's count and span tables, ip's reverse flag table,
+    `\\s\\d\\s` fwd_all, `\\b\\d+\\b`'s anchored forward table from its match
+    starts at W = 64) padded with unreachable zero rows past shared memory,
+    the same walk in both instances, each timed beside its shared-memory
+    instance; then the BIG_KERNELS tables (count, span from the minimized
+    span-event transducer, fwd_all, the general route's anchored forward
+    table from its first BIG_WINDOW_STARTS match starts), KWL300's
+    reverse flag table (K3 over the reverse reset tiles of its bidi
+    find_all) and INNER60's suffix table in K3's interference mode, each
+    past shared memory.  Every global instance's headline (the kernels
+    line) is on KW400."""
+    import torch
+    import coregex_tpu_torch as ct
+    from coregex_tpu_torch.ops import count_scan as cs
+    from coregex_tpu_torch.ops import dfa_scan, flag_scan, span_chain
+    from coregex_tpu_torch.ops.bytescan import table_to_ranges
+    from coregex_tpu_torch.ops.span_scan import DeviceSpanDFA
+    tile = big_cut(base)
+    pats = {nm: (p, posix) for nm, p, posix in big_patterns(tile)}
+    data = torch.from_numpy(corpus).to(DEVICE)
+    n = len(corpus)
+    geom = cs.plan_geometry(n)[:3]
+    L, T, W = geom
+    k = cs.lane_split(T, W)
+    tiles = cs.make_word_tiles(data, L, T // 4)
+    sample = data[:4 << 20]
+    sgeom = cs.plan_geometry(int(sample.shape[0]))[:3]
+    sk = cs.lane_split(sgeom[1], sgeom[2])
+    stiles = cs.make_word_tiles(sample, sgeom[0], sgeom[1] // 4)
+
+    def padded_walk(d, mode):
+        """A lane walk's tables (packed, segmap, starts, sot) with the
+        packed table padded past shared memory."""
+        rows = (cs.SMEM_LIMIT // 4 - (0 if mode == cs.MODE_FLAG else 256)) \
+            // int(d.packed.shape[1]) + 1
+        return SimpleNamespace(packed=padded(d.packed, rows).contiguous(),
+                               segmap=d.segmap, sot=d.sot,
+                               starts=getattr(d, "starts", None))
+
+    def table_line(kind, mode, S, nseg, label):
+        warps = cs.resident_warps(mode, S, nseg)[0]
+        print(f"[big] {kind:11} {label}: table [{S}, {nseg}], "
+              f"{S * nseg * 4} bytes, {cs.lane_instance(mode, S, nseg)} "
+              f"memory, {warps} resident warps an SM", flush=True)
+
+    def walk(kind, mode, d, label, headline=False, args=None, sargs=None):
+        """Pass 0 on the whole corpus (args; default: split_args), then
+        the repair passes on the sample (sargs); returns pass 0's ms."""
+        S, nseg = (int(x) for x in d.packed.shape)
+        table_line(kind, mode, S, nseg, label)
+        if args is None:
+            args = split_args(d, data, geom, tiles, k)
+        ms = compare(kind, f"{label} k={int(args[4].shape[0])}",
+                     lambda: cs.lane_walk_cuda(mode, *args),
+                     lambda: cs.lane_walk_plain(mode, *args),
+                     headline=headline, in_bytes=nbytes(*args))
+        if sargs is None and mode != cs.MODE_FLAG:
+            sargs = split_args(d, sample, sgeom, stiles, sk)
+        if sargs is not None:
+            run = repair_case(mode, d, sargs)
+            for whole in (False, True):
+                compare(kind, f"{label} 4 MiB k={int(sargs[4].shape[0])} "
+                        f"{'lane' if whole else 'sub-lane'} pass",
+                        lambda: run(cs.lane_repair_cuda, whole),
+                        lambda: run(cs.lane_repair_plain, whole), reps=2)
+        return ms
+
+    def ends(kind, mt, st, label, headline=False):
+        """Both window forms forward from starts st at W = 64 over mt's
+        tables (packed, segmap, eoi, starts)."""
+        wargs = (mt.packed, mt.segmap, mt.eoi, mt.starts, data, False, st,
+                 None, 64)
+        S, nseg = (int(x) for x in mt.packed.shape)
+        reads = window_reads(*wargs)
+        print(f"[big] window{kind} {label}: table [{S}, {nseg}] in "
+              f"{'shared' if dfa_scan.window_fits(S, nseg) else 'global'} "
+              f"memory, {int(st.shape[0])} starts, {reads} corpus bytes "
+              f"read at W=64", flush=True)
+        inb = reads + nbytes(st, *wargs[:4])
+        ms = [compare(f"window_scan{kind}", label,
+                      lambda: dfa_scan.window_flags_cuda(*wargs),
+                      lambda: dfa_scan.window_flags_plain(*wargs),
+                      headline=headline, in_bytes=inb),
+              compare(f"window_ends{kind}", label,
+                      lambda: dfa_scan.window_ends_cuda(*wargs,
+                                                        alive_u8=True),
+                      lambda: dfa_scan.window_ends_plain(*wargs,
+                                                         alive_u8=True),
+                      headline=headline, in_bytes=inb)]
+        return ms
+
+    def engine(name):
+        p, posix = pats[name] if name in pats else (PATTERNS[name], False)
+        return (ct.compile_posix if posix else ct.compile)(
+            p, device=DEVICE).batch_engine()
+
+    # the headline tables, padded: the same walk in both instances
+    ip = engine("ip")
+    sc, ssc = ip._count_scanner_ascii(), ip._span_scanner(True)
+    mt = match_tables("ws_digit_ws", "fwd_all")
+    for kind, mode, d, label in (
+            ("count_scan", cs.MODE_COUNT, sc.dcd, "ip"),
+            ("span_scan", cs.MODE_SPAN, ssc.dsd, "ip"),
+            ("match_scan", cs.MODE_MATCH, mt, "\\s\\d\\s fwd_all")):
+        args = split_args(d, data, geom, tiles, k)
+        shared = cuda_ms(lambda: cs.lane_walk_cuda(mode, *args), 5)
+        pd = padded_walk(d, mode)
+        pargs = (pd.packed,) + args[1:]
+        ms = walk(f"{kind}_global", mode, pd, f"{label} padded "
+                  f"{CORPUS_MIB} MiB", args=pargs)
+        print(f"[big] {kind:11} {label}: shared-memory instance "
+              f"{shared:.3f} ms, global {ms:.3f} ms on the same walk",
+              flush=True)
+        del args, pargs
+    fargs = flag_args(ip, data)
+    shared = cuda_ms(lambda: cs.lane_walk_cuda(cs.MODE_FLAG, *fargs), 5)
+    pd = padded_walk(flag_scan.FlagWalk(fargs[0]), cs.MODE_FLAG)
+    pfargs = (pd.packed,) + fargs[1:]
+    ms = walk("flag_scan_global", cs.MODE_FLAG, pd,
+              f"ip reverse padded {CORPUS_MIB} MiB", args=pfargs)
+    print(f"[big] flag_scan   ip reverse: shared-memory instance "
+          f"{shared:.3f} ms, global {ms:.3f} ms on the same walk", flush=True)
+    del fargs, pfargs
+    wd = engine("word_digits")
+    rev, fwd_mt = wd._full_scan_route()
+    starts, m, _ok = wd._all_starts(rev, corpus)
+    st = starts[:m].contiguous()
+    del starts
+    eargs = dfa_scan.window_args(fwd_mt, data, st, None, 64)
+    shared = cuda_ms(lambda: dfa_scan.window_ends_cuda(*eargs), 5)
+    rows = (cs.SMEM_LIMIT - dfa_scan.WINDOW_STAGE_BYTES) // 4 // \
+        fwd_mt.NSEG + 1
+    pmt = SimpleNamespace(packed=padded(fwd_mt.packed, rows).contiguous(),
+                          segmap=fwd_mt.segmap, starts=fwd_mt.starts,
+                          eoi=padded(fwd_mt.eoi, rows).contiguous())
+    _flags_ms, ends_ms = ends("_global", pmt, st,
+                              f"\\b\\d+\\b padded {m} starts")
+    print(f"[big] window_ends \\b\\d+\\b: shared-memory instance "
+          f"{shared:.3f} ms, global {ends_ms:.3f} ms on the same walk",
+          flush=True)
+    del st, eargs, ip, sc, ssc, mt
+    # tables past shared memory
+    for name in BIG_KERNELS:
+        headline = name == BIG_KERNELS[0]
+        t0 = time.perf_counter()
+        be = engine(name)
+        csc = be._count_scanner_ascii()
+        S = int(csc.span_cd_raw.delta.shape[0])
+        if name == "KW_HUGE" and S < BIG_HUGE_STATES:
+            fail(f"KW_HUGE's count transducer has {S} states")
+        span = DeviceSpanDFA.from_host(csc.span_cd_raw.minimized(), DEVICE)
+        chunk = be._chunk_scanner("fwd_all")
+        route = be._full_scan_route()
+        print(f"[big] {name}: count transducer of {S} states, tables built "
+              f"in {time.perf_counter() - t0:.1f} s", flush=True)
+        for kind, mode, d in (("count_scan", cs.MODE_COUNT, csc.dcd),
+                              ("span_scan", cs.MODE_SPAN, span),
+                              ("match_scan", cs.MODE_MATCH, chunk.mt)):
+            if cs.lane_instance(mode, *d.packed.shape) != "global":
+                fail(f"{name}: its {kind} table fits shared memory")
+            walk(f"{kind}_global", mode, d, f"{name} {CORPUS_MIB} MiB",
+                 headline=headline)
+        rev, fwd_mt = route
+        starts, m, _ok = be._all_starts(rev, corpus)
+        st = starts[:min(m, BIG_WINDOW_STARTS)].contiguous()
+        del starts
+        if dfa_scan.window_fits(fwd_mt.S, fwd_mt.NSEG):
+            fail(f"{name}: its window table fits shared memory")
+        ends("_global", fwd_mt, st, f"{name} {int(st.shape[0])} of {m} "
+             f"starts", headline=headline)
+        del st, span, chunk, route, rev, fwd_mt, csc, be
+        torch.cuda.empty_cache()
+    # K3 past shared memory: KWL300's reverse flag scan, INNER60's suffix
+    be = engine("KWL300")
+    fargs = flag_args(be, data)
+    if cs.lane_instance(cs.MODE_FLAG, *fargs[0].shape) != "global":
+        fail("KWL300: its reverse flag table fits shared memory")
+    fw = flag_scan.FlagWalk(fargs[0])
+    sfargs = flag_args(be, sample)
+    walk("flag_scan_global", cs.MODE_FLAG, fw,
+         f"KWL300 reverse {CORPUS_MIB} MiB", headline=True, args=fargs,
+         sargs=sfargs)
+    del fargs, sfargs, be
+    be = engine("INNER60")
+    (table, mm, _M), fsc = be._inner_route()
+    syms = span_chain.inner_cand_symbols(
+        data, table_to_ranges(table), bytes(be.plan.split.lit), mm,
+        fsc.byte_bounds())[3]
+    Lr, Tr, Wr, _ = flag_scan.reset_geometry(n)
+    kr = cs.lane_split(Tr, Wr)
+    rtiles = cs.make_word_tiles(syms, Lr, Tr // 4)
+    del syms
+    lanes = torch.arange(Lr, dtype=torch.int64, device=DEVICE)
+    offs = torch.zeros(Lr, dtype=torch.int32, device=DEVICE)
+    offs[0] = Wr
+    iargs = (fsc.tables.packed_full, None, rtiles, Wr // 4,
+             torch.full((kr, Lr), flag_scan.DEAD, dtype=torch.int32,
+                        device=DEVICE), offs,
+             (n + 1 - lanes * Tr).clamp(0, Tr).to(torch.int32))
+    walk("flag_scan_global", cs.MODE_FLAG,
+         flag_scan.FlagWalk(fsc.tables.packed_full),
+         f"interference mode INNER60 suffix {CORPUS_MIB} MiB", args=iargs)
+    del iargs, rtiles, tiles, stiles, data, sample
     torch.cuda.empty_cache()
 
 
@@ -2213,8 +2530,11 @@ def phase_e2e_class_nullable(base: bytes, arr: np.ndarray,
                              cases=CLASS_NULLABLE, oracles=None):
     """Class-run and nullable count and find_all through the public API,
     against the Go-rule oracle of the base tile scaled by the tile count
-    (the scaling checked on two tiles for the nullable patterns); each
-    case's oracle of the base tile goes into `oracles` by name."""
+    (the scaling checked, for the nullable patterns, across the seam of
+    the tile and the next tile's first API_BYTES); find_all_index through
+    the API on the corpus's first API_BYTES against the oracle on those
+    bytes; each case's oracle of the base tile goes into `oracles` by
+    name."""
     import coregex_tpu_torch as ct
     from coregex_tpu_torch.ops.count_scan import COUNT_KERNEL
     from coregex_tpu_torch.ops.dfa_scan import MATCH_KERNEL
@@ -2229,12 +2549,17 @@ def phase_e2e_class_nullable(base: bytes, arr: np.ndarray,
             oracles[name] = spans0
         inner, tail = tiled_spans(spans0, B, 1)
         nullable = bool(tail) or any(s == e for s, e in inner)
+        head = base[:base.index(b"\n", API_BYTES) + 1]
+        head_spans = oracle_spans(pattern, head)
         if nullable:
-            two = oracle_spans(pattern, base + base)
-            if two != expand_tiles(inner, tiled_spans(spans0, B, 2)[1],
-                                   B, 2):
+            # the next tile's matches restart at the seam as in a tile of
+            # their own (away from the head's cut end)
+            cut = B + len(head) - 4096
+            seam = oracle_spans(pattern, base + head)
+            if [sp for sp in seam if sp[1] <= cut] != inner + [
+                    (s + B, e + B) for s, e in head_spans if e + B <= cut]:
                 fail(f"{name}: the tiled oracle differs from the Go-rule "
-                     f"oracle on two tiles")
+                     f"oracle across a seam")
         reps = sized_reps(size, inner, tail, B, arr)
         if size == "limit":
             corpus_cache.clear()
@@ -2260,14 +2585,12 @@ def phase_e2e_class_nullable(base: bytes, arr: np.ndarray,
                 + (f", K9 repair passes {passes(MATCH_KERNEL)}"
                    if route_stats(be, route) else ""))
         print(line, flush=True)
-        # exact spans through the public API on one tile (nullable) or two
-        sreps = 1 if nullable else 2
-        sinner, stail = tiled_spans(spans0, B, sreps)
-        got = eng.find_all_index(arr[:sreps * B])
-        if got != expand_tiles(sinner, stail, B, sreps):
-            fail(f"{name}: find_all_index on {sreps} tiles differs from "
-                 f"the oracle")
-        print(f"[e2e] {name:12} find_all_index on {sreps * B} bytes: "
+        # exact spans through the public API on the corpus's head
+        got = eng.find_all_index(arr[:len(head)])
+        if got != head_spans:
+            fail(f"{name}: find_all_index on {len(head)} bytes differs "
+                 f"from the oracle")
+        print(f"[e2e] {name:12} find_all_index on {len(head)} bytes: "
               f"{len(got)} spans equal the oracle", flush=True)
         del got
         routes[f"{name} find_all"] = be.host_routes
@@ -2996,6 +3319,199 @@ def phase_e2e_m5(base: bytes, arr: np.ndarray):
     del varr
     corpus_cache.clear()
     torch.cuda.empty_cache()
+    return routes
+
+
+def char_offsets(text: bytes) -> np.ndarray:
+    """Byte offset of each character of valid UTF-8 text, and its length."""
+    b = np.frombuffer(text, np.uint8)
+    return np.append(np.flatnonzero((b & 0xC0) != 0x80), len(b))
+
+
+def utf8_groups(pattern: str, text: bytes):
+    """re's capture groups (ASCII classes, as Go's) of every match on
+    valid UTF-8 text, in bytes, as find_all_submatch_index gives them."""
+    offs = char_offsets(text)
+    return [[None if m.start(g) < 0 else
+             (int(offs[m.start(g)]), int(offs[m.end(g)]))
+             for g in range(m.re.groups + 1)]
+            for m in re.finditer(pattern, text.decode("utf-8"), re.ASCII)]
+
+
+def route_tables(be, arr: np.ndarray):
+    """(kernel, lane-walk mode or None for the window scan, S, nseg) of the
+    tables the count and find_all routes of `arr` take."""
+    from coregex_tpu_torch.ops import count_scan as cs
+    out = []
+    cr = None if be.longest else be._count_route(arr)
+    if cr is not None and cr[0] == "dfa":
+        out.append(("K1", cs.MODE_COUNT, cr[1].dcd.S, cr[1].dcd.NSEG))
+    kind, args = be._spans_route(arr)
+    if kind == "full_scan":
+        rev, fwd = args
+        out += [("K9", cs.MODE_MATCH, rev.mt.S, rev.mt.NSEG),
+                ("window", None, fwd.S, fwd.NSEG)]
+    elif kind == "bidi":
+        ssc, rsc = args
+        out += [("K2", cs.MODE_SPAN, ssc.dsd.S, ssc.dsd.NSEG),
+                ("K3", cs.MODE_FLAG, rsc.tables.S, rsc.tables.NSEG)]
+    elif kind == "m5":
+        kind, m5 = args
+        if kind == "inner":
+            fsc = m5[1]
+            out.append(("K3 suffix", cs.MODE_FLAG, fsc.tables.S,
+                        fsc.tables.NSEG))
+    return kind, out
+
+
+def phase_e2e_big_tables(base: bytes, arr: np.ndarray):
+    """Tables past shared memory (ROADMAP P5) through the public API.  For
+    each BIG pattern, on the base's first BIG_CUT bytes tiled to the
+    corpus size, ASCII and with VALID_WORDS' 2-4-byte characters: the
+    tables its count and find_all routes take (shape, bytes, instance;
+    each past SMEM_LIMIT), count and device find_all (first call, then
+    best of 2) against re's oracle on the tile, tiled (POSIX: re held to
+    the port's host walk on the tile's first BIG_POSIX_CHECK; the tiling
+    checked across the seam of the tile and the next tile's head),
+    find_all_submatch_index through the API on the tile's first
+    BIG_API_BYTES against re's groups, is_match and find_index on the
+    corpus (early
+    match), on spaces, a newline and one tile (late) and on spaces (none);
+    POSIX find_index on the early corpus only (a host route the reference
+    keeps).  One engine a pattern serves both corpora.  Each pattern's
+    calls print the launches of the global instances; host_routes must
+    stay 0.  It must launch the global instances of K1, K2, K3, K9 and
+    the window scan's ends form."""
+    import torch
+    import coregex_tpu_torch as ct
+    from coregex_tpu_torch.ops import count_scan as cs
+    from coregex_tpu_torch.ops import dfa_scan
+    from coregex_tpu_torch.utils import corpus_cache
+
+    tile = big_cut(base)
+    pats = big_patterns(tile)
+    vtile = tile
+    for w, u in VALID_WORDS:
+        vtile = vtile.replace(w, u.encode())
+    glob = list(cs.GLOBAL_KERNELS.values()) + [
+        dfa_scan.WINDOW_GLOBAL[dfa_scan.WINDOW_ENDS_KERNEL]]
+    spaces = b" " * 4096 + b"\n"
+    rng = np.random.default_rng(31)
+    routes = {}
+    engines = {}
+    for label, t in (("ascii", tile), ("utf8", vtile)):
+        B = len(t)
+        reps = len(arr) // B
+        big = np.tile(np.frombuffer(t, np.uint8), reps)
+        n = len(big)
+        late = np.full(n - 1, FILLER, dtype=np.uint8)
+        late[-B - 1] = 10
+        late[-B:] = np.frombuffer(t, np.uint8)
+        none = np.full(n - 2, FILLER, dtype=np.uint8)
+        api = t[:t.find(b"\n", BIG_API_BYTES) + 1]
+        check = t[:t.rfind(b"\n", 0, BIG_POSIX_CHECK) + 1]
+        corpus_cache.clear()
+        oracles = {}
+        print(f"[big] {label}: tile of {B} bytes x {reps} = {n} bytes",
+              flush=True)
+        for name, pattern, posix in pats:
+            comp = ct.compile_posix if posix else ct.compile
+            if pattern not in oracles:
+                # the tile's spans, from re on the tile and the next tile's
+                # head: no match may cross the seam or change across it
+                two = utf8_oracle(pattern, t + api)
+                spans0 = [sp for sp in two if sp[1] <= B]
+                if two != spans0 + [(s + B, e + B) for s, e in spans0
+                                    if e <= len(api)]:
+                    fail(f"big {name}: the tiled oracle differs at a seam")
+                if utf8_oracle(pattern, spaces):
+                    fail(f"big {name}: the oracle matches in spaces")
+                oracles[pattern] = spans0
+            spans0 = oracles[pattern]
+            groups = utf8_groups(pattern, api)
+            if posix:
+                # re's leftmost-first spans are the POSIX ones here
+                host = comp(pattern, device="cpu")
+                host.batch_threshold = 1 << 40
+                if (host.find_all_index(check) or []) != [
+                        sp for sp in spans0 if sp[1] <= len(check)]:
+                    fail(f"big {name}: re's oracle differs from the POSIX "
+                         f"host walk on {len(check)} bytes")
+                if re.compile(pattern).groups:
+                    fail(f"big {name}: no POSIX oracle for its groups")
+            if name not in engines:
+                engines[name] = comp(pattern, device=DEVICE)
+            eng = engines[name]
+            be = eng.batch_engine()
+            declined = be.host_routes
+            exp = tiled_digest(spans0, [], B, reps, rng)
+            before = [c.launches for c in glob]
+            t0 = time.perf_counter()
+            kind, tables = route_tables(be, big)
+            build = time.perf_counter() - t0
+            shown = []
+            for kern, mode, S, nseg in tables:
+                if (S * nseg + 256) * 4 <= cs.SMEM_LIMIT:
+                    fail(f"big {name}: its {kern} table [{S}, {nseg}] fits "
+                         f"shared memory")
+                inst = (cs.lane_instance(mode, S, nseg) if mode is not None
+                        else "shared" if dfa_scan.window_fits(S, nseg)
+                        else "global")
+                shown.append(f"{kern} [{S}, {nseg}] {S * nseg * 4} B "
+                             f"{inst}")
+            if name == "KW_HUGE":
+                raw = int(be._count_scanner_ascii().span_cd_raw.delta.shape[0]
+                          if label == "ascii" else
+                          be._count_scanner().span_cd_raw.delta.shape[0])
+                if raw < BIG_HUGE_STATES:
+                    fail(f"big KW_HUGE: count transducer of {raw} states")
+                shown.append(f"count transducer {raw} states")
+            got, cbest, cfirst = timed_count(eng, big)
+            if got != exp[0]:
+                fail(f"big {name} {label}: count {got} != oracle {exp[0]}")
+            line = (f"[big] {name:12} {label:5} route {kind} (tables "
+                    f"{build:.1f} s: {'; '.join(shown)}) | count {got} "
+                    f"{cbest * 1e3:.1f} ms (first {cfirst:.2f} s) | "
+                    + check_find_all(f"big {name} {label}", be, big, exp))
+            if be.route != kind:
+                fail(f"big {name}: find_all took {be.route}, not {kind}")
+            t0 = time.perf_counter()
+            sub = eng.find_all_submatch_index(api) or []
+            if sub != groups:
+                fail(f"big {name} {label}: find_all_submatch_index on "
+                     f"{len(api)} bytes differs from the oracle")
+            line += (f" | find_all_submatch_index {len(sub)} matches on "
+                     f"{len(api)} bytes {time.perf_counter() - t0:.2f} s")
+            first = spans0[0] if spans0 else None
+            for which, a, want in (
+                    ("early", big, first),
+                    ("late", late, None if first is None else
+                     (first[0] + n - 1 - B, first[1] + n - 1 - B)),
+                    ("none", none, None)):
+                t0 = time.perf_counter()
+                hit = eng.is_match(a)
+                w_is = time.perf_counter() - t0
+                if hit != (want is not None):
+                    fail(f"big {name} {label}: is_match {which} {hit}")
+                line += f" | {which} is_match {w_is * 1e3:.1f} ms"
+                if posix and which != "early":
+                    continue
+                t0 = time.perf_counter()
+                got = eng.find_index(a)
+                w_fi = time.perf_counter() - t0
+                if got != want:
+                    fail(f"big {name} {label}: find_index {which} {got} != "
+                         f"{want}")
+                line += f", find_index {w_fi * 1e3:.1f} ms"
+            line += (f" | global launches "
+                     + ", ".join(f"{c.name} {c.launches - b}"
+                                 for c, b in zip(glob, before))
+                     + f" | host_routes {be.host_routes - declined}")
+            print(line, flush=True)
+            routes[f"{name} big {label}"] = be.host_routes - declined
+        del big, late, none
+        corpus_cache.clear()
+        torch.cuda.empty_cache()
     return routes
 
 
@@ -3945,6 +4461,21 @@ def kernel_counters():
         # the candidate pipeline's reset scan: a lax.scan in a while_loop,
         # no Pallas kernel
         (dfa_scan.RESET_KERNEL, "lane_scan.cu", ops + "dfa_scan.py:685"),
+        # the global-memory instances of K1, K2, K3, K9 and both window
+        # forms, for tables past shared memory (the flags form has no user
+        # path)
+        (count_scan.GLOBAL_KERNELS[count_scan.MODE_COUNT], "lane_scan.cu",
+         ops + "count_scan.py:211"),
+        (count_scan.GLOBAL_KERNELS[count_scan.MODE_SPAN], "lane_scan.cu",
+         ops + "span_scan.py:108"),
+        (count_scan.GLOBAL_KERNELS[count_scan.MODE_FLAG], "lane_scan.cu",
+         ops + "flag_scan.py:164"),
+        (count_scan.GLOBAL_KERNELS[count_scan.MODE_MATCH], "lane_scan.cu",
+         ops + "pallas_scan.py:35"),
+        (dfa_scan.WINDOW_GLOBAL[dfa_scan.WINDOW_KERNEL], "window_scan.cu",
+         ops + "dfa_scan.py:626"),
+        (dfa_scan.WINDOW_GLOBAL[dfa_scan.WINDOW_ENDS_KERNEL],
+         "window_scan.cu", ops + "dfa_scan.py:495"),
     ]
 
 
@@ -3973,8 +4504,10 @@ def main():
     # BITSET_NFA's starts), then M5 and invalid UTF-8 (the reset scan for
     # the candidates, K3 in its interference mode for INNER suffixes, K4
     # and K8 for their compactions, the ends form for the PREFIX_RUN bulk
-    # count); the flags form has no caller on a user path (its checks are
-    # phase 3's)
+    # count), then tables past shared memory (the global-memory instances
+    # of K1, K2 and K3 for KWL300, K3 for INNER60, K9 and the ends form);
+    # the flags form has no caller on a user path (its checks are phase
+    # 3's)
     paths = [("earlier slices", phase_e2e,
               [c for c, _, _ in counters[:7]]),
              ("class runs and nullable", phase_e2e_class_nullable,
@@ -3995,6 +4528,8 @@ def main():
               [counters[i][0] for i in (8, 11, 3, 12)]),
              ("M5 pipelines and invalid UTF-8", phase_e2e_m5,
               [counters[i][0] for i in (18, 2, 3, 7, 11)]),
+             ("tables past shared memory", phase_e2e_big_tables,
+              [counters[i][0] for i in (19, 20, 21, 22, 24)]),
              ("limits at MAX_CORPUS", phase_e2e_limits,
               [counters[i][0] for i in (0, 1, 2, 3, 4, 5, 7, 8, 11, 12)])]
     build_s = phase_build()

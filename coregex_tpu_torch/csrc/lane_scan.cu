@@ -28,7 +28,11 @@
 //                                   table would pass shared memory)
 // The TPU kernels walk a select tree over a row/column-merged table because
 // Mosaic has no dynamic gather; here the packed table sits in shared memory
-// and each byte costs one or two shared-memory loads.
+// where it fits and each byte costs one or two shared-memory loads.  Every
+// mode also has a global-memory instance, chosen on the host by the table's
+// size (lane_smem): a table past shared memory (a list of hundreds of
+// keywords: 1,000-4,000 states over 60-76 segments, 0.3-1.2 MB) is read
+// with __ldg, through L1 and L2, while the byte map stays in shared memory.
 //
 // What bounds it on an H100: each byte is a dependent chain (byte extract,
 // the byte's column, the table load, the shift to the next state), so one
@@ -42,13 +46,14 @@
 // (count_scan.lane_split: k = 64 at 1536 MiB, 524,288 walkers), each
 // warming up over the W bytes before it; the repair passes then fix the
 // k-times more seams, walking only the sub-lanes (or, after a few passes,
-// whole lanes) whose entry differs from their predecessor's exit.  The
+// whole lanes) whose entry differs from their predecessor's exit.  Most
 // tables of K1-K3 and K9 are small, so blocks stay resident by registers,
-// not shared memory.  The reset mode's table may not be: past shared
-// memory it is read from global memory (L1 and L2 hold it), and where it
-// leaves room for one block an SM (run_gap_x's 128 KiB) the launch takes
-// the block size, 128 to 1024 threads, that keeps the most walkers
-// resident (block_threads).
+// not shared memory; a global-memory instance holds only the byte map
+// there, so its blocks stay resident by registers too, and each byte's
+// load is an L1 hit where the walk stays in a few hot rows, an L2 hit
+// otherwise.  The reset mode's table may leave room for one block an SM
+// (run_gap_x's 128 KiB): its launch takes the block size, 128 to 1024
+// threads, that keeps the most walkers resident (block_threads).
 //
 // Device-memory traffic is one read of the word tiles (plus n/16 bytes of
 // flag words for K2/K3): sub-lane (j, l) reads words j*T4/k .. of lane l,
@@ -215,11 +220,10 @@ lane_walk_kernel(
     int32_t* __restrict__ flagw, int32_t* __restrict__ aux,
     int32_t* __restrict__ walked) {
   extern __shared__ int32_t smem[];
-  Table<MODE, SMEM> t{SMEM ? smem : packed, smem + S * nseg, nseg, 0, 0, 0,
-                      0};
+  const int ntbl = SMEM ? S * nseg : 0;   // table words in shared memory
+  Table<MODE, SMEM> t{SMEM ? smem : packed, smem + ntbl, nseg, 0, 0, 0, 0};
   if (SMEM) {
-    for (int i = threadIdx.x; i < S * nseg; i += blockDim.x)
-      smem[i] = packed[i];
+    for (int i = threadIdx.x; i < ntbl; i += blockDim.x) smem[i] = packed[i];
   }
   if (MODE == kReset) {
     t.st0 = segmap[0];
@@ -228,7 +232,7 @@ lane_walk_kernel(
     t.st3 = segmap[3];
   } else if (MODE != kFlag) {
     for (int i = threadIdx.x; i < 256; i += blockDim.x)
-      smem[S * nseg + i] = segmap[i];
+      smem[ntbl + i] = segmap[i];
   }
   __syncthreads();
 
@@ -303,10 +307,20 @@ lane_walk_kernel(
   if (MODE == kMatch) aux[i] = last;
 }
 
+// Dynamic shared memory of a block: the table in the shared-memory
+// instance, and the byte map (not K3's or the reset mode's) in both.
 template <int MODE, bool SMEM>
 size_t smem_bytes(int S, int nseg) {
-  if (MODE == kReset) return SMEM ? (size_t)S * nseg * sizeof(int32_t) : 0;
-  return (size_t)(S * nseg + (MODE == kFlag ? 0 : 256)) * sizeof(int32_t);
+  const size_t tbl = SMEM ? (size_t)S * nseg : 0;
+  return (tbl + (MODE == kFlag || MODE == kReset ? 0 : 256)) *
+         sizeof(int32_t);
+}
+
+// Whether a mode's [S, nseg] table takes the shared-memory instance
+// (count_scan.table_fits).
+template <int MODE>
+bool lane_smem(int S, int nseg) {
+  return smem_bytes<MODE, true>(S, nseg) <= kSmemLimit;
 }
 
 // Threads a block: kThreads, or for the reset mode the smallest power of
@@ -360,7 +374,7 @@ int launch(const int32_t* packed, int S, int nseg, const int32_t* segmap,
 }
 
 // K1-K3, K9 and the reset mode dispatch over the pass
-template <int MODE, bool SMEM = true>
+template <int MODE, bool SMEM>
 int launch_split(int pass, const int32_t* packed, int S, int nseg,
                  const int32_t* segmap, const int32_t* tiles, int T4, int L,
                  int W4, int k, const int32_t* entries, const int32_t* offsets,
@@ -377,13 +391,27 @@ int launch_split(int pass, const int32_t* packed, int S, int nseg,
 #undef CGX_LAUNCH
 }
 
-// Whether the reset mode's [S, nseg] table sits in shared memory.
-bool reset_smem(int S, int nseg) {
-  return (size_t)S * nseg * sizeof(int32_t) <= kSmemLimit;
+// A mode's launch in the instance its table takes.
+template <int MODE>
+int launch_mode(int pass, const int32_t* packed, int S, int nseg,
+                const int32_t* segmap, const int32_t* tiles, int T4, int L,
+                int W4, int k, const int32_t* entries, const int32_t* offsets,
+                const int32_t* limits, int first, const int32_t* prev,
+                int32_t* counts, int32_t* exits, int32_t* sync,
+                int32_t* flagw, int32_t* aux, int32_t* walked, void* stream) {
+  if (S < 1 || nseg < 1) return (int)cudaErrorInvalidValue;
+#define CGX_SPLIT(SM)                                                         \
+  return launch_split<MODE, SM>(pass, packed, S, nseg, segmap, tiles, T4, L, \
+                                W4, k, entries, offsets, limits, first, prev, \
+                                counts, exits, sync, flagw, aux, walked,      \
+                                stream)
+  if (lane_smem<MODE>(S, nseg)) CGX_SPLIT(true);
+  CGX_SPLIT(false);
+#undef CGX_SPLIT
 }
 
-template <int MODE, bool SMEM = true>
-int occupancy(int S, int nseg, int* blocks, int* threads) {
+template <int MODE, bool SMEM>
+int occupancy_of(int S, int nseg, int* blocks, int* threads) {
   const size_t smem = smem_bytes<MODE, SMEM>(S, nseg);
   cudaError_t e = cudaFuncSetAttribute(
       lane_walk_kernel<MODE, kFirst, SMEM>,
@@ -392,6 +420,15 @@ int occupancy(int S, int nseg, int* blocks, int* threads) {
   *blocks = 0;
   *threads = block_threads<MODE, kFirst, SMEM>(smem, blocks);
   return *threads == 0 ? (int)cudaErrorInvalidConfiguration : 0;
+}
+
+// Resident blocks an SM, and the threads of each, of a mode's pass 0 in
+// the instance its table takes.
+template <int MODE>
+int occupancy(int S, int nseg, int* blocks, int* threads) {
+  if (lane_smem<MODE>(S, nseg))
+    return occupancy_of<MODE, true>(S, nseg, blocks, threads);
+  return occupancy_of<MODE, false>(S, nseg, blocks, threads);
 }
 
 }  // namespace
@@ -407,10 +444,10 @@ int cgx_lane_count(int pass, const int32_t* packed, int S, int nseg,
                    const int32_t* offsets, const int32_t* limits, int first,
                    const int32_t* prev, int32_t* counts, int32_t* exits,
                    int32_t* sync, int32_t* walked, void* stream) {
-  return launch_split<kCount>(pass, packed, S, nseg, segmap, tiles, T4,
-                              L, W4, k, entries, offsets, limits, first, prev,
-                              counts, exits, sync, nullptr, nullptr, walked,
-                              stream);
+  return launch_mode<kCount>(pass, packed, S, nseg, segmap, tiles, T4, L,
+                             W4, k, entries, offsets, limits, first, prev,
+                             counts, exits, sync, nullptr, nullptr, walked,
+                             stream);
 }
 
 // K2: as K1, also writing the flag and first-flag words.
@@ -421,10 +458,9 @@ int cgx_lane_span(int pass, const int32_t* packed, int S, int nseg,
                   int32_t* counts, int32_t* exits, int32_t* sync,
                   int32_t* flagw, int32_t* firstw, int32_t* walked,
                   void* stream) {
-  return launch_split<kSpan>(pass, packed, S, nseg, segmap, tiles, T4,
-                             L, W4, k, entries, offsets, limits, first, prev,
-                             counts, exits, sync, flagw, firstw, walked,
-                             stream);
+  return launch_mode<kSpan>(pass, packed, S, nseg, segmap, tiles, T4, L, W4,
+                            k, entries, offsets, limits, first, prev, counts,
+                            exits, sync, flagw, firstw, walked, stream);
 }
 
 // K3: as K2 over symbol tiles (no byte map), writing the flag words and
@@ -435,10 +471,10 @@ int cgx_lane_flag(int pass, const int32_t* packed, int S, int nseg,
                   const int32_t* limits, int first, const int32_t* prev,
                   int32_t* counts, int32_t* exits, int32_t* sync,
                   int32_t* flagw, int32_t* walked, void* stream) {
-  return launch_split<kFlag>(pass, packed, S, nseg, nullptr, tiles, T4, L,
-                             W4, k, entries, offsets, limits, first, prev,
-                             counts, exits, sync, flagw, nullptr, walked,
-                             stream);
+  return launch_mode<kFlag>(pass, packed, S, nseg, nullptr, tiles, T4, L,
+                            W4, k, entries, offsets, limits, first, prev,
+                            counts, exits, sync, flagw, nullptr, walked,
+                            stream);
 }
 
 // K9: as K2, writing the match flag words and each sub-lane's last flag
@@ -450,10 +486,10 @@ int cgx_lane_match(int pass, const int32_t* packed, int S, int nseg,
                    const int32_t* prev, int32_t* counts, int32_t* exits,
                    int32_t* sync, int32_t* flagw, int32_t* last,
                    int32_t* walked, void* stream) {
-  return launch_split<kMatch>(pass, packed, S, nseg, segmap, tiles, T4, L,
-                              W4, k, entries, offsets, limits, first, prev,
-                              counts, exits, sync, flagw, last, walked,
-                              stream);
+  return launch_mode<kMatch>(pass, packed, S, nseg, segmap, tiles, T4, L,
+                             W4, k, entries, offsets, limits, first, prev,
+                             counts, exits, sync, flagw, last, walked,
+                             stream);
 }
 
 // The reset scan: as K3 over bytes column << 3 | ctx << 1 | reset with
@@ -467,30 +503,24 @@ int cgx_lane_reset(int pass, const int32_t* packed, int S, int nseg,
                    const int32_t* prev, int32_t* counts, int32_t* exits,
                    int32_t* sync, int32_t* flagw, int32_t* walked,
                    void* stream) {
-  if (S < 1 || nseg < 1 || nseg > 32) return (int)cudaErrorInvalidValue;
-  if (reset_smem(S, nseg))
-    return launch_split<kReset, true>(pass, packed, S, nseg, starts, tiles,
-                                      T4, L, W4, k, entries, offsets, limits,
-                                      first, prev, counts, exits, sync, flagw,
-                                      nullptr, walked, stream);
-  return launch_split<kReset, false>(pass, packed, S, nseg, starts, tiles, T4,
-                                     L, W4, k, entries, offsets, limits,
-                                     first, prev, counts, exits, sync, flagw,
-                                     nullptr, walked, stream);
+  if (nseg > 32) return (int)cudaErrorInvalidValue;
+  return launch_mode<kReset>(pass, packed, S, nseg, starts, tiles, T4, L,
+                             W4, k, entries, offsets, limits, first, prev,
+                             counts, exits, sync, flagw, nullptr, walked,
+                             stream);
 }
 
 // Resident blocks per SM, and the threads of each, of a K1 (mode 0), K2
 // (mode 1), K3 (mode 2), K9 (mode 3) or reset (mode 4) pass-0 launch on
-// an [S, nseg] table.
+// an [S, nseg] table, in the instance (shared or global memory) that the
+// table takes.
 int cgx_lane_occupancy(int mode, int S, int nseg, int* blocks,
                        int* threads) {
   if (mode == kCount) return occupancy<kCount>(S, nseg, blocks, threads);
   if (mode == kSpan) return occupancy<kSpan>(S, nseg, blocks, threads);
   if (mode == kFlag) return occupancy<kFlag>(S, nseg, blocks, threads);
   if (mode == kMatch) return occupancy<kMatch>(S, nseg, blocks, threads);
-  if (reset_smem(S, nseg))
-    return occupancy<kReset, true>(S, nseg, blocks, threads);
-  return occupancy<kReset, false>(S, nseg, blocks, threads);
+  return occupancy<kReset>(S, nseg, blocks, threads);
 }
 
 const char* cgx_error_string(int e) {

@@ -31,13 +31,18 @@
 //
 // What bounds it on an H100: each lane is one dependent chain of table
 // lookups, one per byte (the table holds row offsets, so a step is a
-// shared-memory load and a shift); on the general find_all's round (54.8M
+// shared-memory load and a shift; a table past shared memory, a list of
+// hundreds of keywords, is read from global memory with __ldg, a step
+// then a load through L1 and L2, a shift and a multiply by the row
+// length); on the general find_all's round (54.8M
 // lanes of about 3 bytes, sorted starts about 29 bytes apart) the lanes
 // touch most 32-byte sectors of the corpus, so device-memory sectors, the
 // starts and the ends bound it, and a lane's fixed work (its loads, its
 // group's staging, its stores) costs more than its walk.  The design:
-//   - blocks stay resident, load the table once, and each warp takes
-//     groups of 32 consecutive lanes;
+//   - blocks stay resident, load the table once (the shared-memory
+//     instance, chosen on the host where the table fits beside the
+//     byte map and the stage ring), and each warp takes groups of 32
+//     consecutive lanes;
 //   - a group whose bytes span at most kWarpStage (clustered starts, as
 //     the general find_all's sorted ones) is staged in shared memory by
 //     asynchronous 16-byte copies (cp.async) requested two groups ahead,
@@ -66,6 +71,8 @@ constexpr int kSot = 0, kWord = 1, kNl = 2, kOther = 3;
 constexpr int kThreads = 256;
 constexpr int kWarpStage = 2048;  // a warp group's staged corpus bytes
 constexpr int kSlots = 3;         // staged groups a warp keeps
+// the most dynamic shared memory a block takes (count_scan.SMEM_LIMIT)
+constexpr int kSmemLimit = 232448;
 
 __device__ __forceinline__ int context_of(int b) {
   const bool word = (b >= '0' && b <= '9') || (b >= 'A' && b <= 'Z') ||
@@ -99,6 +106,28 @@ __device__ __forceinline__ int byte_of(uint4 v, int k) {
   return (w >> ((k & 3) * 8)) & 0xff;
 }
 
+// The walk's table.  In shared memory (SMEM) entry so + seg holds the
+// next state's row offset << 1 | match; in global memory it is the packed
+// value delta*32 + match, read with __ldg.  Row offsets are state * nseg,
+// so DEAD is 0.
+template <bool SMEM>
+struct WinTable {
+  const int32_t* tbl;
+  int nseg;
+
+  // the row offset after segment sg from row offset so; m = the match bit
+  __device__ __forceinline__ int step(int so, int sg, unsigned& m) const {
+    if (SMEM) {
+      const int v = tbl[so + sg];
+      m = v & 1;
+      return v >> 1;
+    }
+    const int v = __ldg(tbl + so + sg);
+    m = v & 1;
+    return (v >> 5) * nseg;
+  }
+};
+
 struct Lanes {
   const int32_t* packed;
   int nseg, ntbl;
@@ -121,9 +150,9 @@ struct Lanes {
 // One lane's walk and outputs.  With `stage` the lane's bytes come from the
 // block's staged copy of corpus bytes [clo, clo + staged bytes); otherwise
 // from device memory in 16-byte chunks.
-template <bool kEnds>
+template <bool kEnds, bool SMEM>
 __device__ __forceinline__ void run_lane(const Lanes& a, int b, long long st0,
-                                         const int32_t* tbl,
+                                         const WinTable<SMEM>& tbl,
                                          const int32_t* seg,
                                          const int32_t* s_start,
                                          const uint8_t* stage, long long clo,
@@ -160,9 +189,9 @@ __device__ __forceinline__ void run_lane(const Lanes& a, int b, long long st0,
     const int i0 = (int)(cidx(st0) - clo);
     so = s_start[st0 == 0 ? kSot : context_of(stage[i0 - d])];
     for (int t = 0, i = i0; t < steps && so != 0; ++t, i += d) {
-      const int v = tbl[so + seg[stage[i]]];
-      so = v >> 1;
-      if (v & 1) {
+      unsigned m;
+      so = tbl.step(so, seg[stage[i]], m);
+      if (m) {
         if (kEnds)
           last = t;
         else
@@ -189,9 +218,9 @@ __device__ __forceinline__ void run_lane(const Lanes& a, int b, long long st0,
       unsigned cm = 0;
       if (first) {
         for (int j = lo; j < hi && so != 0; ++j) {
-          const int v = tbl[so + seg[byte_of(cur, j)]];
-          cm |= (unsigned)(v & 1) << j;
-          so = v >> 1;
+          unsigned m;
+          so = tbl.step(so, seg[byte_of(cur, j)], m);
+          cm |= m << j;
         }
       } else {
         int sg[16];
@@ -200,9 +229,9 @@ __device__ __forceinline__ void run_lane(const Lanes& a, int b, long long st0,
 #pragma unroll
         for (int j = 0; j < 16; ++j) {
           if (j >= lo && j < hi && so != 0) {
-            const int v = tbl[so + sg[j]];
-            cm |= (unsigned)(v & 1) << j;
-            so = v >> 1;
+            unsigned m;
+            so = tbl.step(so, sg[j], m);
+            cm |= m << j;
           }
         }
       }
@@ -264,17 +293,20 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
 // from shared memory.  The general find_all's sorted starts, about 29
 // bytes apart, span about 1 KiB a group.  Other groups walk in chunks from
 // device memory.  Warps share no barrier after the table is loaded, so a
-// slow lane holds up its own warp only.
-template <bool kEnds>
+// slow lane holds up its own warp only.  SMEM: the table in shared memory
+// (else global memory; the byte map, the start states and the stage ring
+// stay in shared memory).
+template <bool kEnds, bool SMEM>
 __global__ void __launch_bounds__(kThreads) window_kernel(Lanes a) {
   extern __shared__ __align__(16) int32_t smem[];
-  int32_t* tbl = smem;            // [ntbl] (row offset of delta) * 2 + match
-  int32_t* seg = smem + a.ntbl;   // [256]
+  const int ntbl = SMEM ? a.ntbl : 0;   // table words in shared memory
+  int32_t* seg = smem + ntbl;           // [256]
   __shared__ int32_t s_start[4];  // start row offsets by context
-  for (int i = threadIdx.x; i < a.ntbl; i += kThreads) {
-    const int v = a.packed[i];
-    tbl[i] = ((v >> 5) * a.nseg) << 1 | (v & 1);
+  for (int i = threadIdx.x; i < ntbl; i += kThreads) {
+    const int v = a.packed[i];    // delta*32 + match
+    smem[i] = ((v >> 5) * a.nseg) << 1 | (v & 1);  // row offset*2 + match
   }
+  const WinTable<SMEM> tbl{SMEM ? smem : a.packed, a.nseg};
   for (int i = threadIdx.x; i < 256; i += kThreads) seg[i] = a.segmap[i];
   if (threadIdx.x < 4)
     s_start[threadIdx.x] = a.starts_tbl[threadIdx.x] * a.nseg;
@@ -284,7 +316,7 @@ __global__ void __launch_bounds__(kThreads) window_kernel(Lanes a) {
   const long long align =
       (long long)(reinterpret_cast<uintptr_t>(a.data) & 15);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  uint4* slots = reinterpret_cast<uint4*>(smem + ((a.ntbl + 256 + 3) & ~3)) +
+  uint4* slots = reinterpret_cast<uint4*>(smem + ((ntbl + 256 + 3) & ~3)) +
                  warp * kSlots * (kWarpStage / 16);
   const int stride = gridDim.x * kThreads;  // lanes between a warp's groups
   auto start_of = [&](int g) -> int {
@@ -340,7 +372,7 @@ __global__ void __launch_bounds__(kThreads) window_kernel(Lanes a) {
     asm volatile("cp.async.wait_group 2;" ::: "memory");  // this group's
     __syncwarp();
     if (g + lane < a.B)
-      run_lane<kEnds>(a, g + lane, st0, tbl, seg, s_start,
+      run_lane<kEnds, SMEM>(a, g + lane, st0, tbl, seg, s_start,
                       hi0 > lo0 ? reinterpret_cast<const uint8_t*>(
                                       slots + s * (kWarpStage / 16))
                                 : nullptr,
@@ -357,11 +389,17 @@ __global__ void __launch_bounds__(kThreads) window_kernel(Lanes a) {
   asm volatile("cp.async.wait_group 0;" ::: "memory");
 }
 
-template <bool kEnds>
-int launch(const Lanes& a, cudaStream_t st) {
-  auto kernel = window_kernel<kEnds>;
-  const int smem = ((a.ntbl + 256 + 3) & ~3) * (int)sizeof(int32_t) +
-                   (kThreads / 32) * kSlots * kWarpStage;
+// Dynamic shared memory of a block: the table (SMEM), the byte map and
+// the warps' stage rings.
+int smem_bytes(bool smem, int ntbl) {
+  return (((smem ? ntbl : 0) + 256 + 3) & ~3) * (int)sizeof(int32_t) +
+         (kThreads / 32) * kSlots * kWarpStage;
+}
+
+template <bool kEnds, bool SMEM>
+int launch_in(const Lanes& a, cudaStream_t st) {
+  auto kernel = window_kernel<kEnds, SMEM>;
+  const int smem = smem_bytes(SMEM, a.ntbl);
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
@@ -379,6 +417,16 @@ int launch(const Lanes& a, cudaStream_t st) {
   if (blocks == 0) return 0;
   kernel<<<blocks, kThreads, smem, st>>>(a);
   return (int)cudaGetLastError();
+}
+
+// The launch in the instance the table takes: shared memory where it fits
+// (dfa_scan.window_fits), else global memory.
+template <bool kEnds>
+int launch(const Lanes& a, cudaStream_t st) {
+  if (a.nseg < 1 || a.ntbl < a.nseg) return (int)cudaErrorInvalidValue;
+  if (smem_bytes(true, a.ntbl) <= kSmemLimit)
+    return launch_in<kEnds, true>(a, st);
+  return launch_in<kEnds, false>(a, st);
 }
 
 }  // namespace

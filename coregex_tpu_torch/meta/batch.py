@@ -159,12 +159,13 @@ int32, F6).
 A call outside these routes returns None (find_first returns FALLBACK) and
 the Engine's host loop serves it; each such decline adds one to
 ``host_routes``.  The route is decided on the host, from the plan, its
-tables (a DFA that overflows, or a packed table too large for the kernels'
-shared memory, declines), the core's plan and the corpus's ASCII verdict,
-before the corpus is uploaded.  Once a call is on the device it finishes
-there or raises: the repair fixpoints run until they settle (at most L
-rescans), and a table too large for the kernels raises ValueError when it
-is built.
+tables (a DFA that overflows, a count transducer past its state limit, or
+K3's alphabet past 64 classes declines, as in the reference), the core's
+plan and the corpus's ASCII verdict, before the corpus is uploaded.  A
+table of any size takes the kernels: in shared memory where it fits, in
+global memory past it (a list of hundreds of keywords).  Once a call is
+on the device it finishes there or raises: the repair fixpoints run until
+they settle (at most L rescans).
 
 Corpus state (the host array, its ASCII verdict) travels as arguments, not
 engine attributes, so concurrent calls on one engine cannot mix corpora
@@ -470,9 +471,9 @@ class BatchEngine:
 
     def _make_count_scanner(self, ascii_only: bool):
         """CountScanner over the FindAll-count transducer, or False when
-        out of scope; ascii_only builds the ASCII-projected tables (exact
-        when every corpus byte < 0x80).  Raises ValueError when the tables
-        are too large for the device's kernels."""
+        out of scope (the DFA overflows, or the transducer passes its
+        state limit); ascii_only builds the ASCII-projected tables (exact
+        when every corpus byte < 0x80)."""
         if self.longest:
             return False
         try:
@@ -776,18 +777,16 @@ class BatchEngine:
 
     def _chunk_scanner(self, kind: str):
         """Lazy ChunkScanner over a dense DFA kind, or None (out of scope:
-        the DFA overflows, or its packed table is too large for the
-        kernels' shared memory).  Host work only: decides a route before
+        the DFA overflows; a table past shared memory takes the kernels'
+        global-memory instance).  Host work only: decides a route before
         the corpus is uploaded."""
         sc = self._chunk_sc.get(kind)
         if sc is None:
-            sc = False
             try:
-                t = DFATables.from_dense(self._dense(kind))
+                sc = ChunkScanner(DFATables.from_dense(self._dense(kind)),
+                                  self.device)
             except DFAOverflow:
-                t = None
-            if t is not None and t.fits():
-                sc = ChunkScanner(t, self.device)
+                sc = False
             self._chunk_sc[kind] = sc
         return sc or None
 
@@ -1738,9 +1737,12 @@ class BatchEngine:
         fsc = self._flag_scanner_cache.get((kind, rctx))
         if fsc is None:
             try:
-                fsc = FlagResetScanner(self._dense(kind), rctx, self.device)
-            except (DFAOverflow, ValueError):
-                fsc = False
+                d = self._dense(kind)
+            except DFAOverflow:
+                d = None
+            fsc = (d is not None
+                   and ResetFlagTables.alphabet_fits(DFATables.from_dense(d))
+                   and FlagResetScanner(d, rctx, self.device))
             self._flag_scanner_cache[(kind, rctx)] = fsc
         return (shape, fsc) if fsc else None
 

@@ -25,7 +25,9 @@ launches ``csrc/lane_scan.cu`` for CUDA tensors and
 runs :func:`lane_walk_plain`, the reference's ``impl="gather"`` loop, for CPU
 tensors.  The TPU kernel's ``packed_rc`` row/column merge only served the
 Mosaic select tree and is left out: the CUDA kernel reads the full
-``[S, NSEG]`` table from shared memory.  Every lane walk takes entries and
+``[S, NSEG]`` table from shared memory where it fits (``table_fits``), and
+from global memory past it (``lane_instance``), so a table of any size the
+host pipeline builds runs on the card.  Every lane walk takes entries and
 gives counts, exits and syncs of shape [k, L], row j holding sub-lane j of
 each lane.
 """
@@ -51,8 +53,8 @@ MODE_COUNT, MODE_SPAN, MODE_FLAG, MODE_MATCH, MODE_RESET = 0, 1, 2, 3, 4
 PASS_FIRST, PASS_SUB, PASS_LANE = 0, 1, 2
 
 # a block stages the packed table (plus the 256-entry byte map) in shared
-# memory; an H100 block can hold at most this many bytes (past it the
-# reset mode reads its table from global memory)
+# memory; an H100 block can hold at most this many bytes (past it the lane
+# walk and the window scan read the table from global memory)
 SMEM_LIMIT = 232448
 # most sub-lanes a lane for K1-K3, K5, K6 and K9 (lane_split): 64 sub-lanes
 # of 3 KiB
@@ -69,18 +71,29 @@ def device_table(x, device) -> torch.Tensor:
                         device=device)
 
 
-def table_fits(S: int, nseg: int) -> bool:
-    """Whether a packed [S, nseg] table fits the lane walk's shared memory."""
-    return (S * nseg + 256) * 4 <= SMEM_LIMIT
+def table_fits(S: int, nseg: int, mode: int = MODE_COUNT) -> bool:
+    """Whether a mode's packed [S, nseg] table takes the lane walk's
+    shared-memory instance: the table plus the 256-entry byte map (none
+    for K3 and the reset mode) within SMEM_LIMIT (lane_scan.cu's
+    lane_smem)."""
+    byte_map = 0 if mode in (MODE_FLAG, MODE_RESET) else 256
+    return (S * nseg + byte_map) * 4 <= SMEM_LIMIT
 
 
-def require_fits(S: int, nseg: int, device) -> None:
-    """Raise ValueError when tables for `device` are too large for the
-    lane-walk kernel, at table build time (the plain version on the CPU has
-    no such limit)."""
-    if torch.device(device).type == "cuda" and not table_fits(S, nseg):
-        raise ValueError(f"packed table [{S}, {nseg}] exceeds the "
-                         f"{SMEM_LIMIT}-byte shared-memory limit")
+def lane_instance(mode: int, S: int, nseg: int) -> str:
+    """The lane walk's instance for a mode's [S, nseg] table: "shared"
+    (the table in shared memory) or "global" (read with __ldg)."""
+    return "shared" if table_fits(S, nseg, mode) else "global"
+
+
+def check_table(S: int, nseg: int) -> None:
+    """Raise ValueError for a packed table the kernels cannot index: they
+    address it with int32 (s * nseg + column) and pack the next state in
+    the value's upper 27 bits.  Far past any table the host pipeline
+    builds (DFAOverflow stops it at 20,000 states, 256 segments at most)."""
+    if S < 1 or nseg < 1 or S * nseg >= 2 ** 31 or S >= 2 ** 26:
+        raise ValueError(f"packed table [{S}, {nseg}] cannot be indexed "
+                         f"with int32")
 
 
 # ---------------------------------------------------------------------------
@@ -106,7 +119,7 @@ class DeviceCountDFA:
                  starts: np.ndarray, eoi: np.ndarray, device):
         self.S, self.NSEG = (int(x) for x in packed.shape)
         self.device = torch.device(device)
-        require_fits(self.S, self.NSEG, self.device)
+        check_table(self.S, self.NSEG)
         self.packed = device_table(packed, self.device)
         self.segmap = device_table(segmap, self.device)
         self.starts = device_table(starts, self.device)
@@ -209,6 +222,21 @@ class LaunchCounter:
 
 
 COUNT_KERNEL = LaunchCounter("count_scan")
+# launches of the global-memory instances of K1, K2, K3 and K9 (tables past
+# shared memory), counted beside their kernels' own counters
+GLOBAL_KERNELS = {MODE_COUNT: LaunchCounter("count_scan_global"),
+                  MODE_SPAN: LaunchCounter("span_scan_global"),
+                  MODE_FLAG: LaunchCounter("flag_scan_global"),
+                  MODE_MATCH: LaunchCounter("match_scan_global")}
+
+
+def _count_launch(mode: int, counter: LaunchCounter, packed) -> None:
+    """One launch of a lane walk: on its kernel's counter, and on its
+    global-memory instance's where the table takes that instance."""
+    counter.launches += 1
+    g = GLOBAL_KERNELS.get(mode)
+    if g is not None and lane_instance(mode, *packed.shape) == "global":
+        g.launches += 1
 
 
 def _step(mode, tbl, seg, nseg, s, w, k):
@@ -469,14 +497,10 @@ def _check_lane_args(mode, packed, segmap, tiles, W4, entries, offsets,
     if packed.dim() != 2:
         raise ValueError("packed must be [S, NSEG]")
     S, nseg = (int(x) for x in packed.shape)
-    if mode == MODE_RESET:
-        # the kernel reads a table past shared memory from global memory
-        if nseg > 32:
-            raise ValueError(f"reset table [{S}, {nseg}]: at most 32 "
-                             f"columns")
-    elif not table_fits(S, nseg):
-        raise ValueError(f"packed table [{S}, {nseg}] exceeds the "
-                         f"{SMEM_LIMIT}-byte shared-memory limit")
+    # a table past shared memory takes the global-memory instance
+    check_table(S, nseg)
+    if mode == MODE_RESET and nseg > 32:
+        raise ValueError(f"reset table [{S}, {nseg}]: at most 32 columns")
     if entries.dim() != 2 or int(entries.shape[1]) != L:
         raise ValueError(f"entries must have shape (k, {L})")
     k = int(entries.shape[0])
@@ -600,7 +624,7 @@ def lane_walk(mode: int, counter: LaunchCounter, packed, segmap, tiles,
     if tiles.device.type == "cuda":
         out = lane_walk_cuda(mode, packed, segmap, tiles, W4, entries,
                              offsets, limits)
-        counter.launches += 1
+        _count_launch(mode, counter, packed)
         return out
     if tiles.device.type != "cpu":
         raise ValueError(f"unsupported device {tiles.device}")
@@ -614,7 +638,7 @@ def lane_repair(mode: int, counter: LaunchCounter, whole: bool, *args):
     tiles = args[2]
     if tiles.device.type == "cuda":
         lane_repair_cuda(mode, whole, *args)
-        counter.launches += 1
+        _count_launch(mode, counter, args[0])
     elif tiles.device.type == "cpu":
         lane_repair_plain(mode, whole, *args)
     else:
@@ -623,9 +647,10 @@ def lane_repair(mode: int, counter: LaunchCounter, whole: bool, *args):
 
 def resident_warps(mode: int, S: int, nseg: int) -> Tuple[int, int]:
     """(warps that one SM holds at once, threads a block) of a lane walk's
-    pass 0 on an [S, nseg] table (the CUDA occupancy calculator; the block
-    size is the launch's own: 128, or for MODE_RESET the one that keeps
-    the most walkers resident)."""
+    pass 0 on an [S, nseg] table, in the instance the table takes
+    (lane_instance; the CUDA occupancy calculator; the block size is the
+    launch's own: 128, or for MODE_RESET the one that keeps the most
+    walkers resident)."""
     blocks, threads = ctypes.c_int(0), ctypes.c_int(0)
     _build.check(_build.lib().cgx_lane_occupancy(
         mode, S, nseg, ctypes.byref(blocks), ctypes.byref(threads)),

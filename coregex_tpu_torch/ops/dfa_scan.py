@@ -44,6 +44,11 @@ Ports from ``coregex_tpu/ops/dfa_scan.py``:
   K9, in one launch a pass where the reference goes a 2^29-byte segment
   at a time.
 
+K9 and the window scan hold the packed table in shared memory where it
+fits (``count_scan.lane_instance``, ``window_fits``) and read it from
+global memory past it, so a table of any size that the host pipeline
+builds (a list of hundreds of keywords: 0.25-1 MB) runs on the card.
+
 The lanes freeze at their limit, so every flag lies below n.  The
 reference also counts the flag at n, which the first NUL pad byte raises;
 a flag that the pad raises at n implies the EOI flag at the same state (the
@@ -64,17 +69,21 @@ from ..dfa.dense import CTX_SOT, DEAD, DenseDFA
 from . import _build
 from .compact2 import compact_pay, pack_words
 from .bytescan import _bucket
-from .count_scan import (MODE_MATCH, MODE_RESET, SUB_PASSES, LaunchCounter,
-                         _byte_ctx, device_table, first_pass_inputs,
-                         lane_split, make_word_tiles, plan_geometry,
-                         require_fits, segment_map, settled, split_fixpoint,
-                         state_at_end, table_fits)
+from .count_scan import (MODE_MATCH, MODE_RESET, SMEM_LIMIT, SUB_PASSES,
+                         LaunchCounter, _byte_ctx, check_table, device_table,
+                         first_pass_inputs, lane_split, make_word_tiles,
+                         plan_geometry, segment_map, settled, split_fixpoint,
+                         state_at_end)
 from .span_chain import _floor_log2
 from .span_scan import to_global
 
 MATCH_KERNEL = LaunchCounter("match_scan")
 WINDOW_KERNEL = LaunchCounter("window_scan")
 WINDOW_ENDS_KERNEL = LaunchCounter("window_ends")
+# launches of the window scan's global-memory instance (a table past
+# shared memory), counted beside the form's own counter
+WINDOW_GLOBAL = {WINDOW_KERNEL: LaunchCounter("window_scan_global"),
+                 WINDOW_ENDS_KERNEL: LaunchCounter("window_ends_global")}
 
 
 @dataclass
@@ -108,21 +117,17 @@ class DFATables:
                    match_eoi=np.asarray(dfa.match_eoi, dtype=bool),
                    packed=packed, segmap=segmap)
 
-    def fits(self) -> bool:
-        """Whether the packed table fits the kernels' shared memory."""
-        return table_fits(*self.packed.shape)
-
 
 class MatchTables:
     """The packed match table, byte map, EOI flags [S, 4], start states
     [4] and true start state (sot) of a DFATables on a torch device: the
-    inputs of K9 and of the window scan.  Raises ValueError on CUDA when
-    the table is too large for the kernels."""
+    inputs of K9 and of the window scan, in shared or global memory as the
+    table's size sets (count_scan.lane_instance, window_fits)."""
 
     def __init__(self, t: DFATables, device):
         self.device = torch.device(device)
         self.S, self.NSEG = (int(x) for x in t.packed.shape)
-        require_fits(self.S, self.NSEG, self.device)
+        check_table(self.S, self.NSEG)
         self.packed = device_table(t.packed, self.device)
         self.segmap = device_table(t.segmap, self.device)
         self.eoi = device_table(t.match_eoi.astype(np.int32), self.device)
@@ -348,9 +353,20 @@ def _check_window_args(packed, segmap, eoi, starts_tbl, data, starts, edge,
         raise ValueError("an idx scatter needs its out array")
     if not 0 < W < 2 ** 31 - 32:
         raise ValueError(f"bad window width {W}")
-    if not table_fits(S, nseg):
-        raise ValueError(f"packed table [{S}, {nseg}] exceeds the "
-                         f"shared-memory limit")
+    # a table past shared memory takes the global-memory instance
+    check_table(S, nseg)
+
+
+# window_scan.cu's block: 256 threads, 8 warps, each with a ring of 3
+# stage slices of 2048 bytes
+WINDOW_STAGE_BYTES = 8 * 3 * 2048
+
+
+def window_fits(S: int, nseg: int) -> bool:
+    """Whether the window scan holds an [S, nseg] table in shared memory
+    beside the byte map and the stage rings (window_scan.cu's smem_bytes);
+    past it the kernel reads the table from global memory."""
+    return ((S * nseg + 256 + 3) & ~3) * 4 + WINDOW_STAGE_BYTES <= SMEM_LIMIT
 
 
 def window_flags_cuda(packed, segmap, eoi, starts_tbl, data, reverse: bool,
@@ -415,6 +431,8 @@ def _on_device(data, cuda, plain, counter, args, kw=None):
     if data.device.type == "cuda":
         out = cuda(*args, **kw)
         counter.launches += 1
+        if not window_fits(*args[0].shape):
+            WINDOW_GLOBAL[counter].launches += 1
         return out
     if data.device.type != "cpu":
         raise ValueError(f"unsupported device {data.device}")

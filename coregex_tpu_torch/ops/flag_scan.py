@@ -18,7 +18,10 @@ The reset bit moves into the alphabet: symbol = 2*segment + reset, and
 
 The lane walk packs bit 0 into flag words and sums bit 1 (interference).
 Symbols index table columns directly, so no byte map is needed.  The flag
-at position n (the first pad symbol) is EOI acceptance.
+at position n (the first pad symbol) is EOI acceptance.  The 2C-column
+table sits in shared memory where it fits and in global memory past it
+(``count_scan.lane_instance``); the only gate is the alphabet, C <= 64
+(``alphabet_fits``).
 
 Changes from the reference: K3 walks k = ``lane_split(T, W)`` sub-lanes a
 lane and repairs through ``count_scan.split_fixpoint`` (unsettled
@@ -35,9 +38,9 @@ import numpy as np
 import torch
 
 from ..dfa.dense import DEAD, DenseDFA
-from .count_scan import (MODE_FLAG, SUB_PASSES, LaunchCounter, device_table,
-                         lane_split, make_word_tiles, plan_geometry,
-                         require_fits, settled, split_fixpoint, want_of)
+from .count_scan import (MODE_FLAG, SUB_PASSES, LaunchCounter, check_table,
+                         device_table, lane_split, make_word_tiles,
+                         plan_geometry, settled, split_fixpoint, want_of)
 from .dfa_scan import DFATables
 from .span_scan import to_global
 
@@ -54,7 +57,7 @@ class ResetFlagTables:
 
     def __init__(self, packed: np.ndarray, bounds: np.ndarray, device):
         self.S, self.NSEG = (int(x) for x in packed.shape)
-        require_fits(self.S, self.NSEG, device)
+        check_table(self.S, self.NSEG)
         self.packed_full = device_table(packed, device)
         self.bounds = bounds
 

@@ -151,16 +151,17 @@ def test_lane_walk_matches_pallas_interpret():
 
 def test_cuda_wrapper_validates_before_launch():
     """The CUDA wrapper rejects what the kernel cannot take before it
-    builds or launches anything: a table over the shared-memory limit,
-    a wrong dtype, mismatched lane shapes."""
+    builds or launches anything: a wrong dtype, mismatched lane shapes.  A
+    table over the shared-memory limit passes: the kernel reads it from
+    global memory."""
     L, T4 = 1024, 64
     tiles = torch.zeros((T4, L), dtype=torch.int32)
     lanes = torch.zeros(L, dtype=torch.int32)
     seg = torch.zeros(256, dtype=torch.int32)
     big = torch.zeros((4096, 64), dtype=torch.int32)
-    with pytest.raises(ValueError, match="shared-memory"):
-        cs.lane_walk_cuda(cs.MODE_COUNT, big, seg, tiles, 16, lanes, lanes,
-                          lanes)
+    cs._check_lane_args(cs.MODE_COUNT, big, seg, tiles, 16, lanes[None],
+                        lanes, lanes)
+    assert cs.lane_instance(cs.MODE_COUNT, 4096, 64) == "global"
     ok = torch.zeros((4, 4), dtype=torch.int32)
     with pytest.raises(ValueError, match="int32"):
         cs.lane_walk_cuda(cs.MODE_COUNT, ok, seg, tiles.long(), 16, lanes,
@@ -172,15 +173,21 @@ def test_cuda_wrapper_validates_before_launch():
 
 
 def test_tables_too_large_for_the_kernel_raise_at_build():
-    """Tables for a CUDA device that the lane walk cannot stage raise
-    ValueError before anything reaches the device; the plain version on
-    the CPU has no such limit."""
+    """A table the kernels cannot index with int32 raises ValueError before
+    anything reaches the device, on any device; a table past shared memory
+    builds and takes the kernels' global-memory instance."""
+    huge = np.broadcast_to(np.zeros((1, 64), np.int32), (2 ** 25, 64))
+    args = (huge, np.zeros(256, np.int32), np.zeros(4, np.int32),
+            np.broadcast_to(np.zeros((1, 4), np.int32), (2 ** 25, 4)))
+    for dev in ("cuda", "cpu"):
+        with pytest.raises(ValueError, match="int32"):
+            cs.DeviceCountDFA(*args, dev)
     big = np.zeros((4096, 64), dtype=np.int32)
-    args = (big, np.zeros(256, np.int32), np.zeros(4, np.int32),
-            np.zeros((4096, 4), np.int32))
-    with pytest.raises(ValueError, match="shared-memory"):
-        cs.DeviceCountDFA(*args, "cuda")
-    assert cs.DeviceCountDFA(*args, "cpu").S == 4096
+    d = cs.DeviceCountDFA(big, np.zeros(256, np.int32),
+                          np.zeros(4, np.int32),
+                          np.zeros((4096, 4), np.int32), "cpu")
+    assert d.S == 4096 and cs.lane_instance(cs.MODE_COUNT, d.S,
+                                            d.NSEG) == "global"
 
 
 def test_count_scanner_repairs_until_settled():

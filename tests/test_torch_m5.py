@@ -425,8 +425,8 @@ def test_posix_inner_served_on_the_card_routes():
     """compile_posix(r"[a-z]+ error [^ ]{8,30}[a-z]"): the general fallback
     declines it (its reverse DFA overflows), so the public find_all and
     count take the INNER pipeline, equal to the reference's host walk.
-    Its suffix table fits K3's shared memory (`{8,60}` would not: the
-    card declines it)."""
+    Its suffix table fits K3's shared memory (`{8,60}`'s does not: K3
+    reads it from global memory, tests/test_torch_big_tables.py)."""
     pattern = r"[a-z]+ error [^ ]{8,30}[a-z]"
     corpus_cache.clear()
     text = CORPUS + b" abc error " + b"Q" * 20 + b"x tail"

@@ -172,7 +172,7 @@ def test_tables_match_reference(pattern):
     np.testing.assert_array_equal(
         t.packed, t.delta[:S, :nseg] * 32 + t.match_on[:S, :nseg])
     np.testing.assert_array_equal(t.match_eoi, d.match_eoi)
-    assert t.fits()
+    assert cs.lane_instance(cs.MODE_MATCH, S, nseg) == "shared"
 
 
 def test_cuda_wrapper_validates_before_launch():
@@ -183,9 +183,10 @@ def test_cuda_wrapper_validates_before_launch():
     lanes = torch.zeros(L, dtype=torch.int32)
     seg = torch.zeros(256, dtype=torch.int32)
     big = torch.zeros((4096, 64), dtype=torch.int32)
-    with pytest.raises(ValueError, match="shared-memory"):
-        cs.lane_walk_cuda(cs.MODE_MATCH, big, seg, tiles, 16, lanes, lanes,
-                          lanes)
+    # past shared memory: the kernel's global-memory instance takes it
+    cs._check_lane_args(cs.MODE_MATCH, big, seg, tiles, 16, lanes[None],
+                        lanes, lanes)
+    assert cs.lane_instance(cs.MODE_MATCH, 4096, 64) == "global"
     with pytest.raises(ValueError, match="shape"):
         cs.lane_walk_cuda(cs.MODE_MATCH, big[:4].contiguous(), seg, tiles,
                           16, lanes[:-1], lanes, lanes)

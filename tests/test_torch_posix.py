@@ -36,6 +36,7 @@ import coregex_tpu_torch as ct
 from coregex_tpu_torch.meta import batch
 from coregex_tpu_torch.meta.config import Config
 from coregex_tpu_torch.meta.engine import Engine
+from coregex_tpu_torch.ops import count_scan, dfa_scan
 from coregex_tpu_torch.ops.dfa_scan import DFATables
 from coregex_tpu_torch.syntax.parser import parse
 from coregex_tpu_torch.utils import corpus_cache
@@ -353,21 +354,20 @@ def test_declines_before_upload(ref, pattern):
 
 
 def test_a_table_that_does_not_fit_declines(monkeypatch, ref):
-    """fwd_anch_all past the kernels' shared memory declines the general
-    route before the upload; the host loop gives the POSIX spans."""
+    """fwd_anch_all past the kernels' shared memory (every table taken
+    past it: the instance choice patched) no longer declines the general
+    route: the kernels read it from global memory, and the card gives the
+    POSIX spans with no host loop."""
     corpus_cache.clear()
+    monkeypatch.setattr(count_scan, "table_fits", lambda *a: False)
+    monkeypatch.setattr(dfa_scan, "window_fits", lambda *a: False)
     eng = _posix(r"\d+?\.\d+?\.\d+?\.\d+?")
     be = eng.batch_engine()
     big = be._dense("fwd_anch_all")
-    real = DFATables.from_dense
-
-    def from_dense(d):
-        t = real(d)
-        if d is big:
-            t.fits = lambda: False
-        return t
-    monkeypatch.setattr(DFATables, "from_dense", staticmethod(from_dense))
-    assert be._spans_route(_arr(CORPUS)) is None
-    assert corpus_cache._entry(_arr(CORPUS), "cpu").buf is None
+    assert count_scan.lane_instance(count_scan.MODE_MATCH,
+                                    *DFATables.from_dense(big).packed.shape
+                                    ) == "global"
+    assert be._spans_route(_arr(CORPUS))[0] == "full_scan"
     assert eng.find_all_index(CORPUS) == ref(r"\d+?\.\d+?\.\d+?\.\d+?")
-    assert be.host_routes == 1
+    assert be.host_routes == 0
+    assert corpus_cache._entry(_arr(CORPUS), "cpu").buf is not None

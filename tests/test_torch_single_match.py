@@ -204,19 +204,23 @@ def test_leftmost_longest_is_match(pattern):
 
 
 def test_tables_too_large_decline_before_upload(monkeypatch):
-    """A DFA whose packed table would not fit the kernels' shared memory,
-    or that overflows, declines before the corpus is uploaded."""
+    """A DFA that overflows declines before the corpus is uploaded; one
+    whose packed table would not fit the kernels' shared memory takes
+    their global-memory instance and stays on the device."""
     from coregex_tpu_torch.dfa.determinize import DFAOverflow
-    from coregex_tpu_torch.ops.dfa_scan import DFATables
+    from coregex_tpu_torch.ops import count_scan, dfa_scan
     corpus_cache.clear()
     t = CORPORA["early"]
-    monkeypatch.setattr(DFATables, "fits", lambda self: False)
+    # every table past shared memory: the instance choice patched
+    monkeypatch.setattr(count_scan, "table_fits", lambda *a: False)
+    monkeypatch.setattr(dfa_scan, "window_fits", lambda *a: False)
     eng = ct.compile(r"\s\d\s", device="cpu")
     assert eng.is_match(t) is True
     assert eng.find_index(t) == re.search(rb"\s\d\s", t).span()
-    assert eng.batch_engine().host_routes == 2
-    assert corpus_cache._entry(_arr(t), "cpu").buf is None
+    assert eng.batch_engine().host_routes == 0
+    assert corpus_cache._entry(_arr(t), "cpu").buf is not None
     monkeypatch.undo()
+    corpus_cache.clear()
     eng = ct.compile(r"\d+\.\d+\.\d+\.\d+", device="cpu")
     be = eng.batch_engine()
     dense = be._dense

@@ -280,7 +280,7 @@ def test_reset_wrapper_checks():
 
 def test_scanner_serves_tables_past_shared_memory():
     """ResetScanner takes an S x C table past the card's shared memory
-    (count_scan.require_fits does not gate it) and scans it as any other:
+    (the kernel reads it from global memory) and scans it as any other:
     the flags equal a walk in order."""
     rd, pd = _dfa(5, 2048, 32, live=False)
     sc = ResetScanner(pd, "cpu")
