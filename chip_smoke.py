@@ -110,7 +110,7 @@ Phases (any failure exits non-zero before the final line):
                by side) and on tables past shared memory: KW400's and
                KW_HUGE's count, span, fwd_all and anchored forward tables
                (the window forms from their first 2^26 match starts),
-               KWL300's reverse flag table, INNER60's suffix table in
+               KWL600's reverse flag table, INNER60's suffix table in
                K3's interference mode
   4. e2e     - the public API on a 1536 MiB log corpus (the JAX package's
                bench corpus), in twelve runs, each with the launch counts
@@ -272,6 +272,7 @@ The line before the last is a JSON object of per-kernel results; the last
 line is {"ok": true, "device": {...}}.  Imports no jax.
 """
 
+import functools
 import json
 import re
 import subprocess
@@ -504,8 +505,10 @@ VALID_PATTERN = ("nonspace", r"[^ \n]+")
 # words packs into 34 segments and fits), then seeded random lowercase
 # words of 4-9 letters.  KW_HUGE's count transducer has at least
 # BIG_HUGE_STATES states (its DFAs about 1 MB on the card, which L1 cannot
-# hold; its minimized count table 0.7 MB); KWL300 takes the
-# bidirectional route (K2 and K3) and INNER60 the INNER pipeline (K3's
+# hold; its minimized count table 0.7 MB); KWL600 takes the
+# bidirectional route (K2 and K3; its tables have more than 2047 rows, so
+# they stay int32 and take the global-memory instances, where KWL300's
+# 16-bit ones took shared memory) and INNER60 the INNER pipeline (K3's
 # interference mode over its 1024 x 64 suffix table).  The e2e run tiles
 # the base's first BIG_CUT bytes (re with 400 alternatives takes about a
 # second a MiB) to the corpus size, ASCII and with VALID_WORDS' 2-4-byte
@@ -516,7 +519,7 @@ BIG = [("KW400", (400, False), r"\b(?:{})\b", False),
        ("KWI200_POSIX", (200, False), r"(?i)(?:{})\s\d+", True),
        ("KWI200_CAP", (200, False), r"(?i)((?:{}))\s(\d+)", False),
        ("KW_HUGE", (1000, False), r"\b(?:{})\b", False),
-       ("KWL300", (300, True), r"(?i)(?:{})\s\d+", False),
+       ("KWL600", (600, True), r"(?i)(?:{})\s\d+", False),
        ("INNER60", None, r"[a-z]+ error [^ ]{8,60}[a-z]", True)]
 BIG_SEED = 23
 BIG_HUGE_STATES = 3000
@@ -533,11 +536,26 @@ BIG_POSIX_CHECK = 4 << 10
 # both instances); the window scan on the first BIG_WINDOW_STARTS starts
 BIG_KERNELS = ("KW400", "KW_HUGE")
 BIG_WINDOW_STARTS = 1 << 26
+# the band: `\b(?:w1|...|wN)\b` over big_words for each of BAND_WORDS
+# (tables of 16-230 KB as int32 between the headline tables and the tables
+# past shared memory); pass 0 of K1 and K9 over the whole corpus, the
+# window ends form from the general find_all's first BAND_STARTS starts,
+# BAND_REPS launches each; every lane walk of a list must keep
+# BAND_MIN_WARPS warps an SM; the count and find_all walls of BAND_WALLS'
+# lists
+BAND_WORDS = (10, 25, 50, 100, 150, 200, 400)
+BAND_STARTS = 1 << 26
+BAND_REPS = 3
+BAND_MIN_WARPS = 32
+BAND_WALLS = ("KW50", "KW150")
 SLICE_MS = {}   # phase 3's kernel ms of the slice's shapes, for phase 4
 MESH_SHARDS = 4     # shards of the virtual mesh on the one card
 TRANSFER_MAIN = "ip"    # the transfer walk's whole-corpus pattern
 MULTI_ODD = ("ip", "multi_literal32")   # also counted on n % 4 != 0 bytes
 MULTI_FIND_ALL = [("word_digits", r"\b\d+\b"), ("word_error", r"\berror\b")]
+# band lists whose reverse table is outside the transfer walk's gate
+# (more than 512 states; past its shared memory): the mesh's find_all
+MULTI_GATE = ("KW100", "KW200")
 # the single-match slice: the bench patterns and these
 SINGLE_EXTRA = [("ws_digit_ws", r"\s\d\s"), ("ab_plus_c", r"(a|b)+c"),
                 ("ws_digits_ws", r"\s\d+\s"), ("a_word_end", r"a\b"),
@@ -710,7 +728,10 @@ def phase_build():
     print(f"[build] {_build.library_path()} from {_build.CSRC}/"
           f"{{{','.join(_build.SOURCES)}}}: {how} (load {wall:.2f} s)")
     for line in _build.build_log.splitlines():
-        if "registers" in line or "Compiling entry" in line:
+        # every entry's registers, and its spills where it has any
+        if ("registers" in line or "Compiling entry" in line
+                or ("spill" in line and "0 bytes spill stores, 0 bytes "
+                    "spill loads" not in line)):
             print(f"[build]   {line.strip()}")
     return _build.build_seconds
 
@@ -1141,6 +1162,10 @@ def phase_kernels(base: bytes, corpus: np.ndarray):
     # the global-memory instances of K1, K2, K3, K9 and the window scan on
     # tables past shared memory
     big_table_kernels(compare, base, corpus)
+    # every instance, 16-bit and int32, shared and global, on the sample;
+    # then the band's residency and times
+    residency_kernels(base, corpus)
+    band_kernels(compare, base, corpus)
 
     # K10 on the compaction rig's mask (256 MiB at density 1/200, seed 11)
     # at its three row counts: R = 128 with no payload, R = 256 with two
@@ -1490,11 +1515,11 @@ def m5_kernels(compare, corpus: np.ndarray) -> None:
         lim = (m + 1 - torch.arange(L, device=DEVICE, dtype=torch.int64)
                * T).clamp(0, T).to(torch.int32)
         S, C = (int(x) for x in sc.walk.packed.shape)
-        warps, threads = cs.resident_warps(cs.MODE_RESET, S, C)
+        vb = sc.walk.packed.element_size()
+        warps, threads = cs.resident_warps(cs.MODE_RESET, S, C, vb)
         print(f"[kernels] reset_scan  {name} POSIX: {int(cnt)} candidates, "
-              f"K = 2 subset 0; table [{S}, {C}] "
-              f"({'shared' if S * C * 4 <= cs.SMEM_LIMIT else 'global'} "
-              f"memory), "
+              f"K = 2 subset 0; table [{S}, {C}] {vb * 8}-bit "
+              f"({cs.lane_instance(cs.MODE_RESET, S, C, vb)} memory), "
               f"{warps} resident warps an SM in blocks of {threads}; "
               f"L={L} T={T} W={W} k={k}: one launch a pass", flush=True)
         return sc.walk, (sc.walk.packed, sc.walk.segmap, tiles, W // 4,
@@ -1592,11 +1617,13 @@ def big_table_kernels(compare, base: bytes, corpus: np.ndarray) -> None:
     the same walk in both instances, each timed beside its shared-memory
     instance; then the BIG_KERNELS tables (count, span from the minimized
     span-event transducer, fwd_all, the general route's anchored forward
-    table from its first BIG_WINDOW_STARTS match starts), KWL300's
-    reverse flag table (K3 over the reverse reset tiles of its bidi
-    find_all) and INNER60's suffix table in K3's interference mode, each
-    past shared memory.  Every global instance's headline (the kernels
-    line) is on KW400."""
+    table from its first BIG_WINDOW_STARTS match starts), the big
+    lowercase list's reverse flag table (K3 over the reverse reset tiles of
+    its bidi find_all) and INNER60's suffix table in K3's interference
+    mode, each in the instance its residency picks (16-bit values bring
+    KW400's lane-walk tables and INNER60's suffix back to shared memory).
+    The global instances' headlines (the kernels line) are KW_HUGE's lane
+    walks, the big lowercase list's K3 and KW400's window scan."""
     import torch
     import coregex_tpu_torch as ct
     from coregex_tpu_torch.ops import count_scan as cs
@@ -1618,24 +1645,20 @@ def big_table_kernels(compare, base: bytes, corpus: np.ndarray) -> None:
 
     def padded_walk(d, mode):
         """A lane walk's tables (packed, segmap, starts, sot) with the
-        packed table padded past shared memory."""
+        packed table widened to int32 and padded past shared memory."""
         rows = (cs.SMEM_LIMIT // 4 - (0 if mode == cs.MODE_FLAG else 256)) \
             // int(d.packed.shape[1]) + 1
-        return SimpleNamespace(packed=padded(d.packed, rows).contiguous(),
+        return SimpleNamespace(packed=padded(cs.wide(d.packed),
+                                             max(rows, cs.MAX16_ROWS + 1))
+                               .contiguous(),
                                segmap=d.segmap, sot=d.sot,
                                starts=getattr(d, "starts", None))
-
-    def table_line(kind, mode, S, nseg, label):
-        warps = cs.resident_warps(mode, S, nseg)[0]
-        print(f"[big] {kind:11} {label}: table [{S}, {nseg}], "
-              f"{S * nseg * 4} bytes, {cs.lane_instance(mode, S, nseg)} "
-              f"memory, {warps} resident warps an SM", flush=True)
 
     def walk(kind, mode, d, label, headline=False, args=None, sargs=None):
         """Pass 0 on the whole corpus (args; default: split_args), then
         the repair passes on the sample (sargs); returns pass 0's ms."""
-        S, nseg = (int(x) for x in d.packed.shape)
-        table_line(kind, mode, S, nseg, label)
+        print(f"[big] {kind:11} {label}: table "
+              f"{residency_text(mode, d.packed)}", flush=True)
         if args is None:
             args = split_args(d, data, geom, tiles, k)
         ms = compare(kind, f"{label} k={int(args[4].shape[0])}",
@@ -1658,12 +1681,10 @@ def big_table_kernels(compare, base: bytes, corpus: np.ndarray) -> None:
         tables (packed, segmap, eoi, starts)."""
         wargs = (mt.packed, mt.segmap, mt.eoi, mt.starts, data, False, st,
                  None, 64)
-        S, nseg = (int(x) for x in mt.packed.shape)
         reads = window_reads(*wargs)
-        print(f"[big] window{kind} {label}: table [{S}, {nseg}] in "
-              f"{'shared' if dfa_scan.window_fits(S, nseg) else 'global'} "
-              f"memory, {int(st.shape[0])} starts, {reads} corpus bytes "
-              f"read at W=64", flush=True)
+        print(f"[big] window{kind} {label}: table "
+              f"{residency_text(None, mt.packed)}, {int(st.shape[0])} "
+              f"starts, {reads} corpus bytes read at W=64", flush=True)
         inb = reads + nbytes(st, *wargs[:4])
         ms = [compare(f"window_scan{kind}", label,
                       lambda: dfa_scan.window_flags_cuda(*wargs),
@@ -1716,9 +1737,9 @@ def big_table_kernels(compare, base: bytes, corpus: np.ndarray) -> None:
     del starts
     eargs = dfa_scan.window_args(fwd_mt, data, st, None, 64)
     shared = cuda_ms(lambda: dfa_scan.window_ends_cuda(*eargs), 5)
-    rows = (cs.SMEM_LIMIT - dfa_scan.WINDOW_STAGE_BYTES) // 4 // \
-        fwd_mt.NSEG + 1
-    pmt = SimpleNamespace(packed=padded(fwd_mt.packed, rows).contiguous(),
+    rows = max(cs.SMEM_LIMIT // 4 // fwd_mt.NSEG + 1, cs.MAX16_ROWS + 1)
+    pmt = SimpleNamespace(packed=padded(cs.wide(fwd_mt.packed),
+                                        rows).contiguous(),
                           segmap=fwd_mt.segmap, starts=fwd_mt.starts,
                           eoi=padded(fwd_mt.eoi, rows).contiguous())
     _flags_ms, ends_ms = ends("_global", pmt, st,
@@ -1729,7 +1750,6 @@ def big_table_kernels(compare, base: bytes, corpus: np.ndarray) -> None:
     del st, eargs, ip, sc, ssc, mt
     # tables past shared memory
     for name in BIG_KERNELS:
-        headline = name == BIG_KERNELS[0]
         t0 = time.perf_counter()
         be = engine(name)
         csc = be._count_scanner_ascii()
@@ -1744,29 +1764,33 @@ def big_table_kernels(compare, base: bytes, corpus: np.ndarray) -> None:
         for kind, mode, d in (("count_scan", cs.MODE_COUNT, csc.dcd),
                               ("span_scan", cs.MODE_SPAN, span),
                               ("match_scan", cs.MODE_MATCH, chunk.mt)):
-            if cs.lane_instance(mode, *d.packed.shape) != "global":
-                fail(f"{name}: its {kind} table fits shared memory")
-            walk(f"{kind}_global", mode, d, f"{name} {CORPUS_MIB} MiB",
-                 headline=headline)
+            glob = cs.lane_instance(mode, *d.packed.shape,
+                                    d.packed.element_size()) == "global"
+            if name == "KW_HUGE" and not glob:
+                fail(f"{name}: its {kind} table takes shared memory")
+            walk(kind + ("_global" if glob else ""), mode, d,
+                 f"{name} {CORPUS_MIB} MiB", headline=glob)
         rev, fwd_mt = route
         starts, m, _ok = be._all_starts(rev, corpus)
         st = starts[:min(m, BIG_WINDOW_STARTS)].contiguous()
         del starts
-        if dfa_scan.window_fits(fwd_mt.S, fwd_mt.NSEG):
-            fail(f"{name}: its window table fits shared memory")
+        if dfa_scan.window_fits(fwd_mt.S, fwd_mt.NSEG,
+                                fwd_mt.packed.element_size()):
+            fail(f"{name}: its window table takes shared memory")
         ends("_global", fwd_mt, st, f"{name} {int(st.shape[0])} of {m} "
-             f"starts", headline=headline)
+             f"starts", headline=name == BIG_KERNELS[0])
         del st, span, chunk, route, rev, fwd_mt, csc, be
         torch.cuda.empty_cache()
-    # K3 past shared memory: KWL300's reverse flag scan, INNER60's suffix
-    be = engine("KWL300")
+    # K3 past shared memory: KWL600's reverse flag scan, INNER60's suffix
+    be = engine("KWL600")
     fargs = flag_args(be, data)
-    if cs.lane_instance(cs.MODE_FLAG, *fargs[0].shape) != "global":
-        fail("KWL300: its reverse flag table fits shared memory")
+    if cs.lane_instance(cs.MODE_FLAG, *fargs[0].shape,
+                        fargs[0].element_size()) != "global":
+        fail("KWL600: its reverse flag table takes shared memory")
     fw = flag_scan.FlagWalk(fargs[0])
     sfargs = flag_args(be, sample)
     walk("flag_scan_global", cs.MODE_FLAG, fw,
-         f"KWL300 reverse {CORPUS_MIB} MiB", headline=True, args=fargs,
+         f"KWL600 reverse {CORPUS_MIB} MiB", headline=True, args=fargs,
          sargs=sfargs)
     del fargs, sfargs, be
     be = engine("INNER60")
@@ -1785,11 +1809,334 @@ def big_table_kernels(compare, base: bytes, corpus: np.ndarray) -> None:
              torch.full((kr, Lr), flag_scan.DEAD, dtype=torch.int32,
                         device=DEVICE), offs,
              (n + 1 - lanes * Tr).clamp(0, Tr).to(torch.int32))
-    walk("flag_scan_global", cs.MODE_FLAG,
+    glob = cs.lane_instance(cs.MODE_FLAG, *iargs[0].shape,
+                            iargs[0].element_size()) == "global"
+    walk("flag_scan" + ("_global" if glob else ""), cs.MODE_FLAG,
          flag_scan.FlagWalk(fsc.tables.packed_full),
          f"interference mode INNER60 suffix {CORPUS_MIB} MiB", args=iargs)
     del iargs, rtiles, tiles, stiles, data, sample
     torch.cuda.empty_cache()
+
+
+def band_patterns(tile: bytes):
+    """(name, pattern) of `\\b(?:w1|...|wN)\\b` over big_words(tile, N)
+    for each N of BAND_WORDS (N = 400 is BIG's KW400)."""
+    return [(f"KW{n}", r"\b(?:{})\b".format("|".join(
+        big_words(tile, n, False)))) for n in BAND_WORDS]
+
+
+def band_tables(be, dev):
+    """(kind, lane-walk mode or None for the window scan, tables with
+    .packed) of each table a keyword list's routes take or could take:
+    count (K1), span (K2, the minimized span-event transducer), flag (K3,
+    the pre-reset flag table of the minimized anchored reverse DFA), fwd_all
+    (K9), rev_all (K9 of the general find_all) and ends (the window scan's
+    anchored break table from the general find_all's starts).  Works on a
+    checkout whose tables are all int32 too (tools/time_lane_torch.py
+    --root)."""
+    from coregex_tpu_torch.ops import count_scan as cs
+    from coregex_tpu_torch.ops import flag_scan
+    from coregex_tpu_torch.ops.span_scan import DeviceSpanDFA
+    csc = be._count_scanner_ascii()
+    ft = flag_scan.ResetFlagTables.from_host(
+        be._dense("rev_anch_ascii").minimized(), 3, dev, flag_pre_reset=True)
+    rev, fwd = be._full_scan_route()
+    return [("count", cs.MODE_COUNT, csc.dcd),
+            ("span", cs.MODE_SPAN,
+             DeviceSpanDFA.from_host(csc.span_cd_raw.minimized(), dev)),
+            ("flag", cs.MODE_FLAG, flag_scan.FlagWalk(ft.packed_full)),
+            ("fwd_all", cs.MODE_MATCH, be._chunk_scanner("fwd_all").mt),
+            ("rev_all", cs.MODE_MATCH, rev.mt), ("ends", None, fwd)]
+
+
+def table_residency(mode, packed, starts=None):
+    """(bytes, place, threads a block, resident warps an SM, the model's
+    warps or None, stage slice or None) of a table as this checkout stores
+    and launches it; place: "global", or "shared" with the width of its
+    values there.  The lane walk's warps by count_scan.resident_warps (the
+    occupancy calculator) beside count_scan.lane_warps (the model that
+    picks the place); the window scan's (ends form) by the occupancy
+    calculator beside its one block's warps, in the plan of the source
+    (which must equal dfa_scan.window_plan) for `starts` = (n, B, W)
+    (None: starts that want the larger stage slice).  A checkout before 16-bit tables: int32,
+    128-thread lane-walk blocks, the window scan's 256-thread blocks by
+    its fixed layout (8 warps of 3 x 2048-byte stage slices)."""
+    from coregex_tpu_torch.ops import count_scan as cs
+    from coregex_tpu_torch.ops import dfa_scan
+    S, nseg = (int(x) for x in packed.shape)
+    eb = packed.element_size()
+    nb = S * nseg * eb
+
+    def place(width):
+        return f"shared {width * 8}-bit" if width else "global"
+    if not hasattr(cs, "value_bytes"):      # before 16-bit tables
+        if mode is not None:
+            warps, threads = cs.resident_warps(mode, S, nseg)
+            return (nb, place(4 * cs.table_fits(S, nseg, mode)), threads,
+                    warps, None, None)
+        shared = dfa_scan.window_fits(S, nseg)
+        smem = (((S * nseg if shared else 0) + 256 + 3) & ~3) * 4 \
+            + 8 * 3 * 2048
+        blocks = min(8, 233472 // (-(-smem // 128) * 128 + 1024))
+        return nb, place(4 * shared), 256, blocks * 8, None, 2048
+    if mode is None:
+        n, B, W = starts or (1 << 30, 1, 64)
+        p, resident = dfa_scan.window_plan_cuda(S, nseg, eb, n, B, W)
+        host = dfa_scan.window_plan(S, nseg, eb,
+                                    dfa_scan.window_stage(n, B, W))
+        if host != p:
+            fail(f"window plan [{S}, {nseg}] {eb * 8}-bit: the source's "
+                 f"{tuple(p)}, the host's {tuple(host)}")
+        return (nb, place(p.width), dfa_scan.WINDOW_THREADS, resident,
+                dfa_scan.WINDOW_THREADS // 32, p.stage)
+    width = eb if cs.table_fits(S, nseg, mode, eb) else 0
+    warps, threads = cs.resident_warps(mode, S, nseg, eb)
+    model = cs.lane_warps(cs.lane_smem_bytes(mode, S, nseg, width))
+    return nb, place(width), threads, warps, model, None
+
+
+def residency_text(mode, packed, starts=None) -> str:
+    nb, where, th, warps, model, stage = table_residency(mode, packed,
+                                                         starts)
+    return (f"[{', '.join(str(int(x)) for x in packed.shape)}] "
+            f"{packed.element_size() * 8}-bit {nb} bytes, {where}, "
+            f"{th} threads, {warps} resident warps"
+            + (f" (model {model})" if model is not None else "")
+            + (f", {stage}-byte stage slices" if stage else ""))
+
+
+def band_inputs(be, data, corpus, geom, tiles, k):
+    """K1's (count) and K9's (fwd_all) pass-0 arguments over the corpus,
+    and the window ends form's over the general find_all's first
+    BAND_STARTS match starts at W = 64 (with their match count m)."""
+    from coregex_tpu_torch.ops import dfa_scan
+    rev, fwd = be._full_scan_route()
+    starts, m, _ok = be._all_starts(rev, corpus)
+    st = starts[:min(m, BAND_STARTS)].contiguous()
+    del starts
+    return (split_args(be._count_scanner_ascii().dcd, data, geom, tiles, k),
+            split_args(be._chunk_scanner("fwd_all").mt, data, geom, tiles,
+                       k),
+            dfa_scan.window_args(fwd, data, st, None, 64), m)
+
+
+def band_kernels(compare, base: bytes, corpus: np.ndarray) -> dict:
+    """The band: keyword lists `\\b(?:...)\\b` of BAND_WORDS words.  For
+    each list every mode's table (count, span, flag, fwd_all, rev_all, the
+    window scan's ends table for the starts below): shape, bytes, place,
+    block size and resident warps (the occupancy calculator beside the
+    model that picks the place, which must agree); then pass 0 of K1
+    (count) and K9 (fwd_all) over the whole corpus and the window ends form
+    from the general find_all's first BAND_STARTS starts, each bit-equal
+    to its plain version, timed beside its bound.  Fails if a table of a
+    list keeps fewer than BAND_MIN_WARPS warps an SM.  Returns {name: (K1
+    ms, K9 ms, ends ms)}."""
+    import torch
+    import coregex_tpu_torch as ct
+    from coregex_tpu_torch.ops import count_scan as cs
+    from coregex_tpu_torch.ops import dfa_scan
+    t0 = time.perf_counter()
+    data = torch.from_numpy(corpus).to(DEVICE)
+    L, T, W, _ = cs.plan_geometry(len(corpus))
+    k = cs.lane_split(T, W)
+    tiles = cs.make_word_tiles(data, L, T // 4)
+    out = {}
+    for name, pattern in band_patterns(big_cut(base)):
+        t1 = time.perf_counter()
+        be = ct.compile(pattern, device=DEVICE).batch_engine()
+        tabs = band_tables(be, DEVICE)
+        build = time.perf_counter() - t1
+        kargs, margs, wargs, m = band_inputs(be, data, corpus, (L, T, W),
+                                             tiles, k)
+        starts = (len(corpus), int(wargs[6].shape[0]), wargs[8])
+        for kind, mode, t in tabs:
+            _nb, _where, _th, warps, model, _st = table_residency(
+                mode, t.packed, starts)
+            print(f"[band] {name:6} {kind:7} "
+                  f"{residency_text(mode, t.packed, starts)}", flush=True)
+            # the lane walk's model is the occupancy calculator's rule; the
+            # window scan's block must stay resident whole
+            if warps != model if mode is not None else warps < model:
+                fail(f"band {name} {kind}: the occupancy calculator keeps "
+                     f"{warps} warps, the model {model}")
+            if warps < BAND_MIN_WARPS:
+                fail(f"band {name} {kind}: {warps} resident warps")
+        ms = []
+        for kind, mode, args in (("count_scan", cs.MODE_COUNT, kargs),
+                                 ("match_scan", cs.MODE_MATCH, margs)):
+            glob = cs.lane_instance(mode, *args[0].shape,
+                                    args[0].element_size()) == "global"
+            ms.append(compare(kind + ("_global" if glob else ""),
+                              f"{name} {CORPUS_MIB} MiB k={k}",
+                              lambda: cs.lane_walk_cuda(mode, *args),
+                              lambda: cs.lane_walk_plain(mode, *args),
+                              reps=BAND_REPS, in_bytes=nbytes(*args)))
+        glob = not dfa_scan.window_fits(*wargs[0].shape,
+                                        wargs[0].element_size())
+        ms.append(compare("window_ends" + ("_global" if glob else ""),
+                          f"{name} {int(wargs[6].shape[0])} of {m} starts",
+                          lambda: dfa_scan.window_ends_cuda(*wargs,
+                                                            alive_u8=True),
+                          lambda: dfa_scan.window_ends_plain(*wargs,
+                                                             alive_u8=True),
+                          reps=BAND_REPS,
+                          in_bytes=window_reads(*wargs)
+                          + nbytes(wargs[6], *wargs[:4])))
+        out[name] = tuple(ms)
+        print(f"[band] {name:6} K1 {ms[0]:.3f} ms, K9 fwd_all {ms[1]:.3f} "
+              f"ms, ends {ms[2]:.3f} ms (tables {build:.1f} s)", flush=True)
+        del kargs, margs, wargs, tabs, be
+        torch.cuda.empty_cache()
+    del tiles, data
+    torch.cuda.empty_cache()
+    print(f"[band] kernels {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+def residency_kernels(base: bytes, corpus: np.ndarray) -> None:
+    """Every lane-walk and window-scan instance against its plain version
+    (run once a table and pass, bit-equal: tolerance 0) on the 4 MiB sample
+    at its split: for the headline tables (ip's count,
+    span and reverse flag tables, `\\s\\d\\s` fwd_all, `\\b\\d+\\b`'s
+    window table), each band list's count, span, flag (over the flipped
+    sample's reset-free symbols) and fwd_all tables and KW_HUGE's count and
+    fwd_all tables, the table as packed (16-bit where it has at most
+    MAX16_ROWS rows) and widened to int32, each in global memory and in
+    shared memory at every value width its room allows (the wrappers'
+    `place`): pass 0 and both repair passes; the window ends form likewise
+    from the sample's general find_all starts (window_ends_cuda's
+    `width`)."""
+    import torch
+    import coregex_tpu_torch as ct
+    from coregex_tpu_torch.ops import count_scan as cs
+    from coregex_tpu_torch.ops import dfa_scan, flag_scan
+    t0 = time.perf_counter()
+    sample = torch.from_numpy(corpus[:4 << 20]).to(DEVICE)
+    n = int(sample.shape[0])
+    L, T, W, _ = cs.plan_geometry(n)
+    k = cs.lane_split(T, W)
+    tiles = cs.make_word_tiles(sample, L, T // 4)
+    Lr, Tr, Wr, _ = flag_scan.reset_geometry(n)
+    kr = cs.lane_split(Tr, Wr)
+
+    def variants(mode, packed):
+        """(label, table, width) of each place a table can take, for the
+        table as packed and widened to int32: global memory (width 0) and
+        shared memory where its room allows, the lane walk's at the table's
+        own width, the window scan's at each width (4: int32, a 16-bit
+        table widened)."""
+        S, nseg = (int(x) for x in packed.shape)
+        forms = [("int32", cs.wide(packed))]
+        if packed.dtype == torch.int16:
+            forms.insert(0, ("16-bit", packed))
+        for label, t in forms:
+            vb = t.element_size()
+            for width in (0, vb) if mode is not None else (0, 2, 4):
+                smem = (cs.lane_smem_bytes(mode, S, nseg, width)
+                        if mode is not None else dfa_scan.window_smem_bytes(
+                            width, S, nseg, dfa_scan.WINDOW_STAGES[-1]))
+                if width == 0 or (width >= vb and smem <= cs.SMEM_LIMIT):
+                    where = ("global" if not width else "shared"
+                             if width == vb else "shared as int32")
+                    yield f"{label} {where}", t, width
+
+    checked = [0]
+
+    def same(kind, label, got, want):
+        err = max_abs_err(got, want)
+        if err:
+            fail(f"{kind} {label} differs from its plain version (max abs "
+                 f"err {err})")
+        checked[0] += 1
+
+    def lane(name, kind, mode, d, args):
+        run = repair_case(mode, d, args)
+        want = [cs.lane_walk_plain(mode, *args)] + [
+            run(cs.lane_repair_plain, whole) for whole in (False, True)]
+        for label, t, width in variants(mode, d.packed):
+            a = (t,) + args[1:]
+            place = "shared" if width else "global"
+            same(kind, f"{name} {label} 4 MiB k={k}",
+                 cs.lane_walk_cuda(mode, *a, place=place), want[0])
+            for i, whole in enumerate((False, True)):
+                same(kind, f"{name} {label} "
+                     f"{'lane' if whole else 'sub-lane'} pass",
+                     run(functools.partial(cs.lane_repair_cuda, place=place),
+                         whole, t), want[1 + i])
+        print(f"[residency] {kind:11} {name}: pass 0 and both repair "
+              f"passes bit-equal in "
+              f"{', '.join(lb for lb, _t, _w in variants(mode, d.packed))}",
+              flush=True)
+
+    def window(name, mt, st):
+        wargs = dfa_scan.window_args(mt, sample, st, None, 64)
+        want = dfa_scan.window_ends_plain(*wargs)
+        for label, t, width in variants(None, mt.packed):
+            same("window_ends", f"{name} {label}",
+                 dfa_scan.window_ends_cuda(t, *wargs[1:], width=width), want)
+        print(f"[residency] window_ends {name} ({int(st.shape[0])} starts): "
+              f"bit-equal in "
+              f"{', '.join(lb for lb, _t, _w in variants(None, mt.packed))}",
+              flush=True)
+
+    def flag_inputs(packed, bounds):
+        lanes = torch.arange(Lr, dtype=torch.int64, device=DEVICE)
+        offs = torch.zeros(Lr, dtype=torch.int32, device=DEVICE)
+        offs[0] = Wr
+        return (packed, None, flag_scan.sym_base_tiles(
+            torch.flip(sample, [0]), bounds, Lr, Tr // 4), Wr // 4,
+            torch.full((kr, Lr), flag_scan.DEAD, dtype=torch.int32,
+                       device=DEVICE), offs,
+            (n + 1 - lanes * Tr).clamp(0, Tr).to(torch.int32))
+
+    ip = ct.compile(PATTERNS["ip"], device=DEVICE).batch_engine()
+    for kind, mode, d in (
+            ("count_scan", cs.MODE_COUNT, ip._count_scanner_ascii().dcd),
+            ("span_scan", cs.MODE_SPAN, ip._span_scanner(True).dsd),
+            ("match_scan", cs.MODE_MATCH, match_tables("ws_digit_ws",
+                                                       "fwd_all"))):
+        lane("ip" if mode != cs.MODE_MATCH else "\\s\\d\\s", kind, mode, d,
+             split_args(d, sample, (L, T, W), tiles, k))
+    fargs = flag_args(ip, sample)
+    lane("ip reverse", "flag_scan", cs.MODE_FLAG,
+         flag_scan.FlagWalk(fargs[0]), fargs)
+    wd = ct.compile(PATTERNS["word_digits"], device=DEVICE).batch_engine()
+    rev, fwd = wd._full_scan_route()
+    starts, m, _ok = wd._all_starts(rev, corpus[:n])
+    window("\\b\\d+\\b", fwd, starts[:m].contiguous())
+    pats = dict(band_patterns(big_cut(base)))
+    pats["KW_HUGE"] = dict((nm, p) for nm, p, _ in
+                           big_patterns(big_cut(base)))["KW_HUGE"]
+    for name, pattern in pats.items():
+        be = ct.compile(pattern, device=DEVICE).batch_engine()
+        tabs = band_tables(be, DEVICE)
+        for kind, mode, d in tabs:
+            if name == "KW_HUGE" and kind not in ("count", "fwd_all"):
+                continue
+            if kind == "rev_all":
+                continue
+            if mode is None:
+                starts, m, _ok = be._all_starts(be._full_scan_route()[0],
+                                                corpus[:n])
+                window(name, d, starts[:m].contiguous())
+                continue
+            kern = {cs.MODE_COUNT: "count_scan", cs.MODE_SPAN: "span_scan",
+                    cs.MODE_FLAG: "flag_scan",
+                    cs.MODE_MATCH: "match_scan"}[mode]
+            if mode == cs.MODE_FLAG:
+                bounds = tuple(int(b) for b in
+                               dfa_scan.DFATables.from_dense(
+                                   be._dense("rev_anch_ascii").minimized())
+                               .bounds if 0 < int(b) < 256)
+                args = flag_inputs(d.packed, bounds)
+            else:
+                args = split_args(d, sample, (L, T, W), tiles, k)
+            lane(name, kern, mode, d, args)
+        del tabs, be
+    del tiles, sample
+    torch.cuda.empty_cache()
+    print(f"[residency] {checked[0]} kernel outputs bit-equal to their "
+          f"plain versions in {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def bitset_args(d, data, geom, tiles, k):
@@ -1993,10 +2340,10 @@ def split_args(d, data, geom, tiles, k):
 def repair_case(mode, d, args):
     """A lane walk repair pass's inputs: pass 0's outputs on `args`, whose
     exits are replaced by random states at a tenth of the sub-lanes, so
-    their successors walk.  Returns run(fn, whole): the sub-lane
-    (whole=False) or lane pass through fn (lane_repair_cuda or
-    lane_repair_plain) on fresh copies, giving (exits, counts, sync,
-    flagw, aux, walked)."""
+    their successors walk.  Returns run(fn, whole, packed=None): the
+    sub-lane (whole=False) or lane pass through fn (lane_repair_cuda or
+    lane_repair_plain) on fresh copies, over d.packed or another form of
+    it, giving (exits, counts, sync, flagw, aux, walked)."""
     import torch
     from coregex_tpu_torch.ops import count_scan as cs
     counts, exits, sync, fw, aux = cs.lane_walk_plain(mode, *args)
@@ -2008,12 +2355,13 @@ def repair_case(mode, d, args):
         dtype=torch.int32), exits).contiguous()
     tiles, lim = args[2], args[6]
 
-    def run(fn, whole):
+    def run(fn, whole, packed=None):
         out = [torch.empty_like(prev), counts.clone(), sync.clone(),
                None if fw is None else fw.clone(),
                None if aux is None else aux.clone(),
                torch.zeros(1, dtype=torch.int32, device=dev)]
-        fn(mode, whole, d.packed, d.segmap, tiles, d.sot, lim, prev, *out)
+        fn(mode, whole, d.packed if packed is None else packed, d.segmap,
+           tiles, d.sot, lim, prev, *out)
         return out
     return run
 
@@ -2172,6 +2520,8 @@ def window_steps(packed, segmap, eoi, starts_tbl, data, reverse, starts,
     n = int(data.shape[0])
     nseg = int(packed.shape[1])
     tbl, seg = packed.reshape(-1).long(), segmap.long()
+    if packed.dtype == torch.int16:     # 16-bit values
+        tbl &= 0xFFFF
 
     def byte_at(j):
         j = j.clamp(0, n - 1)
@@ -3364,6 +3714,39 @@ def route_tables(be, arr: np.ndarray):
     return kind, out
 
 
+def phase_e2e_band(base: bytes, arr: np.ndarray):
+    """The band's walls through the public API: count and device find_all
+    (first call, then best of 2) of BAND_WALLS' keyword lists over the
+    corpus, against re's spans on the base tile, tiled; host_routes 0.  It
+    must launch K1, K9 and the window scan's ends form."""
+    import coregex_tpu_torch as ct
+    from coregex_tpu_torch.ops import count_scan as cs
+    from coregex_tpu_torch.ops import dfa_scan
+    t0 = time.perf_counter()
+    B = len(base)
+    reps = len(arr) // B
+    pats = dict(band_patterns(big_cut(base)))
+    rng = np.random.default_rng(37)
+    routes = {}
+    for name in BAND_WALLS:
+        pattern = pats[name]
+        inner, tail = tiled_spans(oracle_spans(pattern, base), B, reps)
+        exp = tiled_digest(inner, tail, B, reps, rng)
+        eng = ct.compile(pattern, device=DEVICE)
+        be = eng.batch_engine()
+        got, cbest, cfirst = timed_count(eng, arr)
+        if got != exp[0]:
+            fail(f"band {name}: count {got} != oracle {exp[0]}")
+        line = check_find_all(f"band {name}", be, arr, exp,
+                              kernels=[("K9", dfa_scan.MATCH_KERNEL)])
+        print(f"[band] {name:6} count {got} {cbest * 1e3:.1f} ms (first "
+              f"{cfirst:.2f} s, {passes(cs.COUNT_KERNEL)}) | route "
+              f"{be.route} | {line}", flush=True)
+        routes[f"{name} band"] = be.host_routes
+    print(f"[band] walls {time.perf_counter() - t0:.1f} s", flush=True)
+    return routes
+
+
 def phase_e2e_big_tables(base: bytes, arr: np.ndarray):
     """Tables past shared memory (ROADMAP P5) through the public API.  For
     each BIG pattern, on the base's first BIG_CUT bytes tiled to the
@@ -4136,7 +4519,8 @@ def transfer_tables(name: str, mode: int):
     "quote_parity") on DEVICE: the unanchored forward DFA's match table in
     the DFA mode, the count transducer's table in the count mode; "perm64"
     is a random permutation table of 64 states (one permutation and an
-    emission of 0 or 1 a byte, seed 18), whose walkers never merge."""
+    emission of 0 or 1 a byte, seed 18), whose walkers never merge; int32
+    values."""
     import torch
     import coregex_tpu_torch as ct
     from coregex_tpu_torch.ops import transfer_scan as ts
@@ -4153,6 +4537,11 @@ def transfer_tables(name: str, mode: int):
         t = MatchTables(DFATables.from_dense(be._dense("fwd_all")), DEVICE)
     else:
         t = be._count_scanner().dcd
+    if t.packed.dtype == torch.int16:
+        # a lane walk's 16-bit table; the transfer walk reads int32 values
+        # (transfer_maps widens it the same way)
+        from coregex_tpu_torch.ops.count_scan import wide
+        return wide(t.packed), t.segmap
     return t.packed, t.segmap
 
 
@@ -4314,6 +4703,17 @@ def phase_e2e_multi(base: bytes, arr: np.ndarray):
         print(line, flush=True)
         routes[f"{name} multi-device"] = be.host_routes
     rng = np.random.default_rng(17)
+    # keyword lists whose reverse table is outside the transfer walk's gate:
+    # their one-card spans, for the mesh's find_all below
+    kws = dict(band_patterns(big_cut(base)))
+    one_card = {}
+    for name in MULTI_GATE:
+        r = oracle(lambda: ct.compile(kws[name], device=DEVICE)
+                   .batch_engine().find_all_spans_device(arr))
+        if r is None:
+            fail(f"{name}: the one-card find_all declined")
+        one_card[name] = r[0][:r[1]].clone()
+        del r
     saved = shard.default_mesh
     shard.default_mesh = (lambda n_devices=None, device=None, axis="data":
                           shard.Mesh([device] * D, axis))
@@ -4341,6 +4741,34 @@ def phase_e2e_multi(base: bytes, arr: np.ndarray):
             if name == "word_error" and served[-1] is None:
                 fail(f"{name}: the _sharded_starts hook declined")
             routes[f"{name} multi-device"] = be.host_routes
+        # the hook declines a reverse table past the walk's gate before the
+        # upload (P6), and the one-device path gives the one card's spans
+        for name in MULTI_GATE:
+            be = ct.compile(kws[name], device=DEVICE).batch_engine()
+            S, nseg = be._full_scan_route()[0].tables.packed.shape
+            served = []
+            hook = be._sharded_starts
+
+            def spy(rev, data, hook=hook, served=served):
+                served.append(hook(rev, data))
+                return served[-1]
+            be._sharded_starts = spy
+            t0 = time.perf_counter()
+            r = be.find_all_spans_device(arr)
+            wall = time.perf_counter() - t0
+            if r is None or not served or served[-1] is not None:
+                fail(f"{name}: the mesh's find_all did not decline the "
+                     f"sharded starts of its [{S}, {nseg}] reverse table")
+            if not torch.equal(r[0][:r[1]], one_card[name]):
+                fail(f"{name}: the mesh's find_all differs from the one "
+                     f"card's")
+            print(f"[multi] {name:12} reverse table [{S}, {nseg}]: "
+                  f"_sharded_starts declined before the upload; find_all "
+                  f"{r[1]} spans equal the one card's ({wall * 1e3:.1f} ms, "
+                  f"first call)", flush=True)
+            routes[f"{name} multi-device"] = be.host_routes
+            del r, be
+        one_card.clear()
     finally:
         shard.default_mesh = saved
     # make_sharded_ends at a buffer that holds every start, against the
@@ -4505,7 +4933,7 @@ def main():
     # the candidates, K3 in its interference mode for INNER suffixes, K4
     # and K8 for their compactions, the ends form for the PREFIX_RUN bulk
     # count), then tables past shared memory (the global-memory instances
-    # of K1, K2 and K3 for KWL300, K3 for INNER60, K9 and the ends form);
+    # of K1, K2 and K3 for KWL600, K3 for INNER60, K9 and the ends form);
     # the flags form has no caller on a user path (its checks are phase
     # 3's)
     paths = [("earlier slices", phase_e2e,
@@ -4530,6 +4958,8 @@ def main():
               [counters[i][0] for i in (18, 2, 3, 7, 11)]),
              ("tables past shared memory", phase_e2e_big_tables,
               [counters[i][0] for i in (19, 20, 21, 22, 24)]),
+             ("keyword lists of 16-230 KB tables", phase_e2e_band,
+              [counters[i][0] for i in (0, 8, 11)]),
              ("limits at MAX_CORPUS", phase_e2e_limits,
               [counters[i][0] for i in (0, 1, 2, 3, 4, 5, 7, 8, 11, 12)])]
     build_s = phase_build()

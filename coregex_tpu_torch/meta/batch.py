@@ -222,6 +222,7 @@ from ..ops.span_chain import (MULTI_FUSED_LIMIT, SPARSE_OK, _shift_words,
                               pair_spans_sparse, reset_words,
                               rune_boundaries_range, word_positions,
                               word_positions_into)
+from ..ops import transfer_scan
 from ..ops.span_scan import SpanScanner, to_global
 from ..parallel import shard
 from ..parallel.sharded_count import Phase1TooWide, ShardedGoCount
@@ -709,11 +710,16 @@ class BatchEngine:
         sharded with each shard's ends compacted into a buffer of
         max(4096, n // 256) slots (``shard.make_sharded_ends``); the start
         at 0 from one anchored forward walk on the host.  None when out of
-        scope: a mesh of one device, n < 2^16, or a shard whose ends
-        overflow its buffer."""
+        scope, before anything is uploaded: a mesh of one device, n <
+        2^16, or a reverse table outside the transfer walk's gate
+        (``transfer_scan.walk_gate``: more than MAX_STATES states or a
+        block past shared memory; a keyword list of 100 words or more),
+        as ``_sharded_counter`` declines past ``Phase1TooWide``; after
+        the walk, a shard whose ends overflow its buffer."""
         n = len(data)
         mesh = self._mesh()
-        if mesh is None or n < 1 << 16:
+        if (mesh is None or n < 1 << 16
+                or not transfer_scan.walk_gate(*rev.tables.packed.shape)):
             return None
         cap = max(4096, n // 256)
         fn, built = self._sharded_ends.get(mesh.devices, (None, 0))

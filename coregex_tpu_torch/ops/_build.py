@@ -41,22 +41,27 @@ FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "cgx_lane_count": [_I, _P, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P,
-                       _I, _P, _P, _P, _P, _P, _P],
-    "cgx_lane_span": [_I, _P, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P,
-                      _I, _P, _P, _P, _P, _P, _P, _P, _P],
-    "cgx_lane_reset": [_I, _P, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P,
-                       _I, _P, _P, _P, _P, _P, _P, _P],
-    "cgx_lane_occupancy": [_I, _I, _I, ctypes.POINTER(ctypes.c_int),
+    # the lane walk takes (pass, place, packed, vbytes, S, nseg, ...), the
+    # window scan ([width,] packed, vbytes, S, nseg, ...)
+    "cgx_lane_count": [_I, _I, _P, _I, _I, _I, _P, _P, _I, _I, _I, _I, _P,
+                       _P, _P, _I, _P, _P, _P, _P, _P, _P],
+    "cgx_lane_span": [_I, _I, _P, _I, _I, _I, _P, _P, _I, _I, _I, _I, _P,
+                      _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P],
+    "cgx_lane_reset": [_I, _I, _P, _I, _I, _I, _P, _P, _I, _I, _I, _I, _P,
+                       _P, _P, _I, _P, _P, _P, _P, _P, _P, _P],
+    "cgx_lane_occupancy": [_I, _I, _I, _I, ctypes.POINTER(ctypes.c_int),
                            ctypes.POINTER(ctypes.c_int)],
-    "cgx_lane_flag": [_I, _P, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P, _I,
-                      _P, _P, _P, _P, _P, _P, _P],
-    "cgx_lane_match": [_I, _P, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P,
-                       _I, _P, _P, _P, _P, _P, _P, _P, _P],
-    "cgx_window_flags": [_P, _I, _I, _P, _P, _P, _P, ctypes.c_longlong, _I,
-                         _P, _P, _I, _I, _P, _P, _P],
-    "cgx_window_ends": [_P, _I, _I, _P, _P, _P, _P, ctypes.c_longlong, _I,
-                        _P, _P, _P, _I, _I, _P, _P, _I, _P],
+    "cgx_lane_flag": [_I, _I, _P, _I, _I, _I, _P, _I, _I, _I, _I, _P, _P,
+                      _P, _I, _P, _P, _P, _P, _P, _P, _P],
+    "cgx_lane_match": [_I, _I, _P, _I, _I, _I, _P, _P, _I, _I, _I, _I, _P,
+                       _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P],
+    "cgx_window_flags": [_P, _I, _I, _I, _P, _P, _P, _P, ctypes.c_longlong,
+                         _I, _P, _P, _I, _I, _P, _P, _P],
+    "cgx_window_ends": [_I, _P, _I, _I, _I, _P, _P, _P, _P,
+                        ctypes.c_longlong, _I, _P, _P, _P, _I, _I, _P, _P,
+                        _I, _P],
+    "cgx_window_plan": [_I, _I, _I, _I, ctypes.c_longlong, _I, _I]
+                       + [ctypes.POINTER(ctypes.c_int)] * 3,
     "cgx_compact": [_P, ctypes.c_int64, _I, ctypes.c_int64, _I, _I, _P, _P,
                     _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P],
     "cgx_compact_exp": [_P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P,

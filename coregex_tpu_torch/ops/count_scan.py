@@ -25,11 +25,20 @@ launches ``csrc/lane_scan.cu`` for CUDA tensors and
 runs :func:`lane_walk_plain`, the reference's ``impl="gather"`` loop, for CPU
 tensors.  The TPU kernel's ``packed_rc`` row/column merge only served the
 Mosaic select tree and is left out: the CUDA kernel reads the full
-``[S, NSEG]`` table from shared memory where it fits (``table_fits``), and
-from global memory past it (``lane_instance``), so a table of any size the
-host pipeline builds runs on the card.  Every lane walk takes entries and
-gives counts, exits and syncs of shape [k, L], row j holding sub-lane j of
-each lane.
+``[S, NSEG]`` table, so a table of any size the host pipeline builds runs
+on the card.  Every lane walk takes entries and gives counts, exits and
+syncs of shape [k, L], row j holding sub-lane j of each lane.
+
+Table residency (``lane_scan.cu``'s header): a table of at most
+MAX16_ROWS rows holds 16-bit values (``packed_device``: an int16 tensor,
+read as uint16 by the kernel and as ``& 0xFFFF`` by the plain versions,
+``table_values``), a larger one int32; the kernel's block takes 128 to
+1024 threads, as many walkers as the occupancy calculator lets stay
+resident (``lane_block``); and the table takes the shared-memory instance,
+its rows skewed to an odd number of words (``lane_pitch``), where that
+instance keeps at least MIN_SHARED_WARPS warps an SM (``table_fits``,
+``lane_instance``, by ``lane_warps``, the sources' own model of the
+occupancy), else the global-memory one.
 """
 
 from __future__ import annotations
@@ -56,6 +65,24 @@ PASS_FIRST, PASS_SUB, PASS_LANE = 0, 1, 2
 # memory; an H100 block can hold at most this many bytes (past it the lane
 # walk and the window scan read the table from global memory)
 SMEM_LIMIT = 232448
+# an H100 SM's shared memory, the part of it each resident block reserves,
+# its unit of allocation, and the most blocks and threads an SM holds
+# (lane_scan.cu's kSmemPerSM, kBlockReserved, kSmemUnit, kMaxBlocksPerSM,
+# kMaxThreadsPerSM)
+SM_SMEM = 233472
+BLOCK_RESERVED = 1024
+SMEM_UNIT = 128
+SM_BLOCKS = 32
+SM_THREADS = 2048
+# the lane walk's block sizes (kThreads .. kMaxThreads)
+LANE_THREADS = (128, 256, 512, 1024)
+# the fewest resident warps an SM for which a table takes the lane walk's
+# shared-memory instance (kMinSharedWarps): a block of 1024 threads holds
+# 32, and fewer walkers than that leave the chain's latency uncovered
+MIN_SHARED_WARPS = 32
+# the most rows of a 16-bit table: every value delta*32 + flags stays
+# below 2^16 (lane_scan.cu's kMax16)
+MAX16_ROWS = 2047
 # most sub-lanes a lane for K1-K3, K5, K6 and K9 (lane_split): 64 sub-lanes
 # of 3 KiB
 # at 1536 MiB, 524,288 walkers, about two waves of resident threads; 16
@@ -71,19 +98,111 @@ def device_table(x, device) -> torch.Tensor:
                         device=device)
 
 
-def table_fits(S: int, nseg: int, mode: int = MODE_COUNT) -> bool:
-    """Whether a mode's packed [S, nseg] table takes the lane walk's
-    shared-memory instance: the table plus the 256-entry byte map (none
-    for K3 and the reset mode) within SMEM_LIMIT (lane_scan.cu's
-    lane_smem)."""
-    byte_map = 0 if mode in (MODE_FLAG, MODE_RESET) else 256
-    return (S * nseg + byte_map) * 4 <= SMEM_LIMIT
+def value_bytes(S: int) -> int:
+    """Bytes of a packed value of an S-row table: 2 up to MAX16_ROWS rows,
+    else 4."""
+    return 2 if S <= MAX16_ROWS else 4
 
 
-def lane_instance(mode: int, S: int, nseg: int) -> str:
+def pack16(x) -> np.ndarray:
+    """A packed [S, nseg] table (values delta*32 + flags, each in [0,
+    2^16)) as int16 bits: values past 2^15 wrap, and ``& 0xFFFF`` reads
+    them back.  Refused (ValueError) past MAX16_ROWS rows or for a value
+    outside [0, 2^16)."""
+    x = np.asarray(x)
+    if x.shape[0] > MAX16_ROWS:
+        raise ValueError(f"a 16-bit table holds at most {MAX16_ROWS} rows, "
+                         f"not {x.shape[0]}")
+    if x.size and (int(x.min()) < 0 or int(x.max()) >= 1 << 16):
+        raise ValueError("packed values must lie in [0, 2^16)")
+    return np.ascontiguousarray(x.astype(np.uint16).view(np.int16))
+
+
+def packed_device(x, device) -> torch.Tensor:
+    """A lane walk's or window scan's packed table on `device`: int16 bits
+    of its 16-bit values where it has at most MAX16_ROWS rows (pack16),
+    else int32."""
+    x = np.asarray(x)
+    if value_bytes(int(x.shape[0])) == 2:
+        return torch.from_numpy(pack16(x)).to(device)
+    return device_table(x, device)
+
+
+def table_values(packed) -> torch.Tensor:
+    """The packed values of an int16 or int32 table as int64, flat."""
+    v = packed.reshape(-1).long()
+    return v & 0xFFFF if packed.dtype == torch.int16 else v
+
+
+def wide(packed) -> torch.Tensor:
+    """An int16 or int32 packed table as int32 values."""
+    if packed.dtype == torch.int16:
+        return (packed.to(torch.int32) & 0xFFFF).contiguous()
+    return packed
+
+
+def lane_pitch(nseg: int, width: int) -> int:
+    """The row pitch (values a row) of an nseg-column table of
+    `width`-byte values in the lane walk's shared memory (lane_scan.cu's
+    pitch_of): rounded up to an odd number of words a row where a row
+    would span whole words, so walkers that read one column from
+    different rows meet in different banks."""
+    if width == 4:
+        return nseg | 1
+    return nseg if nseg & 1 or nseg & 3 == 2 else nseg + 2
+
+
+def lane_smem_bytes(mode: int, S: int, nseg: int, width: int) -> int:
+    """Dynamic shared memory of a lane-walk block (lane_scan.cu's
+    smem_bytes): the table of `width`-byte values in shared memory (width
+    0: the global-memory instance, no table there), S rows of lane_pitch
+    values padded to whole words, and the 256-entry byte map of every mode
+    but K3 and the reset mode."""
+    tbl = (S * lane_pitch(nseg, width) * width + 3) & ~3 if width else 0
+    return tbl + (0 if mode in (MODE_FLAG, MODE_RESET) else 1024)
+
+
+def lane_block(smem: int) -> Tuple[int, int]:
+    """(threads a block, resident warps an SM) of lane-walk blocks taking
+    `smem` bytes of shared memory: the smallest block of LANE_THREADS that
+    keeps the most warps resident, for a kernel of at most 32 registers a
+    thread (lane_scan.cu's block_threads, the occupancy calculator's
+    rule); (0, 0) past SMEM_LIMIT."""
+    if smem > SMEM_LIMIT:
+        return 0, 0
+    unit = -(-smem // SMEM_UNIT) * SMEM_UNIT
+    best = (0, 0)
+    for th in LANE_THREADS:
+        warps = min(SM_THREADS // th, SM_BLOCKS,
+                    SM_SMEM // (unit + BLOCK_RESERVED)) * th // 32
+        if warps > best[1]:
+            best = (th, warps)
+    return best
+
+
+def lane_warps(smem: int) -> int:
+    """Resident warps an SM of lane-walk blocks taking `smem` bytes of
+    shared memory, at the block size that keeps the most (lane_block;
+    lane_scan.cu's lane_warps); 0 past SMEM_LIMIT."""
+    return lane_block(smem)[1]
+
+
+def table_fits(S: int, nseg: int, mode: int = MODE_COUNT,
+               vbytes: Optional[int] = None) -> bool:
+    """Whether a mode's packed [S, nseg] table of vbytes-byte values
+    (value_bytes(S), as packed_device packs it, when None) takes the lane
+    walk's shared-memory instance: there it keeps at least
+    MIN_SHARED_WARPS warps an SM (lane_scan.cu's use_shared)."""
+    vb = value_bytes(S) if vbytes is None else vbytes
+    return lane_warps(lane_smem_bytes(mode, S, nseg, vb)) \
+        >= MIN_SHARED_WARPS
+
+
+def lane_instance(mode: int, S: int, nseg: int,
+                  vbytes: Optional[int] = None) -> str:
     """The lane walk's instance for a mode's [S, nseg] table: "shared"
     (the table in shared memory) or "global" (read with __ldg)."""
-    return "shared" if table_fits(S, nseg, mode) else "global"
+    return "shared" if table_fits(S, nseg, mode, vbytes) else "global"
 
 
 def check_table(S: int, nseg: int) -> None:
@@ -111,7 +230,8 @@ def segment_map(classes: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
 
 
 class DeviceCountDFA:
-    """CountDFA tables on a torch device: packed [S, NSEG] int32 with
+    """CountDFA tables on a torch device: packed [S, NSEG] (int16 bits of
+    16-bit values up to MAX16_ROWS rows, else int32, packed_device) with
     value = delta*32 + emit over byte segments, the byte->segment map,
     start states and EOI commits (ref. count_scan.py:DeviceCountDFA)."""
 
@@ -120,7 +240,7 @@ class DeviceCountDFA:
         self.S, self.NSEG = (int(x) for x in packed.shape)
         self.device = torch.device(device)
         check_table(self.S, self.NSEG)
-        self.packed = device_table(packed, self.device)
+        self.packed = packed_device(packed, self.device)
         self.segmap = device_table(segmap, self.device)
         self.starts = device_table(starts, self.device)
         self.sot = int(np.asarray(starts)[CTX_SOT])   # the true start state
@@ -235,7 +355,8 @@ def _count_launch(mode: int, counter: LaunchCounter, packed) -> None:
     global-memory instance's where the table takes that instance."""
     counter.launches += 1
     g = GLOBAL_KERNELS.get(mode)
-    if g is not None and lane_instance(mode, *packed.shape) == "global":
+    if g is not None and lane_instance(mode, *packed.shape,
+                                       packed.element_size()) == "global":
         g.launches += 1
 
 
@@ -324,7 +445,7 @@ def lane_walk_plain(mode: int, packed, segmap, tiles, W4: int, entries,
     T4k = T4 // k
     dev = tiles.device
     nseg = int(packed.shape[1])
-    tbl = packed.reshape(-1).long()
+    tbl = table_values(packed)
     seg = None if segmap is None else segmap.long()
     tv = tiles.view(k, T4k, L)
     prev = torch.roll(torch.arange(L, device=dev), 1)
@@ -435,7 +556,7 @@ def lane_repair_plain(mode: int, whole: bool, packed, segmap, tiles,
     k = int(prev.shape[0])
     T4k, G = T4 // k, T4 // k // 8
     nseg = int(packed.shape[1])
-    tbl = packed.reshape(-1).long()
+    tbl = table_values(packed)
     seg = None if segmap is None else segmap.long()
     lim = sub_limits(limits, k, T4k * 4).reshape(k, L)
     want = want_of(prev, first)
@@ -490,15 +611,20 @@ def _check_lane_args(mode, packed, segmap, tiles, W4, entries, offsets,
     for name, t in named:
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, tiles on {dev}")
-        if t.dtype != torch.int32:
+        if t.dtype != torch.int32 and not (name == "packed"
+                                           and t.dtype == torch.int16):
             raise ValueError(f"{name} must be int32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if packed.dim() != 2:
         raise ValueError("packed must be [S, NSEG]")
     S, nseg = (int(x) for x in packed.shape)
-    # a table past shared memory takes the global-memory instance
+    # the table's instance follows its residency (table_fits)
     check_table(S, nseg)
+    if packed.dtype == torch.int16 and S > MAX16_ROWS:
+        raise ValueError(f"a 16-bit table holds at most {MAX16_ROWS} rows")
+    if packed.data_ptr() % 4:
+        raise ValueError("packed must be 4-byte aligned")
     if mode == MODE_RESET and nseg > 32:
         raise ValueError(f"reset table [{S}, {nseg}]: at most 32 columns")
     if entries.dim() != 2 or int(entries.shape[1]) != L:
@@ -518,9 +644,18 @@ def _check_lane_args(mode, packed, segmap, tiles, W4, entries, offsets,
         raise ValueError(f"bad tile geometry T4={T4} W4={W4} k={k}")
 
 
+# a lane walk's place for its table (csrc/lane_scan.cu's Place): by the
+# rule (lane_instance), or global or shared memory as a check names it
+PLACES = {None: -1, "global": 0, "shared": 1}
+
+
 def lane_walk_cuda(mode: int, packed, segmap, tiles, W4: int, entries,
-                   offsets, limits):
-    """Launch csrc/lane_scan.cu (pass 0); same outputs as lane_walk_plain."""
+                   offsets, limits, place: Optional[str] = None):
+    """Launch csrc/lane_scan.cu (pass 0); same outputs as lane_walk_plain.
+    `place` ("global", "shared"; None: the table's own, lane_instance)
+    names the table's instance, for a check that holds each instance
+    against the plain version (the kernel refuses a table that does not
+    fit shared memory)."""
     _check_lane_args(mode, packed, segmap, tiles, W4, entries, offsets,
                      limits)
     T4, L = (int(x) for x in tiles.shape)
@@ -538,31 +673,32 @@ def lane_walk_cuda(mode: int, packed, segmap, tiles, W4: int, entries,
         aux = torch.empty(entries.shape, dtype=torch.int32, device=dev)
     lib = _build.lib()
     p = _build.ptr
+    tb = (PLACES[place], p(packed), packed.element_size(), S, nseg)
     with torch.cuda.device(dev):
         st = _build.stream(dev)
         if mode == MODE_COUNT:
             rc = lib.cgx_lane_count(
-                PASS_FIRST, p(packed), S, nseg, p(segmap), p(tiles), T4, L,
+                PASS_FIRST, *tb, p(segmap), p(tiles), T4, L,
                 W4, k, p(entries), p(offsets), p(limits), 0, None, p(counts),
                 p(exits), p(sync), None, st)
         elif mode == MODE_SPAN:
             rc = lib.cgx_lane_span(
-                PASS_FIRST, p(packed), S, nseg, p(segmap), p(tiles), T4, L,
+                PASS_FIRST, *tb, p(segmap), p(tiles), T4, L,
                 W4, k, p(entries), p(offsets), p(limits), 0, None, p(counts),
                 p(exits), p(sync), p(flagw), p(aux), None, st)
         elif mode == MODE_MATCH:
             rc = lib.cgx_lane_match(
-                PASS_FIRST, p(packed), S, nseg, p(segmap), p(tiles), T4, L,
+                PASS_FIRST, *tb, p(segmap), p(tiles), T4, L,
                 W4, k, p(entries), p(offsets), p(limits), 0, None, p(counts),
                 p(exits), p(sync), p(flagw), p(aux), None, st)
         elif mode == MODE_RESET:
             rc = lib.cgx_lane_reset(
-                PASS_FIRST, p(packed), S, nseg, p(segmap), p(tiles), T4, L,
+                PASS_FIRST, *tb, p(segmap), p(tiles), T4, L,
                 W4, k, p(entries), p(offsets), p(limits), 0, None, p(counts),
                 p(exits), p(sync), p(flagw), None, st)
         else:
             rc = lib.cgx_lane_flag(
-                PASS_FIRST, p(packed), S, nseg, p(tiles), T4, L, W4, k,
+                PASS_FIRST, *tb, p(tiles), T4, L, W4, k,
                 p(entries), p(offsets), p(limits), 0, None, p(counts),
                 p(exits), p(sync), p(flagw), None, st)
     _build.check(rc, "lane_scan")
@@ -571,9 +707,10 @@ def lane_walk_cuda(mode: int, packed, segmap, tiles, W4: int, entries,
 
 def lane_repair_cuda(mode: int, whole: bool, packed, segmap, tiles,
                      first: int, limits, prev, exits, counts, sync, flagw,
-                     aux, walked):
+                     aux, walked, place: Optional[str] = None):
     """Launch one repair pass of csrc/lane_scan.cu (K1, K2, K3, K9 or the
-    reset scan); same in-place outputs as lane_repair_plain."""
+    reset scan); same in-place outputs as lane_repair_plain.  `place` as
+    lane_walk_cuda's."""
     _check_lane_args(mode, packed, segmap, tiles, 1, prev, limits, limits)
     for name, t in (("exits", exits), ("counts", counts), ("sync", sync)):
         if (t.shape != prev.shape or t.dtype != torch.int32
@@ -586,32 +723,33 @@ def lane_repair_cuda(mode: int, whole: bool, packed, segmap, tiles,
     k = int(prev.shape[0])
     lib = _build.lib()
     p = _build.ptr
+    tb = (PLACES[place], p(packed), packed.element_size(), S, nseg)
     how = PASS_LANE if whole else PASS_SUB
     with torch.cuda.device(tiles.device):
         st = _build.stream(tiles.device)
         if mode == MODE_COUNT:
             rc = lib.cgx_lane_count(
-                how, p(packed), S, nseg, p(segmap), p(tiles), T4, L, 0, k,
+                how, *tb, p(segmap), p(tiles), T4, L, 0, k,
                 None, None, p(limits), first, p(prev), p(counts), p(exits),
                 p(sync), p(walked), st)
         elif mode == MODE_SPAN:
             rc = lib.cgx_lane_span(
-                how, p(packed), S, nseg, p(segmap), p(tiles), T4, L, 0, k,
+                how, *tb, p(segmap), p(tiles), T4, L, 0, k,
                 None, None, p(limits), first, p(prev), p(counts), p(exits),
                 p(sync), p(flagw), p(aux), p(walked), st)
         elif mode == MODE_MATCH:
             rc = lib.cgx_lane_match(
-                how, p(packed), S, nseg, p(segmap), p(tiles), T4, L, 0, k,
+                how, *tb, p(segmap), p(tiles), T4, L, 0, k,
                 None, None, p(limits), first, p(prev), p(counts), p(exits),
                 p(sync), p(flagw), p(aux), p(walked), st)
         elif mode == MODE_RESET:
             rc = lib.cgx_lane_reset(
-                how, p(packed), S, nseg, p(segmap), p(tiles), T4, L, 0, k,
+                how, *tb, p(segmap), p(tiles), T4, L, 0, k,
                 None, None, p(limits), first, p(prev), p(counts), p(exits),
                 p(sync), p(flagw), p(walked), st)
         else:
             rc = lib.cgx_lane_flag(
-                how, p(packed), S, nseg, p(tiles), T4, L, 0, k, None, None,
+                how, *tb, p(tiles), T4, L, 0, k, None, None,
                 p(limits), first, p(prev), p(counts), p(exits), p(sync),
                 p(flagw), p(walked), st)
     _build.check(rc, "lane_scan")
@@ -645,15 +783,16 @@ def lane_repair(mode: int, counter: LaunchCounter, whole: bool, *args):
         raise ValueError(f"unsupported device {tiles.device}")
 
 
-def resident_warps(mode: int, S: int, nseg: int) -> Tuple[int, int]:
+def resident_warps(mode: int, S: int, nseg: int,
+                   vbytes: Optional[int] = None) -> Tuple[int, int]:
     """(warps that one SM holds at once, threads a block) of a lane walk's
-    pass 0 on an [S, nseg] table, in the instance the table takes
-    (lane_instance; the CUDA occupancy calculator; the block size is the
-    launch's own: 128, or for MODE_RESET the one that keeps the most
-    walkers resident)."""
+    pass 0 on an [S, nseg] table of vbytes-byte values (value_bytes(S)
+    when None), in the instance the table takes (lane_instance), from the
+    CUDA occupancy calculator at the launch's own block size."""
+    vb = value_bytes(S) if vbytes is None else vbytes
     blocks, threads = ctypes.c_int(0), ctypes.c_int(0)
     _build.check(_build.lib().cgx_lane_occupancy(
-        mode, S, nseg, ctypes.byref(blocks), ctypes.byref(threads)),
+        mode, vb, S, nseg, ctypes.byref(blocks), ctypes.byref(threads)),
         "lane_scan")
     return blocks.value * threads.value // 32, threads.value
 

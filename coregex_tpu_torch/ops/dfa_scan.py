@@ -44,10 +44,12 @@ Ports from ``coregex_tpu/ops/dfa_scan.py``:
   K9, in one launch a pass where the reference goes a 2^29-byte segment
   at a time.
 
-K9 and the window scan hold the packed table in shared memory where it
-fits (``count_scan.lane_instance``, ``window_fits``) and read it from
-global memory past it, so a table of any size that the host pipeline
-builds (a list of hundreds of keywords: 0.25-1 MB) runs on the card.
+K9 and the window scan hold the packed table (16-bit values up to
+``count_scan.MAX16_ROWS`` rows, ``count_scan.packed_device``) in shared
+memory where that keeps enough warps resident (``count_scan.lane_instance``,
+``window_plan``) and read it from global memory otherwise, so a table of
+any size that the host pipeline builds (a list of hundreds of keywords:
+0.25-1 MB) runs on the card.
 
 The lanes freeze at their limit, so every flag lies below n.  The
 reference also counts the flag at n, which the first NUL pad byte raises;
@@ -69,11 +71,12 @@ from ..dfa.dense import CTX_SOT, DEAD, DenseDFA
 from . import _build
 from .compact2 import compact_pay, pack_words
 from .bytescan import _bucket
-from .count_scan import (MODE_MATCH, MODE_RESET, SMEM_LIMIT, SUB_PASSES,
-                         LaunchCounter, _byte_ctx, check_table, device_table,
-                         first_pass_inputs, lane_split, make_word_tiles,
+from .count_scan import (MAX16_ROWS, MODE_MATCH, MODE_RESET, SMEM_LIMIT,
+                         SUB_PASSES, LaunchCounter, _byte_ctx, check_table,
+                         device_table, first_pass_inputs, lane_pitch,
+                         lane_split, make_word_tiles, packed_device,
                          plan_geometry, segment_map, settled, split_fixpoint,
-                         state_at_end)
+                         state_at_end, table_values, value_bytes)
 from .span_chain import _floor_log2
 from .span_scan import to_global
 
@@ -119,16 +122,17 @@ class DFATables:
 
 
 class MatchTables:
-    """The packed match table, byte map, EOI flags [S, 4], start states
+    """The packed match table (int16 bits of 16-bit values up to
+    MAX16_ROWS rows, else int32), byte map, EOI flags [S, 4], start states
     [4] and true start state (sot) of a DFATables on a torch device: the
     inputs of K9 and of the window scan, in shared or global memory as the
-    table's size sets (count_scan.lane_instance, window_fits)."""
+    table's residency sets (count_scan.lane_instance, window_plan)."""
 
     def __init__(self, t: DFATables, device):
         self.device = torch.device(device)
         self.S, self.NSEG = (int(x) for x in t.packed.shape)
         check_table(self.S, self.NSEG)
-        self.packed = device_table(t.packed, self.device)
+        self.packed = packed_device(t.packed, self.device)
         self.segmap = device_table(t.segmap, self.device)
         self.eoi = device_table(t.match_eoi.astype(np.int32), self.device)
         self.starts = device_table(t.host_starts, self.device)
@@ -259,7 +263,7 @@ def window_flags_plain(packed, segmap, eoi, starts_tbl, data, reverse: bool,
     n = int(data.shape[0])
     B = int(starts.shape[0])
     nseg = int(packed.shape[1])
-    tbl = packed.reshape(-1).long()
+    tbl = table_values(packed)
     seg = segmap.long()
     eoi4 = eoi.reshape(-1).long()
 
@@ -335,7 +339,8 @@ def _check_window_args(packed, segmap, eoi, starts_tbl, data, starts, edge,
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     for name, t in named:
-        if t.dtype != torch.int32:
+        if t.dtype != torch.int32 and not (name == "packed"
+                                           and t.dtype == torch.int16):
             raise ValueError(f"{name} must be int32, got {t.dtype}")
     if data.dtype != torch.uint8 or data.dim() != 1 or data.numel() == 0:
         raise ValueError("data must be a non-empty 1-D uint8 tensor")
@@ -353,20 +358,89 @@ def _check_window_args(packed, segmap, eoi, starts_tbl, data, starts, edge,
         raise ValueError("an idx scatter needs its out array")
     if not 0 < W < 2 ** 31 - 32:
         raise ValueError(f"bad window width {W}")
-    # a table past shared memory takes the global-memory instance
+    # the table's instance follows its residency (window_plan)
     check_table(S, nseg)
+    if packed.dtype == torch.int16 and S > MAX16_ROWS:
+        raise ValueError(f"a 16-bit table holds at most {MAX16_ROWS} rows")
 
 
-# window_scan.cu's block: 256 threads, 8 warps, each with a ring of 3
-# stage slices of 2048 bytes
-WINDOW_STAGE_BYTES = 8 * 3 * 2048
+# window_scan.cu's block (kThreads, one an SM), stage slices (kWarpStage
+# down to kMinStage) and a warp's slices (kSlots)
+WINDOW_THREADS = 1024
+WINDOW_STAGES = (2048, 1024)
+WINDOW_SLOTS = 3
 
 
-def window_fits(S: int, nseg: int) -> bool:
+class WindowPlan(NamedTuple):
+    """A window launch's place for the table (width: the bytes of a value
+    in shared memory, 4 or 2; 0: global memory) and stage slice bytes."""
+    width: int
+    stage: int
+
+    @property
+    def shared(self) -> bool:
+        return self.width > 0
+
+
+def window_smem_bytes(width: int, S: int, nseg: int, stage: int) -> int:
+    """Dynamic shared memory of a window-scan block (window_scan.cu's
+    smem_bytes): the [S, nseg] table of `width`-byte values (0: global
+    memory, none) in rows of count_scan.lane_pitch values, padded to
+    words, the byte map, padding to 16 bytes and the warps' stage
+    rings."""
+    words = (S * lane_pitch(nseg, width) * width + 3) // 4 if width else 0
+    return (((words + 256 + 3) & ~3) * 4
+            + WINDOW_THREADS // 32 * WINDOW_SLOTS * stage)
+
+
+def window_stage(n: int, B: int, W: int) -> int:
+    """The stage slice that B starts over n bytes at window W want
+    (window_scan.cu's stage_for): the smaller where 32 starts n / B bytes
+    apart, the window and the chunks' alignment fit in it."""
+    gap = -(-n // B) if B > 0 else n
+    small = WINDOW_STAGES[-1]
+    return small if 32 * gap + W + 32 <= small else WINDOW_STAGES[0]
+
+
+def window_plan(S: int, nseg: int, vbytes: Optional[int] = None,
+                stage: int = WINDOW_STAGES[0]) -> WindowPlan:
+    """The window scan's launch over an [S, nseg] table of vbytes-byte
+    values (count_scan.value_bytes(S), as packed_device packs it, when
+    None) for starts that want `stage`-byte slices (window_stage),
+    window_scan.cu's plan_of: shared memory where a block fits within
+    SMEM_LIMIT, at that slice or else at the smaller one, with int32
+    values, else with 16-bit ones; else global memory at that slice."""
+    vb = value_bytes(S) if vbytes is None else vbytes
+    for st in WINDOW_STAGES[WINDOW_STAGES.index(stage):]:
+        for width in (4, 2):
+            if width >= vb and window_smem_bytes(width, S, nseg,
+                                                 st) <= SMEM_LIMIT:
+                return WindowPlan(width, st)
+    return WindowPlan(0, stage)
+
+
+def window_fits(S: int, nseg: int, vbytes: Optional[int] = None) -> bool:
     """Whether the window scan holds an [S, nseg] table in shared memory
-    beside the byte map and the stage rings (window_scan.cu's smem_bytes);
-    past it the kernel reads the table from global memory."""
-    return ((S * nseg + 256 + 3) & ~3) * 4 + WINDOW_STAGE_BYTES <= SMEM_LIMIT
+    (window_plan; the same at either stage slice); otherwise the kernel
+    reads it from global memory."""
+    return window_plan(S, nseg, vbytes).shared
+
+
+def window_plan_cuda(S: int, nseg: int, vbytes: Optional[int] = None,
+                     n: int = 1 << 30, B: int = 1, W: int = 64,
+                     width: Optional[int] = None) -> Tuple[WindowPlan, int]:
+    """(the plan, its resident warps an SM by the occupancy calculator)
+    that the CUDA source takes for the table and B starts over n bytes at
+    window W (by default: starts that want the larger slice), for the
+    ends form at `width` (window_ends_cuda's; None: by the rule), from
+    cgx_window_plan; 0 warps where that width does not fit."""
+    import ctypes
+    vb = value_bytes(S) if vbytes is None else vbytes
+    out = [ctypes.c_int(0) for _ in range(3)]
+    _build.check(_build.lib().cgx_window_plan(
+        -1 if width is None else width, vb, S, nseg, n, B, W,
+        *(ctypes.byref(x) for x in out)), "window_scan")
+    return WindowPlan(out[0].value, out[1].value), out[2].value
 
 
 def window_flags_cuda(packed, segmap, eoi, starts_tbl, data, reverse: bool,
@@ -384,19 +458,22 @@ def window_flags_cuda(packed, segmap, eoi, starts_tbl, data, reverse: bool,
     p = _build.ptr
     with torch.cuda.device(dev):
         rc = lib.cgx_window_flags(
-            p(packed), S, nseg, p(segmap), p(eoi), p(starts_tbl), p(data),
-            int(data.shape[0]), int(bool(reverse)), p(starts), p(edge), B, W,
-            p(flagw), p(alive), _build.stream(dev))
+            p(packed), packed.element_size(), S, nseg, p(segmap), p(eoi),
+            p(starts_tbl), p(data), int(data.shape[0]), int(bool(reverse)),
+            p(starts), p(edge), B, W, p(flagw), p(alive), _build.stream(dev))
     _build.check(rc, "window_scan")
     return flagw, alive
 
 
 def window_ends_cuda(packed, segmap, eoi, starts_tbl, data, reverse: bool,
                      starts, edge, W: int, idx=None, out=None,
-                     alive_u8: bool = False):
+                     alive_u8: bool = False, width: Optional[int] = None):
     """Launch csrc/window_scan.cu's ends form (cgx_window_ends); same
     arguments and outputs as window_ends_plain.  idx must hold distinct
-    slots of out."""
+    slots of out.  `width` names the table's place (0 global memory, 2 or
+    4 shared memory with values of that many bytes; None: the plan's,
+    window_plan), for a check that holds each place against the plain
+    version (the kernel refuses a width that does not fit)."""
     _check_window_args(packed, segmap, eoi, starts_tbl, data, starts, edge,
                        W, idx, out)
     dev = data.device
@@ -410,7 +487,8 @@ def window_ends_cuda(packed, segmap, eoi, starts_tbl, data, reverse: bool,
     p = _build.ptr
     with torch.cuda.device(dev):
         rc = lib.cgx_window_ends(
-            p(packed), S, nseg, p(segmap), p(eoi), p(starts_tbl), p(data),
+            -1 if width is None else width, p(packed), packed.element_size(),
+            S, nseg, p(segmap), p(eoi), p(starts_tbl), p(data),
             int(data.shape[0]), int(bool(reverse)), p(starts), p(edge),
             p(idx), B, W, p(out), p(alive), int(bool(alive_u8)),
             _build.stream(dev))
@@ -431,7 +509,7 @@ def _on_device(data, cuda, plain, counter, args, kw=None):
     if data.device.type == "cuda":
         out = cuda(*args, **kw)
         counter.launches += 1
-        if not window_fits(*args[0].shape):
+        if not window_fits(*args[0].shape, args[0].element_size()):
             WINDOW_GLOBAL[counter].launches += 1
         return out
     if data.device.type != "cpu":
@@ -551,8 +629,8 @@ class ResetScanner:
         if t.delta.shape[1] > 32:
             raise ValueError("reset scan packs class+aux in u8: C <= 32")
         self.walk = ResetWalk(
-            device_table(t.delta * 32 + t.match_on.astype(np.int32),
-                         self.device),
+            packed_device(t.delta * 32 + t.match_on.astype(np.int32),
+                          self.device),
             device_table(t.host_starts, self.device))
         self.bounds = tuple(int(b) for b in t.bounds if int(b) < 256)
 

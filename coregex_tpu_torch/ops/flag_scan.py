@@ -20,7 +20,8 @@ The lane walk packs bit 0 into flag words and sums bit 1 (interference).
 Symbols index table columns directly, so no byte map is needed.  The flag
 at position n (the first pad symbol) is EOI acceptance.  The 2C-column
 table sits in shared memory where it fits and in global memory past it
-(``count_scan.lane_instance``); the only gate is the alphabet, C <= 64
+(``count_scan.lane_instance``; 16-bit values up to
+``count_scan.MAX16_ROWS`` rows); the only gate is the alphabet, C <= 64
 (``alphabet_fits``).
 
 Changes from the reference: K3 walks k = ``lane_split(T, W)`` sub-lanes a
@@ -39,7 +40,7 @@ import torch
 
 from ..dfa.dense import DEAD, DenseDFA
 from .count_scan import (MODE_FLAG, SUB_PASSES, LaunchCounter, check_table,
-                         device_table, lane_split, make_word_tiles,
+                         lane_split, make_word_tiles, packed_device,
                          plan_geometry, settled, split_fixpoint, want_of)
 from .dfa_scan import DFATables
 from .span_scan import to_global
@@ -58,7 +59,7 @@ class ResetFlagTables:
     def __init__(self, packed: np.ndarray, bounds: np.ndarray, device):
         self.S, self.NSEG = (int(x) for x in packed.shape)
         check_table(self.S, self.NSEG)
-        self.packed_full = device_table(packed, device)
+        self.packed_full = packed_device(packed, device)
         self.bounds = bounds
 
     @staticmethod

@@ -43,7 +43,7 @@ import torch
 
 from . import _build
 from .count_scan import MODE_COUNT as _WALK_COUNT
-from .count_scan import SMEM_LIMIT, LaunchCounter, _walk_plain
+from .count_scan import SMEM_LIMIT, LaunchCounter, _walk_plain, wide
 
 MODE_DFA, MODE_COUNT = 0, 1
 # launches of the walk in each mode: the counterparts of shard.py:37 and
@@ -111,6 +111,14 @@ def smem_bytes(S: int, nseg: int, warps: int = 1) -> int:
     return (pad8(4 * (256 + S * nseg))
             + (pad8(2 * 256 * S) if S <= BYTE_STATES else 0) + pad8(S)
             + warps * (ITEMS * 16 + 128 + pad8(2 * S)))
+
+
+def walk_gate(S: int, nseg: int) -> bool:
+    """Whether the walk takes an [S, nseg] table: at most MAX_STATES
+    states (transfer_walk_cuda's gate) and a one-warp block within
+    SMEM_LIMIT (_check's), on the CPU as on the card, so a caller can
+    decline before it uploads anything."""
+    return S <= MAX_STATES and smem_bytes(S, nseg) <= SMEM_LIMIT
 
 
 def _check(packed, segmap, data, m: int, D: int, G: int) -> None:
@@ -341,7 +349,10 @@ def transfer_maps(mode: int, packed, segmap, data, D: int,
                   G: int = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(F, E) [D, S] int64 of the D equal shards of `data` (1-D uint8 on
     one device), each walked from all S entries: pieces of G a shard
-    (``sub_lanes`` when None), one walk, the tree."""
+    (``sub_lanes`` when None), one walk, the tree.  `packed` may hold the
+    lane walk's 16-bit values (``count_scan.packed_device``): the walk
+    reads int32 ones."""
+    packed = wide(packed)
     n = int(data.shape[0])
     if n % D:
         raise ValueError(f"{n} bytes do not split into {D} shards")

@@ -6,15 +6,19 @@ shared memory a Hopper block can take.  The lane walk (K1, K2, K3, K9) and
 the window scan read such a table from global memory, so every route
 serves them on the card.  Here, at KB scale:
 
-* each table the routes build for these patterns is past shared memory,
-  takes the kernels' global-memory instance, and passes the CUDA wrappers'
-  own argument checks (run on the arguments of every plain walk);
+* each table the routes build for these patterns is past shared memory as
+  int32, is held as 16-bit values where it has at most
+  ``count_scan.MAX16_ROWS`` rows, takes the instance its residency picks
+  (shared memory only where that keeps ``MIN_SHARED_WARPS`` warps an SM),
+  and passes the CUDA wrappers' own argument checks (run on the arguments
+  of every plain walk);
 * the route of every entry point is a device route (``host_routes`` 0);
 * count, find_all_index, find_all_submatch_index, is_match and find_index
   equal ``re`` (POSIX: the port's host walk), and the JAX package's on the
   CPU for KW400 and KWI200;
 * the INNER pipeline serves ``compile_posix(r"[a-z]+ error [^ ]{8,60}[a-z]")``,
-  whose 1024 x 64 suffix table takes K3's global-memory instance.
+  whose 1024 x 64 suffix table, global as int32, takes K3's shared-memory
+  instance with 16-bit values.
 """
 
 import os
@@ -73,9 +77,9 @@ class _Spy:
     scan (the CPU runs the plain versions; the checks are the kernels')."""
 
     def __init__(self, monkeypatch):
-        self.tables = []    # (what, S, nseg)
-        self.walks = []     # (mode, S, nseg)
-        self.windows = []   # (S, nseg)
+        self.tables = []    # (what, S, nseg, value bytes)
+        self.walks = []     # (mode, S, nseg, value bytes)
+        self.windows = []   # (S, nseg, value bytes)
         for cls, what in ((cs.DeviceCountDFA, "count"),
                           (ds.MatchTables, "match")):
             self._spy_init(monkeypatch, cls, what)
@@ -87,7 +91,7 @@ class _Spy:
                             limits):
             cs._check_lane_args(mode, packed, segmap, tiles, W4, entries,
                                 offsets, limits)
-            self.walks.append((mode, *packed.shape))
+            self.walks.append((mode, *packed.shape, packed.element_size()))
             return walk(mode, packed, segmap, tiles, W4, entries, offsets,
                         limits)
         monkeypatch.setattr(cs, "lane_walk_plain", lane_walk_plain)
@@ -98,7 +102,7 @@ class _Spy:
                               alive_u8=False):
             ds._check_window_args(packed, segmap, eoi, starts_tbl, data,
                                   starts, edge, W, idx, out)
-            self.windows.append(tuple(packed.shape))
+            self.windows.append((*packed.shape, packed.element_size()))
             return ends(packed, segmap, eoi, starts_tbl, data, reverse,
                         starts, edge, W, idx, out, alive_u8)
         monkeypatch.setattr(ds, "window_ends_plain", window_ends_plain)
@@ -108,7 +112,11 @@ class _Spy:
 
         def spied(obj, *args, **kw):
             init(obj, *args, **kw)
-            self.tables.append((what, obj.S, obj.NSEG))
+            packed = getattr(obj, "packed", None)
+            if packed is None:
+                packed = obj.packed_full
+            self.tables.append((what, obj.S, obj.NSEG,
+                                packed.element_size()))
         monkeypatch.setattr(cls, "__init__", spied)
 
 
@@ -133,8 +141,9 @@ def _groups(pattern, text):
 @pytest.mark.parametrize("name", list(PATTERNS))
 def test_keyword_lists_on_the_device_routes(monkeypatch, name):
     """Every entry point serves the keyword list on a device route, with
-    tables past shared memory in the kernels' global-memory instance,
-    equal to re (POSIX: the port's host walk)."""
+    tables past shared memory as int32 held as 16-bit values and each in
+    the instance its residency picks, equal to re (POSIX: the port's host
+    walk)."""
     pattern, posix, _ = PATTERNS[name]
     corpus_cache.clear()
     spy = _Spy(monkeypatch)
@@ -165,16 +174,25 @@ def test_keyword_lists_on_the_device_routes(monkeypatch, name):
     assert eng.is_match(CORPUS) is True
     assert eng.find_index(CORPUS) == first
     assert be.host_routes == 0
-    # every table built is past shared memory and takes the global-memory
-    # instance of every kernel that walks it
+    # every table built is past shared memory as int32 (where it would take
+    # the global-memory instance), is held as 16-bit values where it has at
+    # most MAX16_ROWS rows, and every kernel that walks it keeps
+    # MIN_SHARED_WARPS warps an SM in the shared-memory instance or takes
+    # the global-memory one
     assert spy.tables and spy.walks and spy.windows
-    for what, S, nseg in spy.tables:
+    for what, S, nseg, vb in spy.tables:
         assert (S * nseg + 256) * 4 > cs.SMEM_LIMIT, (what, S, nseg)
-        assert cs.lane_instance(_mode_of(what), S, nseg) == "global"
-    for mode, S, nseg in spy.walks:
-        assert cs.lane_instance(mode, S, nseg) == "global"
-    for S, nseg in spy.windows:
-        assert not ds.window_fits(S, nseg)
+        assert cs.lane_instance(_mode_of(what), S, nseg, 4) == "global"
+        assert vb == cs.value_bytes(S), (what, S, nseg)
+    for mode, S, nseg, vb in spy.walks:
+        smem = cs.lane_smem_bytes(mode, S, nseg, vb)
+        assert (cs.lane_instance(mode, S, nseg, vb) == "shared") == (
+            cs.lane_warps(smem) >= cs.MIN_SHARED_WARPS)
+    for S, nseg, vb in spy.windows:
+        plan = ds.window_plan(S, nseg, vb, ds.WINDOW_STAGES[-1])
+        assert not plan.shared or ds.window_smem_bytes(
+            plan.width, S, nseg, plan.stage) <= cs.SMEM_LIMIT
+        assert not ds.window_fits(S, nseg, 4)
 
 
 @pytest.mark.parametrize("name", [n for n, v in PATTERNS.items() if v[2]])
@@ -195,8 +213,9 @@ def test_keyword_lists_equal_the_reference(name):
 def test_inner_suffix_past_shared_memory(monkeypatch):
     """compile_posix(r"[a-z]+ error [^ ]{8,60}[a-z]"): the general fallback
     declines it (its reverse DFA overflows); the INNER pipeline takes its
-    1024 x 64 suffix table in K3's global-memory instance, equal to the
-    port's host walk, where the card used to decline it."""
+    1024 x 64 suffix table, past shared memory as int32, as 16-bit values
+    in K3's shared-memory instance (one 1024-thread block, 32 warps an SM),
+    equal to the port's host walk, where the card used to decline it."""
     corpus_cache.clear()
     spy = _Spy(monkeypatch)
     eng = ct.compile_posix(INNER, device="cpu")
@@ -206,38 +225,57 @@ def test_inner_suffix_past_shared_memory(monkeypatch):
     assert be._full_scan_route() is None and len(exp) == 2
     t = be._inner_route()[1].tables
     assert (t.S, t.NSEG) == (1024, 64)
-    assert cs.lane_instance(cs.MODE_FLAG, t.S, t.NSEG) == "global"
+    assert t.packed_full.dtype == torch.int16
+    assert cs.lane_instance(cs.MODE_FLAG, t.S, t.NSEG, 4) == "global"
+    assert cs.lane_instance(cs.MODE_FLAG, t.S, t.NSEG) == "shared"
     assert eng.find_all_index(INNER_CORPUS) == exp and be.route == "inner"
     assert eng.count(INNER_CORPUS) == len(exp)
     assert eng.is_match(INNER_CORPUS) is True
     assert be.host_routes == 0
-    assert (cs.MODE_FLAG, 1024, 64) in spy.walks
+    assert (cs.MODE_FLAG, 1024, 64, 2) in spy.walks
 
 
 def test_instances_follow_the_sources():
-    """The instance choice mirrors the kernels' own: shared memory while
-    the table (plus the byte map, for the modes that take one) fits
-    kSmemLimit, and for the window scan beside its 8 warps' stage rings."""
+    """The instance choice mirrors the kernels' own: the sources' residency
+    constants are the host's; the lane walk takes shared memory while the
+    table (16-bit or int32, in rows of lane_pitch, plus the byte map for
+    the modes that take one) keeps MIN_SHARED_WARPS warps an SM there,
+    which a block of 1024 threads does up to kSmemLimit; the window scan
+    while its block of 1024 threads fits with 1024-byte stage slices."""
     root = os.path.join(os.path.dirname(ct.__file__), "csrc")
     with open(os.path.join(root, "lane_scan.cu")) as f:
         lane = f.read()
     with open(os.path.join(root, "window_scan.cu")) as f:
         win = f.read()
+
+    def const(src, name):
+        return int(re.search(r"\b" + name + r" = (\d+);", src)[1])
     for src in (lane, win):
-        assert int(re.search(r"kSmemLimit = (\d+);", src)[1]) == \
-            cs.SMEM_LIMIT
-    stage = 1
-    for name in ("kThreads", "kSlots", "kWarpStage"):
-        stage *= int(re.search(name + r" = (\d+);", win)[1])
-    assert stage // 32 == ds.WINDOW_STAGE_BYTES
-    for mode, byte_map in ((cs.MODE_COUNT, 256), (cs.MODE_SPAN, 256),
-                           (cs.MODE_MATCH, 256), (cs.MODE_FLAG, 0),
+        assert const(src, "kSmemLimit") == cs.SMEM_LIMIT
+        assert const(src, "kMax16") == cs.MAX16_ROWS
+    assert const(lane, "kSmemPerSM") == cs.SM_SMEM
+    assert const(lane, "kBlockReserved") == cs.BLOCK_RESERVED
+    assert const(lane, "kSmemUnit") == cs.SMEM_UNIT
+    assert (const(lane, "kThreads"), const(lane, "kMaxThreads")) == \
+        (cs.LANE_THREADS[0], cs.LANE_THREADS[-1])
+    assert const(lane, "kMinSharedWarps") == cs.MIN_SHARED_WARPS
+    assert const(lane, "kMaxBlocksPerSM") == cs.SM_BLOCKS
+    assert const(lane, "kMaxThreadsPerSM") == cs.SM_THREADS
+    assert const(win, "kThreads") == ds.WINDOW_THREADS
+    assert (const(win, "kWarpStage"), const(win, "kMinStage")) == \
+        (ds.WINDOW_STAGES[0], ds.WINDOW_STAGES[-1])
+    assert const(win, "kSlots") == ds.WINDOW_SLOTS
+    for mode, byte_map in ((cs.MODE_COUNT, 1024), (cs.MODE_SPAN, 1024),
+                           (cs.MODE_MATCH, 1024), (cs.MODE_FLAG, 0),
                            (cs.MODE_RESET, 0)):
-        words = cs.SMEM_LIMIT // 4 - byte_map
-        assert cs.lane_instance(mode, words // 64, 64) == "shared"
-        assert cs.lane_instance(mode, words // 64 + 1, 64) == "global"
-    words = (cs.SMEM_LIMIT - ds.WINDOW_STAGE_BYTES) // 4 - 256
-    assert ds.window_fits(words // 4, 4)
-    assert not ds.window_fits(words // 4 + 1, 4)
+        for vb, nseg in ((4, 64), (2, 128)):
+            S = (cs.SMEM_LIMIT - byte_map) // (cs.lane_pitch(nseg, vb) * vb)
+            assert cs.lane_instance(mode, S, nseg, vb) == "shared"
+            assert cs.lane_instance(mode, S + 1, nseg, vb) == "global"
+    ring = ds.WINDOW_THREADS // 32 * ds.WINDOW_SLOTS * ds.WINDOW_STAGES[-1]
+    for vb in (4, 2):
+        S = (cs.SMEM_LIMIT - ring - 1024) // (cs.lane_pitch(64, vb) * vb)
+        assert ds.window_fits(S, 64, vb)
+        assert not ds.window_fits(S + 1, 64, vb)
     with pytest.raises(ValueError, match="int32"):
         cs.check_table(2 ** 25, 64)

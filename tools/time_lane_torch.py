@@ -36,6 +36,24 @@ each with K7's launches and repair passes of the last call.  Kernel lines give t
 CUDA events; chip_smoke.py times the same shapes beside their bound.
 ``--quote N`` times quote parity alone, N readings of its best-of-2
 wall, so that runs of two checkouts can alternate in one call.
+
+``--band`` times the headline tables' pass 0 (K1, K2 and K3 on ip, K9 on
+`\s\d\s`'s fwd_all) and window ends form (every start of `\b\d+\b`'s
+general find_all), then the band: for each keyword list of
+chip_smoke.BAND_WORDS (`\b(?:w1|...|wN)\b` over chip_smoke.big_words)
+and KW_HUGE, every mode's table with its shape, bytes, place, block size
+and resident warps as that checkout stores and launches it
+(chip_smoke.table_residency), then pass 0 of K1 (count) and K9 (fwd_all)
+over the 1536 MiB bench corpus, their sub-lane and lane repair passes
+(as the headline K1's and K2's) and the window ends form from the general
+find_all's first chip_smoke.BAND_STARTS starts, each beside its bound.  A
+checkout with 16-bit tables also times, on the same inputs, each lane
+walk in the other place (global or shared memory) and over its table
+widened to int32, and the window scan in each place its table fits
+(global memory, shared memory with 16-bit or int32 values; the
+wrappers' `place` and `width`), each equal to the rule's outputs: the
+measurements the rules rest on.  ``--band --root _chip/parent`` times a
+checkout before 16-bit tables (an unpacked parent) in the same call.
 Imports no jax.
 """
 
@@ -54,6 +72,8 @@ def main():
     ap.add_argument("--root", default=REPO)
     ap.add_argument("--quote", type=int, default=0,
                     help="time only quote parity, this many readings")
+    ap.add_argument("--band", action="store_true",
+                    help="time only the band's keyword-list tables")
     args = ap.parse_args()
     sys.path.insert(0, REPO)
     import chip_smoke
@@ -77,6 +97,10 @@ def main():
 
     if args.quote:
         quote_parity(ct, args.quote, line)
+        return
+    if args.band:
+        band(chip_smoke, ct, cs, dfa_scan, line)
+        build_report()
         return
     base = chip_smoke.build_base()
     corpus = chip_smoke.bench_corpus(base)
@@ -283,6 +307,167 @@ def quote_parity(ct, readings: int, line):
         line("quote parity 16 MiB count (wall)", ms,
              f"  repair passes {subs}+{lanes}, {launches} K1 launches")
 
+
+def build_report():
+    """Registers and spills of every lane-walk and window-scan instance,
+    from the ptxas report of the build (where this process built the
+    library): one line an instance, its mangled template arguments (lane
+    walk: mode, pass, shared memory, value type; window scan: ends form,
+    shared memory, value types)."""
+    import re
+    from coregex_tpu_torch.ops import _build
+    name, spill = None, ""
+    for ln in (getattr(_build, "build_log", "") or "").splitlines():
+        m = re.search(r"Compiling entry function '.*?"
+                      r"(lane_walk_kernel|window_kernel)(I.*?E)Ev", ln)
+        if "Compiling entry function" in ln:
+            name = f"{m.group(1)}{m.group(2)}" if m else None
+            spill = ""
+        elif name and "spill" in ln:
+            spill = "; " + ln.split("]")[-1].strip()
+        elif name and "Used" in ln:
+            regs = re.search(r"Used (\d+) registers", ln)
+            print(f"[ptxas] {name}: {regs.group(1) if regs else '?'} "
+                  f"registers{spill or '; no spills'}", flush=True)
+            name = None
+
+
+def band(chip_smoke, ct, cs, dfa_scan, line):
+    """--band: the band's tables and times in the imported checkout."""
+    import torch
+    base = chip_smoke.build_base()
+    corpus = chip_smoke.bench_corpus(base)
+    data = torch.from_numpy(corpus).to("cuda")
+    L, T, W, _ = cs.plan_geometry(int(data.shape[0]))
+    k = cs.lane_split(T, W)
+    tiles = cs.make_word_tiles(data, L, T // 4)
+    new = hasattr(cs, "lane_pitch")
+    hbm = chip_smoke.HBM_BYTES_PER_MS
+    nbytes = chip_smoke.nbytes
+
+    def timed(label, fn, bound, extra=""):
+        ms = chip_smoke.cuda_ms(fn, REPS)
+        line(label, ms, f"  bound {bound:.3f} ms ({ms / bound:.2f}x){extra}")
+        return ms
+
+    def repairs(label, mode, d, args):
+        """The sub-lane and lane repair passes from pass 0's exits, a tenth
+        of them random (chip_smoke.repair_case)."""
+        run = chip_smoke.repair_case(mode, d, args)
+        for whole in (False, True):
+            line(f"{label} {'lane' if whole else 'sub-lane'} pass",
+                 chip_smoke.cuda_ms(
+                     lambda: run(cs.lane_repair_cuda, whole), REPS))
+
+    # the headline tables at the checkout's split: K1 and K2 (ip), K3 (ip's
+    # bidi reset tiles), K9 (`\s\d\s` fwd_all) and the window ends form
+    # over every start of `\b\d+\b`'s general find_all
+    ip = ct.compile(chip_smoke.PATTERNS["ip"], device="cuda").batch_engine()
+    for kn, mode, d in (("K1", cs.MODE_COUNT, ip._count_scanner_ascii().dcd),
+                        ("K2", cs.MODE_SPAN, ip._span_scanner(True).dsd)):
+        a = chip_smoke.split_args(d, data, (L, T, W), tiles, k)
+        line(f"{kn} ip pass 0 k={k}", chip_smoke.cuda_ms(
+            lambda: cs.lane_walk_cuda(mode, *a), REPS))
+        repairs(f"{kn} ip", mode, d, a)
+        del a
+    fa = chip_smoke.flag_args(ip, data)
+    line(f"K3 ip pass 0 k={int(fa[4].shape[0])}", chip_smoke.cuda_ms(
+        lambda: cs.lane_walk_cuda(cs.MODE_FLAG, *fa), REPS))
+    del fa
+    a = chip_smoke.match_args("ws_digit_ws", "fwd_all", data, (L, T, W),
+                              tiles, k)
+    line(f"K9 \\s\\d\\s fwd_all pass 0 k={k}", chip_smoke.cuda_ms(
+        lambda: cs.lane_walk_cuda(cs.MODE_MATCH, *a), REPS))
+    del a
+    wd = ct.compile(chip_smoke.PATTERNS["word_digits"], device="cuda") \
+        .batch_engine()
+    rev, fwd = wd._full_scan_route()
+    starts, m, _ok = wd._all_starts(rev, corpus)
+    wargs = dfa_scan.window_args(fwd, data, starts[:m].contiguous(), None,
+                                 wd.END_WINDOW)
+    del starts
+    line(f"ends \\b\\d+\\b {m} starts", chip_smoke.cuda_ms(
+        lambda: dfa_scan.window_ends_cuda(*wargs, alive_u8=True), REPS))
+    del wargs, ip, wd, rev, fwd
+    torch.cuda.empty_cache()
+
+    tile = chip_smoke.big_cut(base)
+    huge = dict((nm, p) for nm, p, _ in chip_smoke.big_patterns(tile))
+    for name, pattern in (chip_smoke.band_patterns(tile)
+                          + [("KW_HUGE", huge["KW_HUGE"])]):
+        be = ct.compile(pattern, device="cuda").batch_engine()
+        kargs, margs, wargs, m = chip_smoke.band_inputs(
+            be, data, corpus, (L, T, W), tiles, k)
+        starts = (int(data.shape[0]), int(wargs[6].shape[0]), wargs[8])
+        for kind, mode, t in chip_smoke.band_tables(be, "cuda"):
+            print(f"[band] {name:6} {kind:7} "
+                  f"{chip_smoke.residency_text(mode, t.packed, starts)}",
+                  flush=True)
+        for kn, mode, args in (("K1", cs.MODE_COUNT, kargs),
+                               ("K9 fwd_all", cs.MODE_MATCH, margs)):
+            out_b = 3 * args[4].numel() * 4 + (
+                0 if mode == cs.MODE_COUNT else
+                (args[2].numel() // 8 + args[4].numel()) * 4)
+            bound = (nbytes(*args) + out_b) / hbm
+            timed(f"{name} {kn} pass 0 k={k}",
+                  lambda: cs.lane_walk_cuda(mode, *args), bound)
+            if not new:
+                continue
+            # the table in each instance, and widened to int32 (the outputs
+            # equal the rule's)
+            S, nseg = (int(x) for x in args[0].shape)
+            want = cs.lane_walk_cuda(mode, *args)
+            wide = (cs.wide(args[0]),) + args[1:]
+            for place, a in (("global", args), ("shared", args),
+                             ("shared", wide)):
+                smem = cs.lane_smem_bytes(
+                    mode, S, nseg,
+                    a[0].element_size() if place == "shared" else 0)
+                if smem > cs.SMEM_LIMIT:
+                    continue
+                got = cs.lane_walk_cuda(mode, *a, place=place)
+                if chip_smoke.max_abs_err(got, want):
+                    sys.exit(f"{name} {kn}: {place} differs")
+                del got
+                timed(f"{name} {kn} {a[0].element_size() * 8}-bit {place}",
+                      lambda: cs.lane_walk_cuda(mode, *a, place=place),
+                      bound, f"  ({cs.lane_warps(smem)} warps)")
+            del want, wide
+        for kn, mode, d, args in (
+                ("K1", cs.MODE_COUNT, be._count_scanner_ascii().dcd, kargs),
+                ("K9 fwd_all", cs.MODE_MATCH,
+                 be._chunk_scanner("fwd_all").mt, margs)):
+            repairs(f"{name} {kn}", mode, d, args)
+        bound = (chip_smoke.window_reads(*wargs)
+                 + nbytes(wargs[6], *wargs[:4]) + 5 * wargs[6].numel()) / hbm
+        timed(f"{name} ends {int(wargs[6].shape[0])} of {m} starts",
+              lambda: dfa_scan.window_ends_cuda(*wargs, alive_u8=True),
+              bound)
+        if not new:
+            del kargs, margs, wargs, be
+            torch.cuda.empty_cache()
+            continue
+        # the window scan in each place the table fits (the ends equal
+        # the rule's)
+        want = dfa_scan.window_ends_cuda(*wargs, alive_u8=True)
+        S, nseg = (int(x) for x in wargs[0].shape)
+        for width in (0, 2, 4):
+            p, resident = dfa_scan.window_plan_cuda(S, nseg, None, *starts,
+                                                    width=width)
+            if resident <= 0:
+                continue
+            got = dfa_scan.window_ends_cuda(*wargs, alive_u8=True,
+                                            width=width)
+            if chip_smoke.max_abs_err(got, want):
+                sys.exit(f"{name} ends: width {width} differs")
+            del got
+            where = f"shared {p.width * 8}-bit" if p.width else "global"
+            timed(f"{name} ends {where} {p.stage}-byte slices",
+                  lambda: dfa_scan.window_ends_cuda(*wargs, alive_u8=True,
+                                                    width=width),
+                  bound, f"  ({resident} warps)")
+        del kargs, margs, wargs, be, want
+        torch.cuda.empty_cache()
 
 if __name__ == "__main__":
     main()
